@@ -13,13 +13,26 @@ Phases, each printing its own lines:
    other and to the oracle. The same rows tiled to the main path's chunk
    shapes (8192, and 2048 for the 10k commit's padded tail) are checked
    the same way, and the 8192 chunk is timed.
-3. main path: a 10,000-validator commit (seeded keys, signed with the
+3. commit path: a 10,000-validator commit (seeded keys, signed with the
    port's table signer) through ValidatorSet.verify_commit ->
    BatchVerifier("auto") -> CUDA kernels, three times: the
    predecompression cache must walk full -> fill -> hit. A commit with
    one flipped signature byte must raise "invalid signature in commit".
    Kernel launch counts are zeroed just before and read just after.
-4. the kernel table as one JSON line, the card again, then the last line
+4. sign kernel: a seeded batch of 1024 scalars with edge values (0, 1, 2,
+   L - 1, 2^252, 2^252 - 1) through the r*B kernel and its plain version
+   on the card; encodings must be byte-equal to each other and to the
+   oracle, again tiled to the signing chunk of 16384, which is timed.
+5. lite path: a light-client header chain at BASELINE.json config 5's
+   width (64 validators of power 10; 4096 headers, the one cut), every
+   commit signed through sign_batch_async (r*B on the sign kernel), a
+   seeded sample held against the table signer, then certify_chain ->
+   BatchVerifier("auto") -> verify kernels, whose cache routes must be
+   1 full, 1 fill, 30 hit. Launch counts are zeroed before the build
+   and read after the certify. Three forgeries must then fail with the
+   JAX package's messages: a flipped signature byte, a header changed
+   after signing, another trusted set.
+6. the kernel table as one JSON line, the card again, then the last line
    {"ok": true, "device": {...}}.
 
 Any mismatch or exception ends the run with a non-zero code before the
@@ -37,10 +50,15 @@ import time
 import numpy as np
 import torch
 
+from tendermint_tpu_torch.lite import (CertificationError, FullCommit,
+                                       SignedHeader, ValidatorsChangedError,
+                                       certify_chain, default_window)
 from tendermint_tpu_torch.models import verifier as tverifier
 from tendermint_tpu_torch.ops import _build, ladder
 from tendermint_tpu_torch.ops import ed25519 as ted
-from tendermint_tpu_torch.types.block import BlockID, Commit, PartSetHeader
+from tendermint_tpu_torch.types.block import (BlockID, Commit, Header,
+                                              PartSetHeader)
+from tendermint_tpu_torch.types.keys import PrivKey
 from tendermint_tpu_torch.types.validator_set import Validator, ValidatorSet
 from tendermint_tpu_torch.types.vote import Vote, VoteType
 from tendermint_tpu_torch.utils import ed25519_fast, ed25519_ref, vectors
@@ -52,6 +70,11 @@ N_VALIDATORS = 10_000     # BASELINE.json config 3
 TIME_REPS = 5
 CHAIN = "chip-smoke"
 HEIGHT = 3
+N_SIGN_CHECK = 1024       # edge scalars for the sign kernel vs plain
+LITE_VALIDATORS = 64      # BASELINE.json config 5's width
+LITE_HEADERS = 4096       # config 5 has 1M headers: the one cut
+LITE_CHAIN = "chip-smoke-lite"
+LITE_ROUTES = {"full": 1, "fill": 1, "hit": 30}
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, and the
 # 32-bit CUDA-core rate (the float32 rate outside the tensor cores; the
 # kernel's integer multiply-adds are not faster)
@@ -65,10 +88,10 @@ KERNELS = {
                "replaces": "tendermint_tpu/ops/ladder_pallas.py:432"},
     "verify_pre": {"name": "verify_pre (B2, predecompressed)",
                    "replaces": "tendermint_tpu/ops/ladder_pallas.py:511"},
+    "sign_rb": {"name": "sign_rb (B3, fixed-base r*B)",
+                "replaces": "tendermint_tpu/ops/ladder_pallas.py:589"},
 }
-NOT_PORTED = [{"name": "sign_pallas_rB (B3)",
-               "replaces": "tendermint_tpu/ops/ladder_pallas.py:589",
-               "status": "not_ported"}]
+VERIFY_KERNELS = ("verify", "verify_pre")
 
 
 def require(cond, what: str) -> None:
@@ -141,14 +164,19 @@ def _compare(name, got, want, expect, n, lanes) -> int:
     return err
 
 
+# bytes one lane reads and writes: pk, R, s, h in and a verdict out; the
+# cached (-A).x, A.y, ok, R, s, h in and a verdict out; r in and R out
+LANE_BYTES = {"verify": 4 * 32 + 4, "verify_pre": 5 * 32 + 1 + 4,
+              "sign_rb": 32 + 32}
+
+
 def _bound(name: str, n: int) -> tuple:
-    """(least ms the card could take for n verifies, what bounds it):
-    each input byte read once and each verdict written once at the HBM
-    rate, against the field products' multiply-adds at the core rate."""
-    full = name == "verify"
-    in_bytes = n * (4 * 32 if full else 5 * 32 + 1)
-    bytes_ms = 1e3 * (in_bytes + n * 4) / HBM_BYTES_S
-    ops_ms = 1e3 * n * ladder.field_muls(full) * OPS_PER_FIELD_MUL / CORE_OPS_S
+    """(least ms the card could take for n lanes of a kernel, what bounds
+    it): each input byte read once and each output byte written once at
+    the HBM rate, against the field products' multiply-adds at the core
+    rate."""
+    bytes_ms = 1e3 * n * LANE_BYTES[name] / HBM_BYTES_S
+    ops_ms = 1e3 * n * ladder.field_muls(name) * OPS_PER_FIELD_MUL / CORE_OPS_S
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -157,7 +185,7 @@ def phase_kernels(device) -> dict:
     lanes = sorted(set(batch["kind"]))
     t = _cuda_rows(batch, device)
     results = {}
-    for name in KERNELS:
+    for name in VERIFY_KERNELS:
         kernel, plain = _kernel_and_plain(name, t)
         got, want = kernel(), plain()
         results[name] = {"max_abs_err": _compare(
@@ -172,7 +200,7 @@ def phase_kernels(device) -> dict:
     tb = _cuda_rows(big, device)
     n_tail = ted._bucket(N_VALIDATORS % tverifier.BATCH_CHUNK)
     tail = {k: v[:n_tail].contiguous() for k, v in tb.items()}
-    for name in KERNELS:
+    for name in VERIFY_KERNELS:
         kernel, plain = _kernel_and_plain(name, tb)
         ms, got = _time_ms(kernel, TIME_REPS)
         plain_ms, want = _time_ms(plain, 1)
@@ -186,9 +214,6 @@ def phase_kernels(device) -> dict:
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "n": N_TIME}
         emit({"phase": "kernel_time", "kernel": name, **results[name]})
-    emit({"phase": "kernels", "status": [
-        {"kernel": k, "status": "ported", "checked": True} for k in KERNELS]
-        + NOT_PORTED})
     return results
 
 
@@ -226,12 +251,12 @@ def _time_launches(log: list):
     end). Returns the launcher it wrapped, for the caller to put back."""
     inner = ladder._launch
 
-    def launch(name, fn_name, rows, n_windows):
+    def launch(name, fn_name, rows, n_windows, **kw):
         stream = torch.cuda.current_stream(rows[0].device)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record(stream)
-        out = inner(name, fn_name, rows, n_windows)
+        out = inner(name, fn_name, rows, n_windows, **kw)
         end.record(stream)
         log.append((name, rows[0].shape[0], start, end))
         return out
@@ -240,8 +265,27 @@ def _time_launches(log: list):
     return inner
 
 
+def _kernel_ms(timed) -> dict:
+    """Sum of the CUDA event times of the launches in `timed`, by kernel."""
+    out: dict = {}
+    for name, _, start, end in timed:
+        end.synchronize()
+        out[name] = out.get(name, 0.0) + start.elapsed_time(end)
+    return out
+
+
 def _route(before, after) -> dict:
     return {k: after[k] - before[k] for k in ("full", "fill", "hit")}
+
+
+def _zero_launches() -> None:
+    for name in ladder.launches:
+        ladder.launches[name] = 0
+
+
+def _require_launched(launches: dict, kernels, path: str) -> None:
+    require(all(launches[k] > 0 for k in kernels),
+            f"a kernel of the {path} path never launched: {launches}")
 
 
 def phase_main(card: str, n_validators: int = N_VALIDATORS) -> dict:
@@ -254,8 +298,7 @@ def phase_main(card: str, n_validators: int = N_VALIDATORS) -> dict:
 
     timer: list = []
     inner = _time_launches(timer)
-    for name in ladder.launches:
-        ladder.launches[name] = 0
+    _zero_launches()
     for call, route in enumerate(("full", "fill", "hit")):
         before = ted.predecomp_stats()
         mark = len(timer)
@@ -263,10 +306,7 @@ def phase_main(card: str, n_validators: int = N_VALIDATORS) -> dict:
         vs.verify_commit(CHAIN, bid, HEIGHT, commit)
         wall = time.perf_counter() - t1
         timed = timer[mark:]
-        kernel_ms = 0.0
-        for _, _, start, end in timed:
-            end.synchronize()
-            kernel_ms += start.elapsed_time(end)
+        kernel_ms = sum(_kernel_ms(timed).values())
         got = _route(before, ted.predecomp_stats())
         emit({"phase": "verify_commit", "call": call, "route": got,
               "launches": [(nm, n) for nm, n, _, _ in timed],
@@ -302,8 +342,199 @@ def phase_main(card: str, n_validators: int = N_VALIDATORS) -> dict:
             f"tampered commit: {raised!r}")
     launches = dict(ladder.launches)
     ladder._launch = inner
-    require(all(n > 0 for n in launches.values()),
-            f"a kernel of the main path never launched: {launches}")
+    _require_launched(launches, VERIFY_KERNELS, "commit")
+    return launches
+
+
+def _sign_edge_scalars(n: int, seed: int) -> list:
+    rng = np.random.RandomState(seed)
+    edge = [0, 1, 2, ed25519_ref.L - 1, 1 << 252, (1 << 252) - 1]
+    return edge + [int.from_bytes(rng.bytes(32), "little") % ed25519_ref.L
+                   for _ in range(n - len(edge))]
+
+
+def phase_sign_kernel(device) -> dict:
+    """The r*B kernel against its plain version and the oracle on 1024
+    edge scalars, then on those tiled to the signing chunk, timed."""
+    rs = _sign_edge_scalars(N_SIGN_CHECK, SEED + 1)
+    r_np = np.stack([np.frombuffer(r.to_bytes(32, "little"), np.uint8)
+                     for r in rs])
+    expect = np.stack([np.frombuffer(ed25519_ref.point_compress(
+        ed25519_ref.point_mul(r, ed25519_ref.BASE)), np.uint8) for r in rs])
+    err = 0
+    n_time = ted.SIGN_CHUNK
+    reps = n_time // N_SIGN_CHECK
+    for n, rows, want_np in (
+            (N_SIGN_CHECK, r_np, expect),
+            (n_time, np.tile(r_np, (reps, 1)), np.tile(expect, (reps, 1)))):
+        r = torch.from_numpy(np.ascontiguousarray(rows)).to(device)
+        digits = ladder.digits_from_bytes(r)
+        ms, got = _time_ms(lambda: ladder.sign_rb(r), TIME_REPS)
+        plain_ms, want = _time_ms(lambda: ladder.sign_rb_plain(digits), 1)
+        e = int((got.int() - want.int()).abs().max())
+        agree = bool(torch.equal(got, want)) and bool(
+            (got.cpu().numpy() == want_np).all())
+        emit({"phase": "kernel_check", "kernel": "sign_rb", "n": n,
+              "lanes": "r = 0, 1, 2, L-1, 2^252, 2^252-1, random < L",
+              "max_abs_err": e, "equal_to_plain_and_oracle": agree})
+        require(agree and e == 0,
+                f"sign_rb disagrees with its plain version or the oracle "
+                f"at {n}")
+        err = max(err, e)
+    bound_ms, bound_by = _bound("sign_rb", n_time)
+    res = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "n": n_time}
+    emit({"phase": "kernel_time", "kernel": "sign_rb", **res})
+    return {"sign_rb": res}
+
+
+def build_lite_chain(n_vals: int, n_headers: int):
+    """(valset, FullCommits of heights 1..n_headers, a seeded sample of
+    (seed, msg, sig), timings): every validator signs every header's
+    precommit; the signatures come from sign_batch_async, dispatched
+    before the vote objects are built and resolved after."""
+    t0 = time.perf_counter()
+    seeds = [(i + 1).to_bytes(32, "little") for i in range(n_vals)]
+    keys = [PrivKey.generate(s) for s in seeds]
+    valset = ValidatorSet([Validator(k.pubkey.ed25519, 10) for k in keys])
+    order = {k.pubkey.address: i for i, k in enumerate(keys)}
+    idx_of = [order[v.address] for v in valset.validators]
+    vals = valset.validators
+    vhash = valset.hash()
+    headers, bids = [], []
+    for h in range(1, n_headers + 1):
+        header = Header(chain_id=LITE_CHAIN, height=h, time_ns=h,
+                        validators_hash=vhash, app_hash=h.to_bytes(32, "big"))
+        headers.append(header)
+        bids.append(BlockID(header.hash(), PartSetHeader(1, b"\x22" * 32)))
+    # v0.16 sign bytes carry no validator identity: one message a height
+    msgs = [Vote(vals[0].address, 0, h, 0, h, VoteType.PRECOMMIT,
+                 bids[h - 1]).sign_bytes(LITE_CHAIN)
+            for h in range(1, n_headers + 1)]
+    sig_seeds = [seeds[idx_of[j]] for _ in range(n_headers)
+                 for j in range(n_vals)]
+    sig_msgs = [m for m in msgs for _ in range(n_vals)]
+    t1 = time.perf_counter()
+    resolve = ted.sign_batch_async(sig_seeds, sig_msgs)
+    t2 = time.perf_counter()
+    fcs, votes = [], []
+    for i, h in enumerate(range(1, n_headers + 1)):
+        precommits = [Vote(v.address, j, h, 0, h, VoteType.PRECOMMIT,
+                           bids[i]) for j, v in enumerate(vals)]
+        votes.extend(precommits)
+        fcs.append(FullCommit(SignedHeader(headers[i],
+                                           Commit(bids[i], precommits),
+                                           bids[i]), valset))
+    t3 = time.perf_counter()
+    sigs = resolve()
+    t4 = time.perf_counter()
+    for v, sig in zip(votes, sigs):
+        v.signature = sig
+    n_sigs = len(sigs)
+    rng = np.random.RandomState(SEED + 2)
+    sample = [(sig_seeds[i], sig_msgs[i], sigs[i])
+              for i in rng.choice(n_sigs, 1024, replace=False)]
+    times = {"headers_ms": (t1 - t0) * 1e3, "sign_dispatch_ms": (t2 - t1) * 1e3,
+             "votes_ms": (t3 - t2) * 1e3, "sign_resolve_ms": (t4 - t3) * 1e3,
+             "sign_wall_ms": ((t2 - t1) + (t4 - t3)) * 1e3,
+             "build_s": time.perf_counter() - t0}
+    return valset, fcs, sample, times
+
+
+def _check_sample(sample) -> None:
+    """Each sampled signature byte-equal to the table signer's."""
+    expanded: dict = {}
+    bad = 0
+    for seed, msg, sig in sample:
+        exp = expanded.get(seed)
+        if exp is None:
+            a, prefix = ed25519_ref.secret_expand(seed)
+            exp = expanded[seed] = (a, prefix, ed25519_fast.public_key(seed))
+        bad += ed25519_fast.sign_expanded(*exp, msg) != sig
+    emit({"phase": "lite_sign_sample", "n": len(sample), "mismatched": bad})
+    require(bad == 0, f"{bad} of {len(sample)} sampled signatures differ "
+                      "from the table signer's")
+
+
+def _expect_raise(what: str, fcs, trusted, cls, check) -> None:
+    raised = None
+    try:
+        certify_chain(LITE_CHAIN, fcs, trusted=trusted)
+    except CertificationError as e:
+        raised = e
+    msg = None if raised is None else f"{type(raised).__name__}: {raised}"
+    emit({"phase": "lite_forgery", "forgery": what, "raised": msg})
+    require(isinstance(raised, cls) and check(str(raised)),
+            f"forgery {what!r}: {msg}")
+
+
+def phase_lite(card: str) -> dict:
+    timer: list = []
+    inner = _time_launches(timer)
+    _zero_launches()
+    valset, fcs, sample, times = build_lite_chain(LITE_VALIDATORS,
+                                                  LITE_HEADERS)
+    n_sigs = LITE_VALIDATORS * LITE_HEADERS
+    sign_ms = _kernel_ms(timer).get("sign_rb", 0.0)
+    emit({"phase": "lite_build", "validators": LITE_VALIDATORS,
+          "headers": LITE_HEADERS, "signatures": n_sigs, **times,
+          "sign_kernel_ms": sign_ms,
+          "sign_sigs_per_s": n_sigs / (times["sign_wall_ms"] / 1e3),
+          "card": card})
+    _check_sample(sample)
+
+    mark = len(timer)
+    before = ted.predecomp_stats()
+    t0 = time.perf_counter()
+    certify_chain(LITE_CHAIN, fcs, trusted=valset)
+    wall = time.perf_counter() - t0
+    routes = _route(before, ted.predecomp_stats())
+    launches = dict(ladder.launches)
+    kernel_ms = _kernel_ms(timer[mark:])
+    emit({"phase": "lite_certify", "headers": LITE_HEADERS,
+          "window": default_window(LITE_VALIDATORS), "route": routes,
+          "wall_ms": wall * 1e3, "headers_per_s": LITE_HEADERS / wall,
+          "sigs_per_s": n_sigs / wall, "kernel_ms": kernel_ms,
+          "device_busy": sum(kernel_ms.values()) / (wall * 1e3),
+          "launches": launches, "card": card})
+    require(routes == LITE_ROUTES,
+            f"certify_chain took cache routes {routes}, want {LITE_ROUTES}")
+    _require_launched(launches, KERNELS, "lite")
+    ladder._launch = inner
+
+    rng = np.random.RandomState(SEED + 3)
+    h_bad = int(rng.randint(1, LITE_HEADERS + 1))
+    j_bad = int(rng.randint(LITE_VALIDATORS))
+    fc = fcs[h_bad - 1]
+    sh = fc.signed_header
+    precommits = list(sh.commit.precommits)
+    vote = copy.copy(precommits[j_bad])
+    vote.signature = vote.signature[:40] + bytes([vote.signature[40] ^ 1]) \
+        + vote.signature[41:]
+    precommits[j_bad] = vote
+    forged = list(fcs)
+    forged[h_bad - 1] = FullCommit(SignedHeader(
+        sh.header, Commit(sh.block_id, precommits), sh.block_id), valset)
+    _expect_raise(f"flipped signature byte at height {h_bad}", forged,
+                  valset, CertificationError,
+                  lambda m: m == f"height {h_bad}: invalid signature in "
+                                "commit")
+
+    h_moved = int(rng.randint(1, LITE_HEADERS + 1))
+    sh = fcs[h_moved - 1].signed_header
+    header = copy.copy(sh.header)
+    header.app_hash = b"\xee" * 32
+    moved = list(fcs)
+    moved[h_moved - 1] = FullCommit(SignedHeader(header, sh.commit,
+                                                 sh.block_id), valset)
+    _expect_raise(f"app_hash changed after signing at height {h_moved}",
+                  moved, valset, CertificationError,
+                  lambda m: m == "commit is not for this header")
+
+    other = ValidatorSet([Validator(v.pubkey, v.voting_power + 1)
+                          for v in valset.validators])
+    _expect_raise("another trusted set", fcs, other, ValidatorsChangedError,
+                  lambda m: m == "valset discontinuity at height 1")
     return launches
 
 
@@ -316,19 +547,24 @@ def main() -> int:
     print(card, flush=True)
     phase_build()
     kernels = phase_kernels(device)
-    launches = phase_main(card)
+    commit_launches = phase_main(card)
+    kernels.update(phase_sign_kernel(device))
+    lite_launches = phase_lite(card)
     table = []
     for name, info in KERNELS.items():
         table.append({
             "name": info["name"], "route": "cuda",
             "source": "tendermint_tpu_torch/csrc/ladder.cu",
-            "replaces": info["replaces"], "launches": launches[name],
+            "replaces": info["replaces"], "status": "ported",
+            "checked": True, "launches": lite_launches[name],
+            "launches_by_path": {"commit_10k": commit_launches[name],
+                                 "lite_chain": lite_launches[name]},
             "max_abs_err": kernels[name]["max_abs_err"],
             "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"],
             "bound_ms": kernels[name]["bound_ms"],
             "bound_by": kernels[name]["bound_by"],
             "library_ms": None, "shape_n": kernels[name]["n"]})
-    emit({"kernels": table, "not_ported": NOT_PORTED, "card": card})
+    emit({"kernels": table, "not_ported": [], "card": card})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

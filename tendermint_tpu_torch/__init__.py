@@ -11,12 +11,20 @@ Slice 1 is batched Ed25519 commit verification:
     -> models/verifier.BatchVerifier
     -> ops/ed25519 (host prep, predecompression cache, routing)
     -> ops/ladder (plain versions + launchers)
-    -> csrc/ladder.cu (the hand-written Hopper kernel)
+    -> csrc/ladder.cu (the hand-written Hopper kernels)
+
+Slice 2 is light-client chain certification:
+
+  ops/ed25519.sign_batch_async (host nonces and finish)
+    -> ops/ladder.sign_rb -> csrc/ladder.cu (the r*B kernel)
+  lite/certifier.certify_chain -> BatchVerifier -> the verify kernels
 
   ops/      field, curve, ladder, ed25519, host merkle, kernel build
-  csrc/     fe25519.cuh (arithmetic), ladder.cu (kernel), cpu_shim.cpp
-  types/    keys, encoding, vote, block (BlockID, Commit), validator_set
+  csrc/     fe25519.cuh (arithmetic), ladder.cu (kernels), cpu_shim.cpp
+  types/    keys, encoding, vote, block (BlockID, Header, Commit),
+            validator_set
   models/   verifier
+  lite/     certifiers, providers, SignedHeader / FullCommit
   utils/    ed25519_ref, ed25519_fast, clock, device
   convert.py  state_from_jax: the JAX package's tables and cache rows
 """

@@ -47,4 +47,11 @@ void tm_cpu_verify_pre(const uint8_t *xnb, const uint8_t *yb,
                             n_windows);
 }
 
+// out[i] = enc(r[i] * B) over the low n_windows 4-bit windows of r[i].
+void tm_cpu_sign_rb(const uint8_t *r, const int32_t *consts, uint8_t *out,
+                    int n, int n_windows) {
+  for (int i = 0; i < n; ++i)
+    sign_rb_one(r + 32 * i, consts, n_windows, out + 32 * i);
+}
+
 }  // extern "C"

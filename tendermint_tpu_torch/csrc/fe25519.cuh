@@ -1,6 +1,7 @@
-// GF(2^255-19), edwards25519 points and the per-signature verify ladder,
-// as __host__ __device__ inline functions: nvcc builds them into the
-// Hopper kernel (ladder.cu), g++ builds the same source into a CPU shim
+// GF(2^255-19), edwards25519 points, the per-signature verify ladder and
+// the fixed-base r*B of signing, as __host__ __device__ inline functions:
+// nvcc builds them into the Hopper kernels (ladder.cu), g++ builds the
+// same source into a CPU shim
 // (cpu_shim.cpp) that the CPU tests hold against the plain PyTorch
 // version (ops/ladder.py).
 //
@@ -395,6 +396,34 @@ FE_HD bool verify_pre_one(const uint8_t xnb[32], const uint8_t yb[32],
                           int n_windows) {
   return ladder_tail(ok, fe_frombytes(xnb), fe_frombytes(yb), rb, sb, hb,
                      consts, n_windows);
+}
+
+// enc(r*B) for a little-endian scalar r: the fixed-base subset of
+// ladder_tail (no table of -A, no decompress). Per window, msb first:
+// three doublings without T, one with T, then the affine add of
+// digit * B from the s-table rows of consts, whose T nobody reads.
+FE_HD void sign_rb_one(const uint8_t r[32], const int32_t *consts,
+                       int n_windows, uint8_t out[32]) {
+  pt4 acc;
+  acc.X = fe_zero();
+  acc.Y = fe_one();
+  acc.Z = fe_one();
+  for (int w = n_windows - 1; w >= 0; --w) {
+    const int d = digit(r, w);
+    for (int i = 0; i < 3; ++i) pt_double(acc, acc.X, acc.Y, acc.Z, false);
+    pt_double(acc, acc.X, acc.Y, acc.Z, true);
+    pt4 s;
+    pt_add_tbl(s, acc, load_const(consts, 3 * d), load_const(consts, 3 * d + 1),
+               nullptr, load_const(consts, 3 * d + 2), false);
+    acc.X = s.X;
+    acc.Y = s.Y;
+    acc.Z = s.Z;
+  }
+  const fe zi = fe_invert(acc.Z);
+  uint8_t xb[32];
+  fe_tobytes(out, fe_mul(acc.Y, zi));
+  fe_tobytes(xb, fe_mul(acc.X, zi));
+  out[31] |= (uint8_t)((xb[0] & 1) << 7);
 }
 
 }  // namespace fe25519

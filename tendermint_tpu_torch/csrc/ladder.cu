@@ -1,8 +1,10 @@
-// Batched cofactorless Ed25519 verify on Hopper (sm_90a).
+// Batched cofactorless Ed25519 verify, and the r*B of batched signing, on
+// Hopper (sm_90a).
 //
-// Replaces the two Pallas kernels of tendermint_tpu/ops/ladder_pallas.py:
-//   FULL = true   <- verify_pallas     (_verify_kernel + _ladder_tail)
-//   FULL = false  <- verify_pallas_pre (_verify_kernel_pre + _ladder_tail)
+// Replaces the three Pallas kernels of tendermint_tpu/ops/ladder_pallas.py:
+//   ladder_kernel<true>   <- verify_pallas     (_verify_kernel + _ladder_tail)
+//   ladder_kernel<false>  <- verify_pallas_pre (_verify_kernel_pre + tail)
+//   sign_rb_kernel        <- sign_pallas_rB    (_sign_kernel)
 // The compile-time switch mirrors how the Pallas code shares one tail.
 //
 // One thread verifies one signature. Inputs are row-major uint8[N, 32]
@@ -16,6 +18,12 @@
 // 4 of output. This first version keeps the 16-entry table of -A
 // (2.5 KB) in each thread's local memory; keeping it in shared memory,
 // several threads per signature and another radix are later work.
+//
+// sign_rb_kernel: one thread per scalar, uint8[N, 32] scalars in and
+// uint8[N, 32] encodings out. Also bound by integer multiply-adds: about
+// 2.5k field products per scalar against 64 bytes moved. It has no table
+// of -A, so nothing is indexed by a run-time digit but the s-table rows,
+// which it reads from global memory (they stay in L1/L2).
 
 #include <cuda_runtime.h>
 
@@ -60,6 +68,25 @@ __global__ void __launch_bounds__(kThreads)
   out[i] = v ? 1 : 0;
 }
 
+__global__ void __launch_bounds__(kThreads)
+    sign_rb_kernel(const uint8_t *__restrict__ rs,
+                   const int32_t *__restrict__ consts,
+                   uint8_t *__restrict__ out, int n, int n_windows) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint8_t r[32], enc[32];
+  load_row(r, rs, i);
+  fe25519::sign_rb_one(r, consts, n_windows, enc);
+  uint32_t w[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    w[k] = (uint32_t)enc[4 * k] | ((uint32_t)enc[4 * k + 1] << 8) |
+           ((uint32_t)enc[4 * k + 2] << 16) | ((uint32_t)enc[4 * k + 3] << 24);
+  uint4 *p = reinterpret_cast<uint4 *>(out + 32 * (size_t)i);
+  p[0] = make_uint4(w[0], w[1], w[2], w[3]);
+  p[1] = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
 int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace
@@ -85,6 +112,14 @@ int tm_ladder_verify_pre(const void *xnb, const void *yb, const void *ok,
       (const uint8_t *)xnb, (const uint8_t *)yb, (const uint8_t *)ok,
       (const uint8_t *)rb, (const uint8_t *)sb, (const uint8_t *)hb,
       (const int32_t *)consts, (int32_t *)out, n, n_windows);
+  return (int)cudaGetLastError();
+}
+
+int tm_ladder_sign_rb(const void *r, const void *consts, void *out, int n,
+                      int n_windows, void *stream) {
+  sign_rb_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t *)r, (const int32_t *)consts, (uint8_t *)out, n,
+      n_windows);
   return (int)cudaGetLastError();
 }
 

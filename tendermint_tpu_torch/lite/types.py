@@ -1,0 +1,57 @@
+"""Light-client data types.
+
+Counterpart of `tendermint_tpu/lite/types.py`: a SignedHeader is a header
+plus the commit that signed it; a FullCommit adds the validator set that
+did the signing, which is everything a light client needs to certify one
+height without executing blocks. The messages raised are the JAX
+package's.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from tendermint_tpu_torch.types.block import BlockID, Commit, Header
+from tendermint_tpu_torch.types.validator_set import ValidatorSet
+
+
+class CertificationError(Exception):
+    pass
+
+
+class ValidatorsChangedError(CertificationError):
+    """The signing set is not the trusted one: the caller should update
+    through intermediate headers."""
+
+
+@dataclass
+class SignedHeader:
+    header: Header
+    commit: Commit
+    block_id: BlockID
+
+    @property
+    def height(self) -> int:
+        return self.header.height
+
+
+@dataclass
+class FullCommit:
+    """SignedHeader + the validator set that signed it."""
+    signed_header: SignedHeader
+    validators: ValidatorSet
+
+    @property
+    def height(self) -> int:
+        return self.signed_header.height
+
+    def validate_basic(self, chain_id: str) -> None:
+        h = self.signed_header.header
+        if h.chain_id != chain_id:
+            raise CertificationError(
+                f"wrong chain id {h.chain_id!r} (want {chain_id!r})")
+        if h.validators_hash != self.validators.hash():
+            raise CertificationError(
+                "validator set does not match header's validators_hash")
+        if self.signed_header.block_id.hash != h.hash():
+            raise CertificationError("commit is not for this header")

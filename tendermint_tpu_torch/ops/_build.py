@@ -109,12 +109,14 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def ladder_lib() -> ctypes.CDLL:
-    """The CUDA verify kernels (csrc/ladder.cu), built with nvcc."""
+    """The CUDA verify and sign kernels (csrc/ladder.cu), built with
+    nvcc."""
     return _load(
         "ladder",
         lambda: _build("ladder", find_nvcc(), NVCC_FLAGS, CSRC / "ladder.cu"),
         [("tm_ladder_verify", [_P] * 6 + [_I, _I, _P], _I),
          ("tm_ladder_verify_pre", [_P] * 8 + [_I, _I, _P], _I),
+         ("tm_ladder_sign_rb", [_P] * 3 + [_I, _I, _P], _I),
          ("tm_cuda_error_string", [_I], ctypes.c_char_p)])
 
 
@@ -140,4 +142,5 @@ def cpu_shim_lib() -> ctypes.CDLL:
          ("tm_cpu_fe_invert", [_P, _P, _I], None),
          ("tm_cpu_fe_canon", [_P, _P, _I], None),
          ("tm_cpu_verify", [_P] * 6 + [_I, _I], None),
-         ("tm_cpu_verify_pre", [_P] * 8 + [_I, _I], None)])
+         ("tm_cpu_verify_pre", [_P] * 8 + [_I, _I], None),
+         ("tm_cpu_sign_rb", [_P] * 3 + [_I, _I], None)])

@@ -1,7 +1,8 @@
-"""Batched Ed25519 verification: host prep, the predecompression cache and
-the routing of padded chunks to the verify kernels.
+"""Batched Ed25519 verification and signing: host prep, the
+predecompression cache, the routing of padded chunks to the verify
+kernels, and batched RFC 8032 signing around the r*B kernel.
 
-Counterpart of the verify half of `tendermint_tpu/ops/ed25519.py`:
+Counterpart of `tendermint_tpu/ops/ed25519.py`. Verify:
 
   host    SHA-512 of (R || A || msg), h mod L, the s < L malleability
           check (hashlib; a native prep comes later)
@@ -14,6 +15,12 @@ after decompressing them once ("fill") or from cached rows ("hit"). The
 CUDA kernel has no tile constraint, but `_bucket` padding is kept so that
 the cache sees the same batches, and counts the same outcomes, as the JAX
 package.
+
+Sign: the nonces r = SHA-512(prefix || M) mod L and the finish
+s = (r + SHA-512(R || A || M) * a) mod L run on the host (hashlib and
+Python ints, the arithmetic of the JAX package's native phases); R = r*B
+runs on the sign kernel of `ops/ladder.py`. There is no scalar fallback:
+on the card the kernel launches or the call raises.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from tendermint_tpu_torch.ops import curve
 from tendermint_tpu_torch.ops import field as fe
 from tendermint_tpu_torch.ops import ladder
 from tendermint_tpu_torch.utils import device as _device
+from tendermint_tpu_torch.utils import ed25519_fast
 
 L_ORDER = (1 << 252) + 27742317777372353535851937790883648493
 
@@ -232,3 +240,121 @@ def verify_batch(pubkeys, msgs, sigs, device=None) -> np.ndarray:
         return np.zeros(0, np.bool_)
     res, pre = verify_batch_async(pubkeys, msgs, sigs, device=device)
     return res.cpu().numpy()[:n] & pre
+
+
+# ---------------------------------------------------------------------------
+# Batched signing (host nonce and finish + the r*B kernel)
+# ---------------------------------------------------------------------------
+
+# signatures per r*B launch: signing is bulk work (chain builders, load
+# generators), so it takes larger chunks than the verifier's 8192
+SIGN_CHUNK = 16384
+_SIGN_PARAMS_MAX = 4096
+
+_sign_params_cache: dict = {}
+_sign_params_lock = threading.Lock()
+
+
+def signing_params(seed: bytes):
+    """(a32 clamped, prefix32, pk32) for an RFC 8032 seed, cached per
+    seed (the cache is cleared when it passes 4096 seeds)."""
+    with _sign_params_lock:
+        ent = _sign_params_cache.get(seed)
+    if ent is None:
+        h = hashlib.sha512(seed).digest()
+        a = bytearray(h[:32])
+        a[0] &= 248
+        a[31] &= 127
+        a[31] |= 64
+        ent = (bytes(a), h[32:], ed25519_fast.public_key(seed))
+        with _sign_params_lock:
+            if len(_sign_params_cache) > _SIGN_PARAMS_MAX:
+                _sign_params_cache.clear()
+            _sign_params_cache[seed] = ent
+    return ent
+
+
+def _check_msgs(msgs) -> None:
+    for m in msgs:
+        if not isinstance(m, bytes):
+            raise TypeError("msgs must be bytes")
+
+
+def sign_phase1(prefixes: bytes, msgs) -> bytes:
+    """prefixes n*32 bytes, msgs n bytes objects -> n*32 bytes of nonces
+    r = SHA-512(prefix || M) mod L, little-endian."""
+    n = len(msgs)
+    if len(prefixes) != 32 * n:
+        raise ValueError("prefixes must be n*32 bytes")
+    _check_msgs(msgs)
+    return b"".join(
+        (int.from_bytes(hashlib.sha512(prefixes[32 * i:32 * i + 32]
+                                       + msgs[i]).digest(), "little")
+         % L_ORDER).to_bytes(32, "little")
+        for i in range(n))
+
+
+def sign_phase2(renc: bytes, pks: bytes, msgs, rs: bytes,
+                as_: bytes) -> bytes:
+    """n*64 bytes of signatures R || s with k = SHA-512(R || A || M)
+    mod L and s = (r + k*a) mod L; renc, pks, rs, as_ are n*32 bytes."""
+    n = len(msgs)
+    if not len(renc) == len(pks) == len(rs) == len(as_) == 32 * n:
+        raise ValueError("scalar blobs must be n*32")
+    _check_msgs(msgs)
+    out = []
+    for i in range(n):
+        lo, hi = 32 * i, 32 * i + 32
+        r_enc = renc[lo:hi]
+        k = int.from_bytes(hashlib.sha512(r_enc + pks[lo:hi]
+                                          + msgs[i]).digest(), "little")
+        s = (int.from_bytes(rs[lo:hi], "little") + k % L_ORDER
+             * int.from_bytes(as_[lo:hi], "little")) % L_ORDER
+        out.append(r_enc + s.to_bytes(32, "little"))
+    return b"".join(out)
+
+
+def sign_batch_async(seeds, msgs, device=None):
+    """Sign msgs[i] with seeds[i] without waiting for the card: the
+    nonces are computed now and R = r*B is enqueued on the current
+    stream in SIGN_CHUNK launches. Returns a zero-arg resolver that
+    waits on one CUDA event, copies the encodings to the host and
+    finishes the 64-byte signatures."""
+    device = _device.resolve(device)
+    n = len(msgs)
+    if n == 0:
+        return lambda: []
+    params = [signing_params(seed) for seed in seeds]
+    a_cat = b"".join(p[0] for p in params)
+    pk_cat = b"".join(p[2] for p in params)
+    r_cat = sign_phase1(b"".join(p[1] for p in params), msgs)
+    r_dev = _upload(np.frombuffer(r_cat, np.uint8).reshape(n, 32).copy(),
+                    device)
+    host = torch.empty((n, 32), dtype=torch.uint8,
+                       pin_memory=device.type == "cuda")
+    # the device buffers stay referenced until the resolver has waited
+    keep = [r_dev]
+    for lo in range(0, n, SIGN_CHUNK):
+        hi = min(lo + SIGN_CHUNK, n)
+        keep.append(ladder.sign_rb(r_dev[lo:hi]))
+        host[lo:hi].copy_(keep[-1], non_blocking=True)
+    done = None
+    if device.type == "cuda":
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(device))
+
+    def resolve() -> list:
+        if done is not None:
+            done.synchronize()
+        keep.clear()
+        sig_cat = sign_phase2(host.numpy().tobytes(), pk_cat, msgs, r_cat,
+                              a_cat)
+        return [sig_cat[64 * i:64 * (i + 1)] for i in range(n)]
+
+    return resolve
+
+
+def sign_batch(seeds, msgs, device=None) -> list:
+    """Batched Ed25519 signing: seeds[i] signs msgs[i]. Returns 64-byte
+    signatures, byte-equal to RFC 8032 (and so to OpenSSL)."""
+    return sign_batch_async(seeds, msgs, device=device)()

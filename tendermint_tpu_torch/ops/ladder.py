@@ -1,12 +1,14 @@
-"""The Ed25519 verify ladder: plain PyTorch versions and CUDA launchers.
+"""The Ed25519 ladders: plain PyTorch versions and CUDA launchers.
 
-Replaces the two Pallas kernels of `tendermint_tpu/ops/ladder_pallas.py`:
+Replaces the three Pallas kernels of `tendermint_tpu/ops/ladder_pallas.py`:
 
   verify      <- verify_pallas (`_verify_kernel` + `_ladder_tail`): the
                  fused cofactorless verify, decompressing A in the kernel.
   verify_pre  <- verify_pallas_pre (`_verify_kernel_pre` + the same
                  tail): the ladder fed with cached canonical bytes of
                  (-A).x and A.y plus the validity mask.
+  sign_rb     <- sign_pallas_rB (`_sign_kernel`): enc(r*B) for the nonces
+                 of batched signing, the fixed-base subset of the ladder.
 
 `verify_plain` / `verify_pre_plain` follow the Pallas kernels' exact
 schedule (16-entry table of -A with T pre-multiplied by 2d; msb-first
@@ -14,12 +16,15 @@ Horner over the low `n_windows` 4-bit windows; per window three T-less
 doublings, one doubling with T, an affine add from the table of B and a
 T-less add from the table of -A; digits zeroed where A is invalid; the
 curve25519 addition chains for the inverse and the square root;
-canonical encode, then compare with R). They are what the CPU tests run
-and what `chip_smoke.py` holds the kernels against on the card.
+canonical encode, then compare with R). `sign_rb_plain` is the same
+window loop with the fixed-base add only, then the encode. They are what
+the CPU tests run and what `chip_smoke.py` holds the kernels against on
+the card.
 
-`verify` / `verify_pre` launch the CUDA kernel of `csrc/ladder.cu` when
-their tensors are on a CUDA device and take the plain version only when
-they are on the CPU. Nothing falls back: a failed build or launch raises.
+`verify` / `verify_pre` / `sign_rb` launch the CUDA kernels of
+`csrc/ladder.cu` when their tensors are on a CUDA device and take the
+plain version only when they are on the CPU. Nothing falls back: a
+failed build or launch raises.
 """
 
 from __future__ import annotations
@@ -302,11 +307,43 @@ def verify_pre_plain(xnb, yb, ok, rb, dig_s, dig_h,
                         rb, dig_s, dig_h, n_windows)
 
 
-def field_muls(full: bool, n_windows: int = N_WINDOWS) -> int:
-    """Field multiplications (squarings included) of one verify on this
-    schedule: the count the roofline bound is taken from."""
+def sign_rb_plain(dig_r, n_windows: int = N_WINDOWS):
+    """Plain version of the sign kernel: enc(r*B) as uint8[N, 32] for
+    int32[N, 64] windows of scalars r, over the low `n_windows` windows."""
+    s_tab = _s_table(dig_r.device)
+    dig_r = dig_r.long()
+    zero = torch.zeros(dig_r.shape[0], fe.NLIMBS, dtype=torch.int32,
+                       device=dig_r.device)
+    one = _one_like(zero)
+    acc = (zero, one, one)
+    for w in range(n_windows - 1, -1, -1):
+        for _ in range(3):
+            acc = _pt_double(acc, want_t=False)
+        acc = _pt_double(acc, want_t=True)
+        s_sel = s_tab[dig_r[:, w]]                      # [N, 3, 20]
+        acc = _pt_add_tbl(acc, (s_sel[:, 0], s_sel[:, 1], None, s_sel[:, 2]),
+                          want_t=False)
+    X, Y, Z = acc[:3]
+    zi = _inv(Z)
+    by = fe.to_bytes(fe.mul(Y, zi))
+    sign = fe.to_bytes(fe.mul(X, zi))[:, 0] & 1
+    return torch.cat([by[:, :31], (by[:, 31] | (sign << 7))[:, None]], dim=1)
+
+
+def field_muls(kernel: str, n_windows: int = N_WINDOWS) -> int:
+    """Field multiplications (squarings included) of one verify
+    ("verify", "verify_pre") or one r*B ("sign_rb") on this schedule: the
+    count the roofline bound is taken from."""
     chain = 259                               # _chain_250
     dbl_t, dbl, add_aff_t, add_z = 8, 7, 7, 7
+    if kernel == "sign_rb":
+        # per window 3 doublings without T, 1 with, 1 affine add without
+        # T (no Z1*Z2, no E*H); then the inverse, then x and y
+        return n_windows * (3 * dbl + dbl_t + add_aff_t - 1) + chain + 5 \
+            + 1 + 2
+    if kernel not in ("verify", "verify_pre"):
+        raise ValueError(f"unknown kernel {kernel!r}")
+    full = kernel == "verify"
     tail = (1 + 7 * (dbl_t + 1) + 7 * (add_aff_t + 1)     # td2 + h-table
             + n_windows * (3 * dbl + dbl_t + add_aff_t + add_z)
             + chain + 5 + 1 + 2)              # inverse, then x and y
@@ -321,7 +358,7 @@ def field_muls(full: bool, n_windows: int = N_WINDOWS) -> int:
 # ---------------------------------------------------------------------------
 
 #: kernel launches per wrapper, counted only where the kernel launches
-launches = {"verify": 0, "verify_pre": 0}
+launches = {"verify": 0, "verify_pre": 0, "sign_rb": 0}
 
 
 def _check_rows(name, t, device, dtype=torch.uint8, width=32, n=None):
@@ -333,8 +370,10 @@ def _check_rows(name, t, device, dtype=torch.uint8, width=32, n=None):
             f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _launch(name, fn_name, rows, n_windows):
-    """Check the inputs, launch `fn_name` on the current stream, count."""
+def _launch(name, fn_name, rows, n_windows, out_width=None):
+    """Check the inputs, allocate the output, launch `fn_name` on the
+    current stream, count. The output is int32[N] verdicts, returned as
+    bool[N], or with `out_width` uint8[N, out_width] bytes."""
     device = rows[0].device
     n = rows[0].shape[0]
     if not 1 <= n_windows <= N_WINDOWS:
@@ -343,9 +382,12 @@ def _launch(name, fn_name, rows, n_windows):
         is_ok = name == "verify_pre" and i == 2
         _check_rows(f"{name} arg {i}", t, device, n=n,
                     width=None if is_ok else 32)
-    out = torch.empty(n, dtype=torch.int32, device=device)
+    if out_width is None:
+        out = torch.empty(n, dtype=torch.int32, device=device)
+    else:
+        out = torch.empty((n, out_width), dtype=torch.uint8, device=device)
     if n == 0:
-        return out.bool()
+        return out if out_width else out.bool()
     consts = _kernel_consts(device)
     lib = _build.ladder_lib()
     stream = torch.cuda.current_stream(device)
@@ -360,7 +402,7 @@ def _launch(name, fn_name, rows, n_windows):
         raise RuntimeError(
             f"{fn_name} launch failed: {_build.cuda_error_string(lib, err)}")
     launches[name] += 1
-    return out != 0
+    return out if out_width else out != 0
 
 
 def verify(pk, rb, s_bytes, h_bytes, n_windows: int = N_WINDOWS):
@@ -388,3 +430,14 @@ def verify_pre(xnb, yb, ok, rb, s_bytes, h_bytes,
     return _launch("verify_pre", "tm_ladder_verify_pre",
                    [xnb, yb, ok.to(torch.uint8).contiguous(), rb, s_bytes,
                     h_bytes], n_windows)
+
+
+def sign_rb(r_u8, n_windows: int = N_WINDOWS):
+    """enc(r*B) as uint8[N, 32] for scalars r given as uint8[N, 32]
+    little-endian bytes (the nonces of signing, each < L)."""
+    if r_u8.device.type == "cpu":
+        return sign_rb_plain(digits_from_bytes(r_u8), n_windows)
+    if r_u8.device.type != "cuda":
+        raise ValueError(f"sign_rb runs on cuda or cpu, not {r_u8.device}")
+    return _launch("sign_rb", "tm_ladder_sign_rb", [r_u8], n_windows,
+                   out_width=32)

@@ -1,8 +1,8 @@
-"""PartSetHeader, BlockID and Commit.
+"""PartSetHeader, BlockID, Header and Commit.
 
 Counterpart of those types in `tendermint_tpu/types/block.py`, with the
-same canonical objects and Merkle hashes. Block, Header and Data come in
-a later slice.
+same canonical objects and Merkle hashes. Block and Data come in a later
+slice.
 """
 
 from __future__ import annotations
@@ -26,6 +26,10 @@ class PartSetHeader:
     def to_obj(self):
         return {"total": self.total, "hash": self.hash.hex()}
 
+    @classmethod
+    def from_obj(cls, o):
+        return cls(o["total"], bytes.fromhex(o["hash"]))
+
 
 @dataclass
 class BlockID:
@@ -38,6 +42,10 @@ class BlockID:
     def to_obj(self):
         return {"hash": self.hash.hex(), "parts": self.parts.to_obj()}
 
+    @classmethod
+    def from_obj(cls, o):
+        return cls(bytes.fromhex(o["hash"]), PartSetHeader.from_obj(o["parts"]))
+
     def __eq__(self, other):
         return isinstance(other, BlockID) and self.hash == other.hash \
             and self.parts.total == other.parts.total \
@@ -45,6 +53,72 @@ class BlockID:
 
     def __hash__(self):
         return hash((self.hash, self.parts.total, self.parts.hash))
+
+
+@dataclass
+class Header:
+    chain_id: str = ""
+    height: int = 0
+    time_ns: int = 0
+    num_txs: int = 0
+    total_txs: int = 0
+    last_block_id: BlockID = field(default_factory=BlockID)
+    last_commit_hash: bytes = b""
+    data_hash: bytes = b""
+    validators_hash: bytes = b""
+    consensus_hash: bytes = b""
+    app_hash: bytes = b""
+    last_results_hash: bytes = b""
+    evidence_hash: bytes = b""
+
+    def to_obj(self):
+        return {
+            "chain_id": self.chain_id, "height": self.height,
+            "time_ns": self.time_ns, "num_txs": self.num_txs,
+            "total_txs": self.total_txs,
+            "last_block_id": self.last_block_id.to_obj(),
+            "last_commit_hash": self.last_commit_hash.hex(),
+            "data_hash": self.data_hash.hex(),
+            "validators_hash": self.validators_hash.hex(),
+            "consensus_hash": self.consensus_hash.hex(),
+            "app_hash": self.app_hash.hex(),
+            "last_results_hash": self.last_results_hash.hex(),
+            "evidence_hash": self.evidence_hash.hex(),
+        }
+
+    @classmethod
+    def from_obj(cls, o):
+        return cls(
+            chain_id=o["chain_id"], height=o["height"], time_ns=o["time_ns"],
+            num_txs=o["num_txs"], total_txs=o["total_txs"],
+            last_block_id=BlockID.from_obj(o["last_block_id"]),
+            last_commit_hash=bytes.fromhex(o["last_commit_hash"]),
+            data_hash=bytes.fromhex(o["data_hash"]),
+            validators_hash=bytes.fromhex(o["validators_hash"]),
+            consensus_hash=bytes.fromhex(o["consensus_hash"]),
+            app_hash=bytes.fromhex(o["app_hash"]),
+            last_results_hash=bytes.fromhex(o["last_results_hash"]),
+            evidence_hash=bytes.fromhex(o["evidence_hash"]))
+
+    def __setattr__(self, name, value):
+        # any field write drops the cached hash: a stale header hash
+        # would certify a header that was changed after signing
+        if not name.startswith("_"):
+            self.__dict__.pop("_hash", None)
+        object.__setattr__(self, name, value)
+
+    def hash(self) -> bytes:
+        """Merkle root over the sorted one-field canonical leaves; b""
+        while validators_hash is empty (an unfilled header). Cached."""
+        if not self.validators_hash:
+            return b""
+        h = self.__dict__.get("_hash")
+        if h is None:
+            obj = self.to_obj()
+            h = merkle.root_host([encoding.cdumps({k: obj[k]})
+                                  for k in sorted(obj)])
+            self.__dict__["_hash"] = h
+        return h
 
 
 @dataclass

@@ -14,6 +14,7 @@ the JAX package's.
 from __future__ import annotations
 
 import hashlib
+import os
 from dataclasses import dataclass
 
 from tendermint_tpu_torch.utils import ed25519_fast
@@ -90,6 +91,10 @@ class PubKey:
 @dataclass(frozen=True)
 class PrivKey:
     seed: bytes  # 32 bytes
+
+    @classmethod
+    def generate(cls, seed: bytes | None = None) -> "PrivKey":
+        return cls(seed if seed is not None else os.urandom(32))
 
     @property
     def pubkey(self) -> PubKey:

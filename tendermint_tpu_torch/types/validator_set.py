@@ -62,12 +62,28 @@ class ValidatorSet:
     def __len__(self) -> int:
         return len(self.validators)
 
+    def copy(self) -> "ValidatorSet":
+        """Copies of the validators in the same order; the address index
+        is shared, since nothing changes a set's membership in place."""
+        vs = ValidatorSet.__new__(ValidatorSet)
+        vs.validators = [v.copy() for v in self.validators]
+        vs._index = self._index
+        vs._proposer = self._proposer.copy() if self._proposer else None
+        vs._hash = self._hash
+        return vs
+
     def total_voting_power(self) -> int:
         return sum(v.voting_power for v in self.validators)
 
     def get_by_address(self, addr: bytes):
         i = self._index.get(addr, -1)
         return (i, self.validators[i]) if i >= 0 else (-1, None)
+
+    def get_by_index(self, i: int) -> Optional[Validator]:
+        return self.validators[i] if 0 <= i < len(self.validators) else None
+
+    def has_address(self, addr: bytes) -> bool:
+        return self.get_by_address(addr)[0] >= 0
 
     def increment_accum(self, times: int = 1) -> None:
         """Advance proposer rotation by `times` rounds: power*times lands
@@ -226,3 +242,26 @@ class ValidatorSet:
             raise ValueError(
                 f"insufficient new-set voting power: got {new_power}, "
                 f"need > {new_set.total_voting_power() * 2 / 3:g}")
+
+    # -- updates -------------------------------------------------------------
+
+    def update_with_changes(self,
+                            changes: Sequence[Validator]) -> "ValidatorSet":
+        """Apply ABCI validator updates (power 0 removes, else add or
+        replace) and return a new set; accums carry over, and the new set
+        is not incremented (the block's own increment follows)."""
+        by_addr = {v.address: v.copy() for v in self.validators}
+        for c in changes:
+            if c.voting_power < 0:
+                raise ValueError("negative voting power")
+            if c.voting_power == 0:
+                if c.address not in by_addr:
+                    raise ValueError("removing unknown validator")
+                del by_addr[c.address]
+            else:
+                prev = by_addr.get(c.address)
+                accum = prev.accum if prev else 0
+                by_addr[c.address] = Validator(c.pubkey, c.voting_power, accum)
+        if not by_addr:
+            raise ValueError("validator set would be empty")
+        return ValidatorSet(list(by_addr.values()), _fresh=False)

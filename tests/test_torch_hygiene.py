@@ -1,7 +1,8 @@
 """Import and device hygiene of the port (tendermint_tpu_torch).
 
-- Importing every module of the port, and chip_smoke.py as a module,
-  in a fresh interpreter loads neither jax nor any tendermint_tpu module.
+- Importing every module of the port (lite/ included), and chip_smoke.py
+  as a module, in a fresh interpreter loads neither jax nor any
+  tendermint_tpu module.
 - No source of the port (nor chip_smoke.py) imports them (AST check).
 - An entry point given no device raises when no CUDA device is present:
   the port never moves to the CPU quietly.
@@ -22,6 +23,13 @@ PORT = REPO / "tendermint_tpu_torch"
 PORT_SOURCES = sorted(p for p in PORT.rglob("*.py")
                       if "_build" not in p.relative_to(PORT).parts)
 SOURCES = PORT_SOURCES + [REPO / "chip_smoke.py"]
+
+
+def test_walk_covers_every_subpackage():
+    mods = set(_modules())
+    for pkg in ("ops", "types", "models", "utils", "lite"):
+        assert f"tendermint_tpu_torch.{pkg}" in mods, pkg
+    assert "tendermint_tpu_torch.lite.certifier" in mods
 
 
 def _modules():
@@ -95,3 +103,12 @@ def test_entry_points_without_device_raise(no_cuda):
         convert.state_from_jax(*ladder.tables())
     # the scalar backend needs no device
     assert verifier.BatchVerifier("python").verify([]).shape == (0,)
+
+
+def test_sign_batch_without_device_raises(no_cuda):
+    from tendermint_tpu_torch.ops import ed25519
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ed25519.sign_batch([b"\x01" * 32], [b"m"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ed25519.sign_batch_async([b"\x01" * 32], [b"m"])

@@ -3,12 +3,12 @@ kernel itself on the card.
 
 There is no card and no nvcc here, so the header is built with g++ into
 a small C shim (csrc/cpu_shim.cpp, loaded with ctypes): the same field,
-point and ladder functions the kernel runs, one signature after another.
+point and ladder functions the kernels run, one signature after another.
 Its field mul/invert/encode are held against the plain PyTorch field
-ops, and its verify against the plain versions (n_windows=8) and the
-oracle (64 windows). Bytes and verdicts are integers: tolerance 0.
+ops, its verify and its r*B against the plain versions (n_windows=8) and
+the oracle (64 windows). Bytes and verdicts are integers: tolerance 0.
 
-The tests marked `cuda` launch the kernel itself and skip without a card;
+The tests marked `cuda` launch the kernels themselves and skip without a card;
 on the H100 run them with `python -m pytest --noconftest -m cuda
 tests/test_torch_kernel.py` (tests/conftest.py imports jax).
 """
@@ -22,6 +22,7 @@ import torch
 from tendermint_tpu_torch.ops import _build, ladder
 from tendermint_tpu_torch.ops import ed25519 as ted
 from tendermint_tpu_torch.ops import field as tfe
+from tendermint_tpu_torch.utils import ed25519_ref as ref
 from tendermint_tpu_torch.utils import vectors
 
 # small tensors: one intra-op thread is faster here and leaves the
@@ -119,6 +120,44 @@ def test_shim_verify_matches_oracle_at_64_windows(shim, pre):
                                   batch["expect"])
 
 
+def _shim_sign_rb(shim, r, n_windows):
+    out = np.zeros_like(r)
+    shim.tm_cpu_sign_rb(_ptr(r), _ptr(_kernel_consts()), _ptr(out), len(r),
+                        n_windows)
+    return out
+
+
+def _oracle_rb(r):
+    return np.stack([np.frombuffer(ref.point_compress(
+        ref.point_mul(int.from_bytes(row.tobytes(), "little"), ref.BASE)),
+        np.uint8) for row in r])
+
+
+def _scalars(n, seed, bits):
+    rng = np.random.RandomState(seed)
+    rs = [0, 1, 2, (1 << bits) - 1] + [
+        int.from_bytes(rng.bytes(32), "little") % (1 << bits)
+        for _ in range(n - 4)]
+    if bits == 256:
+        rs[3] = ref.L - 1
+    return np.stack([np.frombuffer(r.to_bytes(32, "little"), np.uint8)
+                     for r in rs])
+
+
+def test_shim_sign_rb_matches_plain_at_8_windows(shim):
+    r = _scalars(12, 25, 32)
+    want = ladder.sign_rb_plain(ladder.digits_from_bytes(torch.from_numpy(r)),
+                                n_windows=8)
+    np.testing.assert_array_equal(_shim_sign_rb(shim, r, 8), want.numpy())
+    np.testing.assert_array_equal(want.numpy(), _oracle_rb(r))
+
+
+def test_shim_sign_rb_matches_oracle_at_64_windows(shim):
+    r = _scalars(16, 26, 256)
+    r[4] = np.frombuffer(((1 << 252) - 1).to_bytes(32, "little"), np.uint8)
+    np.testing.assert_array_equal(_shim_sign_rb(shim, r, 64), _oracle_rb(r))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -146,3 +185,14 @@ def test_cuda_kernel_matches_plain(cuda_device, pre):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     np.testing.assert_array_equal(got.cpu().numpy(), batch["expect"])
+
+
+@pytest.mark.cuda
+def test_cuda_sign_rb_matches_plain(cuda_device):
+    r = torch.from_numpy(_scalars(256, 27, 256)).to(cuda_device)
+    got = ladder.sign_rb(r)
+    want = ladder.sign_rb_plain(ladder.digits_from_bytes(r))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(got.cpu().numpy()[:16],
+                                  _oracle_rb(r.cpu().numpy()[:16]))

@@ -77,5 +77,5 @@ def test_wrappers_take_plain_version_on_cpu_only():
 
 def test_field_mul_count():
     # the per-verify count the roofline bound in PERF.md is taken from
-    assert ladder.field_muls(True) == 3414
-    assert ladder.field_muls(False) == 3140
+    assert ladder.field_muls("verify") == 3414
+    assert ladder.field_muls("verify_pre") == 3140

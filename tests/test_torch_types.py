@@ -99,3 +99,44 @@ def test_valset_commit_and_sign_bytes_match_jax():
     with pytest.raises(ValueError) as je:
         jv.commit_verification_items("chain-é", jbid, 10, jc)
     assert str(te.value) == str(je.value)
+
+
+def _set_ops(vsm, keys):
+    """Copies, lookups and ABCI updates of one package's set; returns what
+    they give, with each refusal's message."""
+    pubs = [keys.PrivKey(s).pubkey.ed25519 for s in SEEDS]
+    vs = vsm.ValidatorSet([vsm.Validator(p, 3 + i)
+                           for i, p in enumerate(pubs[:4])])
+    vs.increment_accum(2)
+    cp = vs.copy()
+    cp.validators[0].accum += 100          # the copy owns its validators
+    out = [cp.hash() == vs.hash(), vs.validators[0].accum,
+           [v.address for v in cp.validators] == [v.address
+                                                  for v in vs.validators],
+           vs.get_by_index(1).address, vs.get_by_index(4),
+           vs.get_by_index(-1), vs.has_address(vs.validators[3].address),
+           vs.has_address(b"\x00" * 20)]
+    # add one, change one's power, remove one: accums carry over
+    new = vs.update_with_changes([vsm.Validator(pubs[4], 9),
+                                  vsm.Validator(pubs[0], 30),
+                                  vsm.Validator(pubs[1], 0)])
+    out += [new.hash(), [(v.address, v.voting_power, v.accum)
+                         for v in new.validators], len(vs)]
+    for changes in ([vsm.Validator(pubs[5], 0)],
+                    [vsm.Validator(pubs[0], -1)],
+                    [vsm.Validator(p, 0) for p in pubs[:4]]):
+        try:
+            vs.update_with_changes(changes)
+            out.append(None)
+        except ValueError as e:
+            out.append(str(e))
+    return out
+
+
+def test_valset_copy_lookup_and_updates_match_jax():
+    got = _set_ops(tvs, tkeys)
+    assert got == _set_ops(jvs, jkeys)
+    assert got[0] and got[2] and got[4] is None and got[5] is None
+    assert got[6] and not got[7]
+    assert got[-3:] == ["removing unknown validator", "negative voting power",
+                        "validator set would be empty"]

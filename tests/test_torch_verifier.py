@@ -9,7 +9,9 @@ Both packages verify a 64-validator commit signed with OpenSSL three
 times (first sighting of the keys, then repeat traffic, then cached
 rows: full -> fill -> hit), then a commit with one flipped signature
 byte. Verdict arrays, raised messages and cache-outcome deltas must be
-equal. Tolerance 0 (booleans and counters).
+equal. The light client's certify_chain is held the same way: its
+dispatches walk the cache's routes as the JAX package's do. Tolerance 0
+(booleans and counters).
 """
 
 import jax.numpy as jnp
@@ -19,6 +21,7 @@ import torch
 from cryptography.hazmat.primitives.asymmetric.ed25519 import \
     Ed25519PrivateKey
 
+from tendermint_tpu import lite as jlite
 from tendermint_tpu.models.verifier import BatchVerifier as JVerifier
 from tendermint_tpu.ops import ed25519 as jed
 from tendermint_tpu.ops import ladder_pallas
@@ -26,6 +29,7 @@ from tendermint_tpu.types import block as jblock
 from tendermint_tpu.types import validator_set as jvs
 from tendermint_tpu.types import vote as jvote
 from tendermint_tpu_torch import convert
+from tendermint_tpu_torch import lite as tlite
 from tendermint_tpu_torch.models.verifier import BatchVerifier as TVerifier
 from tendermint_tpu_torch.ops import ed25519 as ted
 from tendermint_tpu_torch.ops import ladder
@@ -104,6 +108,8 @@ def _commit(pkg, sks, pks, tamper=None):
 
 JAX_TYPES = (jvs, jblock, jvote)
 PORT_TYPES = (tvs, tblock, tvote)
+JAX_LITE = (*JAX_TYPES, jlite)
+PORT_LITE = (*PORT_TYPES, tlite)
 
 
 def _delta(after, before):
@@ -250,3 +256,39 @@ def test_warmup_and_verify_one():
     assert v.verify_one(pks[0], b"one", sig)
     assert not v.verify_one(pks[0], b"two", sig)
     assert v.stats["cuda_sigs"] == 2 and v.mesh_devices == 0
+
+
+def _chain(pkg, sks, pks, n_headers):
+    """FullCommits of heights 1..n_headers in `pkg`'s types, every
+    validator signing each header's block id."""
+    vsm, blk, vt, lite = pkg
+    vs = vsm.ValidatorSet([vsm.Validator(pk, 10) for pk in pks])
+    by_pk = dict(zip(pks, sks))
+    fcs = []
+    for h in range(1, n_headers + 1):
+        header = blk.Header(chain_id=CHAIN, height=h, time_ns=h,
+                            validators_hash=vs.hash(),
+                            app_hash=h.to_bytes(32, "big"))
+        bid = blk.BlockID(header.hash(), blk.PartSetHeader(1, b"\x22" * 32))
+        votes = []
+        for idx, val in enumerate(vs.validators):
+            v = vt.Vote(val.address, idx, h, 0, h, vt.VoteType.PRECOMMIT, bid)
+            v.signature = by_pk[val.pubkey].sign(v.sign_bytes(CHAIN))
+            votes.append(v)
+        fcs.append(lite.FullCommit(
+            lite.SignedHeader(header, blk.Commit(bid, votes), bid), vs))
+    return fcs
+
+
+def test_certify_chain_routes_match_jax(verifiers):
+    """8 validators x 24 headers, window 8: three 64-signature dispatches
+    over keys not seen before, so full, then fill, then hit."""
+    sks, pks = _keys(107, 8)
+    outs = []
+    for pkg, v, stats in ((JAX_LITE, verifiers[0], jed.predecomp_stats),
+                          (PORT_LITE, verifiers[1], ted.predecomp_stats)):
+        fcs = _chain(pkg, sks, pks, 24)
+        before = stats()
+        pkg[3].certify_chain(CHAIN, fcs, verifier=v, window=8)
+        outs.append(_delta(stats(), before))
+    assert outs[0] == outs[1] == {"hit": 1, "fill": 1, "full": 1}
