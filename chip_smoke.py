@@ -5,14 +5,22 @@
 Phases, each printing its own lines:
 
 1. device: the card's name and power limit (nvidia-smi), then the build
-   of the CUDA kernels from csrc/ (nvcc), with its time and ptxas report.
+   of the CUDA kernels from csrc/ (nvcc), with its time and each
+   kernel's registers, stack and spills from the ptxas report; the SM
+   count and nvidia-smi's clocks.max.sm, which give the integer pipe's
+   rate the kernels' bound is taken at. Beside the build nvcc compiles a
+   standalone probe of one and of two chained field products; the
+   difference of their SASS is printed as a diagnostic of the compiler's
+   overhead: the IMAD issue slots it spends on a product, against the
+   SLOTS_PER_MUL the product needs.
 2. kernels: a seeded batch of 1024 signatures with edge lanes (valid,
    tampered R / s / message, a pubkey off the curve, x = 0 with the sign
-   bit set, y >= p, zero padding) through both kernels and their plain
-   PyTorch versions on the card; verdicts must be bit-equal to each
-   other and to the oracle. The same rows tiled to the main path's chunk
-   shapes (8192, and 2048 for the 10k commit's padded tail) are checked
-   the same way, and the 8192 chunk is timed.
+   bit set, y >= p, zero padding) through both verify kernels and their
+   plain PyTorch versions on the card; verdicts must be bit-equal to each
+   other and to the oracle. Then the lanes sweep: the same rows tiled to
+   2048 (the 10k commit's padded tail), 8192 (the main path's chunk) and
+   32768 signatures, each launch timed, held to the oracle at every size
+   and to the plain version at 2048 and 8192.
 3. commit path: a 10,000-validator commit (seeded keys, signed with the
    port's table signer) through ValidatorSet.verify_commit ->
    BatchVerifier("auto") -> CUDA kernels, three times: the
@@ -43,9 +51,11 @@ from __future__ import annotations
 
 import copy
 import json
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -75,13 +85,34 @@ LITE_VALIDATORS = 64      # BASELINE.json config 5's width
 LITE_HEADERS = 4096       # config 5 has 1M headers: the one cut
 LITE_CHAIN = "chip-smoke-lite"
 LITE_ROUTES = {"full": 1, "fill": 1, "hit": 30}
-# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, and the
-# 32-bit CUDA-core rate (the float32 rate outside the tensor cores; the
-# kernel's integer multiply-adds are not faster)
+SWEEP = (2048, 8192, 32768)  # verify lanes timed; the first two also
+PLAIN_CHECK = (2048, 8192)   # held to the plain version
+# H100 SXM published HBM rate (NVIDIA data sheet), bytes/s
 HBM_BYTES_S = 3.35e12
-CORE_OPS_S = 67e12
-# one radix-2^25.5 field product = 100 multiply-adds of 2 operations
-OPS_PER_FIELD_MUL = 200
+# 32-bit integer multiply-adds an SM issues per clock on sm_90 (CUDA C++
+# Programming Guide, arithmetic instruction throughput): half the
+# float32 rate. The field products run on this pipe.
+IMAD_PER_SM_CLOCK = 64
+# Issue slots of that pipe one field product of csrc/fe25519.cuh (fe_mul;
+# a squaring is computed, and counted, as a product) needs: 100 signed
+# 32x32->64 multiply-adds at two slots each (200), the 9 limbs of g used
+# times 19 and the 5 odd limbs of f times 2 at one slot each (14), and
+# the carry's fold of the top carry times 19, one wide multiply-add (2).
+SLOTS_PER_MUL = 200 + 14 + 2
+# one field product, and two chained: the difference of their SASS is
+# what the compiler spends on a product (a diagnostic, not the bound)
+PROBE_SRC = r"""
+#include "fe25519.cuh"
+using fe25519::fe;
+extern "C" __global__ void probe_mul1(const fe *a, const fe *b, fe *o) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  o[i] = fe25519::fe_mul(a[i], b[i]);
+}
+extern "C" __global__ void probe_mul2(const fe *a, const fe *b, fe *o) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  o[i] = fe25519::fe_mul(fe25519::fe_mul(a[i], b[i]), b[i]);
+}
+"""
 
 KERNELS = {
     "verify": {"name": "verify (B1, fused)",
@@ -110,13 +141,112 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def phase_build() -> None:
+_PTXAS_NAMES = {"ladder_kernelILb1": "verify", "ladder_kernelILb0": "verify_pre",
+                "sign_rb_kernel": "sign_rb"}
+
+
+def _ptxas(log: str) -> dict:
+    """Registers, stack frame and spill bytes of each kernel, from nvcc's
+    -Xptxas -v report."""
+    out: dict = {}
+    cur = None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln) or re.search(
+            r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = next((v for k, v in _PTXAS_NAMES.items()
+                        if k in m.group(1)), None)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            out.setdefault(cur, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.setdefault(cur, {})["registers"] = int(m.group(1))
+    return out
+
+
+def _start_probe(nvcc: str) -> tuple:
+    """Start nvcc on the field-product probe; returns (process, cubin)."""
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = _build.BUILD_DIR / "fe_mul_probe.cu"
+    src.write_text(PROBE_SRC)
+    cubin = _build.BUILD_DIR / "fe_mul_probe.cubin"
+    cmd = [nvcc, "-cubin", "-O3", "-gencode=arch=compute_90a,code=sm_90a",
+           "-std=c++17", "-I", str(_build.CSRC), "-o", str(cubin), str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), cubin
+
+
+def _sass_counts(nvcc: str, cubin) -> dict:
+    """{function: {opcode: count}} from cuobjdump -sass."""
+    cuobjdump = str(Path(nvcc).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(cubin)],
+                          capture_output=True, text=True, check=True).stdout
+    counts: dict = {}
+    fn = None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = counts.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                      ln)
+        if m and fn is not None:
+            fn[m.group(1)] = fn.get(m.group(1), 0) + 1
+    return counts
+
+
+def _imad_slots(ops: dict) -> int:
+    """Issue slots on the integer multiply-add pipe: a 32x32->64 wide
+    multiply-add (IMAD.WIDE*) takes two, every other IMAD* one."""
+    return sum(c * (2 if ".WIDE" in op else 1)
+               for op, c in ops.items() if op.startswith("IMAD"))
+
+
+def phase_build() -> tuple:
+    """Build the kernels (and the probe beside them); returns (the
+    integer rate the bounds are taken at, each kernel's ptxas report and
+    blocks per SM)."""
     t0 = time.perf_counter()
-    _build.ladder_lib()
-    report = [ln.strip() for ln in _build.ladder_build_log().splitlines()
-              if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "ptxas": report})
+    nvcc = _build.find_nvcc()
+    probe, cubin = _start_probe(nvcc)
+    lib = _build.ladder_lib()
+    build_s = time.perf_counter() - t0
+    probe_log = probe.communicate()[0]
+    require(probe.returncode == 0, f"the field-product probe failed to "
+                                   f"build:\n{probe_log}")
+    counts = _sass_counts(nvcc, cubin)
+    one, two = counts["probe_mul1"], counts["probe_mul2"]
+    slots = _imad_slots(two) - _imad_slots(one)
+    instrs = sum(two.values()) - sum(one.values())
+    require(slots > 0, f"no IMAD in the probe's SASS: {counts}")
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = {"slots_per_mul": SLOTS_PER_MUL,
+            "probe_imad_slots_per_mul": slots,
+            "probe_instructions_per_mul": instrs,
+            "probe_imad_opcodes_per_mul": {
+                op: two.get(op, 0) - one.get(op, 0) for op in two
+                if op.startswith("IMAD") and two.get(op, 0) != one.get(op, 0)},
+            "sm_count": sms, "sm_clock_max_mhz": clock_mhz,
+            "imad_slots_per_s": sms * IMAD_PER_SM_CLOCK * clock_mhz * 1e6}
+    ptxas = _ptxas(_build.ladder_build_log())
+    require(set(ptxas) == set(KERNELS), f"ptxas report incomplete: {ptxas}")
+    for k, name in enumerate(KERNELS):
+        ptxas[name]["blocks_per_sm"] = lib.tm_ladder_occupancy(k)
+        require(ptxas[name]["blocks_per_sm"] > 0, f"occupancy of {name}")
+    emit({"phase": "build", "seconds": round(build_s, 3), "ptxas": ptxas,
+          "int_rate": rate})
+    return rate, ptxas
 
 
 def _cuda_rows(batch, device):
@@ -152,13 +282,15 @@ def _time_ms(fn, reps: int) -> tuple:
 
 
 def _compare(name, got, want, expect, n, lanes) -> int:
-    """Hold kernel verdicts against the plain version's and the oracle's;
-    returns the largest absolute difference from the plain version."""
-    err = int((got.int() - want.int()).abs().max())
-    agree = bool(torch.equal(got, want)) and bool(
+    """Hold kernel verdicts against the plain version's (unless `want` is
+    None) and the oracle's; returns the largest absolute difference from
+    the plain version."""
+    err = 0 if want is None else int((got.int() - want.int()).abs().max())
+    agree = (want is None or bool(torch.equal(got, want))) and bool(
         (got.cpu().numpy() == expect).all())
     emit({"phase": "kernel_check", "kernel": name, "n": n, "lanes": lanes,
-          "max_abs_err": err, "equal_to_plain_and_oracle": agree})
+          "max_abs_err": err, "held_to_plain": want is not None,
+          "equal_to_plain_and_oracle": agree})
     require(agree and err == 0,
             f"{name} disagrees with its plain version or the oracle at {n}")
     return err
@@ -170,17 +302,27 @@ LANE_BYTES = {"verify": 4 * 32 + 4, "verify_pre": 5 * 32 + 1 + 4,
               "sign_rb": 32 + 32}
 
 
-def _bound(name: str, n: int) -> tuple:
+def _bound(name: str, n: int, rate: dict) -> tuple:
     """(least ms the card could take for n lanes of a kernel, what bounds
     it): each input byte read once and each output byte written once at
-    the HBM rate, against the field products' multiply-adds at the core
-    rate."""
+    the HBM rate, against the schedule's field products
+    (`ladder.field_muls`) of SLOTS_PER_MUL each at the integer
+    multiply-add pipe's rate."""
     bytes_ms = 1e3 * n * LANE_BYTES[name] / HBM_BYTES_S
-    ops_ms = 1e3 * n * ladder.field_muls(name) * OPS_PER_FIELD_MUL / CORE_OPS_S
+    ops_ms = 1e3 * n * ladder.field_muls(name) * rate["slots_per_mul"] \
+        / rate["imad_slots_per_s"]
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def phase_kernels(device) -> dict:
+def _tiled(batch, n: int) -> tuple:
+    """The rows of `batch` tiled to n lanes, and the oracle's verdicts."""
+    reps = -(-n // len(batch["expect"]))
+    rows = {k: np.ascontiguousarray(np.tile(batch[k], (reps, 1))[:n])
+            for k in ("pk", "rb", "s", "h")}
+    return rows, np.tile(batch["expect"], reps)[:n]
+
+
+def phase_kernels(device, rate: dict) -> dict:
     batch = vectors.edge_batch(N_CHECK, seed=SEED)
     lanes = sorted(set(batch["kind"]))
     t = _cuda_rows(batch, device)
@@ -191,28 +333,33 @@ def phase_kernels(device) -> dict:
         results[name] = {"max_abs_err": _compare(
             name, got, want, batch["expect"], N_CHECK, lanes)}
 
-    # the main path's chunk shapes (8192, and the 10k commit's padded
-    # tail): the edge rows tiled; the full chunk is also timed
-    reps = N_TIME // N_CHECK
-    big = {k: np.ascontiguousarray(np.tile(batch[k], (reps, 1)))
-           for k in ("pk", "rb", "s", "h")}
-    expect = np.tile(batch["expect"], reps)
-    tb = _cuda_rows(big, device)
-    n_tail = ted._bucket(N_VALIDATORS % tverifier.BATCH_CHUNK)
-    tail = {k: v[:n_tail].contiguous() for k, v in tb.items()}
+    # the lanes sweep: the edge rows tiled to the main path's shapes
+    # (2048 is the 10k commit's padded tail, 8192 the full chunk) and to
+    # 32768, each launch timed
+    require(ted._bucket(N_VALIDATORS % tverifier.BATCH_CHUNK) in SWEEP
+            and N_TIME in PLAIN_CHECK, "the sweep misses a main-path shape")
     for name in VERIFY_KERNELS:
-        kernel, plain = _kernel_and_plain(name, tb)
-        ms, got = _time_ms(kernel, TIME_REPS)
-        plain_ms, want = _time_ms(plain, 1)
-        err = _compare(name, got, want, expect, N_TIME, lanes)
-        kernel, plain = _kernel_and_plain(name, tail)
-        err = max(err, _compare(name, kernel(), plain(), expect[:n_tail],
-                                n_tail, lanes))
-        bound_ms, bound_by = _bound(name, N_TIME)
+        err = results[name]["max_abs_err"]
+        sweep = {}
+        for n in SWEEP:
+            rows, expect = _tiled(batch, n)
+            kernel, plain = _kernel_and_plain(name, _cuda_rows(rows, device))
+            ms, got = _time_ms(kernel, TIME_REPS)
+            want = None
+            if n in PLAIN_CHECK:
+                p_ms, want = _time_ms(plain, 1)
+                if n == N_TIME:
+                    plain_ms = p_ms
+            err = max(err, _compare(name, got, want, expect, n, lanes))
+            bound_ms, _ = _bound(name, n, rate)
+            sweep[n] = ms
+            emit({"phase": "kernel_sweep", "kernel": name, "n": n, "ms": ms,
+                  "us_per_signature": 1e3 * ms / n, "bound_ms": bound_ms})
+        bound_ms, bound_by = _bound(name, N_TIME, rate)
         results[name] = {
-            "max_abs_err": max(results[name]["max_abs_err"], err), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "n": N_TIME}
+            "max_abs_err": err, "ms": sweep[N_TIME], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "n": N_TIME,
+            "sweep_ms": sweep}
         emit({"phase": "kernel_time", "kernel": name, **results[name]})
     return results
 
@@ -353,7 +500,7 @@ def _sign_edge_scalars(n: int, seed: int) -> list:
                    for _ in range(n - len(edge))]
 
 
-def phase_sign_kernel(device) -> dict:
+def phase_sign_kernel(device, rate: dict) -> dict:
     """The r*B kernel against its plain version and the oracle on 1024
     edge scalars, then on those tiled to the signing chunk, timed."""
     rs = _sign_edge_scalars(N_SIGN_CHECK, SEED + 1)
@@ -381,7 +528,7 @@ def phase_sign_kernel(device) -> dict:
                 f"sign_rb disagrees with its plain version or the oracle "
                 f"at {n}")
         err = max(err, e)
-    bound_ms, bound_by = _bound("sign_rb", n_time)
+    bound_ms, bound_by = _bound("sign_rb", n_time, rate)
     res = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by, "n": n_time}
     emit({"phase": "kernel_time", "kernel": "sign_rb", **res})
@@ -545,10 +692,10 @@ def main() -> int:
     device = torch.device("cuda", 0)
     card = card_line()
     print(card, flush=True)
-    phase_build()
-    kernels = phase_kernels(device)
+    rate, ptxas = phase_build()
+    kernels = phase_kernels(device, rate)
     commit_launches = phase_main(card)
-    kernels.update(phase_sign_kernel(device))
+    kernels.update(phase_sign_kernel(device, rate))
     lite_launches = phase_lite(card)
     table = []
     for name, info in KERNELS.items():
@@ -563,7 +710,8 @@ def main() -> int:
             "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"],
             "bound_ms": kernels[name]["bound_ms"],
             "bound_by": kernels[name]["bound_by"],
-            "library_ms": None, "shape_n": kernels[name]["n"]})
+            "library_ms": None, "shape_n": kernels[name]["n"],
+            "sweep_ms": kernels[name].get("sweep_ms"), "ptxas": ptxas[name]})
     emit({"kernels": table, "not_ported": [], "card": card})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -5,6 +5,9 @@
 // (cpu_shim.cpp) that the CPU tests hold against the plain PyTorch
 // version (ops/ladder.py).
 //
+// B1/B2 run four lanes per signature (the 4-lane schedule below); B3
+// runs one thread per scalar on the one-thread point functions.
+//
 // Representation: 10 signed 32-bit limbs of radix 2^25.5 (26, 25, 26, ...
 // bits; limb i sits at bit ceil(25.5 i)), not the 20 x 13-bit limbs of
 // the TPU kernel: the card has a 32x32->64-bit multiply, so a product is
@@ -329,50 +332,188 @@ FE_HD bool decompress_neg(const uint8_t pk[32], const int32_t *consts,
   return ok;
 }
 
-// The ladder after decompression: table of -A, Straus-w4 over the low
-// n_windows windows, affine conversion, canonical encode, compare with R.
-FE_HD bool ladder_tail(bool ok, const fe &xn, const fe &y,
-                       const uint8_t rb[32], const uint8_t sb[32],
-                       const uint8_t hb[32], const int32_t *consts,
-                       int n_windows) {
-  const fe d2 = load_const(consts, K_D2);
-  const fe one = fe_one();
-  const fe t = fe_mul(xn, y);
-  // h_table[k] = k * (-A) with T*2d; indexed by the digit at run time,
-  // so it lives in local memory.
-  pt4 tbl[16];
-  tbl[0].X = fe_zero();
-  tbl[0].Y = one;
-  tbl[0].Z = one;
-  tbl[0].T = fe_zero();
-  tbl[1].X = xn;
-  tbl[1].Y = y;
-  tbl[1].Z = one;
-  tbl[1].T = fe_mul(t, d2);
-  for (int k = 2; k < 16; ++k) {
-    pt4 r;
-    if ((k & 1) == 0) {
-      pt_double(r, tbl[k >> 1].X, tbl[k >> 1].Y, tbl[k >> 1].Z, true);
-    } else {
-      pt_add_tbl(r, tbl[k - 1], xn, y, nullptr, t, true);
+// ---------------------------------------------------------------------------
+// Four lanes per signature. The extended-coordinates formulas do each
+// point operation in two rounds of four independent field products
+// (Hisil, Wong, Carter, Dawson, "Twisted Edwards curves revisited",
+// 2008): a doubling is X^2, Y^2, Z^2, (X+Y)^2, then E F, G H, F G, E H.
+// A group of four lanes verifies one signature: in each round lane k
+// computes product k, and the group exchanges the four, so every lane
+// holds the whole point and runs the same instructions.
+//
+// The schedule is written once, over a group type G that supplies the
+// exchange:
+//   g.mul4(operands, out)   out[k] = a_k * b_k for k = 0..3, where
+//                           operands(k, a, b) sets product k's factors;
+//   typename G::table       the table of -A in cached form, of which a
+//                           lane needs only its own column.
+// group_host (below) stands for a group on one host thread: it computes
+// the four products in turn and keeps all four columns. The card's group
+// (ladder.cu) computes one product per lane and shuffles.
+// ---------------------------------------------------------------------------
+
+// x_k by selects: an array indexed by a run-time k would go to local
+// memory on the card.
+FE_HD fe sel4(int k, const fe &a0, const fe &a1, const fe &a2,
+              const fe &a3) {
+  fe r;
+  FE_UNROLL
+  for (int i = 0; i < 10; ++i)
+    r.v[i] = k == 0 ? a0.v[i] : k == 1 ? a1.v[i] : k == 2 ? a2.v[i] : a3.v[i];
+  return r;
+}
+
+struct group_host {
+  template <class F>
+  FE_HD void mul4(F operands, fe out[4]) const {
+    for (int k = 0; k < 4; ++k) {
+      fe a, b;
+      operands(k, a, b);
+      out[k] = fe_mul(a, b);
     }
-    r.T = fe_mul(r.T, d2);
-    tbl[k] = r;
   }
+  struct table {
+    fe c[16][4];
+    FE_HD explicit table(const group_host &) {}
+    FE_HD void set(int e, const fe &c0, const fe &c1, const fe &c2,
+                   const fe &c3) {
+      c[e][0] = c0;
+      c[e][1] = c1;
+      c[e][2] = c2;
+      c[e][3] = c3;
+    }
+    FE_HD const fe &col(int e, int k) const { return c[e][k]; }
+  };
+};
+
+// Round 2 of every operation: (X, Y, Z, T) = (E F, G H, F G, E H).
+template <class G>
+FE_HD void round2(const G &g, const fe &E, const fe &F, const fe &Gv,
+                  const fe &H, pt4 &r) {
+  fe o[4];
+  g.mul4([&](int k, fe &a, fe &b) {
+    a = sel4(k, E, Gv, F, E);
+    b = sel4(k, F, H, Gv, H);
+  }, o);
+  r.X = o[0];
+  r.Y = o[1];
+  r.Z = o[2];
+  r.T = o[3];
+}
+
+// p = 2p (dbl-2008-hwcd, a = -1), the same field operations as
+// pt_double; T is always computed.
+template <class G>
+FE_HD void dbl4(const G &g, pt4 &p) {
+  const fe s = fe_add(p.X, p.Y);
+  fe q[4];
+  g.mul4([&](int k, fe &a, fe &b) {
+    a = sel4(k, p.X, p.Y, p.Z, s);
+    b = a;
+  }, q);
+  const fe C = fe_add(q[2], q[2]);
+  const fe E = fe_sub(fe_sub(q[3], q[0]), q[1]);
+  const fe Gv = fe_sub(q[1], q[0]);
+  const fe F = fe_sub(Gv, C);
+  const fe H = fe_sub(fe_neg(q[0]), q[1]);
+  round2(g, E, F, Gv, H, p);
+}
+
+// Round 1 of an add gave q = (A, B, C, .); Dv is 2 Z1 Z2.
+template <class G>
+FE_HD void add4_finish(const G &g, const fe q[4], const fe &Dv, pt4 &p) {
+  const fe E = fe_sub(q[1], q[0]);
+  const fe F = fe_sub(Dv, q[2]);
+  const fe Gv = fe_add(Dv, q[2]);
+  const fe H = fe_add(q[1], q[0]);
+  round2(g, E, F, Gv, H, p);
+}
+
+// p = p + q for an affine q = (X2, Y2, T2*2d) (add-2008-hwcd-3, a = -1,
+// the same field operations as pt_add_tbl with qZ null). Round 1 is
+// (Y1-X1)(Y2-X2), (Y1+X1)(Y2+X2), T1 T2d; lane 3's product is not used,
+// since Z1 Z2 = Z1.
+template <class G>
+FE_HD void add4_affine(const G &g, pt4 &p, const fe &qX, const fe &qY,
+                       const fe &qTd2) {
+  const fe ymx = fe_sub(p.Y, p.X), ypx = fe_add(p.Y, p.X);
+  const fe qymx = fe_sub(qY, qX), qypx = fe_add(qY, qX);
+  fe q[4];
+  g.mul4([&](int k, fe &a, fe &b) {
+    a = sel4(k, ymx, ypx, p.T, p.Z);
+    b = sel4(k, qymx, qypx, qTd2, qTd2);
+  }, q);
+  add4_finish(g, q, fe_add(p.Z, p.Z), p);
+}
+
+// p = p + entry e of a table in cached form (Y2-X2, Y2+X2, T2*2d, Z2),
+// the same field operations as pt_add_tbl with qZ set. Lane k reads only
+// column k: round 1 is (Y1-X1) c0, (Y1+X1) c1, T1 c2, Z1 c3.
+template <class G>
+FE_HD void add4_cached(const G &g, pt4 &p, const typename G::table &tbl,
+                       int e) {
+  const fe ymx = fe_sub(p.Y, p.X), ypx = fe_add(p.Y, p.X);
+  fe q[4];
+  g.mul4([&](int k, fe &a, fe &b) {
+    a = sel4(k, ymx, ypx, p.T, p.Z);
+    b = tbl.col(e, k);
+  }, q);
+  add4_finish(g, q, fe_add(q[3], q[3]), p);
+}
+
+// Store (X, Y, Z, T) as entry e of a cached table; Td2 is T*2d.
+template <class Table>
+FE_HD void put_cached(Table &tbl, int e, const fe &X, const fe &Y,
+                      const fe &Z, const fe &Td2) {
+  tbl.set(e, fe_sub(Y, X), fe_add(Y, X), Td2, Z);
+}
+
+// The table of k * (-A), k = 0..15, each entry one add of -A to the one
+// before (complete formulas, so 2 * (-A) too). Entries are other
+// projective representatives than the one-thread schedule's (which
+// doubles the even ones); the ladder's affine result is the same.
+template <class G>
+FE_HD void build_table4(const G &g, const fe &xn, const fe &y,
+                        const fe &d2, typename G::table &tbl) {
+  const fe zero = fe_zero(), one = fe_one();
+  pt4 p;
+  p.X = xn;
+  p.Y = y;
+  p.Z = one;
+  p.T = fe_mul(xn, y);
+  const fe td2 = fe_mul(p.T, d2);
+  put_cached(tbl, 0, zero, one, one, zero);
+  put_cached(tbl, 1, xn, y, one, td2);
+  for (int e = 2; e < 16; ++e) {
+    add4_affine(g, p, xn, y, td2);
+    put_cached(tbl, e, p.X, p.Y, p.Z, fe_mul(p.T, d2));
+  }
+}
+
+// The ladder after decompression: table of -A, Straus-w4 over the low
+// n_windows windows (msb first: four doublings, the affine add of
+// digit_s * B from the rows of consts, the add of digit_h * (-A)),
+// affine conversion, canonical encode, compare with R. The inverse and
+// the encode are one serial chain, run by every lane of a group alike.
+template <class G>
+FE_HD bool ladder4(const G &g, bool ok, const fe &xn, const fe &y,
+                   const uint8_t rb[32], const uint8_t sb[32],
+                   const uint8_t hb[32], const int32_t *consts,
+                   int n_windows) {
+  typename G::table tbl(g);
+  build_table4(g, xn, y, load_const(consts, K_D2), tbl);
   pt4 acc;
   acc.X = fe_zero();
-  acc.Y = one;
-  acc.Z = one;
+  acc.Y = fe_one();
+  acc.Z = fe_one();
+  acc.T = fe_zero();
   for (int w = n_windows - 1; w >= 0; --w) {
     const int ds = ok ? digit(sb, w) : 0;
     const int dh = ok ? digit(hb, w) : 0;
-    for (int i = 0; i < 3; ++i) pt_double(acc, acc.X, acc.Y, acc.Z, false);
-    pt_double(acc, acc.X, acc.Y, acc.Z, true);
-    pt4 r;
-    pt_add_tbl(r, acc, load_const(consts, 3 * ds), load_const(consts, 3 * ds + 1),
-               nullptr, load_const(consts, 3 * ds + 2), true);
-    const pt4 &q = tbl[dh];
-    pt_add_tbl(acc, r, q.X, q.Y, &q.Z, q.T, false);
+    for (int i = 0; i < 4; ++i) dbl4(g, acc);
+    add4_affine(g, acc, load_const(consts, 3 * ds),
+                load_const(consts, 3 * ds + 1), load_const(consts, 3 * ds + 2));
+    add4_cached(g, acc, tbl, dh);
   }
   const fe zi = fe_invert(acc.Z);
   uint8_t enc[32], xb[32];
@@ -382,24 +523,30 @@ FE_HD bool ladder_tail(bool ok, const fe &xn, const fe &y,
   return ok && bytes_eq(enc, rb);
 }
 
-FE_HD bool verify_full_one(const uint8_t pk[32], const uint8_t rb[32],
-                           const uint8_t sb[32], const uint8_t hb[32],
-                           const int32_t *consts, int n_windows) {
+// The fused verify (B1): decompression of A, serial on every lane, then
+// the 4-lane ladder.
+template <class G>
+FE_HD bool verify4_full(const G &g, const uint8_t pk[32],
+                        const uint8_t rb[32], const uint8_t sb[32],
+                        const uint8_t hb[32], const int32_t *consts,
+                        int n_windows) {
   fe xn, y;
   const bool ok = decompress_neg(pk, consts, xn, y);
-  return ladder_tail(ok, xn, y, rb, sb, hb, consts, n_windows);
+  return ladder4(g, ok, xn, y, rb, sb, hb, consts, n_windows);
 }
 
-FE_HD bool verify_pre_one(const uint8_t xnb[32], const uint8_t yb[32],
-                          bool ok, const uint8_t rb[32], const uint8_t sb[32],
-                          const uint8_t hb[32], const int32_t *consts,
-                          int n_windows) {
-  return ladder_tail(ok, fe_frombytes(xnb), fe_frombytes(yb), rb, sb, hb,
-                     consts, n_windows);
+// The predecompressed verify (B2): cached bytes of (-A).x and A.y.
+template <class G>
+FE_HD bool verify4_pre(const G &g, const uint8_t xnb[32],
+                       const uint8_t yb[32], bool ok, const uint8_t rb[32],
+                       const uint8_t sb[32], const uint8_t hb[32],
+                       const int32_t *consts, int n_windows) {
+  return ladder4(g, ok, fe_frombytes(xnb), fe_frombytes(yb), rb, sb, hb,
+                 consts, n_windows);
 }
 
-// enc(r*B) for a little-endian scalar r: the fixed-base subset of
-// ladder_tail (no table of -A, no decompress). Per window, msb first:
+// enc(r*B) for a little-endian scalar r, one thread per scalar: the
+// fixed-base subset of the ladder (no table of -A, no decompress). Per window, msb first:
 // three doublings without T, one with T, then the affine add of
 // digit * B from the s-table rows of consts, whose T nobody reads.
 FE_HD void sign_rb_one(const uint8_t r[32], const int32_t *consts,

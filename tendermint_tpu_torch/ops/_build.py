@@ -117,6 +117,7 @@ def ladder_lib() -> ctypes.CDLL:
         [("tm_ladder_verify", [_P] * 6 + [_I, _I, _P], _I),
          ("tm_ladder_verify_pre", [_P] * 8 + [_I, _I, _P], _I),
          ("tm_ladder_sign_rb", [_P] * 3 + [_I, _I, _P], _I),
+         ("tm_ladder_occupancy", [_I], _I),
          ("tm_cuda_error_string", [_I], ctypes.c_char_p)])
 
 
@@ -143,4 +144,5 @@ def cpu_shim_lib() -> ctypes.CDLL:
          ("tm_cpu_fe_canon", [_P, _P, _I], None),
          ("tm_cpu_verify", [_P] * 6 + [_I, _I], None),
          ("tm_cpu_verify_pre", [_P] * 8 + [_I, _I], None),
+         ("tm_cpu_point_op", [_I, _I] + [_P] * 3 + [_I], None),
          ("tm_cpu_sign_rb", [_P] * 3 + [_I, _I], None)])

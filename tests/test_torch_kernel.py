@@ -4,9 +4,12 @@ kernel itself on the card.
 There is no card and no nvcc here, so the header is built with g++ into
 a small C shim (csrc/cpu_shim.cpp, loaded with ctypes): the same field,
 point and ladder functions the kernels run, one signature after another.
-Its field mul/invert/encode are held against the plain PyTorch field
-ops, its verify and its r*B against the plain versions (n_windows=8) and
-the oracle (64 windows). Bytes and verdicts are integers: tolerance 0.
+Its verify runs the 4-lane schedule of the verify kernel with the group
+emulated on one thread. Its field mul/invert/encode are held against the
+plain PyTorch field ops, each 4-lane point operation against the
+one-thread one (and the oracle), its verify and its r*B against the
+plain versions (n_windows=8) and the oracle (64 windows). Bytes and
+verdicts are integers: tolerance 0.
 
 The tests marked `cuda` launch the kernels themselves and skip without a card;
 on the H100 run them with `python -m pytest --noconftest -m cuda
@@ -72,6 +75,63 @@ def test_shim_field_op_matches_plain(shim, op):
         shim.tm_cpu_fe_canon(_ptr(a), _ptr(out), len(a))
         want = _plain_bytes(ta)
     np.testing.assert_array_equal(out, want)
+
+
+def _fe_bytes(v: int) -> np.ndarray:
+    return np.frombuffer((v % ref.P).to_bytes(32, "little"), np.uint8)
+
+
+def _random_points(n, seed):
+    """n extended points k*B (the identity first) with a random Z, as
+    uint8[n, 4, 32] (X, Y, Z, T), and the affine points."""
+    rng = np.random.RandomState(seed)
+    rows, affine = [], []
+    for i in range(n):
+        k = 0 if i == 0 else int.from_bytes(rng.bytes(32), "little") % ref.L
+        X, Y, Z, T = ref.point_mul(k, ref.BASE)
+        zi = pow(Z, ref.P - 2, ref.P)
+        x, y = X * zi % ref.P, Y * zi % ref.P
+        z = int.from_bytes(rng.bytes(32), "little") % (ref.P - 1) + 1
+        rows.append(np.stack([_fe_bytes(c * z) for c in (x, y, 1, x * y)]))
+        affine.append((x, y))
+    return np.stack(rows), affine
+
+
+def _shim_point_op(shim, op, lanes4, p, q):
+    out = np.zeros_like(p)
+    shim.tm_cpu_point_op(op, lanes4, _ptr(p), _ptr(q), _ptr(out), len(p))
+    return out
+
+
+def _affine(row):
+    X, Y, Z = (int.from_bytes(row[c].tobytes(), "little") for c in range(3))
+    zi = pow(Z, ref.P - 2, ref.P)
+    return X * zi % ref.P, Y * zi % ref.P
+
+
+@pytest.mark.parametrize("op", [0, 1, 2],
+                         ids=["double", "affine_add", "projective_add"])
+def test_shim_4lane_point_op_matches_one_thread(shim, op):
+    p, p_aff = _random_points(12, seed=31 + op)
+    q, q_aff = _random_points(12, seed=41 + op)
+    q[:, 3] = np.stack([_fe_bytes(int.from_bytes(t.tobytes(), "little") *
+                                  ref.D * 2) for t in q[:, 3]])
+    if op == 1:
+        q = np.ascontiguousarray(np.stack([
+            np.stack([_fe_bytes(x), _fe_bytes(y), _fe_bytes(1),
+                      _fe_bytes(x * y * ref.D * 2)]) for x, y in q_aff]))
+    got = _shim_point_op(shim, op, 1, p, q)
+    want = _shim_point_op(shim, op, 0, p, q)
+    np.testing.assert_array_equal(got, want)
+    for i in range(len(p)):
+        a = (*p_aff[i], 1, p_aff[i][0] * p_aff[i][1] % ref.P)
+        b = (*q_aff[i], 1, q_aff[i][0] * q_aff[i][1] % ref.P)
+        r = ref.point_add(a, a if op == 0 else b)
+        rz = pow(r[2], ref.P - 2, ref.P)
+        assert _affine(got[i]) == (r[0] * rz % ref.P, r[1] * rz % ref.P)
+        X, Y, Z, T = (int.from_bytes(got[i, c].tobytes(), "little")
+                      for c in range(4))
+        assert X * Y % ref.P == Z * T % ref.P       # T is X Y / Z
 
 
 def _kernel_consts():
@@ -185,6 +245,27 @@ def test_cuda_kernel_matches_plain(cuda_device, pre):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     np.testing.assert_array_equal(got.cpu().numpy(), batch["expect"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 5, 33, 2048])
+@pytest.mark.parametrize("pre", [False, True], ids=["full", "pre"])
+def test_cuda_kernel_partial_groups(cuda_device, pre, n):
+    """n signatures take 4n threads: a block, a warp or a group left
+    partly empty must still give every verdict."""
+    batch = vectors.edge_batch(min(n, 64), seed=28)
+    reps = -(-n // len(batch["expect"]))
+    rows = {k: np.ascontiguousarray(np.tile(batch[k], (reps, 1))[:n])
+            for k in ("pk", "rb", "s", "h")}
+    expect = np.tile(batch["expect"], reps)[:n]
+    t = {k: torch.from_numpy(v).to(cuda_device) for k, v in rows.items()}
+    if pre:
+        got = ladder.verify_pre(*ted._decompress_to_bytes(t["pk"]), t["rb"],
+                                t["s"], t["h"])
+    else:
+        got = ladder.verify(t["pk"], t["rb"], t["s"], t["h"])
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), expect)
 
 
 @pytest.mark.cuda
