@@ -28,9 +28,15 @@ Phases, each printing its own lines:
    one flipped signature byte must raise "invalid signature in commit".
    Kernel launch counts are zeroed just before and read just after.
 4. sign kernel: a seeded batch of 1024 scalars with edge values (0, 1, 2,
-   L - 1, 2^252, 2^252 - 1) through the r*B kernel and its plain version
-   on the card; encodings must be byte-equal to each other and to the
-   oracle, again tiled to the signing chunk of 16384, which is timed.
+   L - 1, 2^252, 2^252 - 1, and unreduced ones whose signed recoding
+   carries out of the top window: L, L + 1, 2^255, 2^256 - 1, every
+   nibble 8) through the r*B kernel (a fixed-base comb) and its plain
+   version (the TPU kernel's windowed schedule) on the card; encodings
+   must be byte-equal to each other and to the oracle. Then the same rows
+   tiled to 4096, 16384 (the signing chunk) and 65536 scalars, each
+   launch timed and held to both again; and at 16384 the kernel at one
+   window, checked the same way: the one-window time is the floor of
+   inverse and encode, the rest of the 64-window time is the 63 comb adds.
 5. lite path: a light-client header chain at BASELINE.json config 5's
    width (64 validators of power 10; 4096 headers, the one cut), every
    commit signed through sign_batch_async (r*B on the sign kernel), a
@@ -87,6 +93,7 @@ LITE_CHAIN = "chip-smoke-lite"
 LITE_ROUTES = {"full": 1, "fill": 1, "hit": 30}
 SWEEP = (2048, 8192, 32768)  # verify lanes timed; the first two also
 PLAIN_CHECK = (2048, 8192)   # held to the plain version
+SIGN_SWEEP = (4096, 16384, 65536)  # sign scalars timed; 16384 the chunk
 # H100 SXM published HBM rate (NVIDIA data sheet), bytes/s
 HBM_BYTES_S = 3.35e12
 # 32-bit integer multiply-adds an SM issues per clock on sm_90 (CUDA C++
@@ -302,15 +309,21 @@ LANE_BYTES = {"verify": 4 * 32 + 4, "verify_pre": 5 * 32 + 1 + 4,
               "sign_rb": 32 + 32}
 
 
-def _bound(name: str, n: int, rate: dict) -> tuple:
+def _muls_ms(muls: float, rate: dict) -> float:
+    """ms that `muls` field products take at the integer pipe's rate."""
+    return 1e3 * muls * rate["slots_per_mul"] / rate["imad_slots_per_s"]
+
+
+def _bound(name: str, n: int, rate: dict,
+           n_windows: int = ladder.N_WINDOWS) -> tuple:
     """(least ms the card could take for n lanes of a kernel, what bounds
     it): each input byte read once and each output byte written once at
-    the HBM rate, against the schedule's field products
-    (`ladder.field_muls`) of SLOTS_PER_MUL each at the integer
-    multiply-add pipe's rate."""
+    the HBM rate, against the launch's field products
+    (`ladder.bound_field_muls`: for the sign kernel the least work of the
+    batch, one inverse shared by all) of SLOTS_PER_MUL each at the
+    integer multiply-add pipe's rate."""
     bytes_ms = 1e3 * n * LANE_BYTES[name] / HBM_BYTES_S
-    ops_ms = 1e3 * n * ladder.field_muls(name) * rate["slots_per_mul"] \
-        / rate["imad_slots_per_s"]
+    ops_ms = _muls_ms(ladder.bound_field_muls(name, n, n_windows), rate)
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -358,7 +371,8 @@ def phase_kernels(device, rate: dict) -> dict:
         bound_ms, bound_by = _bound(name, N_TIME, rate)
         results[name] = {
             "max_abs_err": err, "ms": sweep[N_TIME], "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "n": N_TIME,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / sweep[N_TIME], "n": N_TIME,
             "sweep_ms": sweep}
         emit({"phase": "kernel_time", "kernel": name, **results[name]})
     return results
@@ -495,42 +509,93 @@ def phase_main(card: str, n_validators: int = N_VALIDATORS) -> dict:
 
 def _sign_edge_scalars(n: int, seed: int) -> list:
     rng = np.random.RandomState(seed)
-    edge = [0, 1, 2, ed25519_ref.L - 1, 1 << 252, (1 << 252) - 1]
-    return edge + [int.from_bytes(rng.bytes(32), "little") % ed25519_ref.L
+    L = ed25519_ref.L
+    edge = [0, 1, 2, L - 1, 1 << 252, (1 << 252) - 1,
+            # unreduced: the comb's recoding carries out of window 63
+            L, L + 1, 1 << 255, (1 << 256) - 1, int("88" * 32, 16)]
+    return edge + [int.from_bytes(rng.bytes(32), "little") % L
                    for _ in range(n - len(edge))]
+
+
+SIGN_LANES = ("r = 0, 1, 2, L-1, 2^252, 2^252-1, L, L+1, 2^255, 2^256-1, "
+              "0x88..88, random < L")
+
+
+def _rb_oracle(rs, n_windows: int) -> np.ndarray:
+    """enc((r mod 16^n_windows) * B) of each r, by the reference."""
+    m = 1 << 4 * n_windows
+    return np.stack([np.frombuffer(ed25519_ref.point_compress(
+        ed25519_ref.point_mul(r % m, ed25519_ref.BASE)), np.uint8)
+        for r in rs])
 
 
 def phase_sign_kernel(device, rate: dict) -> dict:
     """The r*B kernel against its plain version and the oracle on 1024
-    edge scalars, then on those tiled to the signing chunk, timed."""
+    edge scalars, then on those tiled to SIGN_SWEEP, each size timed;
+    then at the signing chunk at one window, timed and checked."""
     rs = _sign_edge_scalars(N_SIGN_CHECK, SEED + 1)
     r_np = np.stack([np.frombuffer(r.to_bytes(32, "little"), np.uint8)
                      for r in rs])
-    expect = np.stack([np.frombuffer(ed25519_ref.point_compress(
-        ed25519_ref.point_mul(r, ed25519_ref.BASE)), np.uint8) for r in rs])
-    err = 0
-    n_time = ted.SIGN_CHUNK
-    reps = n_time // N_SIGN_CHECK
-    for n, rows, want_np in (
-            (N_SIGN_CHECK, r_np, expect),
-            (n_time, np.tile(r_np, (reps, 1)), np.tile(expect, (reps, 1)))):
-        r = torch.from_numpy(np.ascontiguousarray(rows)).to(device)
-        digits = ladder.digits_from_bytes(r)
-        ms, got = _time_ms(lambda: ladder.sign_rb(r), TIME_REPS)
-        plain_ms, want = _time_ms(lambda: ladder.sign_rb_plain(digits), 1)
-        e = int((got.int() - want.int()).abs().max())
-        agree = bool(torch.equal(got, want)) and bool(
-            (got.cpu().numpy() == want_np).all())
-        emit({"phase": "kernel_check", "kernel": "sign_rb", "n": n,
-              "lanes": "r = 0, 1, 2, L-1, 2^252, 2^252-1, random < L",
-              "max_abs_err": e, "equal_to_plain_and_oracle": agree})
-        require(agree and e == 0,
-                f"sign_rb disagrees with its plain version or the oracle "
-                f"at {n}")
-        err = max(err, e)
-    bound_ms, bound_by = _bound("sign_rb", n_time, rate)
-    res = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by, "n": n_time}
+    n_chunk = ted.SIGN_CHUNK
+    require(n_chunk in SIGN_SWEEP, "the sign sweep misses the chunk")
+    err, sweep, by_windows = 0, {}, {}
+    full = ladder.N_WINDOWS
+    for n_windows, sizes in ((full, (N_SIGN_CHECK,) + SIGN_SWEEP),
+                             (1, (n_chunk,))):
+        expect = _rb_oracle(rs, n_windows)
+        for n in sizes:
+            reps = -(-n // N_SIGN_CHECK)
+            r = torch.from_numpy(np.ascontiguousarray(
+                np.tile(r_np, (reps, 1))[:n])).to(device)
+            digits = ladder.digits_from_bytes(r)
+            ms, got = _time_ms(lambda: ladder.sign_rb(r, n_windows),
+                               TIME_REPS)
+            if n == n_chunk:
+                p_ms, want = _time_ms(
+                    lambda: ladder.sign_rb_plain(digits, n_windows), 1)
+                by_windows[n_windows] = ms
+                if n_windows == full:
+                    plain_ms = p_ms
+            else:
+                want = ladder.sign_rb_plain(digits, n_windows)
+            e = int((got.int() - want.int()).abs().max())
+            agree = bool(torch.equal(got, want)) and bool(
+                (got.cpu().numpy() == np.tile(expect, (reps, 1))[:n]).all())
+            emit({"phase": "kernel_check", "kernel": "sign_rb", "n": n,
+                  "n_windows": n_windows, "lanes": SIGN_LANES,
+                  "max_abs_err": e, "equal_to_plain_and_oracle": agree})
+            require(agree and e == 0,
+                    f"sign_rb disagrees with its plain version or the "
+                    f"oracle at {n} scalars, {n_windows} windows")
+            err = max(err, e)
+            if n in SIGN_SWEEP:
+                bound_ms, _ = _bound("sign_rb", n, rate, n_windows)
+                if n_windows == full:
+                    sweep[n] = ms
+                emit({"phase": "kernel_sweep", "kernel": "sign_rb", "n": n,
+                      "n_windows": n_windows, "ms": ms,
+                      "us_per_scalar": 1e3 * ms / n, "bound_ms": bound_ms})
+    # where the 64-window time goes: the one-window launch is one comb add,
+    # the carry's add, the inverse and the encode; the rest is 63 adds
+    adds_ms = by_windows[full] - by_windows[1]
+    emit({"phase": "sign_windows", "n": n_chunk,
+          "ms_by_windows": by_windows,
+          "field_muls_by_windows": {w: ladder.field_muls("sign_rb", w)
+                                    for w in by_windows},
+          "floor_ms": by_windows[1], "adds_ms": adds_ms,
+          "ms_per_window": adds_ms / (full - 1),
+          "floor_share": by_windows[1] / by_windows[full]})
+    bound_ms, bound_by = _bound("sign_rb", n_chunk, rate)
+    # beside it, the bound on the TPU kernel's windowed schedule (the plain
+    # version's), the yardstick of the kernel this one replaced
+    windowed_ms = _muls_ms(
+        n_chunk * ladder.field_muls("sign_rb_plain"), rate)
+    res = {"max_abs_err": err, "ms": sweep[n_chunk], "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "share_of_bound": bound_ms / sweep[n_chunk],
+           "bound_ms_windowed": windowed_ms,
+           "share_of_windowed_bound": windowed_ms / sweep[n_chunk],
+           "n": n_chunk, "sweep_ms": sweep}
     emit({"phase": "kernel_time", "kernel": "sign_rb", **res})
     return {"sign_rb": res}
 
@@ -711,7 +776,7 @@ def main() -> int:
             "bound_ms": kernels[name]["bound_ms"],
             "bound_by": kernels[name]["bound_by"],
             "library_ms": None, "shape_n": kernels[name]["n"],
-            "sweep_ms": kernels[name].get("sweep_ms"), "ptxas": ptxas[name]})
+            "sweep_ms": kernels[name]["sweep_ms"], "ptxas": ptxas[name]})
     emit({"kernels": table, "not_ported": [], "card": card})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

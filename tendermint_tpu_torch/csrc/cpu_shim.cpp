@@ -90,11 +90,12 @@ void tm_cpu_point_op(int op, int lanes4, const uint8_t *p, const uint8_t *q,
   }
 }
 
-// out[i] = enc(r[i] * B) over the low n_windows 4-bit windows of r[i].
-void tm_cpu_sign_rb(const uint8_t *r, const int32_t *consts, uint8_t *out,
+// out[i] = enc(r[i] * B) over the low n_windows 4-bit windows of r[i],
+// on the comb of the sign kernel (comb: int32[65, 8, 3, 10]).
+void tm_cpu_sign_rb(const uint8_t *r, const int32_t *comb, uint8_t *out,
                     int n, int n_windows) {
   for (int i = 0; i < n; ++i)
-    sign_rb_one(r + 32 * i, consts, n_windows, out + 32 * i);
+    sign_rb_comb(r + 32 * i, comb, n_windows, out + 32 * i);
 }
 
 }  // extern "C"

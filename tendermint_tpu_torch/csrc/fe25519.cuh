@@ -6,7 +6,7 @@
 // version (ops/ladder.py).
 //
 // B1/B2 run four lanes per signature (the 4-lane schedule below); B3
-// runs one thread per scalar on the one-thread point functions.
+// runs one thread per scalar on the fixed-base comb (sign_rb_comb).
 //
 // Representation: 10 signed 32-bit limbs of radix 2^25.5 (26, 25, 26, ...
 // bits; limb i sits at bit ceil(25.5 i)), not the 20 x 13-bit limbs of
@@ -236,10 +236,6 @@ FE_HD fe fe_pow_p58(const fe &z) {  // z^((p-5)/8)
 // ---------------------------------------------------------------------------
 // Points: extended (X, Y, Z, T); table points keep T pre-multiplied by 2d.
 // ---------------------------------------------------------------------------
-
-struct pt3 {  // a point whose T nobody will read
-  fe X, Y, Z;
-};
 
 struct pt4 {
   fe X, Y, Z, T;
@@ -545,27 +541,65 @@ FE_HD bool verify4_pre(const G &g, const uint8_t xnb[32],
                  consts, n_windows);
 }
 
-// enc(r*B) for a little-endian scalar r, one thread per scalar: the
-// fixed-base subset of the ladder (no table of -A, no decompress). Per window, msb first:
-// three doublings without T, one with T, then the affine add of
-// digit * B from the s-table rows of consts, whose T nobody reads.
-FE_HD void sign_rb_one(const uint8_t r[32], const int32_t *consts,
-                       int n_windows, uint8_t out[32]) {
+// ---------------------------------------------------------------------------
+// Signing's r*B: the fixed-base comb (ref10's ge_scalarmult_base). B is
+// fixed, so instead of doubling between windows, window w adds a multiple
+// of 16^w * B read from a table: the comb, int32[65][COMB_J][3][10],
+// entry [w][j-1] = j * 16^w * B, affine, as (y - x, y + x, 2d x y)
+// (ops/ladder.py derives it from the installed s-table). Row 64 holds
+// the multiples of 2^256 * B, for the carry out of a 64th window.
+// ---------------------------------------------------------------------------
+
+enum { COMB_J = 8 };
+
+// p = p + sign * comb[w][|d| - 1], or p itself for d = 0 (madd-2008-hwcd-3,
+// a = -1, Z2 = 1): A, B, C, then X, Y, Z and, when asked, T. Negating the
+// entry swaps y - x with y + x and negates 2dxy, which swaps F with G.
+FE_HD void add_comb(pt4 &p, const int32_t *comb, int w, int d, bool want_t) {
+  const int j = d < 0 ? -d : d;
+  const int row = 3 * (COMB_J * w + (j > 0 ? j - 1 : 0));
+  const bool neg = d < 0, zero = j == 0;
+  // d = 0 adds the identity, (1, 1, 0) in this form
+  const fe ymx = fe_select(zero, fe_one(), load_const(comb, row));
+  const fe ypx = fe_select(zero, fe_one(), load_const(comb, row + 1));
+  const fe t2d = fe_select(zero, fe_zero(), load_const(comb, row + 2));
+  const fe A = fe_mul(fe_sub(p.Y, p.X), fe_select(neg, ypx, ymx));
+  const fe B = fe_mul(fe_add(p.Y, p.X), fe_select(neg, ymx, ypx));
+  const fe C = fe_mul(p.T, t2d);
+  const fe Dv = fe_add(p.Z, p.Z);
+  const fe E = fe_sub(B, A);
+  const fe H = fe_add(B, A);
+  const fe Dm = fe_sub(Dv, C), Dp = fe_add(Dv, C);
+  const fe F = fe_select(neg, Dp, Dm);
+  const fe G = fe_select(neg, Dm, Dp);
+  p.X = fe_mul(E, F);
+  p.Y = fe_mul(G, H);
+  p.Z = fe_mul(F, G);
+  if (want_t) p.T = fe_mul(E, H);
+}
+
+// enc(r*B) for a little-endian scalar r over its low n_windows 4-bit
+// windows, one thread per scalar. The windows are recoded lsb first into
+// signed digits in [-8, 7] (a window that reaches 8 with the carry in
+// becomes itself minus 16 and carries 1 into the next); each adds its
+// comb entry, and the carry out of window n_windows - 1 adds
+// 16^n_windows * B (comb row n_windows, digit 0 or 1). So r may be any 32
+// bytes, unreduced: the result is (r mod 16^n_windows) * B. Then the
+// inverse and the encode.
+FE_HD void sign_rb_comb(const uint8_t r[32], const int32_t *comb,
+                        int n_windows, uint8_t out[32]) {
   pt4 acc;
   acc.X = fe_zero();
   acc.Y = fe_one();
   acc.Z = fe_one();
-  for (int w = n_windows - 1; w >= 0; --w) {
-    const int d = digit(r, w);
-    for (int i = 0; i < 3; ++i) pt_double(acc, acc.X, acc.Y, acc.Z, false);
-    pt_double(acc, acc.X, acc.Y, acc.Z, true);
-    pt4 s;
-    pt_add_tbl(s, acc, load_const(consts, 3 * d), load_const(consts, 3 * d + 1),
-               nullptr, load_const(consts, 3 * d + 2), false);
-    acc.X = s.X;
-    acc.Y = s.Y;
-    acc.Z = s.Z;
+  acc.T = fe_zero();
+  int carry = 0;
+  for (int w = 0; w < n_windows; ++w) {
+    const int e = digit(r, w) + carry;  // 0..16
+    carry = (e + 8) >> 4;
+    add_comb(acc, comb, w, e - 16 * carry, true);
   }
+  add_comb(acc, comb, n_windows, carry, false);
   const fe zi = fe_invert(acc.Z);
   uint8_t xb[32];
   fe_tobytes(out, fe_mul(acc.Y, zi));

@@ -35,10 +35,20 @@
 // faster.
 //
 // sign_rb_kernel: one thread per scalar, uint8[N, 32] scalars in and
-// uint8[N, 32] encodings out. Also bound by integer multiply-adds: about
-// 2.5k field products per scalar against 64 bytes moved. It has no table
-// of -A, so nothing is indexed by a run-time digit but the s-table rows,
-// which it reads from global memory (they stay in L1/L2).
+// uint8[N, 32] encodings out. Also bound by integer multiply-adds, against
+// 64 bytes moved. The TPU kernel shares the verify ladder's window loop:
+// four doublings and an add a window, 2507 field products, three
+// quarters of them doublings, which only the variable base of verify
+// needs. B is fixed, so this kernel is a fixed-base comb
+// (fe25519.cuh, sign_rb_comb): signed digits in [-8, 7] and, per window,
+// one mixed add of an entry of a table of j * 16^w * B, 721 products, of
+// which the inverse is 265. At 16384 scalars (the signing chunk) the
+// grid is 128 blocks, one an SM. Four lanes a scalar on the add's two
+// rounds (each lane running the serial inverse) measured 1.8x slower
+// there and 2.3x at 65536, 1.5x faster only at 4096 (PERF.md).
+// At window w every thread reads one of the 8 entries of row w (960 B),
+// through the read-only path from global memory: they stay in L1, and
+// the digit-indexed reads of a warp would serialise in __constant__.
 
 #include <cuda_runtime.h>
 
@@ -122,13 +132,13 @@ __device__ __forceinline__ void load_row(uint8_t dst[32], const uint8_t *src,
 
 __global__ void __launch_bounds__(kThreads)
     sign_rb_kernel(const uint8_t *__restrict__ rs,
-                   const int32_t *__restrict__ consts,
+                   const int32_t *__restrict__ comb,
                    uint8_t *__restrict__ out, int n, int n_windows) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   uint8_t r[32], enc[32];
   load_row(r, rs, i);
-  fe25519::sign_rb_one(r, consts, n_windows, enc);
+  fe25519::sign_rb_comb(r, comb, n_windows, enc);
   uint32_t w[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k)
@@ -168,10 +178,11 @@ int tm_ladder_verify_pre(const void *xnb, const void *yb, const void *ok,
   return (int)cudaGetLastError();
 }
 
-int tm_ladder_sign_rb(const void *r, const void *consts, void *out, int n,
+// comb: the int32[65, 8, 3, 10] table of sign_rb_comb (ops/ladder.py).
+int tm_ladder_sign_rb(const void *r, const void *comb, void *out, int n,
                       int n_windows, void *stream) {
   sign_rb_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t *)r, (const int32_t *)consts, (uint8_t *)out, n,
+      (const uint8_t *)r, (const int32_t *)comb, (uint8_t *)out, n,
       n_windows);
   return (int)cudaGetLastError();
 }

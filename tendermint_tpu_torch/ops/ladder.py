@@ -19,7 +19,9 @@ curve25519 addition chains for the inverse and the square root;
 canonical encode, then compare with R). `sign_rb_plain` is the same
 window loop with the fixed-base add only, then the encode. They are what
 the CPU tests run and what `chip_smoke.py` holds the kernels against on
-the card.
+the card. The sign kernel itself runs another schedule, a fixed-base comb
+over `_comb_np`'s table (csrc/fe25519.cuh, `sign_rb_comb`), so its plain
+version is an independent check of it.
 
 `verify` / `verify_pre` / `sign_rb` launch the CUDA kernels of
 `csrc/ladder.cu` when their tensors are on a CUDA device and take the
@@ -83,6 +85,7 @@ def install_tables(s_table, consts, device=None) -> None:
         _consts(torch.device(device))
         if torch.device(device).type == "cuda":
             _kernel_consts(torch.device(device))
+            _comb(torch.device(device))
 
 
 def tables() -> tuple:
@@ -135,6 +138,53 @@ def _kernel_consts(device) -> torch.Tensor:
         rows += [_limbs25(fe.from_limbs(consts[i])) for i in range(3)]
         return torch.tensor(rows, dtype=torch.int32)
     return _on_device("kernel_consts", device, build)
+
+
+COMB_ROWS = 65   # windows 0..63, and the carry out of window 63
+
+
+def _dbl_ints(pt: tuple) -> tuple:
+    """2 * (X, Y, Z) on the curve, projective, in Python ints: the
+    doubling of RFC 8032 section 5.1.4 (a = -1; it needs no curve
+    constant)."""
+    P = fe.P
+    X, Y, Z = pt
+    A, B = X * X % P, Y * Y % P
+    C = 2 * Z * Z % P
+    H = A + B
+    E = H - (X + Y) * (X + Y)
+    G = A - B
+    F = C + G
+    return E * F % P, G * H % P, F * G % P
+
+
+def _comb_np(s_table, consts) -> np.ndarray:
+    """The sign kernel's fixed-base comb as int32[65, 8, 3, 10]: entry
+    [w, j - 1] is j * 16^w * B, affine, as (y - x, y + x, 2d x y) in the
+    kernel's radix. Row 0 is entries 1..8 of `s_table` (the layout of
+    `_s_table_np`); each next row is the one before doubled four times, in
+    Python ints; 2d is row 1 of `consts`. So the comb follows whatever
+    tables are installed."""
+    P = fe.P
+    d2 = fe.from_limbs(consts[1]) % P
+    pts = [tuple(fe.from_limbs(s_table[j, c]) % P for c in (0, 1)) + (1,)
+           for j in range(1, 9)]
+    out = np.empty((COMB_ROWS, 8, 3, 10), np.int32)
+    for w in range(COMB_ROWS):
+        for j, (X, Y, Z) in enumerate(pts):
+            zi = pow(Z, P - 2, P)
+            x, y = X * zi % P, Y * zi % P
+            out[w, j] = [_limbs25(y - x), _limbs25(y + x),
+                         _limbs25(d2 * x * y)]
+        for _ in range(4):
+            pts = [_dbl_ints(pt) for pt in pts]
+    return out
+
+
+def _comb(device) -> torch.Tensor:
+    """`_comb_np` of the installed tables, on `device`."""
+    return _on_device("comb", device, lambda: torch.from_numpy(
+        _comb_np(_tables["s_table"], _tables["consts"])))
 
 
 # ---------------------------------------------------------------------------
@@ -331,26 +381,57 @@ def sign_rb_plain(dig_r, n_windows: int = N_WINDOWS):
 
 
 def field_muls(kernel: str, n_windows: int = N_WINDOWS) -> int:
-    """Field multiplications (squarings included) of one verify
-    ("verify", "verify_pre") or one r*B ("sign_rb") on this schedule: the
-    count the roofline bound is taken from."""
+    """Field multiplications (squarings included) one lane runs: one
+    verify ("verify", "verify_pre") on this schedule, or one r*B on the
+    sign kernel's comb ("sign_rb") or on the windowed schedule its plain
+    version keeps ("sign_rb_plain")."""
     chain = 259                               # _chain_250
+    inv = chain + 5 + 1                       # _inv
     dbl_t, dbl, add_aff_t, add_z = 8, 7, 7, 7
     if kernel == "sign_rb":
-        # per window 3 doublings without T, 1 with, 1 affine add without
-        # T (no Z1*Z2, no E*H); then the inverse, then x and y
-        return n_windows * (3 * dbl + dbl_t + add_aff_t - 1) + chain + 5 \
-            + 1 + 2
+        # per window one mixed add with T (A, B, C, then X, Y, Z, T), the
+        # carry's add without T (6), the inverse, then x and y:
+        # 64 x 7 + 6 + 265 + 2 = 721 at 64 windows
+        return n_windows * add_aff_t + (add_aff_t - 1) + inv + 2
+    if kernel == "sign_rb_plain":
+        # per window three doublings without T, one with T, the affine
+        # add without T: 64 x 35 + 265 + 2 = 2507 at 64 windows
+        return n_windows * (3 * dbl + dbl_t + add_aff_t - 1) + inv + 2
     if kernel not in ("verify", "verify_pre"):
         raise ValueError(f"unknown kernel {kernel!r}")
     full = kernel == "verify"
     tail = (1 + 7 * (dbl_t + 1) + 7 * (add_aff_t + 1)     # td2 + h-table
             + n_windows * (3 * dbl + dbl_t + add_aff_t + add_z)
-            + chain + 5 + 1 + 2)              # inverse, then x and y
+            + inv + 2)                        # then x and y
     # decompress: y^2, y^2 d, v^3, v^7, u v^3, u v^7, the p58 chain,
     # the product with it, v r^2, r sqrt(-1), then (-x) y
     head = 1 + 1 + 2 + 2 + 1 + 1 + (chain + 3) + 1 + 2 + 1 + 1 if full else 1
     return head + tail
+
+
+def bound_field_muls(kernel: str, n: int, n_windows: int = N_WINDOWS) -> int:
+    """Field products of a launch over n lanes that its roofline bound is
+    taken from.
+
+    "sign_rb": the least work of enc(r*B) for a batch of n scalars over
+    the comb's table (signed 4-bit windows; a larger table would cut the
+    adds further and is not counted). Each scalar needs its window adds
+    and the carry's (64 x 7 + 6), then x and y (2), each from 1/Z. One
+    inverse serves the whole batch by Montgomery's trick: n - 1 prefix
+    products, the inverse (265), two products a scalar on the way back,
+    3 (n - 1) + 265 in all. So n (64 x 7 + 6 + 2 + 3) + 262 = 459 n + 262
+    at 64 windows, 459.016 a scalar at 16384, where the kernel's own
+    schedule (an inverse a scalar) runs 721. The only squarings left are
+    the shared inverse's 254, counted as products: under 0.02 a scalar at
+    16384.
+
+    "verify", "verify_pre": n x `field_muls`, the schedule's count, each
+    signature's own inverse and square root included, squarings counted
+    as products."""
+    if kernel != "sign_rb":
+        return n * field_muls(kernel, n_windows)
+    inv = 259 + 5 + 1
+    return n * (field_muls(kernel, n_windows) - inv + 3) + inv - 3
 
 
 # ---------------------------------------------------------------------------
@@ -370,10 +451,12 @@ def _check_rows(name, t, device, dtype=torch.uint8, width=32, n=None):
             f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _launch(name, fn_name, rows, n_windows, out_width=None):
+def _launch(name, fn_name, rows, n_windows, out_width=None,
+            table=_kernel_consts):
     """Check the inputs, allocate the output, launch `fn_name` on the
-    current stream, count. The output is int32[N] verdicts, returned as
-    bool[N], or with `out_width` uint8[N, out_width] bytes."""
+    current stream with `table(device)` (the kernels' constants, or the
+    sign kernel's comb), count. The output is int32[N] verdicts, returned
+    as bool[N], or with `out_width` uint8[N, out_width] bytes."""
     device = rows[0].device
     n = rows[0].shape[0]
     if not 1 <= n_windows <= N_WINDOWS:
@@ -388,7 +471,7 @@ def _launch(name, fn_name, rows, n_windows, out_width=None):
         out = torch.empty((n, out_width), dtype=torch.uint8, device=device)
     if n == 0:
         return out if out_width else out.bool()
-    consts = _kernel_consts(device)
+    consts = table(device)
     lib = _build.ladder_lib()
     stream = torch.cuda.current_stream(device)
     with torch.cuda.device(device):
@@ -434,10 +517,11 @@ def verify_pre(xnb, yb, ok, rb, s_bytes, h_bytes,
 
 def sign_rb(r_u8, n_windows: int = N_WINDOWS):
     """enc(r*B) as uint8[N, 32] for scalars r given as uint8[N, 32]
-    little-endian bytes (the nonces of signing, each < L)."""
+    little-endian bytes (the nonces of signing, each < L, though any 32
+    bytes give (r mod 16^n_windows) * B)."""
     if r_u8.device.type == "cpu":
         return sign_rb_plain(digits_from_bytes(r_u8), n_windows)
     if r_u8.device.type != "cuda":
         raise ValueError(f"sign_rb runs on cuda or cpu, not {r_u8.device}")
     return _launch("sign_rb", "tm_ladder_sign_rb", [r_u8], n_windows,
-                   out_width=32)
+                   out_width=32, table=_comb)

@@ -5,11 +5,13 @@ There is no card and no nvcc here, so the header is built with g++ into
 a small C shim (csrc/cpu_shim.cpp, loaded with ctypes): the same field,
 point and ladder functions the kernels run, one signature after another.
 Its verify runs the 4-lane schedule of the verify kernel with the group
-emulated on one thread. Its field mul/invert/encode are held against the
-plain PyTorch field ops, each 4-lane point operation against the
-one-thread one (and the oracle), its verify and its r*B against the
-plain versions (n_windows=8) and the oracle (64 windows). Bytes and
-verdicts are integers: tolerance 0.
+emulated on one thread, its r*B the sign kernel's fixed-base comb. Its
+field mul/invert/encode are held against the plain PyTorch field ops,
+each 4-lane point operation against the one-thread one (and the oracle),
+its verify against the plain versions (n_windows=8) and the oracle (64
+windows), its r*B against the plain version, which keeps the TPU
+kernel's windowed schedule, and the oracle at 1, 2, 8, 63 and 64
+windows. Bytes and verdicts are integers: tolerance 0.
 
 The tests marked `cuda` launch the kernels themselves and skip without a card;
 on the H100 run them with `python -m pytest --noconftest -m cuda
@@ -182,15 +184,21 @@ def test_shim_verify_matches_oracle_at_64_windows(shim, pre):
 
 def _shim_sign_rb(shim, r, n_windows):
     out = np.zeros_like(r)
-    shim.tm_cpu_sign_rb(_ptr(r), _ptr(_kernel_consts()), _ptr(out), len(r),
-                        n_windows)
+    comb = np.ascontiguousarray(ladder._comb(torch.device("cpu")).numpy())
+    shim.tm_cpu_sign_rb(_ptr(r), _ptr(comb), _ptr(out), len(r), n_windows)
     return out
 
 
-def _oracle_rb(r):
-    return np.stack([np.frombuffer(ref.point_compress(
-        ref.point_mul(int.from_bytes(row.tobytes(), "little"), ref.BASE)),
-        np.uint8) for row in r])
+def _oracle_rb(r, n_windows=64):
+    """enc((r mod 16^n_windows) * B) by the reference's double-and-add."""
+    return np.stack([np.frombuffer(ref.point_compress(ref.point_mul(
+        int.from_bytes(row.tobytes(), "little") % (1 << 4 * n_windows),
+        ref.BASE)), np.uint8) for row in r])
+
+
+def _r_rows(rs):
+    return np.stack([np.frombuffer(r.to_bytes(32, "little"), np.uint8)
+                     for r in rs])
 
 
 def _scalars(n, seed, bits):
@@ -200,22 +208,37 @@ def _scalars(n, seed, bits):
         for _ in range(n - 4)]
     if bits == 256:
         rs[3] = ref.L - 1
-    return np.stack([np.frombuffer(r.to_bytes(32, "little"), np.uint8)
-                     for r in rs])
+    return _r_rows(rs)
 
 
-def test_shim_sign_rb_matches_plain_at_8_windows(shim):
-    r = _scalars(12, 25, 32)
+# scalars whose signed recoding carries: every nibble 8 (each window
+# becomes -8 and carries), all ones, a lone top bit; at 64 windows a top
+# nibble >= 8 carries into 2^256 * B (comb row 64)
+CARRY_EDGES = {
+    8: [0x88888888, 0xFFFFFFFF, 0x80000000, 0x7FFFFFFF, 0x08080808],
+    64: [(1 << 256) - 1, 1 << 255, ref.L, ref.L + 1, int("88" * 32, 16),
+         (1 << 252) - 1],
+}
+
+
+def _with_edges(r, edges):
+    """r with rows 4.. replaced by the scalars `edges`."""
+    r[4:4 + len(edges)] = _r_rows(edges)
+    return r
+
+
+@pytest.mark.parametrize("n_windows", [1, 2, 8, 63, 64])
+def test_shim_sign_rb_matches_plain_and_oracle(shim, n_windows):
+    """The sign kernel's comb (through the shim) against the plain
+    version's windowed schedule and the oracle, on (r mod 16^n) * B:
+    random scalars of all 256 bits, so the windows above n are ignored and
+    the recoding's carry lands in comb row n."""
+    r = _with_edges(_scalars(12, 25 + n_windows, 256),
+                    CARRY_EDGES.get(n_windows, CARRY_EDGES[64]))
     want = ladder.sign_rb_plain(ladder.digits_from_bytes(torch.from_numpy(r)),
-                                n_windows=8)
-    np.testing.assert_array_equal(_shim_sign_rb(shim, r, 8), want.numpy())
-    np.testing.assert_array_equal(want.numpy(), _oracle_rb(r))
-
-
-def test_shim_sign_rb_matches_oracle_at_64_windows(shim):
-    r = _scalars(16, 26, 256)
-    r[4] = np.frombuffer(((1 << 252) - 1).to_bytes(32, "little"), np.uint8)
-    np.testing.assert_array_equal(_shim_sign_rb(shim, r, 64), _oracle_rb(r))
+                                n_windows=n_windows).numpy()
+    np.testing.assert_array_equal(_shim_sign_rb(shim, r, n_windows), want)
+    np.testing.assert_array_equal(want, _oracle_rb(r, n_windows))
 
 
 @pytest.fixture
@@ -270,10 +293,13 @@ def test_cuda_kernel_partial_groups(cuda_device, pre, n):
 
 @pytest.mark.cuda
 def test_cuda_sign_rb_matches_plain(cuda_device):
-    r = torch.from_numpy(_scalars(256, 27, 256)).to(cuda_device)
-    got = ladder.sign_rb(r)
-    want = ladder.sign_rb_plain(ladder.digits_from_bytes(r))
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
-    np.testing.assert_array_equal(got.cpu().numpy()[:16],
-                                  _oracle_rb(r.cpu().numpy()[:16]))
+    r_np = _with_edges(_scalars(256, 27, 256),
+                       CARRY_EDGES[64] + CARRY_EDGES[8])
+    r = torch.from_numpy(r_np).to(cuda_device)
+    for n_windows in (1, 8, 64):
+        got = ladder.sign_rb(r, n_windows=n_windows)
+        want = ladder.sign_rb_plain(ladder.digits_from_bytes(r), n_windows)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        np.testing.assert_array_equal(got.cpu().numpy()[:24],
+                                      _oracle_rb(r_np[:24], n_windows))

@@ -8,8 +8,10 @@ on the CPU, against the JAX package and RFC 8032:
 - the host phases against the JAX package's native sign phases;
 - sign_batch(device="cpu") against the JAX package's sign_batch and the
   oracle's scalar signer;
-- the tables the JAX package installs drive sign_rb too;
-- the sign schedule's field products, the count of the kernel's bound.
+- the tables the JAX package installs drive sign_rb too, and give the
+  sign kernel the same comb as the port's own tables; the comb's entries
+  are j * 16^w * B;
+- the sign kernel's field products, the count of its bound.
 
 Every output is bytes: tolerance 0.
 """
@@ -133,10 +135,66 @@ def test_installed_jax_tables_drive_sign_rb():
         ladder.install_tables(*own)
 
 
+def test_comb_from_installed_jax_tables_equals_own():
+    own_tables = ladder.tables()
+    own = ladder._comb(torch.device("cpu"))
+    try:
+        convert.state_from_jax(ladder_pallas._s_table_np(),
+                               ladder_pallas._consts_np(), device="cpu")
+        got = ladder._comb(torch.device("cpu"))
+        assert got is not own            # rebuilt from the installed table
+        assert torch.equal(got, own)
+    finally:
+        ladder.install_tables(*own_tables)
+
+
+def _limbs25_int(limbs) -> int:
+    """10 limbs of radix 2^25.5 (limb i at bit ceil(25.5 i)) -> int."""
+    return sum(int(v) << (26 * ((i + 1) // 2) + 25 * (i // 2))
+               for i, v in enumerate(limbs))
+
+
+def test_comb_entries_are_multiples_of_b():
+    comb = ladder._comb_np(*ladder.tables())
+    assert comb.shape == (65, 8, 3, 10) and comb.dtype == np.int32
+    base = ref.BASE
+    for w in range(65):
+        pt = ref.IDENT
+        for j in range(8):
+            pt = ref.point_add(pt, base)                 # (j + 1) 16^w B
+            X, Y, Z, _ = pt
+            zi = pow(Z, ref.P - 2, ref.P)
+            x, y = X * zi % ref.P, Y * zi % ref.P
+            assert [_limbs25_int(comb[w, j, c]) for c in range(3)] == [
+                (y - x) % ref.P, (y + x) % ref.P, 2 * ref.D * x * y % ref.P]
+        base = ref.point_mul(16, base)
+
+
 def test_sign_field_mul_count():
-    # the per-signature count of the sign kernel's bound in PERF.md:
-    # 64 windows x (3 x 7 + 8 + 6) + 259 + 5 + 1 + 2
-    assert ladder.field_muls("sign_rb") == 2507
-    assert ladder.field_muls("sign_rb", n_windows=8) == 8 * 35 + 267
+    # a scalar on the sign kernel's comb: 64 windows x 7 (a mixed add with
+    # T) + 6 (the carry's add, no T) + 259 + 5 + 1 (the inverse) + 2 (x
+    # and y); on the plain version's windowed schedule: 64 windows x (3 x 7
+    # + 8 doublings + 6, the add without T) + 265 + 2
+    assert ladder.field_muls("sign_rb") == 64 * 7 + 6 + 259 + 5 + 1 + 2 \
+        == 721
+    assert ladder.field_muls("sign_rb", n_windows=8) == 8 * 7 + 273
+    assert ladder.field_muls("sign_rb", n_windows=1) == 280
+    assert ladder.field_muls("sign_rb_plain") == 64 * 35 + 267 == 2507
     with pytest.raises(ValueError):
         ladder.field_muls("sign")
+
+
+def test_bound_field_muls():
+    # the sign kernel's bound is the least work of the batch: per scalar
+    # the comb's adds (64 x 7 + 6), x and y (2) and Montgomery's trick (3);
+    # one inverse (265) for the batch, less the 3 the first scalar saves
+    per_scalar = 64 * 7 + 6 + 2 + 3
+    assert ladder.bound_field_muls("sign_rb", 16384) \
+        == 16384 * per_scalar + 265 - 3 == 7_520_518
+    assert ladder.bound_field_muls("sign_rb", 1) == ladder.field_muls(
+        "sign_rb")
+    assert ladder.bound_field_muls("sign_rb", 4, n_windows=1) \
+        == 4 * (7 + 6 + 2 + 3) + 262
+    # the verify kernels' is their schedule's count
+    assert ladder.bound_field_muls("verify", 8192) == 8192 * 3414
+    assert ladder.bound_field_muls("verify_pre", 2048) == 2048 * 3140
