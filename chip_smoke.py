@@ -5,29 +5,50 @@
 Phases, each printing its own lines:
 
 1. device: the card's name and power limit (nvidia-smi), then the build
-   of the CUDA kernels from csrc/ (nvcc), with its time and each
-   kernel's registers, stack and spills from the ptxas report; the SM
-   count and nvidia-smi's clocks.max.sm, which give the integer pipe's
-   rate the kernels' bound is taken at. Beside the build nvcc compiles a
-   standalone probe of one and of two chained field products; the
-   difference of their SASS is printed as a diagnostic of the compiler's
-   overhead: the IMAD issue slots it spends on a product, against the
-   SLOTS_PER_MUL the product needs.
+   of the host prep extension (csrc/prep.cpp with g++ against the
+   interpreter's Python.h: compiler, flags, include path, seconds, and
+   the SHA-512 it hashes with) and of the CUDA kernels from csrc/ (nvcc),
+   with its time and each kernel's registers, stack and spills from the
+   ptxas report; the SM count and nvidia-smi's clocks.max.sm, which give
+   the integer pipe's rate the kernels' bound is taken at. Beside the
+   build nvcc compiles a standalone probe of one and of two chained field
+   products; the difference of their SASS is printed as a diagnostic of
+   the compiler's overhead: the IMAD issue slots it spends on a product,
+   against the SLOTS_PER_MUL the product needs.
 2. kernels: a seeded batch of 1024 signatures with edge lanes (valid,
    tampered R / s / message, a pubkey off the curve, x = 0 with the sign
-   bit set, y >= p, zero padding) through both verify kernels and their
-   plain PyTorch versions on the card; verdicts must be bit-equal to each
-   other and to the oracle. Then the lanes sweep: the same rows tiled to
-   2048 (the 10k commit's padded tail), 8192 (the main path's chunk) and
-   32768 signatures, each launch timed, held to the oracle at every size
-   and to the plain version at 2048 and 8192.
+   bit set, y >= p, zero padding) and 256 small-order probe lanes
+   (torsion and mixed-order keys, torsion R with s = 0, R with y = p ...
+   p + 18, x = 0 with the sign bit and y = p - 1) through both verify
+   kernels and their plain PyTorch versions on the card; verdicts must be
+   bit-equal to each other and to the oracle. Then the lanes sweep: the
+   edge rows tiled to 2048 (the 10k commit's padded tail), 8192 (the main
+   path's chunk) and 32768 signatures, each launch timed, held to the
+   oracle at every size and to the plain version at 2048 and 8192.
 3. commit path: a 10,000-validator commit (seeded keys, signed with the
    port's table signer) through ValidatorSet.verify_commit ->
-   BatchVerifier("auto") -> CUDA kernels, three times: the
-   predecompression cache must walk full -> fill -> hit. A commit with
-   one flipped signature byte must raise "invalid signature in commit".
-   Kernel launch counts are zeroed just before and read just after.
-4. sign kernel: a seeded batch of 1024 scalars with edge values (0, 1, 2,
+   BatchVerifier("auto") -> native prep -> CUDA kernels, three times: the
+   predecompression cache must walk full -> fill -> hit, and every item
+   must take the native prep (`prep_stats`). Then one more hit call,
+   its wall split into stages read inside that call, at the functions
+   the path itself calls (commit items, native prep, padding, cache-row
+   assembly, the six uploads, the kernel launch, the rest of the
+   dispatch, the resolver's wait and mask, the power check; the kernels'
+   device time from their events), and the hashlib prep on the call's
+   items, which must give the same bytes as its native prep. A commit
+   with one flipped signature byte must raise "invalid signature in
+   commit". Kernel launch counts are zeroed just before and read just
+   after: the five calls launch B1 and B2 themselves.
+4. mixed commit: the same commit with 16 validators (seeded places) on
+   secp256k1 keys, from a cold cache: full -> fill -> hit over the
+   Ed25519 chunks, the secp256k1 items verified on the host. Verdicts of
+   a copy with four tampered items of each kind are held to the oracles
+   (secp256k1_ref on every secp256k1 item, the Ed25519 oracle on the
+   tampered ones and a seeded sample). A flipped byte in one secp256k1
+   precommit, and the same precommit re-encoded with a non-minimal DER
+   integer, must each raise "invalid signature in commit". Launch counts
+   zeroed just before, read just after.
+5. sign kernel: a seeded batch of 1024 scalars with edge values (0, 1, 2,
    L - 1, 2^252, 2^252 - 1, and unreduced ones whose signed recoding
    carries out of the top window: L, L + 1, 2^255, 2^256 - 1, every
    nibble 8) through the r*B kernel (a fixed-base comb) and its plain
@@ -37,16 +58,17 @@ Phases, each printing its own lines:
    launch timed and held to both again; and at 16384 the kernel at one
    window, checked the same way: the one-window time is the floor of
    inverse and encode, the rest of the 64-window time is the 63 comb adds.
-5. lite path: a light-client header chain at BASELINE.json config 5's
+6. lite path: a light-client header chain at BASELINE.json config 5's
    width (64 validators of power 10; 4096 headers, the one cut), every
-   commit signed through sign_batch_async (r*B on the sign kernel), a
-   seeded sample held against the table signer, then certify_chain ->
-   BatchVerifier("auto") -> verify kernels, whose cache routes must be
-   1 full, 1 fill, 30 hit. Launch counts are zeroed before the build
-   and read after the certify. Three forgeries must then fail with the
-   JAX package's messages: a flipped signature byte, a header changed
-   after signing, another trusted set.
-6. the kernel table as one JSON line, the card again, then the last line
+   commit signed through sign_batch_async (native nonce and finish
+   phases, r*B on the sign kernel), a seeded sample held against the
+   table signer, then certify_chain -> BatchVerifier("auto") -> native
+   prep -> verify kernels, whose cache routes must be 1 full, 1 fill, 30
+   hit. Launch counts are zeroed before the build and read after the
+   certify. Three forgeries must then fail with the JAX package's
+   messages: a flipped signature byte, a header changed after signing,
+   another trusted set.
+7. the kernel table as one JSON line, the card again, then the last line
    {"ok": true, "device": {...}}.
 
 Any mismatch or exception ends the run with a non-zero code before the
@@ -55,9 +77,11 @@ last line. Without a CUDA device it exits 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -66,6 +90,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from tendermint_tpu_torch import native
 from tendermint_tpu_torch.lite import (CertificationError, FullCommit,
                                        SignedHeader, ValidatorsChangedError,
                                        certify_chain, default_window)
@@ -74,13 +99,16 @@ from tendermint_tpu_torch.ops import _build, ladder
 from tendermint_tpu_torch.ops import ed25519 as ted
 from tendermint_tpu_torch.types.block import (BlockID, Commit, Header,
                                               PartSetHeader)
-from tendermint_tpu_torch.types.keys import PrivKey
+from tendermint_tpu_torch.types import keys as tkeys
+from tendermint_tpu_torch.types.keys import PrivKey, Secp256k1PrivKey
 from tendermint_tpu_torch.types.validator_set import Validator, ValidatorSet
 from tendermint_tpu_torch.types.vote import Vote, VoteType
-from tendermint_tpu_torch.utils import ed25519_fast, ed25519_ref, vectors
+from tendermint_tpu_torch.utils import (ed25519_fast, ed25519_ref,
+                                        secp256k1_ref, vectors)
 
 SEED = 20261016
 N_CHECK = 1024            # edge batch for kernel vs plain
+N_PROBE = 256             # small-order probe lanes for kernel vs plain
 N_TIME = 8192             # the main path's full chunk
 N_VALIDATORS = 10_000     # BASELINE.json config 3
 TIME_REPS = 5
@@ -91,6 +119,8 @@ LITE_VALIDATORS = 64      # BASELINE.json config 5's width
 LITE_HEADERS = 4096       # config 5 has 1M headers: the one cut
 LITE_CHAIN = "chip-smoke-lite"
 LITE_ROUTES = {"full": 1, "fill": 1, "hit": 30}
+N_SECP = 16               # secp256k1 validators of the mixed commit
+N_ORACLE_SAMPLE = 128     # untampered Ed25519 items held to the oracle
 SWEEP = (2048, 8192, 32768)  # verify lanes timed; the first two also
 PLAIN_CHECK = (2048, 8192)   # held to the plain version
 SIGN_SWEEP = (4096, 16384, 65536)  # sign scalars timed; 16384 the chunk
@@ -221,6 +251,12 @@ def phase_build() -> tuple:
     integer rate the bounds are taken at, each kernel's ptxas report and
     blocks per SM)."""
     t0 = time.perf_counter()
+    prep_lib = native.build()
+    prep = {"compiler": shutil.which("g++"), "flags": native.prep_flags(),
+            "include": native.python_include(), "library": prep_lib.name,
+            "seconds": time.perf_counter() - t0,
+            "sha512_impl": native.sha512_impl()}
+    t0 = time.perf_counter()
     nvcc = _build.find_nvcc()
     probe, cubin = _start_probe(nvcc)
     lib = _build.ladder_lib()
@@ -252,7 +288,7 @@ def phase_build() -> tuple:
         ptxas[name]["blocks_per_sm"] = lib.tm_ladder_occupancy(k)
         require(ptxas[name]["blocks_per_sm"] > 0, f"occupancy of {name}")
     emit({"phase": "build", "seconds": round(build_s, 3), "ptxas": ptxas,
-          "int_rate": rate})
+          "int_rate": rate, "prep": prep})
     return rate, ptxas
 
 
@@ -345,6 +381,14 @@ def phase_kernels(device, rate: dict) -> dict:
         got, want = kernel(), plain()
         results[name] = {"max_abs_err": _compare(
             name, got, want, batch["expect"], N_CHECK, lanes)}
+    # the small-order and non-canonical lanes of vectors.probe_batch
+    probe = vectors.probe_batch(N_PROBE, seed=SEED + 4)
+    tp = _cuda_rows(probe, device)
+    for name in VERIFY_KERNELS:
+        kernel, plain = _kernel_and_plain(name, tp)
+        err = _compare(name, kernel(), plain(), probe["expect"], N_PROBE,
+                       sorted(set(probe["kind"])))
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
 
     # the lanes sweep: the edge rows tiled to the main path's shapes
     # (2048 is the 10k commit's padded tail, 8192 the full chunk) and to
@@ -388,20 +432,25 @@ def _keys(n: int, seed: int):
     return out
 
 
-def build_commit(keys):
+def build_commit(keys, secp=None):
     """(valset, block_id, commit): every validator precommits for one
-    block with its own timestamp, signed with the port's table signer."""
-    vs = ValidatorSet([Validator(pub, 10 + i % 7)
-                       for i, (_, _, pub) in enumerate(keys)])
-    by_pub = {pub: (a, prefix) for a, prefix, pub in keys}
+    block with its own timestamp, signed with the port's table signer;
+    `secp` {index in keys: Secp256k1PrivKey} puts secp256k1 keys in
+    those validators' places."""
+    secp = secp or {}
+    pubs = [secp[i].pubkey.secp256k1 if i in secp else pub
+            for i, (_, _, pub) in enumerate(keys)]
+    vs = ValidatorSet([Validator(p, 10 + i % 7) for i, p in enumerate(pubs)])
+    by_pub = {p: secp.get(i, keys[i]) for i, p in enumerate(pubs)}
     bid = BlockID(b"\x5a" * 32, PartSetHeader(4, b"\xa5" * 32))
     votes = []
     for idx, val in enumerate(vs.validators):
         v = Vote(val.address, idx, HEIGHT, 0, 1_700_000_000_000 + idx,
                  VoteType.PRECOMMIT, bid)
-        a, prefix = by_pub[val.pubkey]
-        v.signature = ed25519_fast.sign_expanded(
-            a, prefix, val.pubkey, v.sign_bytes(CHAIN))
+        key = by_pub[val.pubkey]
+        sb = v.sign_bytes(CHAIN)
+        v.signature = key.sign(sb) if isinstance(key, Secp256k1PrivKey) \
+            else ed25519_fast.sign_expanded(key[0], key[1], val.pubkey, sb)
         votes.append(v)
     return vs, bid, Commit(bid, votes)
 
@@ -439,6 +488,11 @@ def _route(before, after) -> dict:
     return {k: after[k] - before[k] for k in ("full", "fill", "hit")}
 
 
+def _prep_delta(before) -> dict:
+    after = ted.prep_stats()
+    return {k: after[k] - before[k] for k in after}
+
+
 def _zero_launches() -> None:
     for name in ladder.launches:
         ladder.launches[name] = 0
@@ -449,43 +503,134 @@ def _require_launched(launches: dict, kernels, path: str) -> None:
             f"a kernel of the {path} path never launched: {launches}")
 
 
-def phase_main(card: str, n_validators: int = N_VALIDATORS) -> dict:
-    t0 = time.perf_counter()
-    keys = _keys(n_validators, SEED)
-    vs, bid, commit = build_commit(keys)
-    emit({"phase": "generate", "validators": n_validators,
-          "seconds": round(time.perf_counter() - t0, 3)})
-    chunks = -(-n_validators // tverifier.BATCH_CHUNK)
-
-    timer: list = []
-    inner = _time_launches(timer)
-    _zero_launches()
+def _verify_routes(phase: str, vs, bid, commit, n_ed: int, timer: list,
+                   card: str) -> list:
+    """verify_commit three times; the cache must walk full -> fill -> hit
+    over the commit's Ed25519 chunks, and every item must take the
+    native prep. Returns the walls in ms."""
+    chunks = -(-n_ed // tverifier.BATCH_CHUNK)
+    prep_before = ted.prep_stats()
+    walls = []
     for call, route in enumerate(("full", "fill", "hit")):
         before = ted.predecomp_stats()
         mark = len(timer)
         t1 = time.perf_counter()
         vs.verify_commit(CHAIN, bid, HEIGHT, commit)
         wall = time.perf_counter() - t1
+        walls.append(wall * 1e3)
         timed = timer[mark:]
         kernel_ms = sum(_kernel_ms(timed).values())
         got = _route(before, ted.predecomp_stats())
-        emit({"phase": "verify_commit", "call": call, "route": got,
+        emit({"phase": phase, "call": call, "route": got,
               "launches": [(nm, n) for nm, n, _, _ in timed],
               "wall_ms": wall * 1e3, "kernel_ms": kernel_ms,
-              "sigs_per_s": n_validators / wall, "card": card})
+              "sigs_per_s": len(vs) / wall, "card": card})
         require(got == {"full": 0, "fill": 0, "hit": 0, route: chunks},
-                f"call {call} took cache route {got}, want {chunks} x {route}")
+                f"{phase} call {call} took cache route {got}, want "
+                f"{chunks} x {route}")
+    prep = _prep_delta(prep_before)
+    emit({"phase": "prep_route", "path": phase, **prep})
+    require(prep["native"] == 3 * n_ed and prep["plain"] == 0,
+            f"the {phase} calls did not all take the native prep: {prep}")
+    return walls
 
-    # where a steady-state (hit) call's wall time goes: the host stages
-    # of the path timed on their own, beside the kernels' event time
-    t1 = time.perf_counter()
-    items, _ = vs.commit_verification_items(CHAIN, bid, HEIGHT, commit)
-    t2 = time.perf_counter()
-    ted.prepare_batch_bytes([it[0] for it in items], [it[1] for it in items],
-                            [it[2] for it in items])
-    t3 = time.perf_counter()
-    emit({"phase": "hit_breakdown", "items_ms": (t2 - t1) * 1e3,
-          "host_prep_ms": (t3 - t2) * 1e3, "card": card})
+
+def _hit_breakdown(vs, bid, commit, timer: list, card: str) -> None:
+    """Where a steady-state (hit) call's wall goes, read inside one more
+    real hit call of verify_commit: the functions at its stage boundaries
+    are wrapped for that call so that each adds its host time to a stage
+    (commit items, native prep, padding, cache-row assembly, uploads,
+    kernel launch, the rest of the dispatch — the pinned copies and the
+    event —, the resolver's wait and mask, the power check); the kernels'
+    device time comes from their events. Then the hashlib prep on the
+    call's own items, which must give the same bytes as its native prep."""
+    verifier = tverifier.default_verifier()
+    st = dict.fromkeys(("items_ms", "dispatch_ms", "host_prep_ms", "pad_ms",
+                        "assembly_ms", "upload_ms", "launch_ms",
+                        "resolve_ms", "check_ms"), 0.0)
+    kept: dict = {}
+
+    def timed(fn, stage):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                st[stage] += (time.perf_counter() - t0) * 1e3
+        return call
+
+    def prep_and_keep(items, prep=ted.prep_items):
+        kept["items"], kept["prep"] = items, prep(items)
+        return kept["prep"]
+
+    def dispatch(items, verify_async=verifier.verify_async):
+        return timed(verify_async(items), "resolve_ms")
+
+    patches = [
+        (vs, "commit_verification_items",
+         timed(vs.commit_verification_items, "items_ms")),
+        (vs, "check_commit_results",
+         timed(vs.check_commit_results, "check_ms")),
+        (verifier, "verify_async", timed(dispatch, "dispatch_ms")),
+        (ted, "prep_items", timed(prep_and_keep, "host_prep_ms")),
+        (ted, "_pad_to", timed(ted._pad_to, "pad_ms")),
+        (ted, "_predecomp_rows", timed(ted._predecomp_rows, "assembly_ms")),
+        (ted, "_upload", timed(ted._upload, "upload_ms")),
+        (ladder, "verify_pre", timed(ladder.verify_pre, "launch_ms"))]
+    saved = [(owner, name, vars(owner).get(name)) for owner, name, _ in patches]
+    route_before, prep_before, mark = (ted.predecomp_stats(),
+                                       ted.prep_stats(), len(timer))
+    try:
+        for owner, name, fn in patches:
+            setattr(owner, name, fn)
+        t0 = time.perf_counter()
+        vs.verify_commit(CHAIN, bid, HEIGHT, commit)
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for owner, name, fn in saved:
+            if fn is None:          # a method of the instance's class
+                delattr(owner, name)
+            else:
+                setattr(owner, name, fn)
+    items = kept["items"]
+    chunks = -(-len(items) // tverifier.BATCH_CHUNK)
+    got = _route(route_before, ted.predecomp_stats())
+    require(got == {"full": 0, "fill": 0, "hit": chunks},
+            f"the breakdown's call took cache route {got}")
+    require(_prep_delta(prep_before)["native"] == len(items),
+            "the hit call's items did not take the native prep")
+    t0 = time.perf_counter()
+    plain = ted.prepare_batch_bytes_plain(*zip(*items))
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    same = all(np.array_equal(a, b) for a, b in zip(kept["prep"], plain))
+    require(same, "native prep differs from the hashlib prep")
+    # dispatch_ms holds the prep ... launch stages; the rest of it is the
+    # pinned copies, the event and the chunk loop
+    st["dispatch_rest_ms"] = st["dispatch_ms"] - sum(
+        st[k] for k in ("host_prep_ms", "pad_ms", "assembly_ms", "upload_ms",
+                        "launch_ms"))
+    host_ms = sum(st[k] for k in ("items_ms", "dispatch_ms", "resolve_ms",
+                                  "check_ms"))
+    emit({"phase": "hit_breakdown", "wall_ms": wall, **st,
+          "unattributed_ms": wall - host_ms,
+          "kernel_ms": sum(_kernel_ms(timer[mark:]).values()),
+          "plain_prep_ms": plain_ms, "prep_equal_to_plain": same,
+          "sha512_impl": native.sha512_impl(), "card": card})
+
+
+def phase_main(card: str, n_validators: int = N_VALIDATORS) -> tuple:
+    t0 = time.perf_counter()
+    keys = _keys(n_validators, SEED)
+    vs, bid, commit = build_commit(keys)
+    emit({"phase": "generate", "validators": n_validators,
+          "seconds": round(time.perf_counter() - t0, 3)})
+
+    timer: list = []
+    inner = _time_launches(timer)
+    _zero_launches()
+    _verify_routes("verify_commit", vs, bid, commit, n_validators, timer,
+                   card)
+    _hit_breakdown(vs, bid, commit, timer, card)
 
     bad = Commit(bid, list(commit.precommits))
     k = n_validators // 3
@@ -504,6 +649,135 @@ def phase_main(card: str, n_validators: int = N_VALIDATORS) -> dict:
     launches = dict(ladder.launches)
     ladder._launch = inner
     _require_launched(launches, VERIFY_KERNELS, "commit")
+    return launches, keys
+
+
+def _nonminimal_der(sig: bytes) -> bytes:
+    """The same (r, s) with r's DER integer given one more leading zero
+    byte: not DER, which OpenSSL rejects and secp256k1_ref.verify accepts."""
+    r, s = secp256k1_ref._der_decode(sig)
+    ri = secp256k1_ref._der_int(r)
+    body = b"\x02" + bytes([ri[1] + 1]) + b"\x00" + ri[2:] + \
+        secp256k1_ref._der_int(s)
+    return b"\x30" + bytes([len(body)]) + body
+
+
+def _flip(sig: bytes, i: int) -> bytes:
+    return sig[:i] + bytes([sig[i] ^ 1]) + sig[i + 1:]
+
+
+def _commit_raises(vs, bid, commit, k: int, sig: bytes):
+    bad = Commit(bid, list(commit.precommits))
+    vote = copy.copy(bad.precommits[k])
+    vote.signature = sig
+    bad.precommits[k] = vote
+    try:
+        vs.verify_commit(CHAIN, bid, HEIGHT, bad)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+@contextlib.contextmanager
+def _secp_route(route: str):
+    """Run the body with types/keys' secp256k1 route as named: "pure"
+    hides `cryptography`'s EC bindings, "openssl" leaves them."""
+    name = "cryptography.hazmat.primitives.asymmetric"
+    saved = sys.modules.get(name, _secp_route)
+    if route == "pure":
+        sys.modules[name] = None
+    try:
+        require(route == ("openssl" if tkeys._ec() else "pure"),
+                f"secp256k1 route {route} not in force")
+        yield
+    finally:
+        if saved is _secp_route:
+            sys.modules.pop(name, None)
+        else:
+            sys.modules[name] = saved
+
+
+def phase_mixed(card: str, keys) -> dict:
+    """The 10,000-validator commit with N_SECP validators (seeded places)
+    on secp256k1 keys: through verify_commit from a cold cache (full ->
+    fill -> hit: B1, then B2), the secp256k1 items verified on the host;
+    verdicts on a batch with tampered items of both kinds held to the
+    oracles; a flipped byte and a non-minimal DER re-encoding in one
+    secp256k1 precommit must each raise."""
+    rng = np.random.RandomState(SEED + 5)
+    places = sorted(int(i) for i in rng.choice(len(keys), N_SECP,
+                                                replace=False))
+    secp = {i: Secp256k1PrivKey.generate(rng.bytes(32)) for i in places}
+    t0 = time.perf_counter()
+    vs, bid, commit = build_commit(keys, secp)
+    emit({"phase": "mixed_generate", "validators": len(vs),
+          "secp256k1": N_SECP, "places": places,
+          "seconds": time.perf_counter() - t0})
+    n_ed = len(vs) - N_SECP
+    with ted._predecomp_lock:       # a cold cache: the path walks all routes
+        ted._predecomp.clear()
+        ted._predecomp_seen.clear()
+    timer: list = []
+    inner = _time_launches(timer)
+    _zero_launches()
+    walls = _verify_routes("mixed_commit", vs, bid, commit, n_ed, timer,
+                           card)
+
+    items, _ = vs.commit_verification_items(CHAIN, bid, HEIGHT, commit)
+    secp_idx = [i for i, it in enumerate(items) if len(it[0]) == 33]
+    ed_idx = [i for i, it in enumerate(items) if len(it[0]) == 32]
+    require(len(secp_idx) == N_SECP and len(ed_idx) == n_ed,
+            "the mixed commit's key kinds")
+    bad = set(rng.choice(secp_idx, 4, replace=False).tolist()) | \
+        set(rng.choice(ed_idx, 4, replace=False).tolist())
+    items = [(p, m, _flip(sg, 10)) if i in bad else (p, m, sg)
+             for i, (p, m, sg) in enumerate(items)]
+    t0 = time.perf_counter()
+    got = tverifier.default_verifier().verify(items)
+    verify_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    expect = np.ones(len(items), np.bool_)
+    for i in secp_idx:
+        expect[i] = secp256k1_ref.verify(*items[i])
+    secp_ms = (time.perf_counter() - t0) * 1e3
+    sample = sorted(set(rng.choice(ed_idx, N_ORACLE_SAMPLE, replace=False)
+                        .tolist()) | (bad & set(ed_idx)))
+    for i in sample:
+        expect[i] = ed25519_fast.verify(*items[i])
+    agree = bool(np.array_equal(got, expect))
+    emit({"phase": "mixed_verdicts", "items": len(items),
+          "secp_route": "openssl" if tkeys._ec() else "pure",
+          "tampered": sorted(bad), "rejected": int((~got).sum()),
+          "oracle_sample": len(sample), "equal_to_oracles": agree,
+          "verify_ms": verify_ms, "secp_oracle_ms": secp_ms, "card": card})
+    require(agree and int((~got).sum()) == len(bad),
+            "mixed-key verdicts differ from the oracles")
+
+    k = next(j for j, v in enumerate(vs.validators) if len(v.pubkey) == 33)
+    sig = commit.precommits[k].signature
+    nonmin = _nonminimal_der(sig)
+    require(secp256k1_ref.verify(vs.validators[k].pubkey,
+                                 commit.precommits[k].sign_bytes(CHAIN),
+                                 nonmin),
+            "the pure parser should accept the non-minimal DER integer")
+    # both secp256k1 routes of types/keys: OpenSSL where `cryptography`
+    # imports, and the pure one (its EC bindings hidden) in any case
+    routes = ["openssl", "pure"] if tkeys._ec() is not None else ["pure"]
+    for route in routes:
+        with _secp_route(route):
+            for what, forged in (("flipped secp256k1 signature byte",
+                                  _flip(sig, 12)),
+                                 ("non-minimal DER integer", nonmin)):
+                raised = _commit_raises(vs, bid, commit, k, forged)
+                emit({"phase": "mixed_tampered", "secp_route": route,
+                      "forgery": what, "raised": raised})
+                require(raised == "invalid signature in commit",
+                        f"mixed commit, {route} route, {what}: {raised!r}")
+    launches = dict(ladder.launches)
+    ladder._launch = inner
+    _require_launched(launches, VERIFY_KERNELS, "mixed commit")
+    emit({"phase": "mixed_commit_summary", "walls_ms": walls,
+          "launches": launches, "card": card})
     return launches
 
 
@@ -684,23 +958,30 @@ def phase_lite(card: str) -> dict:
     timer: list = []
     inner = _time_launches(timer)
     _zero_launches()
+    prep_before = ted.prep_stats()
     valset, fcs, sample, times = build_lite_chain(LITE_VALIDATORS,
                                                   LITE_HEADERS)
     n_sigs = LITE_VALIDATORS * LITE_HEADERS
+    sign_prep = _prep_delta(prep_before)
     sign_ms = _kernel_ms(timer).get("sign_rb", 0.0)
     emit({"phase": "lite_build", "validators": LITE_VALIDATORS,
           "headers": LITE_HEADERS, "signatures": n_sigs, **times,
           "sign_kernel_ms": sign_ms,
           "sign_sigs_per_s": n_sigs / (times["sign_wall_ms"] / 1e3),
-          "card": card})
+          "prep_route": sign_prep, "card": card})
+    require(sign_prep["sign_native"] == n_sigs,
+            f"the chain's signing did not take the native phases: "
+            f"{sign_prep}")
     _check_sample(sample)
 
     mark = len(timer)
     before = ted.predecomp_stats()
+    prep_before = ted.prep_stats()
     t0 = time.perf_counter()
     certify_chain(LITE_CHAIN, fcs, trusted=valset)
     wall = time.perf_counter() - t0
     routes = _route(before, ted.predecomp_stats())
+    certify_prep = _prep_delta(prep_before)
     launches = dict(ladder.launches)
     kernel_ms = _kernel_ms(timer[mark:])
     emit({"phase": "lite_certify", "headers": LITE_HEADERS,
@@ -708,9 +989,12 @@ def phase_lite(card: str) -> dict:
           "wall_ms": wall * 1e3, "headers_per_s": LITE_HEADERS / wall,
           "sigs_per_s": n_sigs / wall, "kernel_ms": kernel_ms,
           "device_busy": sum(kernel_ms.values()) / (wall * 1e3),
-          "launches": launches, "card": card})
+          "launches": launches, "prep_route": certify_prep, "card": card})
     require(routes == LITE_ROUTES,
             f"certify_chain took cache routes {routes}, want {LITE_ROUTES}")
+    require(certify_prep["native"] == n_sigs and certify_prep["plain"] == 0,
+            f"certify_chain's items did not take the native prep: "
+            f"{certify_prep}")
     _require_launched(launches, KERNELS, "lite")
     ladder._launch = inner
 
@@ -759,7 +1043,8 @@ def main() -> int:
     print(card, flush=True)
     rate, ptxas = phase_build()
     kernels = phase_kernels(device, rate)
-    commit_launches = phase_main(card)
+    commit_launches, keys = phase_main(card)
+    mixed_launches = phase_mixed(card, keys)
     kernels.update(phase_sign_kernel(device, rate))
     lite_launches = phase_lite(card)
     table = []
@@ -770,6 +1055,7 @@ def main() -> int:
             "replaces": info["replaces"], "status": "ported",
             "checked": True, "launches": lite_launches[name],
             "launches_by_path": {"commit_10k": commit_launches[name],
+                                 "mixed_commit": mixed_launches[name],
                                  "lite_chain": lite_launches[name]},
             "max_abs_err": kernels[name]["max_abs_err"],
             "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"],

@@ -12,6 +12,13 @@ Backends:
   "auto"    scalar at or below auto_threshold (default 128), batch above:
             small interactive commits stay off the dispatch round trip.
 
+A batch call prepares its items in one native call (`ops/ed25519.
+prep_items`). A batch holding secp256k1 keys (33-byte SEC1) is split:
+those verify on the host (`types/keys.verify_any`), the rest go through
+the same call recursively, and the verdicts are put back in order. Other
+batches the native prep declines (members that are not `bytes`) take the
+general prep of `ops/ed25519.prepare_batch_bytes`.
+
 On the card every call dispatches its chunks on the verifier's own CUDA
 stream and records one event after the verdicts' copy to pinned host
 memory; the resolver waits on that event only, then masks with the host
@@ -27,6 +34,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from tendermint_tpu_torch import native
 from tendermint_tpu_torch.ops import _build
 from tendermint_tpu_torch.ops import ed25519
 from tendermint_tpu_torch.types import keys
@@ -64,10 +72,8 @@ class BatchVerifier:
 
     def verify_async(self, items: Sequence[tuple]):
         """Dispatch without waiting; returns a zero-arg resolver of
-        bool[N]. secp256k1 keys raise NotImplementedError here."""
+        bool[N]."""
         n = len(items)
-        for it in items:
-            keys._reject_secp256k1(it[0])
         with self._stats_lock:
             self.stats["calls"] += 1
             self.stats["sigs"] += n
@@ -78,11 +84,44 @@ class BatchVerifier:
                 self.backend == "auto" and n > self.auto_threshold)):
             out1 = np.array(keys.verify_many(items), np.bool_)
             return lambda: out1
-        with self._stats_lock:
-            self.stats["cuda_sigs"] += n
+        prep = ed25519.prep_items(items)
+        if prep is not None:
+            return self._dispatch(n, *prep)
+        secp_idx = [i for i, it in enumerate(items)
+                    if keys.is_secp256k1(it[0])]
+        if secp_idx:
+            return self._verify_mixed(items, secp_idx)
         pk, rb, sb, hb, pre = ed25519.prepare_batch_bytes(
             [it[0] for it in items], [it[1] for it in items],
             [it[2] for it in items])
+        return self._dispatch(n, pk, rb, sb, hb, pre)
+
+    def _verify_mixed(self, items, secp_idx):
+        """secp256k1 items on the host now, the rest through verify_async;
+        the resolver puts the verdicts back in the items' order."""
+        n = len(items)
+        secp_ok = {i: keys.verify_any(*items[i]) for i in secp_idx}
+        out = np.zeros(n, np.bool_)
+        for i, ok in secp_ok.items():
+            out[i] = ok
+        ed_idx = [i for i in range(n) if i not in secp_ok]
+        if not ed_idx:
+            return lambda: out
+        inner = self.verify_async([items[i] for i in ed_idx])
+        with self._stats_lock:
+            # this call is already counted
+            self.stats["calls"] -= 1
+            self.stats["sigs"] -= len(ed_idx)
+
+        def resolve_mixed() -> np.ndarray:
+            out[ed_idx] = inner()
+            return out
+
+        return resolve_mixed
+
+    def _dispatch(self, n, pk, rb, sb, hb, pre):
+        with self._stats_lock:
+            self.stats["cuda_sigs"] += n
         if self._stream is None:
             return self._dispatch_cpu(n, pk, rb, sb, hb, pre)
         return self._dispatch_cuda(n, pk, rb, sb, hb, pre)
@@ -127,10 +166,12 @@ class BatchVerifier:
         return resolve
 
     def warmup(self, n_sigs: int) -> None:
-        """Build the kernels now, so that no verify pays the build, and
-        run the chunk shapes a verify of n_sigs items dispatches."""
+        """Build the kernels and the host prep extension now, so that no
+        verify pays a build, and run the chunk shapes a verify of n_sigs
+        items dispatches."""
         if n_sigs <= 0 or self.backend == "python":
             return
+        native.module()
         if self.device.type == "cuda":
             _build.ladder_lib()
         shapes = {min(BATCH_CHUNK, n_sigs)}

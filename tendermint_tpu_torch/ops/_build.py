@@ -11,7 +11,8 @@ lock makes concurrent processes build once. A failed build raises with
 the compiler's output; nothing falls back.
 
 The same arithmetic header also builds with g++ into a CPU shim
-(`csrc/cpu_shim.cpp`) that the CPU tests load.
+(`csrc/cpu_shim.cpp`) that the CPU tests load, and g++ builds the host
+prep extension (`csrc/prep.cpp`, loaded by `tendermint_tpu_torch.native`).
 """
 
 from __future__ import annotations
@@ -69,11 +70,14 @@ def find_nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def _build(name, compiler, flags, main_src) -> Path:
-    """Compile `main_src` (with every header of csrc/) into
-    _build/lib<name>_<hash>.so unless it is there; returns the path.
-    The compiler's stderr is kept beside it as <lib>.log."""
-    sources = [main_src] + sorted(CSRC.glob("*.cuh"))
+def _build(name, compiler, flags, main_src, headers=None) -> Path:
+    """Compile `main_src` (with `headers`, by default every *.cuh of
+    csrc/) into _build/lib<name>_<hash>.so unless it is there; returns
+    the path. The hash covers the sources and the flags. The compiler's
+    stderr is kept beside it as <lib>.log."""
+    if headers is None:
+        headers = sorted(CSRC.glob("*.cuh"))
+    sources = [main_src, *headers]
     out = BUILD_DIR / f"lib{name}_{_digest(sources, flags)}.so"
     with _build_lock():
         if out.exists():

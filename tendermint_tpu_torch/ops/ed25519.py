@@ -4,8 +4,10 @@ kernels, and batched RFC 8032 signing around the r*B kernel.
 
 Counterpart of `tendermint_tpu/ops/ed25519.py`. Verify:
 
-  host    SHA-512 of (R || A || msg), h mod L, the s < L malleability
-          check (hashlib; a native prep comes later)
+  host    SHA-512 of (R || A || M), h mod L, the s < L malleability
+          check: in C++ (`tendermint_tpu_torch.native`: prep_items for the
+          verifier's items, tm_ed25519_prepare here), in hashlib for
+          batches of malformed lengths (`prepare_batch_bytes_plain`)
   device  the double-scalar ladder of `ops/ladder.py`, on the CUDA kernel
           when the tensors are on the card, on its plain version on the CPU
 
@@ -17,10 +19,13 @@ the cache sees the same batches, and counts the same outcomes, as the JAX
 package.
 
 Sign: the nonces r = SHA-512(prefix || M) mod L and the finish
-s = (r + SHA-512(R || A || M) * a) mod L run on the host (hashlib and
-Python ints, the arithmetic of the JAX package's native phases); R = r*B
-runs on the sign kernel of `ops/ladder.py`. There is no scalar fallback:
-on the card the kernel launches or the call raises.
+s = (r + SHA-512(R || A || M) * a) mod L run on the host in C++ (the
+native sign phases; `sign_phase1_plain`/`sign_phase2_plain` are the
+hashlib versions); R = r*B runs on the sign kernel of `ops/ladder.py`.
+There is no scalar fallback: on the card the kernel launches or the call
+raises.
+
+`prep_stats()` counts the items each route prepared.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from tendermint_tpu_torch import native
 from tendermint_tpu_torch.ops import curve
 from tendermint_tpu_torch.ops import field as fe
 from tendermint_tpu_torch.ops import ladder
@@ -45,10 +51,65 @@ L_ORDER = (1 << 252) + 27742317777372353535851937790883648493
 # Host preparation
 # ---------------------------------------------------------------------------
 
+# items prepared per route: verify prep in C++ ("native") or hashlib
+# ("plain"), signing phases in C++ ("sign_native")
+_prep_stats = {"native": 0, "plain": 0, "sign_native": 0}
+_prep_stats_lock = threading.Lock()
+
+
+def _count_prep(route: str, n: int) -> None:
+    with _prep_stats_lock:
+        _prep_stats[route] += n
+
+
+def prep_stats() -> dict:
+    """Snapshot of the items prepared by each route."""
+    with _prep_stats_lock:
+        return dict(_prep_stats)
+
+
+def prep_items(items):
+    """The verifier's one-call prep (`native.prep_items`): (pk, R, s, h
+    u8[N,32], precheck bool[N]), or None when the batch needs the
+    general path (a secp256k1 key, a member that is not `bytes`, an item
+    that is not a triple)."""
+    out = native.prep_items(items)
+    if out is not None:
+        _count_prep("native", len(items))
+    return out
+
+
 def prepare_batch_bytes(pubkeys, msgs, sigs):
     """(pubkeys u8[N,32], R u8[N,32], s u8[N,32], h u8[N,32], precheck
     bool[N]). precheck is False for malformed inputs (bad lengths,
-    s >= L); their rows stay zero so the batch shape is unchanged."""
+    s >= L); their rows stay zero so the batch shape is unchanged.
+
+    When every pubkey is 32 bytes and every signature 64, the whole
+    batch is prepared in one C call (`native.ed25519_prepare`); the
+    hashlib loop is the malformed-length path."""
+    n = len(pubkeys)
+    pk_list = [bytes(p) for p in pubkeys]
+    sg_list = [bytes(s) for s in sigs]
+    if n > 0 and all(len(p) == 32 for p in pk_list) and \
+            all(len(s) == 64 for s in sg_list):
+        pk_cat = b"".join(pk_list)
+        sg_cat = b"".join(sg_list)
+        h_bytes, pre = native.ed25519_prepare(pk_cat, sg_cat,
+                                              [bytes(m) for m in msgs])
+        sg = np.frombuffer(sg_cat, np.uint8).reshape(n, 64)
+        pk = np.frombuffer(pk_cat, np.uint8).reshape(n, 32).copy()
+        rb = sg[:, :32].copy()
+        s_bytes = np.where(pre[:, None], sg[:, 32:], 0).astype(np.uint8)
+        pk[~pre] = 0
+        rb[~pre] = 0
+        _count_prep("native", n)
+        return pk, rb, s_bytes, h_bytes, pre
+    _count_prep("plain", n)
+    return prepare_batch_bytes_plain(pubkeys, msgs, sigs)
+
+
+def prepare_batch_bytes_plain(pubkeys, msgs, sigs):
+    """prepare_batch_bytes item by item in hashlib and Python ints."""
     n = len(pubkeys)
     pk = np.zeros((n, 32), np.uint8)
     rb = np.zeros((n, 32), np.uint8)
@@ -154,10 +215,12 @@ def _decompress_to_bytes(pk_u8):
     return fe.to_bytes(fe.neg(x)), fe.to_bytes(y), ok
 
 
-def _verify_cached_predecomp(pk_np, rb, s_bytes, h_bytes, device):
-    """Verdicts through the predecompressed kernel, or None when the
-    batch holds unseen keys (it then takes the fused kernel while its
-    keys are marked seen; the next batch over them fills rows)."""
+def _predecomp_rows(pk_np, device):
+    """The predecompressed kernel's key rows for a batch, (-A).x u8[n,32],
+    A.y u8[n,32], ok bool[n] on the host: stacked from cached rows (hit),
+    or decompressed once on `device` and stored (fill). None when the
+    batch holds unseen keys (full): it then takes the fused kernel while
+    its keys are marked seen, and the next batch over them fills rows."""
     n = pk_np.shape[0]
     raw = pk_np.tobytes()
     keys = [raw[i * 32:(i + 1) * 32] for i in range(n)]
@@ -178,28 +241,33 @@ def _verify_cached_predecomp(pk_np, rb, s_bytes, h_bytes, device):
                 _predecomp_stats["full"] += 1
                 return None
             _predecomp_stats["fill"] += 1
-    if miss:
-        # decompress the whole batch once, outside the lock; a concurrent
-        # duplicate fill is harmless (same key, same bytes)
-        xnb_d, yb_d, ok_d = _decompress_to_bytes(_upload(pk_np, device))
-        xnb_h, yb_h = xnb_d.cpu().numpy(), yb_d.cpu().numpy()
-        ok_h = ok_d.cpu().numpy()
-        with _predecomp_lock:
-            for i, k in enumerate(keys):
-                if k not in _predecomp:
-                    _predecomp[k] = (xnb_h[i].copy(), yb_h[i].copy(),
-                                     bool(ok_h[i]))
-            while len(_predecomp) > _PREDECOMP_MAX_KEYS:
-                _predecomp.popitem(last=False)
-                _predecomp_stats["evict"] += 1
-    else:
-        xnb_h = np.stack([r[0] for r in rows])
-        yb_h = np.stack([r[1] for r in rows])
-        ok_h = np.array([r[2] for r in rows], np.bool_)
-    return ladder.verify_pre(
-        _upload(xnb_h, device), _upload(yb_h, device),
-        _upload(ok_h, device), _upload(rb, device),
-        _upload(s_bytes, device), _upload(h_bytes, device))
+    if not miss:
+        return (np.stack([r[0] for r in rows]), np.stack([r[1] for r in rows]),
+                np.array([r[2] for r in rows], np.bool_))
+    # decompress the whole batch once, outside the lock; a concurrent
+    # duplicate fill is harmless (same key, same bytes)
+    xnb_d, yb_d, ok_d = _decompress_to_bytes(_upload(pk_np, device))
+    xnb_h, yb_h = xnb_d.cpu().numpy(), yb_d.cpu().numpy()
+    ok_h = ok_d.cpu().numpy()
+    with _predecomp_lock:
+        for i, k in enumerate(keys):
+            if k not in _predecomp:
+                _predecomp[k] = (xnb_h[i].copy(), yb_h[i].copy(),
+                                 bool(ok_h[i]))
+        while len(_predecomp) > _PREDECOMP_MAX_KEYS:
+            _predecomp.popitem(last=False)
+            _predecomp_stats["evict"] += 1
+    return xnb_h, yb_h, ok_h
+
+
+def _verify_cached_predecomp(pk_np, rb, s_bytes, h_bytes, device):
+    """Verdicts through the predecompressed kernel, or None when the
+    batch holds unseen keys (see _predecomp_rows)."""
+    rows = _predecomp_rows(pk_np, device)
+    if rows is None:
+        return None
+    return ladder.verify_pre(*(_upload(x, device) for x in
+                               (*rows, rb, s_bytes, h_bytes)))
 
 
 # ---------------------------------------------------------------------------
@@ -280,9 +348,13 @@ def _check_msgs(msgs) -> None:
             raise TypeError("msgs must be bytes")
 
 
-def sign_phase1(prefixes: bytes, msgs) -> bytes:
-    """prefixes n*32 bytes, msgs n bytes objects -> n*32 bytes of nonces
-    r = SHA-512(prefix || M) mod L, little-endian."""
+# the host phases of signing, in C++ (see native.sign_phase1/2)
+sign_phase1 = native.sign_phase1
+sign_phase2 = native.sign_phase2
+
+
+def sign_phase1_plain(prefixes: bytes, msgs) -> bytes:
+    """sign_phase1 in hashlib and Python ints, with the same refusals."""
     n = len(msgs)
     if len(prefixes) != 32 * n:
         raise ValueError("prefixes must be n*32 bytes")
@@ -294,10 +366,9 @@ def sign_phase1(prefixes: bytes, msgs) -> bytes:
         for i in range(n))
 
 
-def sign_phase2(renc: bytes, pks: bytes, msgs, rs: bytes,
-                as_: bytes) -> bytes:
-    """n*64 bytes of signatures R || s with k = SHA-512(R || A || M)
-    mod L and s = (r + k*a) mod L; renc, pks, rs, as_ are n*32 bytes."""
+def sign_phase2_plain(renc: bytes, pks: bytes, msgs, rs: bytes,
+                      as_: bytes) -> bytes:
+    """sign_phase2 in hashlib and Python ints, with the same refusals."""
     n = len(msgs)
     if not len(renc) == len(pks) == len(rs) == len(as_) == 32 * n:
         raise ValueError("scalar blobs must be n*32")
@@ -328,6 +399,7 @@ def sign_batch_async(seeds, msgs, device=None):
     a_cat = b"".join(p[0] for p in params)
     pk_cat = b"".join(p[2] for p in params)
     r_cat = sign_phase1(b"".join(p[1] for p in params), msgs)
+    _count_prep("sign_native", n)
     r_dev = _upload(np.frombuffer(r_cat, np.uint8).reshape(n, 32).copy(),
                     device)
     host = torch.empty((n, 32), dtype=torch.uint8,

@@ -14,6 +14,15 @@ kernels against their plain versions and the oracle (CPU tests and
                reduction, with a signature made valid for it
   zero         all-zero bytes, as in a padding lane
 
+`probe_batch(n, seed)` cycles through the lanes of PROBE_KINDS, the
+small-order and non-canonical encodings:
+
+  torsion_pk   pubkey one of the 8 points of order dividing 8, R = s*B
+  torsion_r    R one of those 8 points, s = 0, a real pubkey
+  mixed_order  pubkey a*B + T (T of order 2, 4 or 8) signed with a
+  noncanon_r   R with y = p ... p + 18 (no sign bit), a real pubkey
+  x0_sign_ym1  pubkey x = 0 with the sign bit set and y = p - 1
+
 Rows are the kernels' inputs: pk, R, s, h as uint8[n, 32] (h already
 reduced mod L) and the oracle's verdict per lane.
 """
@@ -84,6 +93,68 @@ def edge_batch(n: int, seed: int, n_keys: int = 16) -> dict:
         for key, val in (("pk", pk), ("rb", rb), ("s", s_b), ("h", h_b)):
             rows[key].append(np.frombuffer(val, np.uint8))
         rows["expect"].append(ok)
+        rows["kind"].append(kind)
+    out = {k: np.stack(rows[k]) for k in ("pk", "rb", "s", "h")}
+    out["expect"] = np.array(rows["expect"], np.bool_)
+    out["kind"] = rows["kind"]
+    return out
+
+
+PROBE_KINDS = ("torsion_pk", "torsion_r", "mixed_order", "noncanon_r",
+               "x0_sign_ym1")
+
+
+def torsion_points() -> list:
+    """k * T8 for k = 0..7, T8 a point of order 8: every point whose
+    order divides 8 (the identity first)."""
+    y = 2
+    while True:
+        pt = ref.point_decompress(y.to_bytes(32, "little"))
+        y += 1
+        if pt is None:
+            continue
+        t8 = ref.point_mul(ref.L, pt)   # the torsion part of pt
+        if not ref.point_equal(ref.point_mul(4, t8), ref.IDENT):
+            return [ref.point_mul(k, t8) for k in range(8)]
+
+
+def probe_batch(n: int, seed: int, n_keys: int = 8) -> dict:
+    """The small-order and non-canonical lanes of PROBE_KINDS, cycled;
+    the same dict as edge_batch."""
+    rng = np.random.RandomState(seed)
+    torsion = torsion_points()
+    keys = []
+    for _ in range(n_keys):
+        a, prefix = ref.secret_expand(rng.bytes(32))
+        keys.append((a, prefix, ref.point_compress(ed25519_fast._mul_base(a))))
+    x0_sign_ym1 = ((ref.P - 1) | (1 << 255)).to_bytes(32, "little")
+    rows = {"pk": [], "rb": [], "s": [], "h": [], "expect": [], "kind": []}
+    for i in range(n):
+        kind = PROBE_KINDS[i % len(PROBE_KINDS)]
+        k = i // len(PROBE_KINDS)
+        msg = rng.bytes(int(rng.randint(0, 64)))
+        a, prefix, pk = keys[i % n_keys]
+        s = int.from_bytes(rng.bytes(32), "little") % ref.L
+        rb = ref.point_compress(ed25519_fast._mul_base(s))
+        if kind == "torsion_pk":
+            pk = ref.point_compress(torsion[k % 8])
+        elif kind == "torsion_r":
+            rb, s = ref.point_compress(torsion[k % 8]), 0
+        elif kind == "mixed_order":
+            pk = ref.point_compress(ref.point_add(
+                ed25519_fast._mul_base(a), torsion[1 + k % 7]))
+            r = int.from_bytes(rng.bytes(32), "little") % ref.L
+            rb = ref.point_compress(ed25519_fast._mul_base(r))
+            s = (r + int.from_bytes(_h(rb, pk, msg), "little") * a) % ref.L
+        elif kind == "noncanon_r":
+            rb = (ref.P + k % 19).to_bytes(32, "little")
+        else:
+            pk = x0_sign_ym1
+        s_b = s.to_bytes(32, "little")
+        for key, val in (("pk", pk), ("rb", rb), ("s", s_b),
+                         ("h", _h(rb, pk, msg))):
+            rows[key].append(np.frombuffer(val, np.uint8))
+        rows["expect"].append(ed25519_fast.verify(pk, msg, rb + s_b))
         rows["kind"].append(kind)
     out = {k: np.stack(rows[k]) for k in ("pk", "rb", "s", "h")}
     out["expect"] = np.array(rows["expect"], np.bool_)

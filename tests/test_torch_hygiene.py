@@ -4,12 +4,15 @@
   as a module, in a fresh interpreter loads neither jax nor any
   tendermint_tpu module.
 - No source of the port (nor chip_smoke.py) imports them (AST check).
+- No C++/CUDA source of the port's csrc/ includes a file outside csrc/
+  (system headers aside).
 - An entry point given no device raises when no CUDA device is present:
   the port never moves to the CPU quietly.
 """
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -30,6 +33,26 @@ def test_walk_covers_every_subpackage():
     for pkg in ("ops", "types", "models", "utils", "lite"):
         assert f"tendermint_tpu_torch.{pkg}" in mods, pkg
     assert "tendermint_tpu_torch.lite.certifier" in mods
+    assert "tendermint_tpu_torch.native" in mods
+
+
+CSRC = PORT / "csrc"
+CSRC_SOURCES = sorted(p for p in CSRC.iterdir()
+                      if p.suffix in (".h", ".cuh", ".cpp", ".cu"))
+
+
+@pytest.mark.parametrize("path", CSRC_SOURCES, ids=lambda p: p.name)
+def test_csrc_includes_nothing_outside_csrc(path):
+    """Quoted includes name a file of csrc/ itself; angle includes are
+    system and toolkit headers, never a path into the repository."""
+    for ln in path.read_text().splitlines():
+        m = re.match(r'\s*#\s*include\s*([<"])([^>"]+)[>"]', ln)
+        if not m:
+            continue
+        name = m.group(2)
+        assert "tendermint_tpu" not in name and ".." not in name, (path, ln)
+        if m.group(1) == '"':
+            assert "/" not in name and (CSRC / name).is_file(), (path, ln)
 
 
 def _modules():

@@ -9,7 +9,7 @@ emulated on one thread, its r*B the sign kernel's fixed-base comb. Its
 field mul/invert/encode are held against the plain PyTorch field ops,
 each 4-lane point operation against the one-thread one (and the oracle),
 its verify against the plain versions (n_windows=8) and the oracle (64
-windows), its r*B against the plain version, which keeps the TPU
+windows; the small-order probe lanes against both), its r*B against the plain version, which keeps the TPU
 kernel's windowed schedule, and the oracle at 1, 2, 8, 63 and 64
 windows. Bytes and verdicts are integers: tolerance 0.
 
@@ -182,6 +182,26 @@ def test_shim_verify_matches_oracle_at_64_windows(shim, pre):
                                   batch["expect"])
 
 
+def _plain_verify(batch, pre, device="cpu"):
+    t = {k: torch.from_numpy(batch[k]).to(device)
+         for k in ("pk", "rb", "s", "h")}
+    digs = [ladder.digits_from_bytes(t[k]) for k in ("s", "h")]
+    if pre:
+        return ladder.verify_pre_plain(*ted._decompress_to_bytes(t["pk"]),
+                                       t["rb"], *digs)
+    return ladder.verify_plain(t["pk"], t["rb"], *digs)
+
+
+@pytest.mark.parametrize("pre", [False, True], ids=["full", "pre"])
+def test_shim_verify_matches_plain_and_oracle_on_probe_lanes(shim, pre):
+    """Small-order and non-canonical lanes (vectors.probe_batch) at 64
+    windows: the 4-lane schedule, the plain version and the oracle."""
+    batch = vectors.probe_batch(40, seed=29)
+    got = _shim_verify(shim, batch, 64, pre)
+    np.testing.assert_array_equal(got, batch["expect"])
+    np.testing.assert_array_equal(got, _plain_verify(batch, pre).numpy())
+
+
 def _shim_sign_rb(shim, r, n_windows):
     out = np.zeros_like(r)
     comb = np.ascontiguousarray(ladder._comb(torch.device("cpu")).numpy())
@@ -248,26 +268,30 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("pre", [False, True], ids=["full", "pre"])
-def test_cuda_kernel_matches_plain(cuda_device, pre):
-    batch = vectors.edge_batch(256, seed=24)
-    t = {k: torch.from_numpy(batch[k]).to(cuda_device)
+def _cuda_matches_plain(device, batch, pre):
+    t = {k: torch.from_numpy(batch[k]).to(device)
          for k in ("pk", "rb", "s", "h")}
     if pre:
-        dec = ted._decompress_to_bytes(t["pk"])
-        got = ladder.verify_pre(*dec, t["rb"], t["s"], t["h"])
-        want = ladder.verify_pre_plain(
-            *dec, t["rb"], ladder.digits_from_bytes(t["s"]),
-            ladder.digits_from_bytes(t["h"]))
+        got = ladder.verify_pre(*ted._decompress_to_bytes(t["pk"]), t["rb"],
+                                t["s"], t["h"])
     else:
         got = ladder.verify(t["pk"], t["rb"], t["s"], t["h"])
-        want = ladder.verify_plain(t["pk"], t["rb"],
-                                   ladder.digits_from_bytes(t["s"]),
-                                   ladder.digits_from_bytes(t["h"]))
+    want = _plain_verify(batch, pre, device)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     np.testing.assert_array_equal(got.cpu().numpy(), batch["expect"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pre", [False, True], ids=["full", "pre"])
+def test_cuda_kernel_matches_plain(cuda_device, pre):
+    _cuda_matches_plain(cuda_device, vectors.edge_batch(256, seed=24), pre)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pre", [False, True], ids=["full", "pre"])
+def test_cuda_kernel_matches_plain_on_probe_lanes(cuda_device, pre):
+    _cuda_matches_plain(cuda_device, vectors.probe_batch(256, seed=30), pre)
 
 
 @pytest.mark.cuda

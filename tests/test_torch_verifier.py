@@ -2,8 +2,10 @@
 BatchVerifier -> the predecompression cache -> the plain verify kernels,
 held against the JAX package's BatchVerifier("jax") on the same commit;
 and the plain kernels themselves (verify_plain, verify_pre_plain, 64
-windows) against the JAX package's jnp kernels on 64 edge lanes, the
-shape at which this file's JAX verifier compiles them anyway.
+windows) against the JAX package's jnp kernels on 64 edge lanes and 64
+small-order probe lanes, the shape at which this file's JAX verifier
+compiles them anyway. A batch of mixed Ed25519 and secp256k1 keys gets
+the JAX package's verdicts on every backend.
 
 Both packages verify a 64-validator commit signed with OpenSSL three
 times (first sighting of the keys, then repeat traffic, then cached
@@ -77,6 +79,29 @@ def test_verify_pre_plain_matches_jax_pre():
         jxnb, jyb, jok, *(jnp.asarray(EDGE[k]) for k in ("rb", "s", "h"))))
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(got.numpy(), EDGE["expect"])
+
+
+PROBE = vectors.probe_batch(N_VALS, seed=12)   # small-order lanes
+
+
+@pytest.mark.parametrize("pre", [False, True], ids=["verify", "verify_pre"])
+def test_plain_kernels_match_jax_on_probe_lanes(pre):
+    """Torsion and mixed-order keys, torsion and non-canonical R, x = 0
+    with the sign bit and y = p - 1: the plain kernels, the JAX jnp
+    kernels and the oracle agree on every lane."""
+    t = {k: _t(PROBE[k]) for k in ("pk", "rb", "s", "h")}
+    digs = [ladder.digits_from_bytes(t[k]) for k in ("s", "h")]
+    rest = [jnp.asarray(PROBE[k]) for k in ("rb", "s", "h")]
+    if pre:
+        dec = ted._decompress_to_bytes(t["pk"])
+        got = ladder.verify_pre_plain(*dec, t["rb"], *digs)
+        want = jed._verify_pre_jnp(
+            *jed._decompress_to_bytes(jnp.asarray(PROBE["pk"])), *rest)
+    else:
+        got = ladder.verify_plain(t["pk"], t["rb"], *digs)
+        want = jed._verify_from_bytes_jnp(jnp.asarray(PROBE["pk"]), *rest)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(), PROBE["expect"])
 
 
 def _keys(seed, n):
@@ -206,11 +231,28 @@ def test_small_auto_batch_stays_on_host():
         got, JVerifier("python", coalesce="off").verify(items))
 
 
-def test_secp256k1_key_raises_not_implemented():
-    secp = b"\x02" + b"\x11" * 32
+def test_secp256k1_mixed_batch_matches_jax_on_every_backend(verifiers):
+    """A batch holding secp256k1 keys gets verdicts equal to the JAX
+    package's on every backend, its "jax" backend's mixed-key split
+    included (compiled at this file's 64 lanes)."""
+    from tendermint_tpu.types.keys import Secp256k1PrivKey
+
+    sks, pks = _keys(108, 60)
+    items = [(pk, b"m%d" % i, sk.sign(b"m%d" % i))
+             for i, (sk, pk) in enumerate(zip(sks, pks))]
+    for i in range(4):
+        k = Secp256k1PrivKey.generate(bytes([0x60 + i]) * 32)
+        items.insert(7 * i + 3, (k.pubkey.secp256k1, b"s%d" % i,
+                                 k.sign(b"s%d" % i)))
+    items[3] = (items[3][0], b"other", items[3][2])        # secp, bad
+    items[5] = (items[5][0], b"other", items[5][2])        # ed25519, bad
+    items.append((b"\x02" + b"\x11" * 32, b"m", b"s" * 70))  # off curve
+    want = JVerifier("python", coalesce="off").verify(items)
+    assert want.tolist() == [i not in (3, 5, 64) for i in range(65)]
+    np.testing.assert_array_equal(verifiers[0].verify(items), want)
     for backend in ("cuda", "python", "auto"):
-        with pytest.raises(NotImplementedError):
-            TVerifier(backend, device="cpu").verify([(secp, b"m", b"s" * 70)])
+        got = TVerifier(backend, device="cpu").verify(items)
+        np.testing.assert_array_equal(got, want)
 
 
 def test_state_from_jax_round_trip():
