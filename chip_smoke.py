@@ -68,7 +68,27 @@ Phases, each printing its own lines:
    certify. Three forgeries must then fail with the JAX package's
    messages: a flipped signature byte, a header changed after signing,
    another trusted set.
-7. the kernel table as one JSON line, the card again, then the last line
+7. block height: one consensus height of the 10,000-validator chain of
+   phase 3 through the port's block plane. Propose a block of 5,000 txs
+   (BASELINE.json config 4's width), with phase 3's commit as its last
+   commit and one duplicate-vote evidence: fill_header, its part set at
+   ConsensusParams' 65536-byte parts and its block id. Gossip: a receiver
+   adds every part through its proof, refuses one with a flipped payload
+   byte, and rebuilds the block, whose hash and block id must equal the
+   proposer's. Prevotes, then precommits: 10,000 of each signed with
+   sign_batch_async (the sign kernel), fed with a flipped signature, a
+   duplicate and a conflicting vote through one VoteSet.add_votes_batch,
+   which must make one verify_async call that reaches the verify kernels
+   and give the expected results and errors, and +2/3 for the block; the
+   call's host stages are read inside it. make_commit, verify_commit on
+   the card, and its hash in the next header. The evidence through a
+   BatchVerifier("cuda") and the default verifier (its host loop at two
+   signatures); a forged copy must raise on both. The device Merkle
+   plane: merkle.root of the txs against Data.hash, and hash_fixed on a
+   seeded uint8[65536, 64] batch against hashlib, each timed beside
+   hashlib. Launch counts zeroed at the start of the phase, read at its
+   end.
+8. the kernel table as one JSON line, the card again, then the last line
    {"ok": true, "device": {...}}.
 
 Any mismatch or exception ends the run with a non-zero code before the
@@ -79,6 +99,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import re
 import shutil
@@ -95,14 +116,19 @@ from tendermint_tpu_torch.lite import (CertificationError, FullCommit,
                                        SignedHeader, ValidatorsChangedError,
                                        certify_chain, default_window)
 from tendermint_tpu_torch.models import verifier as tverifier
-from tendermint_tpu_torch.ops import _build, ladder
+from tendermint_tpu_torch.ops import _build, ladder, merkle, sha256
 from tendermint_tpu_torch.ops import ed25519 as ted
-from tendermint_tpu_torch.types.block import (BlockID, Commit, Header,
+from tendermint_tpu_torch.types.block import (Block, BlockID, Commit, Data,
+                                              EvidenceData, Header,
                                               PartSetHeader)
 from tendermint_tpu_torch.types import keys as tkeys
+from tendermint_tpu_torch.types.evidence import DuplicateVoteEvidence
 from tendermint_tpu_torch.types.keys import PrivKey, Secp256k1PrivKey
+from tendermint_tpu_torch.types.params import ConsensusParams
+from tendermint_tpu_torch.types.part_set import Part, PartSet
 from tendermint_tpu_torch.types.validator_set import Validator, ValidatorSet
 from tendermint_tpu_torch.types.vote import Vote, VoteType
+from tendermint_tpu_torch.types.vote_set import ConflictingVoteError, VoteSet
 from tendermint_tpu_torch.utils import (ed25519_fast, ed25519_ref,
                                         secp256k1_ref, vectors)
 
@@ -124,6 +150,10 @@ N_ORACLE_SAMPLE = 128     # untampered Ed25519 items held to the oracle
 SWEEP = (2048, 8192, 32768)  # verify lanes timed; the first two also
 PLAIN_CHECK = (2048, 8192)   # held to the plain version
 SIGN_SWEEP = (4096, 16384, 65536)  # sign scalars timed; 16384 the chunk
+BLOCK_TXS = 5000          # BASELINE.json config 4's block width
+# the block's gossip parts: ConsensusParams' default, 65536 bytes
+BLOCK_PART_SIZE = ConsensusParams().block_gossip.block_part_size_bytes
+SHA_ROWS = 65536          # hash_fixed batch of 64-byte rows
 # H100 SXM published HBM rate (NVIDIA data sheet), bytes/s
 HBM_BYTES_S = 3.35e12
 # 32-bit integer multiply-adds an SM issues per clock on sm_90 (CUDA C++
@@ -422,11 +452,16 @@ def phase_kernels(device, rate: dict) -> dict:
     return results
 
 
-def _keys(n: int, seed: int):
+def _seeds(n: int, seed: int) -> list:
     rng = np.random.RandomState(seed)
+    return [rng.bytes(32) for _ in range(n)]
+
+
+def _keys(n: int, seed: int):
+    """(a, prefix, pubkey) of the RFC 8032 seeds _seeds(n, seed)."""
     out = []
-    for _ in range(n):
-        a, prefix = ed25519_ref.secret_expand(rng.bytes(32))
+    for s in _seeds(n, seed):
+        a, prefix = ed25519_ref.secret_expand(s)
         pub = ed25519_ref.point_compress(ed25519_fast._mul_base(a))
         out.append((a, prefix, pub))
     return out
@@ -535,6 +570,22 @@ def _verify_routes(phase: str, vs, bid, commit, n_ed: int, timer: list,
     return walls
 
 
+def _restore(saved) -> None:
+    for owner, name, fn in saved:
+        if fn is None:              # a method of the instance's class
+            delattr(owner, name)
+        else:
+            setattr(owner, name, fn)
+
+
+def _patched(patches):
+    """Install (owner, name, fn) patches; returns what to restore."""
+    saved = [(owner, name, vars(owner).get(name)) for owner, name, _ in patches]
+    for owner, name, fn in patches:
+        setattr(owner, name, fn)
+    return saved
+
+
 def _hit_breakdown(vs, bid, commit, timer: list, card: str) -> None:
     """Where a steady-state (hit) call's wall goes, read inside one more
     real hit call of verify_commit: the functions at its stage boundaries
@@ -577,21 +628,15 @@ def _hit_breakdown(vs, bid, commit, timer: list, card: str) -> None:
         (ted, "_predecomp_rows", timed(ted._predecomp_rows, "assembly_ms")),
         (ted, "_upload", timed(ted._upload, "upload_ms")),
         (ladder, "verify_pre", timed(ladder.verify_pre, "launch_ms"))]
-    saved = [(owner, name, vars(owner).get(name)) for owner, name, _ in patches]
     route_before, prep_before, mark = (ted.predecomp_stats(),
                                        ted.prep_stats(), len(timer))
+    saved = _patched(patches)
     try:
-        for owner, name, fn in patches:
-            setattr(owner, name, fn)
         t0 = time.perf_counter()
         vs.verify_commit(CHAIN, bid, HEIGHT, commit)
         wall = (time.perf_counter() - t0) * 1e3
     finally:
-        for owner, name, fn in saved:
-            if fn is None:          # a method of the instance's class
-                delattr(owner, name)
-            else:
-                setattr(owner, name, fn)
+        _restore(saved)
     items = kept["items"]
     chunks = -(-len(items) // tverifier.BATCH_CHUNK)
     got = _route(route_before, ted.predecomp_stats())
@@ -649,7 +694,7 @@ def phase_main(card: str, n_validators: int = N_VALIDATORS) -> tuple:
     launches = dict(ladder.launches)
     ladder._launch = inner
     _require_launched(launches, VERIFY_KERNELS, "commit")
-    return launches, keys
+    return launches, keys, (vs, bid, commit)
 
 
 def _nonminimal_der(sig: bytes) -> bytes:
@@ -1034,6 +1079,416 @@ def phase_lite(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: one consensus height through the block plane
+# ---------------------------------------------------------------------------
+
+def _ms() -> float:
+    return time.perf_counter() * 1e3
+
+
+def _launch_delta(before: dict) -> dict:
+    return {k: ladder.launches[k] - before[k] for k in ladder.launches}
+
+
+def _step_kernels(timer: list, mark: int) -> dict:
+    """The kernels' event ms and launches of the launches logged since
+    `mark`."""
+    timed = timer[mark:]
+    counts: dict = {}
+    for name, _, _, _ in timed:
+        counts[name] = counts.get(name, 0) + 1
+    return {"kernel_ms": _kernel_ms(timed), "launches": counts}
+
+
+def _block_evidence(vs, last_commit, key_of) -> DuplicateVoteEvidence:
+    """A validator's precommit in the last commit, and its second
+    precommit at that height and round for another block, signed with
+    the table signer."""
+    j = len(vs) // 2
+    val = vs.validators[j]
+    a, prefix, pub = key_of[val.pubkey]
+    first = last_commit.precommits[j]
+    second = Vote(val.address, j, first.height, first.round,
+                  first.timestamp_ns + 1, VoteType.PRECOMMIT,
+                  BlockID(b"\xe7" * 32, first.block_id.parts))
+    second.signature = ed25519_fast.sign_expanded(
+        a, prefix, pub, second.sign_bytes(CHAIN))
+    return DuplicateVoteEvidence(val.pubkey, first, second)
+
+
+def _step_propose(vs, last_commit, evidence, height, part_size, card):
+    """Step 1: build and fill the block, its part set and its block id."""
+    txs = [b"k%d.%d=v" % (height, i) for i in range(BLOCK_TXS)]
+    t0 = _ms()
+    header = Header(chain_id=CHAIN, height=height,
+                    time_ns=1_700_000_000_000_000_000 + height,
+                    num_txs=len(txs), total_txs=len(txs),
+                    last_block_id=last_commit.block_id,
+                    validators_hash=vs.hash(),
+                    consensus_hash=ConsensusParams().hash(),
+                    app_hash=b"\x0a" * 32)
+    block = Block(header, Data(txs), EvidenceData([evidence]), last_commit)
+    t1 = _ms()
+    block.fill_header()
+    t2 = _ms()
+    data = block.to_bytes()
+    t3 = _ms()
+    ps = block.make_part_set(part_size)
+    t4 = _ms()
+    block_id = block.block_id(part_size)
+    t5 = _ms()
+    block.validate_basic()
+    emit({"phase": "block_propose", "height": height, "txs": len(txs),
+          "last_commit_precommits": last_commit.size(), "evidence": 1,
+          "block_bytes": len(data), "part_size": part_size,
+          "parts": ps.total, "wall_ms": t5 - t0,
+          "stages_ms": {"header": t1 - t0, "fill_header": t2 - t1,
+                        "to_bytes": t3 - t2, "part_set": t4 - t3,
+                        "block_id": t5 - t4},
+          "card": card})
+    require(ps.total > 1 and block_id.parts == ps.header(),
+            "the block's part set")
+    return block, ps, block_id
+
+
+def _step_gossip(block, ps, block_id, part_size, card) -> None:
+    """Step 2: a receiver takes every part through its proof, refuses a
+    part with a flipped payload byte, and rebuilds the block."""
+    rx = PartSet.from_header(block_id.parts)
+    good = ps.get_part(ps.total // 2)
+    bad = Part(good.index, _flip(good.payload, 100), good.proof)
+    t0 = _ms()
+    refused = None
+    try:
+        rx.add_part(bad)
+    except ValueError as e:
+        refused = str(e)
+    t1 = _ms()
+    added = [rx.add_part(ps.get_part(i)) for i in range(ps.total)]
+    t2 = _ms()
+    got = Block.from_bytes(rx.get_data())
+    t3 = _ms()
+    same = got.hash() == block.hash() and got.block_id(part_size) == block_id
+    t4 = _ms()
+    emit({"phase": "block_gossip", "parts": ps.total, "refused": refused,
+          "proofs_verified": sum(added), "equal_to_proposer": same,
+          "wall_ms": t4 - t0,
+          "stages_ms": {"tampered_part": t1 - t0, "add_parts": t2 - t1,
+                        "from_bytes": t3 - t2, "hash_and_block_id": t4 - t3},
+          "card": card})
+    require(refused == "invalid part proof" and rx.bit_array()[good.index],
+            f"the tampered part: {refused!r}")
+    require(all(added) and rx.is_complete(), "a part's proof failed")
+    require(same, "the received block's hash or block id differs")
+
+
+def _add_batch_read(vset, votes, timer):
+    """vset.add_votes_batch(votes), its host stages read inside the call
+    by wrapping, for that call only, what it calls at their boundaries:
+    the first Vote.sign_bytes ends the validation loop, the verifier's
+    verify_async call ends the sign bytes and is the dispatch (native
+    prep inside it), its resolver is the wait, and what follows the
+    resolver is the _add_verified loop. Returns (results, errors, stats)."""
+    verifier = tverifier.default_verifier()
+    marks: dict = {}
+    prep = {"ms": 0.0}
+    calls: list = []
+    sign_bytes = Vote.sign_bytes
+
+    def first_sign_bytes(self, chain_id):
+        if "sign_bytes" not in marks:
+            marks["sign_bytes"] = _ms()
+        return sign_bytes(self, chain_id)
+
+    def timed_prep(items, fn=ted.prep_items):
+        t0 = _ms()
+        try:
+            return fn(items)
+        finally:
+            prep["ms"] += _ms() - t0
+
+    def dispatch(items, verify_async=verifier.verify_async):
+        marks["dispatch"] = _ms()
+        launched = dict(ladder.launches)
+        res = verify_async(items)
+        marks["dispatched"] = _ms()
+        calls.append((len(items), _launch_delta(launched)))
+
+        def resolve():
+            marks["resolve"] = _ms()
+            try:
+                return res()
+            finally:
+                marks["resolved"] = _ms()
+        return resolve
+
+    mark = len(timer)
+    route_before, prep_before = ted.predecomp_stats(), ted.prep_stats()
+    saved = _patched([(Vote, "sign_bytes", first_sign_bytes),
+                      (ted, "prep_items", timed_prep),
+                      (verifier, "verify_async", dispatch)])
+    try:
+        t0 = _ms()
+        results, errors = vset.add_votes_batch(votes)
+        t1 = _ms()
+    finally:
+        _restore(saved)
+    stages = {"validation": marks["sign_bytes"] - t0,
+              "sign_bytes": marks["dispatch"] - marks["sign_bytes"],
+              "dispatch": marks["dispatched"] - marks["dispatch"],
+              "native_prep": prep["ms"],
+              "resolve": marks["resolved"] - marks["resolve"],
+              "add_verified": t1 - marks["resolved"]}
+    stages["unattributed"] = (t1 - t0) - sum(
+        v for k, v in stages.items() if k != "native_prep")
+    kern = _step_kernels(timer, mark)
+    stats = {"wall_ms": t1 - t0, "stages_ms": stages,
+             "verify_async_calls": len(calls),
+             "items": [n for n, _ in calls],
+             "launches_in_call": [d for _, d in calls],
+             "route": _route(route_before, ted.predecomp_stats()),
+             "prep_route": _prep_delta(prep_before), **kern,
+             "device_busy": sum(kern["kernel_ms"].values()) / (t1 - t0)}
+    return results, errors, stats
+
+
+def _step_votes(type_, vs, block_id, seed_of, height, timer, card):
+    """Steps 3 and 4: sign one vote of each validator for the block (and
+    a conflicting one of a third) with sign_batch_async, then feed them
+    with a flipped signature and a duplicate through one add_votes_batch;
+    returns the VoteSet."""
+    n = len(vs)
+    what = "prevotes" if type_ == VoteType.PREVOTE else "precommits"
+    other = BlockID(b"\xc3" * 32, block_id.parts)
+    votes = [Vote(v.address, i, height, 0, 1_800_000_000_000 + i, type_,
+                  block_id) for i, v in enumerate(vs.validators)]
+    k_bad, k_dup, k_conf = n // 5, n // 3, n // 2
+    conflict = Vote(vs.validators[k_conf].address, k_conf, height, 0,
+                    1_900_000_000_000, type_, other)
+    signed = votes + [conflict]
+    seeds = [seed_of[v.pubkey] for v in vs.validators] + \
+        [seed_of[vs.validators[k_conf].pubkey]]
+    mark = len(timer)
+    prep_before = ted.prep_stats()
+    t0 = _ms()
+    msgs = [v.sign_bytes(CHAIN) for v in signed]
+    t1 = _ms()
+    resolve = ted.sign_batch_async(seeds, msgs)
+    t2 = _ms()
+    sigs = resolve()
+    t3 = _ms()
+    for v, sg in zip(signed, sigs):
+        v.signature = sg
+    sign = {"wall_ms": t3 - t0, "sign_bytes_ms": t1 - t0,
+            "dispatch_ms": t2 - t1, "resolve_ms": t3 - t2,
+            "signatures": len(sigs), "prep_route": _prep_delta(prep_before),
+            **_step_kernels(timer, mark)}
+    require(sign["prep_route"]["sign_native"] == len(sigs),
+            f"the {what}' signing did not take the native phases")
+    flipped = dataclasses.replace(
+        votes[k_bad], signature=_flip(votes[k_bad].signature, 17))
+    vset = VoteSet(CHAIN, height, 0, type_, vs)
+    results, errors, stats = _add_batch_read(
+        vset, votes + [flipped, votes[k_dup], conflict], timer)
+    got_errors = [(p, type(e).__name__) for p, e in errors]
+    maj = vset.two_thirds_majority()
+    emit({"phase": f"block_{what}", "validators": n, "sign": sign,
+          "add_votes_batch": stats, "errors": got_errors,
+          "majority_for_block": maj == block_id, "card": card})
+    off = [i for i, r in enumerate(results) if r != (i < n)]
+    require(not off and len(results) == n + 3, f"{what}: results at {off}")
+    require(got_errors == [(n, "ValueError"), (n + 2, "ConflictingVoteError")]
+            and str(errors[0][1]) == f"invalid signature on {flipped}"
+            and not errors[1][1].added, f"{what}: errors {got_errors}")
+    require(maj == block_id and vset.has_two_thirds_majority(),
+            f"{what}: no +2/3 for the block")
+    require(stats["verify_async_calls"] == 1 and stats["items"] == [n + 3]
+            and sum(stats["launches_in_call"][0][k]
+                    for k in VERIFY_KERNELS) > 0,
+            f"{what}: the batch did not reach the verify kernels in one call")
+    require(stats["prep_route"]["native"] == n + 3,
+            f"{what}: items off the native prep {stats['prep_route']}")
+    return vset
+
+
+def _step_commit(vset, vs, block_id, height, timer, card):
+    """Step 4's end: make_commit, verify_commit on the card, and the
+    commit's hash in the next block's header."""
+    mark = len(timer)
+    route_before = ted.predecomp_stats()
+    t0 = _ms()
+    commit = vset.make_commit()
+    t1 = _ms()
+    vs.verify_commit(CHAIN, block_id, height, commit)
+    t2 = _ms()
+    nxt = Block(Header(chain_id=CHAIN, height=height + 1,
+                       last_block_id=block_id, validators_hash=vs.hash()),
+                last_commit=commit)
+    nxt.fill_header()
+    t3 = _ms()
+    kern = _step_kernels(timer, mark)
+    emit({"phase": "block_commit", "precommits": sum(
+              p is not None for p in commit.precommits),
+          "make_commit_ms": t1 - t0, "verify_commit_ms": t2 - t1,
+          "next_header_ms": t3 - t2,
+          "route": _route(route_before, ted.predecomp_stats()), **kern,
+          "device_busy": sum(kern["kernel_ms"].values()) / (t2 - t1),
+          "card": card})
+    require(sum(p is not None for p in commit.precommits) == len(vs),
+            "make_commit lost a precommit")
+    require(nxt.header.last_commit_hash == commit.hash(),
+            "the next header's last_commit_hash")
+
+
+def _step_evidence(evidence, timer, card) -> None:
+    """Step 5: the evidence through a BatchVerifier("cuda") and the
+    default verifier, whose "auto" takes its host loop at two signatures;
+    a forged second vote must raise on both."""
+    cuda_v = tverifier.BatchVerifier("cuda")
+    auto_v = tverifier.default_verifier()
+    auto_before = dict(auto_v.stats)
+    forged = DuplicateVoteEvidence(
+        evidence.pubkey, evidence.vote_a, dataclasses.replace(
+            evidence.vote_b, signature=_flip(evidence.vote_b.signature, 33)))
+    out = {}
+    for route, verifier in (("cuda", cuda_v), ("auto", None)):
+        mark = len(timer)
+        t0 = _ms()
+        evidence.verify(CHAIN, evidence.pubkey, verifier=verifier)
+        t1 = _ms()
+        raised = None
+        try:
+            forged.verify(CHAIN, forged.pubkey, verifier=verifier)
+        except ValueError as e:
+            raised = str(e)
+        out[route] = {"verify_ms": t1 - t0, "forged_raised": raised,
+                      **_step_kernels(timer, mark)}
+    auto_sigs = auto_v.stats["sigs"] - auto_before["sigs"]
+    auto_cuda = auto_v.stats["cuda_sigs"] - auto_before["cuda_sigs"]
+    emit({"phase": "block_evidence", **out, "cuda_route_sigs":
+          cuda_v.stats["cuda_sigs"], "auto_route_sigs": auto_sigs,
+          "auto_batch_path_sigs": auto_cuda, "card": card})
+    require(all(o["forged_raised"] == "invalid signature in evidence"
+                for o in out.values()), f"the forged evidence: {out}")
+    require(cuda_v.stats["cuda_sigs"] == 4 and auto_sigs == 4
+            and auto_cuda == 0, "the evidence's verifier routes")
+
+
+def _profiled_device_ms(fn):
+    """Device time of the kernels `fn` launches, summed from
+    torch.profiler's CUDA activity; None when it records none."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        total += us
+    return total / 1e3 if total > 0 else None
+
+
+def _step_merkle(block, device, card) -> None:
+    """Step 6: the device Merkle root of the txs against Data.hash and
+    hashlib, and hash_fixed on SHA_ROWS seeded 64-byte rows against
+    hashlib; CUDA-event times (launch gaps included), the profiler's sum
+    of kernel time for the tree's widest level and for hash_fixed, and
+    the hashlib times beside them."""
+    txs = block.data.txs
+    n = len(txs)
+    t0 = _ms()
+    host_root = merkle.root_host(txs)
+    t1 = _ms()
+    dev_root = merkle.root(txs)
+    t2 = _ms()
+    merkle.root(txs)
+    t3 = _ms()
+    digests = b"".join(merkle.leaf_hash(t) for t in txs)
+    t4 = _ms()
+    padded = torch.from_numpy(merkle.pad_digests(np.frombuffer(
+        digests, np.uint8).reshape(n, 32).copy())).to(device)
+    tree_ms, tree_root = _time_ms(
+        lambda: merkle.root_from_digests(padded, n), 3)
+    # the profiler's post-processing grows with the kernels it records
+    # (~5,000 a level): it reads one level, the widest, not the tree
+    level_ms, _ = _time_ms(lambda: merkle._level_up(padded), 3)
+    t5 = _ms()
+    level_busy_ms = _profiled_device_ms(lambda: merkle._level_up(padded))
+    t6 = _ms()
+    rows = np.random.RandomState(SEED + 6).randint(
+        0, 256, (SHA_ROWS, 64), dtype=np.uint8)
+    rows_dev = torch.from_numpy(rows).to(device)
+    sha_ms, got = _time_ms(lambda: sha256.hash_fixed(rows_dev), 3)
+    t7 = _ms()
+    sha_busy_ms = _profiled_device_ms(lambda: sha256.hash_fixed(rows_dev))
+    t8 = _ms()
+    flat = rows.tobytes()
+    want = merkle.sha256_many_host(
+        [flat[64 * i:64 * (i + 1)] for i in range(SHA_ROWS)])
+    t9 = _ms()
+    sha_equal = got.cpu().numpy().tobytes() == b"".join(want)
+    emit({"phase": "block_merkle", "leaves": n,
+          "padded_leaves": padded.shape[0],
+          "root_equal": dev_root == host_root == block.data.hash(),
+          "root_wall_ms": t2 - t1, "root_wall_warm_ms": t3 - t2,
+          "host_leaf_ms": t4 - t3, "device_tree_ms": tree_ms,
+          "device_level_ms": level_ms, "device_level_kernel_ms": level_busy_ms,
+          "hashlib_root_ms": t1 - t0, "sha_rows": SHA_ROWS,
+          "hash_fixed_ms": sha_ms, "hash_fixed_kernel_ms": sha_busy_ms,
+          "hashlib_ms": t9 - t8, "hash_fixed_equal": sha_equal,
+          "profiler_wall_ms": (t6 - t5) + (t8 - t7), "card": card})
+    require(dev_root == host_root == block.data.hash()
+            and tree_root.cpu().numpy().tobytes() == host_root,
+            "the device Merkle root differs from the host's")
+    require(sha_equal, "hash_fixed differs from hashlib")
+
+
+def phase_block(card: str, keys, commit_path, device) -> dict:
+    """One consensus height of phase 3's 10,000-validator chain: propose,
+    gossip, prevotes, precommits and commit, evidence, device Merkle."""
+    vs, _, last_commit = commit_path
+    height = HEIGHT + 1
+    part_size = BLOCK_PART_SIZE
+    seeds = _seeds(len(keys), SEED)
+    seed_of = {pub: s for (_, _, pub), s in zip(keys, seeds)}
+    key_of = {k[2]: k for k in keys}
+    evidence = _block_evidence(vs, last_commit, key_of)
+    timer: list = []
+    inner = _time_launches(timer)
+    _zero_launches()
+    t0 = _ms()
+    block, ps, block_id = _step_propose(vs, last_commit, evidence, height,
+                                        part_size, card)
+    t1 = _ms()
+    _step_gossip(block, ps, block_id, part_size, card)
+    t2 = _ms()
+    _step_votes(VoteType.PREVOTE, vs, block_id, seed_of, height, timer, card)
+    t3 = _ms()
+    vset = _step_votes(VoteType.PRECOMMIT, vs, block_id, seed_of, height,
+                       timer, card)
+    _step_commit(vset, vs, block_id, height, timer, card)
+    t4 = _ms()
+    _step_evidence(evidence, timer, card)
+    t5 = _ms()
+    _step_merkle(block, device, card)
+    t6 = _ms()
+    launches = dict(ladder.launches)
+    ladder._launch = inner
+    emit({"phase": "block_height_summary", "validators": len(vs),
+          "walls_ms": {"propose": t1 - t0, "gossip": t2 - t1,
+                       "prevotes": t3 - t2, "precommits_and_commit": t4 - t3,
+                       "evidence": t5 - t4, "merkle": t6 - t5},
+          "kernel_ms": _kernel_ms(timer), "launches": launches,
+          "card": card})
+    _require_launched(launches, KERNELS, "block height")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -1043,10 +1498,11 @@ def main() -> int:
     print(card, flush=True)
     rate, ptxas = phase_build()
     kernels = phase_kernels(device, rate)
-    commit_launches, keys = phase_main(card)
+    commit_launches, keys, commit_path = phase_main(card)
     mixed_launches = phase_mixed(card, keys)
     kernels.update(phase_sign_kernel(device, rate))
     lite_launches = phase_lite(card)
+    block_launches = phase_block(card, keys, commit_path, device)
     table = []
     for name, info in KERNELS.items():
         table.append({
@@ -1056,7 +1512,8 @@ def main() -> int:
             "checked": True, "launches": lite_launches[name],
             "launches_by_path": {"commit_10k": commit_launches[name],
                                  "mixed_commit": mixed_launches[name],
-                                 "lite_chain": lite_launches[name]},
+                                 "lite_chain": lite_launches[name],
+                                 "block_height": block_launches[name]},
             "max_abs_err": kernels[name]["max_abs_err"],
             "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"],
             "bound_ms": kernels[name]["bound_ms"],

@@ -19,14 +19,23 @@ Slice 2 is light-client chain certification:
     -> ops/ladder.sign_rb -> csrc/ladder.cu (the r*B kernel)
   lite/certifier.certify_chain -> BatchVerifier -> the verify kernels
 
-  ops/      field, curve, ladder, ed25519, host merkle, kernel build
-  csrc/     fe25519.cuh (arithmetic), ladder.cu (kernels), cpu_shim.cpp
-  types/    keys, encoding, vote, block (BlockID, Header, Commit),
-            validator_set
+Slice 7 is the block plane: a block built, split into a Merkle-proven
+part set, rebuilt by a receiver, voted on through VoteSet (one
+verify_async a batch of votes), committed, and its evidence checked;
+and the SHA-256 / Merkle device plane in plain PyTorch.
+
+  ops/      field, curve, ladder, ed25519, merkle (host and device
+            halves), sha256, kernel build
+  csrc/     fe25519.cuh (arithmetic), ladder.cu (kernels), cpu_shim.cpp,
+            prep.cpp (native host prep)
+  types/    keys, encoding, vote, block (Block, Header, Data, Commit,
+            EvidenceData, BlockID), part_set, vote_set, evidence,
+            validator_set, params, genesis, proposal, priv_validator
   models/   verifier
   lite/     certifiers, providers, SignedHeader / FullCommit
-  utils/    ed25519_ref, ed25519_fast, clock, device
-  convert.py  state_from_jax: the JAX package's tables and cache rows
+  utils/    ed25519_ref, ed25519_fast, secp256k1_ref, clock, device
+  convert.py  the JAX package's tables and cache rows, and its blocks,
+              votes, validator sets and genesis docs by their objects
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,5 @@
-"""Carry the JAX package's device state into the port.
+"""Carry the JAX package's device state and block-plane objects into the
+port.
 
 The JAX verifier's state is its constant tables and its predecompression
 cache: the 16 affine multiples of B (X, Y, T*2d) as int32[16, 3, 20]
@@ -9,6 +10,12 @@ cached rows {pubkey: (xneg u8[32], y u8[32], ok)} (`ops/ed25519._predecomp`).
 `state_from_jax` takes them as plain numpy arrays and dicts (this module
 imports nothing of the JAX package) and installs them into the port's
 tables and cache; the kernels then read them from `device`.
+
+The block plane crosses as the canonical objects its types' `to_obj`
+gives (a block, the votes and validator set a VoteSet takes, a genesis
+doc): `block_from_jax`, `votes_from_jax`, `valset_from_jax` and
+`genesis_from_jax` rebuild the port's types from them and refuse an
+object whose canonical bytes do not survive the crossing.
 """
 
 from __future__ import annotations
@@ -16,6 +23,11 @@ from __future__ import annotations
 import numpy as np
 
 from tendermint_tpu_torch.ops import ed25519, ladder
+from tendermint_tpu_torch.types import encoding
+from tendermint_tpu_torch.types.block import Block
+from tendermint_tpu_torch.types.genesis import GenesisDoc
+from tendermint_tpu_torch.types.validator_set import ValidatorSet
+from tendermint_tpu_torch.types.vote import Vote
 from tendermint_tpu_torch.utils import device as _device
 
 
@@ -39,3 +51,33 @@ def state_from_jax(s_table, consts, predecomp_rows=None, device=None) -> dict:
     ed25519.install_predecomp_rows(rows)
     return {"s_table": s_table.shape, "consts": consts.shape,
             "rows": len(rows)}
+
+
+def _carried(obj, out, what: str):
+    """`out` if its canonical bytes equal those of the object it was
+    built from, else ValueError."""
+    if encoding.cdumps(out.to_obj()) != encoding.cdumps(obj):
+        raise ValueError(f"{what} does not round-trip through to_obj")
+    return out
+
+
+def block_from_jax(obj) -> Block:
+    """A Block from the JAX package's `Block.to_obj()`."""
+    return _carried(obj, Block.from_obj(obj), "block")
+
+
+def votes_from_jax(objs) -> list:
+    """Votes from the JAX package's `Vote.to_obj()`s (None stays None)."""
+    return [None if o is None else _carried(o, Vote.from_obj(o), "vote")
+            for o in objs]
+
+
+def valset_from_jax(obj) -> ValidatorSet:
+    """A ValidatorSet, accums and proposer included, from the JAX
+    package's `ValidatorSet.to_obj()`."""
+    return _carried(obj, ValidatorSet.from_obj(obj), "validator set")
+
+
+def genesis_from_jax(obj) -> GenesisDoc:
+    """A GenesisDoc from the JAX package's `GenesisDoc.to_obj()`."""
+    return _carried(obj, GenesisDoc.from_obj(obj), "genesis doc")

@@ -34,6 +34,17 @@ class SignedHeader:
     def height(self) -> int:
         return self.header.height
 
+    def to_obj(self):
+        return {"header": self.header.to_obj(),
+                "commit": self.commit.to_obj(),
+                "block_id": self.block_id.to_obj()}
+
+    @classmethod
+    def from_obj(cls, o):
+        return cls(Header.from_obj(o["header"]),
+                   Commit.from_obj(o["commit"]),
+                   BlockID.from_obj(o["block_id"]))
+
 
 @dataclass
 class FullCommit:
@@ -55,3 +66,12 @@ class FullCommit:
                 "validator set does not match header's validators_hash")
         if self.signed_header.block_id.hash != h.hash():
             raise CertificationError("commit is not for this header")
+
+    def to_obj(self):
+        return {"signed_header": self.signed_header.to_obj(),
+                "validators": self.validators.to_obj()}
+
+    @classmethod
+    def from_obj(cls, o):
+        return cls(SignedHeader.from_obj(o["signed_header"]),
+                   ValidatorSet.from_obj(o["validators"]))

@@ -7,6 +7,7 @@ path; the JAX package's native encoder is byte-equal to it).
 
 from __future__ import annotations
 
+import hashlib
 import json
 from typing import Any
 
@@ -31,3 +32,15 @@ def cdumps(obj: Any) -> bytes:
     return json.dumps(_canon(obj), sort_keys=True, separators=(",", ":"),
                       ensure_ascii=False).encode()
 
+
+def cloads(data: bytes) -> Any:
+    return json.loads(data.decode())
+
+
+def chash(obj: Any) -> bytes:
+    """SHA-256 of the canonical encoding."""
+    return hashlib.sha256(cdumps(obj)).digest()
+
+
+def hex_to_bytes(s: str | None) -> bytes | None:
+    return None if s is None else bytes.fromhex(s)

@@ -41,6 +41,14 @@ class Validator:
             return other
         return self if self.address < other.address else other
 
+    def to_obj(self):
+        return {"pubkey": self.pubkey.hex(), "voting_power": self.voting_power,
+                "accum": self.accum}
+
+    @classmethod
+    def from_obj(cls, o):
+        return cls(bytes.fromhex(o["pubkey"]), o["voting_power"], o["accum"])
+
 
 class ValidatorSet:
     """Validators sorted by address, with accum-based proposer rotation."""
@@ -118,6 +126,27 @@ class ValidatorSet:
                 for v in self.validators]
             self._hash = merkle.root_host(leaves)
         return self._hash
+
+    def to_obj(self):
+        o = {"validators": [v.to_obj() for v in self.validators]}
+        # the proposer is state, not derivable from the accums: after an
+        # increment it is the pre-decrement maximum, which the
+        # post-decrement accums no longer identify
+        if self._proposer is not None:
+            o["proposer"] = self._proposer.address.hex()
+        return o
+
+    @classmethod
+    def from_obj(cls, o):
+        vs = cls([Validator.from_obj(v) for v in o["validators"]],
+                 _fresh=False)
+        prop = o.get("proposer")
+        if prop is not None:
+            i = vs._index.get(bytes.fromhex(prop), -1)
+            if i < 0:
+                raise ValueError(f"proposer {prop} not in validator set")
+            vs._proposer = vs.validators[i]
+        return vs
 
     # -- commit verification: the batched hot path ---------------------------
 

@@ -1,7 +1,8 @@
 """Vote: a signed prevote or precommit, and its canonical sign bytes.
 
-Counterpart of `tendermint_tpu/types/vote.py`; the sign bytes are
-byte-identical.
+Counterpart of `tendermint_tpu/types/vote.py`; the sign bytes, the
+canonical object and `str(vote)` (which VoteSet's messages embed) are
+identical.
 """
 
 from __future__ import annotations
@@ -9,6 +10,7 @@ from __future__ import annotations
 import json
 from dataclasses import dataclass
 
+from tendermint_tpu_torch.types.keys import address_of
 from tendermint_tpu_torch.utils import clock
 
 
@@ -73,7 +75,14 @@ class Vote:
         return (pre + str(self.timestamp_ns) + suf).encode()
 
     def to_obj(self):
-        return {
+        # cached per signature object: a commit encodes its votes for the
+        # block bytes and again for its hash. A vote's fields do not
+        # change after signing, and a new signature misses the cache.
+        # Callers treat the dict as read-only.
+        sig = self.signature
+        if self.__dict__.get("_obj_sig") is sig:
+            return self.__dict__["_obj"]
+        o = {
             "validator_address": self.validator_address.hex(),
             "validator_index": self.validator_index,
             "height": self.height,
@@ -81,5 +90,42 @@ class Vote:
             "timestamp_ns": self.timestamp_ns,
             "type": self.type,
             "block_id": self.block_id.to_obj(),
-            "signature": self.signature.hex(),
+            "signature": sig.hex(),
         }
+        self.__dict__["_obj"] = o
+        self.__dict__["_obj_sig"] = sig
+        return o
+
+    @classmethod
+    def from_obj(cls, o) -> "Vote":
+        from tendermint_tpu_torch.types.block import BlockID
+        return cls(
+            validator_address=bytes.fromhex(o["validator_address"]),
+            validator_index=o["validator_index"],
+            height=o["height"], round=o["round"],
+            timestamp_ns=o["timestamp_ns"], type=o["type"],
+            block_id=BlockID.from_obj(o["block_id"]),
+            signature=bytes.fromhex(o["signature"]))
+
+    def verify(self, chain_id: str, pubkey: bytes) -> bool:
+        """One vote on the host; batches go through VoteSet."""
+        if address_of(pubkey) != self.validator_address:
+            return False
+        from tendermint_tpu_torch.utils import ed25519_ref as ref
+        return ref.verify(pubkey, self.sign_bytes(chain_id), self.signature)
+
+    def validate_basic(self) -> None:
+        if not VoteType.valid(self.type):
+            raise ValueError(f"invalid vote type {self.type}")
+        if self.height < 1 or self.round < 0:
+            raise ValueError("invalid height/round")
+        if len(self.validator_address) != 20:
+            raise ValueError("bad validator address")
+        if self.validator_index < 0:
+            raise ValueError("bad validator index")
+
+    def __str__(self) -> str:
+        t = "prevote" if self.type == VoteType.PREVOTE else "precommit"
+        return (f"Vote{{{self.validator_index}:"
+                f"{self.validator_address.hex()[:8]} "
+                f"{self.height}/{self.round} {t} {self.block_id.short()}}}")

@@ -34,6 +34,11 @@ def test_walk_covers_every_subpackage():
         assert f"tendermint_tpu_torch.{pkg}" in mods, pkg
     assert "tendermint_tpu_torch.lite.certifier" in mods
     assert "tendermint_tpu_torch.native" in mods
+    for mod in ("ops.sha256", "ops.merkle", "types.block", "types.part_set",
+                "types.vote_set", "types.evidence", "types.params",
+                "types.genesis", "types.proposal", "types.priv_validator",
+                "convert"):
+        assert f"tendermint_tpu_torch.{mod}" in mods, mod
 
 
 CSRC = PORT / "csrc"
@@ -126,6 +131,17 @@ def test_entry_points_without_device_raise(no_cuda):
         convert.state_from_jax(*ladder.tables())
     # the scalar backend needs no device
     assert verifier.BatchVerifier("python").verify([]).shape == (0,)
+
+
+def test_device_merkle_without_device_raises(no_cuda):
+    from tendermint_tpu_torch.ops import merkle
+
+    for items in ([b"a", b"b"], []):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            merkle.root(items)
+    # the host half needs no device
+    assert merkle.root_host([b"a", b"b"]) == merkle.root([b"a", b"b"],
+                                                          device="cpu")
 
 
 def test_sign_batch_without_device_raises(no_cuda):
