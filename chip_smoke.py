@@ -48,7 +48,7 @@ Phases, each printing its own lines:
    precommit, and the same precommit re-encoded with a non-minimal DER
    integer, must each raise "invalid signature in commit". Launch counts
    zeroed just before, read just after.
-5. sign kernel: a seeded batch of 1024 scalars with edge values (0, 1, 2,
+5. sign kernel: a seeded batch of 64 and of 1024 scalars with edge values (0, 1, 2,
    L - 1, 2^252, 2^252 - 1, and unreduced ones whose signed recoding
    carries out of the top window: L, L + 1, 2^255, 2^256 - 1, every
    nibble 8) through the r*B kernel (a fixed-base comb) and its plain
@@ -88,7 +88,31 @@ Phases, each printing its own lines:
    seeded uint8[65536, 64] batch against hashlib, each timed beside
    hashlib. Launch counts zeroed at the start of the phase, read at its
    end.
-8. the kernel table as one JSON line, the card again, then the last line
+8. fast sync: BASELINE.json config 4's chain (64 validators of power 10,
+   5,000 txs a block over 512 keys, ConsensusParams' 65536-byte parts,
+   256-block windows), 800 blocks deep instead of 50,000 (the one cut).
+   The port's ChainBuilder builds, signs (one sign_batch_async of 64
+   a block, B3) and applies 801 blocks; every block is serialized and
+   parsed back by Block.from_bytes for the syncing node. A fresh node
+   (MemDB stores, the kvstore app, BatchVerifier("auto")) syncs them from
+   an instant in-process peer through BlockchainReactor._sync_window from
+   a cold predecompression cache: its dispatches must route full then fill
+   (the first window's two chunks: B1, then B2) and hit after (B2); the
+   synced state, every stored block hash and seen commit must equal the
+   chain builder's. Each call's stages are read inside it (collect: part sets
+   and ids, commit items; dispatch: native prep, uploads, launches; the
+   wait in fut.result(); apply: the power check, save_block,
+   validate_block and validate_basic, exec_block_on_app with deliver,
+   results_hash, the persisted responses, app commit, state save), with
+   the kernels' event ms and the device-busy share. Then a second node
+   syncs 300 blocks from a peer whose block 201 carries a flipped
+   signature byte in its last commit: the window must stop at 199 applied
+   blocks, height 200 be re-requested, the peer stopped and the window in
+   flight dropped; an honest peer then serves the rest and the node must
+   reach the chain builder's state at 300. Launch counts zeroed before the
+   build, read after the forgery. The sign kernel check of phase 5 also
+   runs at 64 scalars, the chain builder's launch.
+9. the kernel table as one JSON line, the card again, then the last line
    {"ok": true, "device": {...}}.
 
 Any mismatch or exception ends the run with a non-zero code before the
@@ -106,21 +130,33 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 from tendermint_tpu_torch import native
+from tendermint_tpu_torch.abci.apps import KVStoreApp
+from tendermint_tpu_torch.abci.proxy import AppConns, local_client_creator
+from tendermint_tpu_torch.abci.types import ValidatorUpdate
+from tendermint_tpu_torch.blockchain import BlockchainReactor
+from tendermint_tpu_torch.blockchain.reactor import VERIFY_WINDOW
+from tendermint_tpu_torch.blockchain.builder import ChainBuilder
 from tendermint_tpu_torch.lite import (CertificationError, FullCommit,
                                        SignedHeader, ValidatorsChangedError,
                                        certify_chain, default_window)
 from tendermint_tpu_torch.models import verifier as tverifier
 from tendermint_tpu_torch.ops import _build, ladder, merkle, sha256
 from tendermint_tpu_torch.ops import ed25519 as ted
+from tendermint_tpu_torch.state import execution as texec
+from tendermint_tpu_torch.state.execution import BlockExecutor
+from tendermint_tpu_torch.storage import BlockStore, MemDB, StateStore
 from tendermint_tpu_torch.types.block import (Block, BlockID, Commit, Data,
                                               EvidenceData, Header,
                                               PartSetHeader)
+from tendermint_tpu_torch.types import encoding as tenc
 from tendermint_tpu_torch.types import keys as tkeys
 from tendermint_tpu_torch.types.evidence import DuplicateVoteEvidence
 from tendermint_tpu_torch.types.keys import PrivKey, Secp256k1PrivKey
@@ -154,6 +190,13 @@ BLOCK_TXS = 5000          # BASELINE.json config 4's block width
 # the block's gossip parts: ConsensusParams' default, 65536 bytes
 BLOCK_PART_SIZE = ConsensusParams().block_gossip.block_part_size_bytes
 SHA_ROWS = 65536          # hash_fixed batch of 64-byte rows
+SYNC_VALIDATORS = 64      # BASELINE.json config 4 (bench_fastsync.run_large)
+SYNC_TXS = 5000
+SYNC_KEY_SPACE = 512
+SYNC_BLOCKS = 800         # config 4 syncs 50,000 blocks: the one cut
+FORGE_BLOCKS = 300        # the forgery node's sync
+FORGE_AT = 201            # its last commit carries a flipped signature byte
+SYNC_WINDOW = VERIFY_WINDOW  # 256 blocks a window, as the reactor's default
 # H100 SXM published HBM rate (NVIDIA data sheet), bytes/s
 HBM_BYTES_S = 3.35e12
 # 32-bit integer multiply-adds an SM issues per clock on sm_90 (CUDA C++
@@ -859,7 +902,9 @@ def phase_sign_kernel(device, rate: dict) -> dict:
     require(n_chunk in SIGN_SWEEP, "the sign sweep misses the chunk")
     err, sweep, by_windows = 0, {}, {}
     full = ladder.N_WINDOWS
-    for n_windows, sizes in ((full, (N_SIGN_CHECK,) + SIGN_SWEEP),
+    # SYNC_VALIDATORS: the launch of the fast-sync chain's signing
+    for n_windows, sizes in ((full, (SYNC_VALIDATORS, N_SIGN_CHECK)
+                              + SIGN_SWEEP),
                              (1, (n_chunk,))):
         expect = _rb_oracle(rs, n_windows)
         for n in sizes:
@@ -1489,6 +1534,350 @@ def phase_block(card: str, keys, commit_path, device) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: fast sync of BASELINE config 4's chain through the window engine
+# ---------------------------------------------------------------------------
+
+class _TimedFuture:
+    def __init__(self, fut, waits: list):
+        self._fut, self._waits = fut, waits
+
+    def result(self):
+        t0 = time.perf_counter()
+        try:
+            return self._fut.result()
+        finally:
+            self._waits.append((time.perf_counter() - t0) * 1e3)
+
+
+class _TimedResolver:
+    """The reactor's one-thread resolver, installed for the phase so that
+    the sync loop's wait in fut.result() is read."""
+
+    def __init__(self, waits: list):
+        self._pool = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="tm-fastsync-resolve")
+        self._waits = waits
+
+    def submit(self, fn):
+        return _TimedFuture(self._pool.submit(fn), self._waits)
+
+    def shutdown(self, wait: bool = True) -> None:
+        self._pool.shutdown(wait=wait)
+
+
+def _sync_node(gen, verifier):
+    """A fresh node: stores on MemDB, the kvstore app after init_chain, an
+    executor on `verifier` and a fast-syncing reactor at VERIFY_WINDOW."""
+    ss, bs = StateStore(MemDB()), BlockStore(MemDB())
+    state = ss.load_or_genesis(gen)
+    conns = AppConns(local_client_creator(KVStoreApp()))
+    conns.consensus.init_chain(
+        [ValidatorUpdate(v.pubkey, v.voting_power)
+         for v in state.validators.validators], gen.chain_id)
+    exe = BlockExecutor(ss, conns.consensus, verifier=verifier)
+    reactor = BlockchainReactor(state, exe, bs, fast_sync=True,
+                                verify_window=SYNC_WINDOW)
+    return reactor, ss, bs, exe
+
+
+def _instant_peers(reactor, served: dict) -> None:
+    """bench_fastsync.sync_chain's in-process peers: a request for height
+    h is answered at once from served[peer][h - 1]."""
+    pool = reactor.pool
+
+    def send_request(peer_id, height):
+        pool.add_block(peer_id, served[peer_id][height - 1], 1)
+        return True
+
+    pool.send_request = send_request
+    pool.max_pending_per_peer = 1 << 20
+    for peer_id, blocks in served.items():
+        pool.set_peer_height(peer_id, len(blocks))
+
+
+SYNC_STAGES = ("collect_ms", "parts_ms", "items_ms", "dispatch_ms",
+               "host_prep_ms", "upload_ms", "launch_ms", "wait_ms",
+               "apply_ms", "check_ms", "verify_commit_ms", "save_block_ms",
+               "validate_ms", "validate_basic_ms", "exec_ms", "deliver_ms",
+               "results_hash_ms", "responses_obj_ms", "save_responses_ms",
+               "app_commit_ms", "state_save_ms")
+
+
+def _sync_patches(reactor, ss, bs, exe, st: dict, collected: list):
+    """Wrap, for the phase only, the functions at the window engine's stage
+    boundaries so that each adds its host time to a stage of `st`: collect
+    (part sets and ids, commit items), dispatch (native prep, uploads,
+    launches), apply (the batched power check, save_block, validate_block
+    with validate_basic, exec_block_on_app with deliver, results_hash, the
+    persisted responses, app commit, the state save)."""
+    def timed(fn, stage):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                st[stage] += (time.perf_counter() - t0) * 1e3
+        return call
+
+    def collect(skip, inner=timed(reactor._collect_window, "collect_ms")):
+        out = inner(skip)
+        collected.append(0 if out is None else len(out[0]))
+        return out
+
+    verifier = exe.verifier
+    app = exe.app_conn
+    return [
+        (reactor, "_collect_window", collect),
+        (reactor, "_parts_and_id", timed(reactor._parts_and_id, "parts_ms")),
+        (ValidatorSet, "commit_verification_items",
+         timed(ValidatorSet.commit_verification_items, "items_ms")),
+        (verifier, "verify_async", timed(verifier.verify_async,
+                                         "dispatch_ms")),
+        (ted, "prep_items", timed(ted.prep_items, "host_prep_ms")),
+        (ted, "_upload", timed(ted._upload, "upload_ms")),
+        (ladder, "verify", timed(ladder.verify, "launch_ms")),
+        (ladder, "verify_pre", timed(ladder.verify_pre, "launch_ms")),
+        (reactor, "_apply_window", timed(reactor._apply_window, "apply_ms")),
+        (ValidatorSet, "check_commit_results",
+         timed(ValidatorSet.check_commit_results, "check_ms")),
+        (ValidatorSet, "verify_commit",
+         timed(ValidatorSet.verify_commit, "verify_commit_ms")),
+        (bs, "save_block", timed(bs.save_block, "save_block_ms")),
+        (exe, "validate_block", timed(exe.validate_block, "validate_ms")),
+        (Block, "validate_basic", timed(Block.validate_basic,
+                                        "validate_basic_ms")),
+        (texec, "exec_block_on_app", timed(texec.exec_block_on_app,
+                                           "exec_ms")),
+        (app, "deliver_tx_batch", timed(app.deliver_tx_batch, "deliver_ms")),
+        (texec, "results_hash", timed(texec.results_hash,
+                                      "results_hash_ms")),
+        (texec.ABCIResponses, "to_obj", timed(texec.ABCIResponses.to_obj,
+                                              "responses_obj_ms")),
+        (ss, "save_abci_responses", timed(ss.save_abci_responses,
+                                          "save_responses_ms")),
+        (app, "commit", timed(app.commit, "app_commit_ms")),
+        (ss, "save", timed(ss.save, "state_save_ms"))]
+
+
+def _expected_routes(n_blocks: int, window: int, verifier) -> list:
+    """The cache routes of each _sync_window call's dispatch from a cold
+    cache. In chunk order: the first meets 64 unseen keys (full, B1), the
+    second the same keys seen but not cached (fill, B2), every later one
+    hits (B2). A window of at most `auto_threshold` signatures verifies
+    on the host (no route); the last call only applies."""
+    seq = iter(["full", "fill"] + ["hit"] * n_blocks * SYNC_VALIDATORS)
+    out = []
+    for lo in range(0, n_blocks, window):
+        r = {"full": 0, "fill": 0, "hit": 0}
+        sigs = min(window, n_blocks - lo) * SYNC_VALIDATORS
+        if sigs <= verifier.auto_threshold:
+            sigs = 0
+        for _ in range(-(-sigs // tverifier.BATCH_CHUNK)):
+            r[next(seq)] += 1
+        out.append(r)
+    return out + [{"full": 0, "fill": 0, "hit": 0}]
+
+
+def _build_sync_chain(device, timer: list, card: str):
+    """Step 1: the chain (SYNC_BLOCKS and a sentinel) built, signed on B3
+    and applied by the port's builder, serialized, and parsed back by
+    Block.from_bytes for the syncing node (the wire path)."""
+    b = ChainBuilder(SYNC_VALIDATORS, SYNC_TXS, key_space=SYNC_KEY_SPACE,
+                     device=device)
+    times: dict = {}
+    mark = len(timer)
+    t0 = time.perf_counter()
+    blocks = b.build(FORGE_BLOCKS, times)
+    state_forge = b.state
+    blocks += b.build(SYNC_BLOCKS - FORGE_BLOCKS, times)
+    state_final = b.state
+    blocks += b.build(1, times)
+    t1 = time.perf_counter()
+    wire = [blk.to_bytes() for blk in blocks]
+    t2 = time.perf_counter()
+    recv = [Block.from_bytes(raw) for raw in wire]
+    t3 = time.perf_counter()
+    sign = _step_kernels(timer, mark)
+    emit({"phase": "sync_build", "blocks": len(blocks),
+          "validators": SYNC_VALIDATORS, "txs_per_block": SYNC_TXS,
+          "key_space": SYNC_KEY_SPACE, "build_ms": (t1 - t0) * 1e3,
+          "blocks_per_s": len(blocks) / (t1 - t0), **times,
+          "serialize_ms": (t2 - t1) * 1e3, "from_bytes_ms": (t3 - t2) * 1e3,
+          "bytes_per_block": sum(map(len, wire)) / len(wire),
+          "parts_per_block": blocks[1].make_part_set(b.part_size).total,
+          "sign_launches": sign["launches"],
+          "sign_kernel_ms": sign["kernel_ms"], "card": card})
+    return b, blocks, wire, recv, state_forge, state_final
+
+
+def _sync_step(gen, recv, blocks, state_final, verifier, timer, card):
+    """Step 2: a fresh node syncs SYNC_BLOCKS through _sync_window from a
+    cold predecompression cache, each call's stages read inside it."""
+    with ted._predecomp_lock:       # the lite phase used the same 64 seeds
+        ted._predecomp.clear()
+        ted._predecomp_seen.clear()
+    reactor, ss, bs, exe = _sync_node(gen, verifier)
+    _instant_peers(reactor, {"peer": recv})
+    waits: list = []
+    reactor._resolver = _TimedResolver(waits)
+    st = dict.fromkeys(SYNC_STAGES, 0.0)
+    collected: list = []
+    saved = _patched(_sync_patches(reactor, ss, bs, exe, st, collected))
+    calls, marks = [], []
+    try:
+        t0 = time.perf_counter()
+        reactor.pool.make_next_requests()
+        while reactor.state.last_block_height < SYNC_BLOCKS:
+            require(len(calls) < 4 * SYNC_BLOCKS, "the sync stopped moving")
+            for k in st:
+                st[k] = 0.0
+            n_waits, h0, mark = len(waits), reactor.state.last_block_height, \
+                len(timer)
+            before = ted.predecomp_stats()
+            t1 = time.perf_counter()
+            progress = reactor._sync_window()
+            wall = (time.perf_counter() - t1) * 1e3
+            st["wait_ms"] = sum(waits[n_waits:])
+            calls.append({"call": len(calls), "wall_ms": wall,
+                          "collected": collected[-1],
+                          "applied": reactor.state.last_block_height - h0,
+                          "route": _route(before, ted.predecomp_stats()),
+                          **st})
+            marks.append(mark)
+            if not progress:
+                reactor.pool.make_next_requests()
+        wall_s = time.perf_counter() - t0
+    finally:
+        _restore(saved)
+        reactor.stop()
+    for c, mark, end in zip(calls, marks, marks[1:] + [len(timer)]):
+        c.update(_step_kernels(timer[:end], mark))
+    routes = [c["route"] for c in calls]
+    kernel_ms = _kernel_ms(timer[marks[0]:])
+    per_launch = [(name, n, s.elapsed_time(e))
+                  for name, n, s, e in timer[marks[0]:]]
+    emit({"phase": "sync", "blocks": SYNC_BLOCKS, "window":
+          reactor.verify_window, "wall_ms": wall_s * 1e3,
+          "blocks_per_s": SYNC_BLOCKS / wall_s,
+          "verifies_per_s": SYNC_BLOCKS * SYNC_VALIDATORS / wall_s,
+          "calls": calls, "kernel_ms": kernel_ms, "launches_ms": per_launch,
+          "device_busy": sum(kernel_ms.values()) / (wall_s * 1e3),
+          "verifier_stats": dict(verifier.stats), "card": card})
+    want = _expected_routes(SYNC_BLOCKS, reactor.verify_window, verifier)
+    require(routes == want, f"the windows took cache routes {routes}, "
+                            f"want {want}")
+    require(tenc.cdumps(reactor.state.to_obj())
+            == tenc.cdumps(state_final.to_obj())
+            and ss.load().equals(state_final),
+            "the synced state differs from the chain builder's")
+    require(bs.height() == SYNC_BLOCKS and all(
+        bs.load_block_meta(h).block_id.hash == blocks[h - 1].hash()
+        and bs.load_seen_commit(h).to_bytes()
+        == blocks[h].last_commit.to_bytes()
+        for h in range(1, SYNC_BLOCKS + 1)),
+        "a stored block or seen commit differs from the chain builder's")
+    return calls
+
+
+def _forge(raw: bytes) -> Block:
+    """The block of `raw` with one byte flipped in one precommit signature
+    of its last commit."""
+    obj = tenc.cloads(raw)
+    pc = obj["last_commit"]["precommits"][SYNC_VALIDATORS // 2]
+    sig = bytearray.fromhex(pc["signature"])
+    sig[17] ^= 1
+    pc["signature"] = sig.hex()
+    return Block.from_obj(obj)
+
+
+class _SwitchStub:
+    """The switch members the reactor calls; records the stopped peers."""
+
+    def __init__(self, reactor):
+        self.reactor, self.stopped = reactor, []
+        self.peers = {}
+
+    def broadcast_obj(self, ch, obj) -> None:
+        pass
+
+    def stop_peer_for_error(self, peer, err) -> None:
+        self.stopped.append((peer.id, str(err)))
+        self.peers.pop(peer.id, None)
+        self.reactor.remove_peer(peer, err)
+
+
+def _forgery_step(gen, wire, state_forge, verifier, card):
+    """Step 3: a second fresh node syncs FORGE_BLOCKS from a peer whose
+    block FORGE_AT carries a flipped signature in its last commit: the
+    window must be cut before FORGE_AT - 1, that height re-requested, the
+    peer stopped and the window in flight dropped; an honest peer then
+    serves the rest and the node reaches FORGE_BLOCKS with the honest
+    state."""
+    honest = [Block.from_bytes(raw) for raw in wire[:FORGE_BLOCKS + 1]]
+    forged = list(honest)
+    forged[FORGE_AT - 1] = _forge(wire[FORGE_AT - 1])
+    reactor, ss, bs, exe = _sync_node(gen, verifier)
+    sw = reactor.switch = _SwitchStub(reactor)
+    sw.peers["forger"] = SimpleNamespace(id="forger")
+    served = {"forger": forged}
+    _instant_peers(reactor, served)
+    redo, redone = reactor.pool.redo_request, []
+    reactor.pool.redo_request = lambda h: redone.append(h) or redo(h)
+    cut = None
+    t0 = time.perf_counter()
+    try:
+        reactor.pool.make_next_requests()
+        for _ in range(100):
+            if reactor.state.last_block_height >= FORGE_BLOCKS:
+                break
+            progress = reactor._sync_window()
+            if redone and cut is None:
+                cut = {"applied": reactor.state.last_block_height,
+                       "pending_dropped": reactor._pending_window is None,
+                       "redo": list(redone), "stopped": list(sw.stopped)}
+                served["honest"] = honest
+                sw.peers["honest"] = SimpleNamespace(id="honest")
+                reactor.pool.set_peer_height("honest", len(honest))
+            if not progress:
+                reactor.pool.make_next_requests()
+    finally:
+        reactor.stop()
+    wall = (time.perf_counter() - t0) * 1e3
+    emit({"phase": "sync_forgery", "forged_at": FORGE_AT, "cut": cut,
+          "height": reactor.state.last_block_height, "wall_ms": wall,
+          "card": card})
+    want = {"applied": FORGE_AT - 2, "pending_dropped": True,
+            "redo": [FORGE_AT - 1],
+            "stopped": [("forger",
+                         f"bad block/commit at height {FORGE_AT - 1}")]}
+    require(cut == want, f"the forged block: {cut}, want {want}")
+    require(reactor.state.equals(state_forge)
+            and bs.load_block(FORGE_AT).to_bytes() == wire[FORGE_AT - 1],
+            "the node did not reach the honest state after the forgery")
+
+
+def phase_sync(card: str, device) -> dict:
+    """Fast sync of BASELINE.json config 4's chain (64 validators, 5,000-tx
+    blocks, 256-block windows), SYNC_BLOCKS deep: build and sign it on the
+    card, sync a fresh node through the window engine, then a forged
+    commit signature that must cut a window."""
+    timer: list = []
+    inner = _time_launches(timer)
+    _zero_launches()
+    b, blocks, wire, recv, state_forge, state_final = _build_sync_chain(
+        device, timer, card)
+    verifier = tverifier.BatchVerifier("auto", device=device)
+    _sync_step(b.gen, recv, blocks, state_final, verifier, timer, card)
+    _forgery_step(b.gen, wire, state_forge, verifier, card)
+    launches = dict(ladder.launches)
+    ladder._launch = inner
+    emit({"phase": "sync_summary", "launches": launches,
+          "kernel_ms": _kernel_ms(timer), "card": card})
+    _require_launched(launches, KERNELS, "fast sync")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -1503,6 +1892,7 @@ def main() -> int:
     kernels.update(phase_sign_kernel(device, rate))
     lite_launches = phase_lite(card)
     block_launches = phase_block(card, keys, commit_path, device)
+    sync_launches = phase_sync(card, device)
     table = []
     for name, info in KERNELS.items():
         table.append({
@@ -1513,7 +1903,8 @@ def main() -> int:
             "launches_by_path": {"commit_10k": commit_launches[name],
                                  "mixed_commit": mixed_launches[name],
                                  "lite_chain": lite_launches[name],
-                                 "block_height": block_launches[name]},
+                                 "block_height": block_launches[name],
+                                 "fast_sync": sync_launches[name]},
             "max_abs_err": kernels[name]["max_abs_err"],
             "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"],
             "bound_ms": kernels[name]["bound_ms"],

@@ -24,6 +24,17 @@ part set, rebuilt by a receiver, voted on through VoteSet (one
 verify_async a batch of votes), committed, and its evidence checked;
 and the SHA-256 / Merkle device plane in plain PyTorch.
 
+Slice 8 is fast sync: a fresh node downloads a chain through the block
+pool and the reactor's window engine, which verifies every commit
+signature of a window in one verify_async and applies the previous
+window (block store, validation, the kvstore app, state store) while
+the card verifies.
+
+  blockchain/reactor.BlockchainReactor._sync_window
+    -> models/verifier.BatchVerifier.verify_async -> the verify kernels
+    -> state/execution.BlockExecutor.apply_block -> abci/ kvstore app
+    -> storage/ block and state stores
+
   ops/      field, curve, ladder, ed25519, merkle (host and device
             halves), sha256, kernel build
   csrc/     fe25519.cuh (arithmetic), ladder.cu (kernels), cpu_shim.cpp,
@@ -33,9 +44,15 @@ and the SHA-256 / Merkle device plane in plain PyTorch.
             validator_set, params, genesis, proposal, priv_validator
   models/   verifier
   lite/     certifiers, providers, SignedHeader / FullCommit
+  storage/  MemDB / SQLiteDB, BlockStore, StateStore
+  state/    State, validation, BlockExecutor
+  abci/     results, BaseApplication, LocalClient, AppConns, kvstore app
+  blockchain/  BlockPool, BlockchainReactor, ChainBuilder
+  p2p/      the flow-rate monitor
   utils/    ed25519_ref, ed25519_fast, secp256k1_ref, clock, device
   convert.py  the JAX package's tables and cache rows, and its blocks,
-              votes, validator sets and genesis docs by their objects
+              votes, validator sets, genesis docs, chain states and
+              kvstore apps by their objects
 """
 
 __version__ = "0.1.0"

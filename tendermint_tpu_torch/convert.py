@@ -16,13 +16,19 @@ gives (a block, the votes and validator set a VoteSet takes, a genesis
 doc): `block_from_jax`, `votes_from_jax`, `valset_from_jax` and
 `genesis_from_jax` rebuild the port's types from them and refuse an
 object whose canonical bytes do not survive the crossing.
+
+The chain's state crosses the same way: `chain_state_from_jax` takes the
+JAX package's `State.to_obj()`, and `app_from_jax` rebuilds a kvstore
+app from the JAX app's `snapshot_items()` through `restore_items`.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from tendermint_tpu_torch.abci.apps import KVStoreApp
 from tendermint_tpu_torch.ops import ed25519, ladder
+from tendermint_tpu_torch.state.state import State
 from tendermint_tpu_torch.types import encoding
 from tendermint_tpu_torch.types.block import Block
 from tendermint_tpu_torch.types.genesis import GenesisDoc
@@ -81,3 +87,17 @@ def valset_from_jax(obj) -> ValidatorSet:
 def genesis_from_jax(obj) -> GenesisDoc:
     """A GenesisDoc from the JAX package's `GenesisDoc.to_obj()`."""
     return _carried(obj, GenesisDoc.from_obj(obj), "genesis doc")
+
+
+def chain_state_from_jax(obj) -> State:
+    """A State from the JAX package's `State.to_obj()`."""
+    return _carried(obj, State.from_obj(obj), "chain state")
+
+
+def app_from_jax(items, height: int, validators=None) -> KVStoreApp:
+    """A kvstore app at `height` holding the JAX app's `snapshot_items()`,
+    with `validators` ((pubkey, power) pairs) as its active set. Its app
+    hash is computed anew; compare it with the JAX app's."""
+    app = KVStoreApp()
+    app.restore_items(items, height, validators)
+    return app

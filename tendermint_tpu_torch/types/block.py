@@ -189,6 +189,9 @@ class Commit:
     def size(self) -> int:
         return len(self.precommits)
 
+    def is_commit(self) -> bool:
+        return len(self.precommits) > 0
+
     def validate_basic(self) -> None:
         if self.block_id.is_zero():
             raise ValueError("commit cannot be for nil block")

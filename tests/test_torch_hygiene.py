@@ -1,6 +1,7 @@
 """Import and device hygiene of the port (tendermint_tpu_torch).
 
-- Importing every module of the port (lite/ included), and chip_smoke.py
+- Importing every module of the port (lite/, storage/, state/, abci/,
+  blockchain/ and p2p/ included), and chip_smoke.py
   as a module, in a fresh interpreter loads neither jax nor any
   tendermint_tpu module.
 - No source of the port (nor chip_smoke.py) imports them (AST check).
@@ -30,14 +31,21 @@ SOURCES = PORT_SOURCES + [REPO / "chip_smoke.py"]
 
 def test_walk_covers_every_subpackage():
     mods = set(_modules())
-    for pkg in ("ops", "types", "models", "utils", "lite"):
+    for pkg in ("ops", "types", "models", "utils", "lite", "storage",
+                "state", "abci", "abci.apps", "blockchain", "p2p",
+                "p2p.conn"):
         assert f"tendermint_tpu_torch.{pkg}" in mods, pkg
     assert "tendermint_tpu_torch.lite.certifier" in mods
     assert "tendermint_tpu_torch.native" in mods
     for mod in ("ops.sha256", "ops.merkle", "types.block", "types.part_set",
                 "types.vote_set", "types.evidence", "types.params",
                 "types.genesis", "types.proposal", "types.priv_validator",
-                "convert"):
+                "convert", "storage.db", "storage.block_store",
+                "storage.state_store", "state.state", "state.validation",
+                "state.execution", "abci.types", "abci.app", "abci.client",
+                "abci.proxy", "abci.apps.kvstore", "p2p.conn.flowrate",
+                "blockchain.pool", "blockchain.reactor",
+                "blockchain.builder"):
         assert f"tendermint_tpu_torch.{mod}" in mods, mod
 
 
@@ -151,3 +159,19 @@ def test_sign_batch_without_device_raises(no_cuda):
         ed25519.sign_batch([b"\x01" * 32], [b"m"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ed25519.sign_batch_async([b"\x01" * 32], [b"m"])
+
+
+def test_sync_entry_points_without_device_raise(no_cuda):
+    from tendermint_tpu_torch.blockchain.builder import ChainBuilder
+    from tendermint_tpu_torch.models import verifier
+    from tendermint_tpu_torch.state.execution import BlockExecutor
+
+    saved = verifier._default
+    verifier.set_default_verifier(None)
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            BlockExecutor(None, None)
+    finally:
+        verifier.set_default_verifier(saved)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ChainBuilder(2, 1)
