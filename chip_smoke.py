@@ -112,7 +112,34 @@ Phases, each printing its own lines:
    reach the chain builder's state at 300. Launch counts zeroed before the
    build, read after the forgery. The sign kernel check of phase 5 also
    runs at 64 scalars, the chain builder's launch.
-9. the kernel table as one JSON line, the card again, then the last line
+9. consensus: BASELINE.json config 1, four in-process validators (keys
+   of seed bytes([i + 1]) * 32, power 10, the kvstore app, a real mempool,
+   evidence pool and event bus each, MockTicker) over a full-mesh relay
+   (consensus/testnet.Testnet), node 3 on SQLite stores and a file WAL.
+   Run A on BatchVerifier("cuda"): 100 heights, 1000 fresh txs fed to
+   every mempool before each (check_tx_batch) on a clock stepped one
+   second a height; a standby key joins by a val: tx at 20 and leaves at
+   40; validator 1's key signs a second prevote at 50 (sent to nodes 0, 2
+   and 3), whose evidence must be committed once; a prevote with a
+   flipped signature byte reaches node 0 at 60 and must not count; node 3
+   crashes after 70 and is rebuilt from its files (the handshake replays
+   70 blocks into a fresh app, whose hash must equal the others', then
+   the WAL's tail), and follows to 100; then the net drains the
+   mempools. Every node must agree on block, app hash and State bytes at
+   every height, and every fed tx be committed once. Each height's host
+   stages are read inside the calls (reap, make_block, part set, signing,
+   Block.from_bytes, Vote.from_obj, verify, the VoteSet add,
+   validate_block, save_block, the WAL, apply_block with deliver,
+   results_hash, the responses save, app commit, the mempool update and
+   recheck, the state save, events); the kernels' event ms beside. Node
+   0's last 64 verify calls are held to the plain versions on the same
+   card tensors. Run B: the same schedule to 30 on BatchVerifier("auto")
+   (the host loop at 1-4 signatures) must give run A's 30 block hashes.
+   The schedule is consensus.testnet.run_schedule, the one the CPU tests
+   drive. Every check runs on B1 (a batch of 1-4 pads to 8 lanes, below
+   the predecompression cache's 64); B2 and B3 must not launch. Launch
+   counts zeroed at the start of the phase, read after run A.
+10. the kernel table as one JSON line, the card again, then the last line
    {"ok": true, "device": {...}}.
 
 Any mismatch or exception ends the run with a non-zero code before the
@@ -125,11 +152,14 @@ import contextlib
 import copy
 import dataclasses
 import json
+import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from collections import Counter, defaultdict, deque
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from types import SimpleNamespace
@@ -139,32 +169,42 @@ import torch
 
 from tendermint_tpu_torch import native
 from tendermint_tpu_torch.abci.apps import KVStoreApp
+from tendermint_tpu_torch.abci.client import LocalClient
 from tendermint_tpu_torch.abci.proxy import AppConns, local_client_creator
 from tendermint_tpu_torch.abci.types import ValidatorUpdate
 from tendermint_tpu_torch.blockchain import BlockchainReactor
 from tendermint_tpu_torch.blockchain.reactor import VERIFY_WINDOW
 from tendermint_tpu_torch.blockchain.builder import ChainBuilder
+from tendermint_tpu_torch.consensus.replay import Handshaker
+from tendermint_tpu_torch.consensus.testnet import (FILE_NODE, MAX_BLOCK_TXS,
+                                                    T0, Schedule, Testnet,
+                                                    run_schedule, standby_key)
 from tendermint_tpu_torch.lite import (CertificationError, FullCommit,
                                        SignedHeader, ValidatorsChangedError,
                                        certify_chain, default_window)
+from tendermint_tpu_torch.mempool import Mempool
 from tendermint_tpu_torch.models import verifier as tverifier
 from tendermint_tpu_torch.ops import _build, ladder, merkle, sha256
 from tendermint_tpu_torch.ops import ed25519 as ted
 from tendermint_tpu_torch.state import execution as texec
 from tendermint_tpu_torch.state.execution import BlockExecutor
-from tendermint_tpu_torch.storage import BlockStore, MemDB, StateStore
+from tendermint_tpu_torch.state.state import State
+from tendermint_tpu_torch.storage import WAL, BlockStore, MemDB, StateStore
 from tendermint_tpu_torch.types.block import (Block, BlockID, Commit, Data,
                                               EvidenceData, Header,
                                               PartSetHeader)
 from tendermint_tpu_torch.types import encoding as tenc
+from tendermint_tpu_torch.types.events import EventBus
 from tendermint_tpu_torch.types import keys as tkeys
 from tendermint_tpu_torch.types.evidence import DuplicateVoteEvidence
 from tendermint_tpu_torch.types.keys import PrivKey, Secp256k1PrivKey
 from tendermint_tpu_torch.types.params import ConsensusParams
 from tendermint_tpu_torch.types.part_set import Part, PartSet
+from tendermint_tpu_torch.types.priv_validator import PrivValidator
 from tendermint_tpu_torch.types.validator_set import Validator, ValidatorSet
 from tendermint_tpu_torch.types.vote import Vote, VoteType
 from tendermint_tpu_torch.types.vote_set import ConflictingVoteError, VoteSet
+from tendermint_tpu_torch.utils import clock as tclock
 from tendermint_tpu_torch.utils import (ed25519_fast, ed25519_ref,
                                         secp256k1_ref, vectors)
 
@@ -1878,6 +1918,349 @@ def phase_sync(card: str, device) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: consensus, BASELINE.json config 1
+# ---------------------------------------------------------------------------
+
+CONS_TXS = MAX_BLOCK_TXS  # config 1's block width: max_block_size_txs
+# run A: 100 heights (config 1 has no depth: a live net); the standby
+# key joins at 20 and leaves at 40, validator 1 equivocates at 50, a
+# forged prevote reaches node 0 at 60, node 3 (SQLite stores, file WAL)
+# crashes after 70
+CONS_SCHEDULE = Schedule(heights=100, txs=CONS_TXS, join_at=20, leave_at=40,
+                         equivocate_at=50, forge_at=60, restart_after=70)
+CONS_B_HEIGHTS = 30       # run B, the same schedule on "auto"
+N_RECHECK_CALLS = 64      # node 0's last verify calls held to the plain
+
+# the host stages of a height, read inside the calls: (owner, attribute)
+CONS_STAGES = {
+    "check_tx_batch": (Mempool, "check_tx_batch"),
+    "reap": (Mempool, "reap"),
+    "make_block": (State, "make_block"),
+    "part_set": (Block, "make_part_set"),
+    "sign_proposal": (PrivValidator, "sign_proposal"),
+    "sign_vote": (PrivValidator, "sign_vote"),
+    "from_bytes": (Block, "from_bytes"),
+    "vote_from_obj": (Vote, "from_obj"),
+    "vote_set_add": (VoteSet, "_add_verified"),
+    "validate_block": (BlockExecutor, "validate_block"),
+    "save_block": (BlockStore, "save_block"),
+    "wal": (WAL, "save"),
+    "apply_block": (BlockExecutor, "apply_block"),
+    "deliver": (LocalClient, "deliver_tx_batch"),
+    "results_hash": (texec.ABCIResponses, "results_hash"),
+    "save_responses": (StateStore, "save_abci_responses"),
+    "app_commit": (LocalClient, "commit"),
+    "mempool_update": (Mempool, "update"),
+    "recheck": (Mempool, "_recheck_txs"),
+    "state_save": (StateStore, "save"),
+    "events": (EventBus, "publish"),
+}
+
+
+def _stage_patches(acc: list) -> list:
+    """Wrap each CONS_STAGES function (for every node: they are the
+    classes' own) so that it adds its host ms to acc[0][stage]; and
+    BatchVerifier.verify_async so that the dispatch and the resolver's
+    wait add to acc[0]["verify"] and count acc[0]["verify_calls"]."""
+    def timed(fn, stage):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                acc[0][stage] += (time.perf_counter() - t0) * 1e3
+        return call
+
+    patches = []
+    for stage, (owner, name) in CONS_STAGES.items():
+        fn = vars(owner)[name]
+        if isinstance(fn, classmethod):
+            patches.append((owner, name, classmethod(timed(fn.__func__,
+                                                           stage))))
+        else:
+            patches.append((owner, name, timed(fn, stage)))
+
+    def verify_async(self, items, inner=tverifier.BatchVerifier.verify_async):
+        acc[0]["verify_calls"] += 1
+        return timed(timed(inner, "verify")(self, items), "verify")
+
+    patches.append((tverifier.BatchVerifier, "verify_async", verify_async))
+    return patches
+
+
+def _node0_recorder(verifier, log: deque) -> list:
+    """Patches that keep, for each of node 0's last N_RECHECK_CALLS verify
+    calls, the card tensors and verdicts of the launches it made."""
+    inner_async = verifier.verify_async
+    current: list = []
+
+    def verify_async(items):
+        current.append([])
+        try:
+            return inner_async(items)
+        finally:
+            log.append(current.pop())
+
+    def rec(name, fn):
+        def call(*args):
+            out = fn(*args)
+            if current:
+                current[-1].append((name, args, out))
+            return out
+        return call
+
+    return [(verifier, "verify_async", verify_async),
+            (ladder, "verify", rec("verify", ladder.verify)),
+            (ladder, "verify_pre", rec("verify_pre", ladder.verify_pre))]
+
+
+def _recheck_plain(log: deque) -> dict:
+    """The recorded launches' verdicts against the plain versions on the
+    same card tensors: all launches of a kernel concatenated into one
+    plain call."""
+    launches = [x for call in log for x in call]
+    out = {"calls": len(log), "launches": len(launches)}
+    for name in VERIFY_KERNELS:
+        mine = [(args, got) for n, args, got in launches if n == name]
+        if not mine:
+            out[name + "_lanes"] = 0
+            continue
+        cols = [torch.cat(c) for c in zip(*(a for a, _ in mine))]
+        got = torch.cat([g for _, g in mine])
+        if name == "verify":
+            pk, rb, sb, hb = cols
+            want = ladder.verify_plain(pk, rb, ladder.digits_from_bytes(sb),
+                                       ladder.digits_from_bytes(hb))
+        else:
+            xn, y, ok, rb, sb, hb = cols
+            want = ladder.verify_pre_plain(
+                xn, y, ok, rb, ladder.digits_from_bytes(sb),
+                ladder.digits_from_bytes(hb))
+        require(torch.equal(got.cpu(), want.cpu()),
+                f"node 0's {name} verdicts differ from the plain version's")
+        out[name + "_lanes"] = int(got.numel())
+    return out
+
+
+def _agree(net, h: int) -> None:
+    """Every live node at height h, with the same block, app hash and
+    State bytes."""
+    nodes = [n for i, n in enumerate(net.nodes) if net.live[i]]
+    require(all(n.cs.state.last_block_height == h for n in nodes),
+            f"height {h}: the nodes are at {net.heights()}")
+    for what, get in (
+            ("block", lambda n: n.block_store.load_block_meta(h).block_id
+             .hash),
+            ("app hash", lambda n: n.app.app_hash),
+            ("state", lambda n: tenc.cdumps(n.cs.state.to_obj()))):
+        require(len({get(n) for n in nodes}) == 1,
+                f"height {h}: the nodes differ in their {what}")
+
+
+def _run_consensus(name: str, verifier_of, sched: Schedule, home: str,
+                   timer: list, card: str, node0_log=None) -> dict:
+    """One run of the config-1 schedule `sched`."""
+    net = Testnet(verifier_of=verifier_of, home=home, file_nodes=(FILE_NODE,))
+    heights = sched.heights
+    clock_ns = [T0]
+    tclock.set_source(lambda: clock_ns[0])
+    subs = [n.event_bus.subscribe("smoke", "tm.event = 'Tx'",
+                                  capacity=4 * CONS_TXS) for n in net.nodes]
+    acc = [defaultdict(float)]
+    saved = _patched(_stage_patches(acc))
+    if node0_log is not None:
+        saved += _patched(_node0_recorder(net.nodes[0].block_exec.verifier,
+                                          node0_log))
+    fed, per_height, tx_events, restart = [], [], 0, None
+    forged_rejected = None
+    mark = len(timer)
+    t_start = time.perf_counter()
+    try:
+        net.start()
+        acc[0] = defaultdict(float)
+        t0 = time.perf_counter()
+        # each height's wall runs from the generator's resumption (clock
+        # step, txs, events) to the net's commit of that height
+        for h, refused in run_schedule(net, sched, standby_key(), clock_ns,
+                                       fed):
+            wall = (time.perf_counter() - t0) * 1e3
+            if refused is not None:
+                forged_rejected = refused
+            _agree(net, h)
+            for sub in subs:
+                while not sub.empty():
+                    sub.get_nowait()
+                    tx_events += 1
+            per_height.append({"height": h, "wall_ms": wall, **acc[0]})
+            if h == sched.restart_after <= heights:
+                restart = _restart(net, subs, h, card)
+            acc[0] = defaultdict(float)
+            t0 = time.perf_counter()
+        wall_s = time.perf_counter() - t_start
+    finally:
+        _restore(saved)
+        tclock.set_source(None)
+    blocks = [net.nodes[0].block_store.load_block(x) for x in range(1, h + 1)]
+    hashes = [b.hash() for b in blocks]
+    counts = Counter(tx for b in blocks for tx in b.data.txs)
+    require(counts == Counter(fed) and max(counts.values()) == 1,
+            f"run {name}: the committed txs are not the fed txs, each once")
+    require(tx_events == len(net.nodes) * len(fed)
+            and all(n.event_bus.dropped_total == 0 for n in net.nodes),
+            f"run {name}: {tx_events} Tx events for {len(fed)} txs, or drops")
+    evidence = [(b.header.height, ev) for b in blocks
+                for ev in b.evidence.evidence]
+    out = {"hashes": hashes, "blocks": len(blocks), "txs": len(fed),
+           "per_height": per_height, "wall_s": wall_s, "restart": restart,
+           "evidence": evidence, "forged_rejected": forged_rejected,
+           "rounds": [b.last_commit.round() for b in blocks[1:]],
+           "validators": [len(n.cs.state.validators) for n in net.nodes]}
+    if heights >= sched.equivocate_at:
+        _check_misbehaviour(net, out, net.keys[1], sched.equivocate_at)
+    # the last commit of block h holds one precommit a validator of h - 1
+    sizes = [len(b.last_commit.precommits) for b in blocks[1:]]
+    require(heights <= sched.join_at + 2 or max(sizes) == 5,
+            f"run {name}: the standby key never joined")
+    require(heights <= sched.leave_at + 2 or sizes[-1] == 4,
+            f"run {name}: the standby key never left")
+    _report_run(name, out, timer, mark, card)
+    net.close()
+    return out
+
+
+def _restart(net, subs, height: int, card: str) -> dict:
+    """Node 3 crashes after `height` commits; it is rebuilt from its
+    SQLite files and WAL with a fresh app, and rejoins."""
+    t0 = time.perf_counter()
+    net.stop_node(FILE_NODE)
+    t1 = time.perf_counter()
+    hs_ms = []
+    inner = Handshaker.handshake
+
+    def handshake(self, conns):
+        ts = time.perf_counter()
+        try:
+            return inner(self, conns)
+        finally:
+            hs_ms.append((time.perf_counter() - ts) * 1e3)
+    Handshaker.handshake = handshake
+    try:
+        t2 = time.perf_counter()
+        replayed = net.restart_node(FILE_NODE)
+        t3 = time.perf_counter()
+    finally:
+        Handshaker.handshake = inner
+    node = net.nodes[FILE_NODE]
+    subs[FILE_NODE] = node.event_bus.subscribe(
+        "smoke", "tm.event = 'Tx'", capacity=4 * CONS_TXS)
+    require(node.handshaker.n_blocks == height,
+            f"the handshake replayed {node.handshaker.n_blocks} blocks")
+    require(node.app.app_hash == net.nodes[0].app.app_hash
+            and node.cs.state.last_block_height == height,
+            "the restarted node's app hash differs from the others'")
+    out = {"phase": "consensus_restart", "node": FILE_NODE,
+           "stop_ms": (t1 - t0) * 1e3, "handshake_ms": hs_ms[0],
+           "handshake_blocks": node.handshaker.n_blocks,
+           "catchup_ms": (t3 - t2) * 1e3 - hs_ms[0],
+           "catchup_messages": replayed, "app_hash": node.app.app_hash.hex(),
+           "card": card}
+    emit(out)
+    return out
+
+
+def _check_misbehaviour(net, out: dict, key, height: int) -> None:
+    """The equivocation's evidence committed in exactly one block, known
+    as committed to every node's pool; the forged vote refused."""
+    ev = out["evidence"]
+    require(len(ev) == 1 and ev[0][0] >= height
+            and ev[0][1].address() == key.pubkey.address
+            and ev[0][1].height() == height,
+            f"the equivocation's evidence: {[(h, e.to_obj()) for h, e in ev]}")
+    for i, n in enumerate(net.nodes):
+        require(n.evidence_pool.store.is_committed(ev[0][1])
+                and not n.evidence_pool.pending_evidence(),
+                f"node {i}'s pool does not hold the evidence as committed")
+    require(out["forged_rejected"] is True,
+            "node 0 counted the forged prevote")
+
+
+def _stats(rows: list, key: str) -> dict:
+    vals = sorted(r.get(key, 0.0) for r in rows)
+    return {"median": vals[len(vals) // 2], "max": vals[-1]}
+
+
+def _report_run(name: str, out: dict, timer: list, mark: int,
+                card: str) -> None:
+    rows = out["per_height"]
+    kernels = _step_kernels(timer, mark)
+    kernel_ms = sum(kernels["kernel_ms"].values())
+    verify_ms = sum(r.get("verify", 0.0) for r in rows)
+    emit({"phase": "consensus", "run": name, "blocks": out["blocks"],
+          "txs": out["txs"], "wall_s": out["wall_s"],
+          "blocks_per_s": out["blocks"] / out["wall_s"],
+          "txs_per_s": out["txs"] / out["wall_s"],
+          "verify_calls": int(sum(r.get("verify_calls", 0) for r in rows)),
+          "verify_ms": verify_ms, "kernel_ms": kernels["kernel_ms"],
+          "launches": kernels["launches"],
+          "device_busy": kernel_ms / (out["wall_s"] * 1e3),
+          "rounds_above_0": sum(1 for r in out["rounds"] if r),
+          "validators_at_end": out["validators"],
+          "evidence_at": [h for h, _ in out["evidence"]], "card": card})
+    keys = sorted({k for r in rows for k in r} - {"height"})
+    emit({"phase": "consensus_stages", "run": name, "unit": "ms a height, "
+          "summed over the 4 nodes", "stages": {k: _stats(rows, k)
+                                                for k in keys},
+          "card": card})
+
+
+def phase_consensus(card: str, device) -> dict:
+    """BASELINE.json config 1: four in-process validators (kvstore, 1000-tx
+    blocks) over a full-mesh relay, run A on BatchVerifier("cuda") for
+    CONS_SCHEDULE's heights with a join, a leave, an equivocation, a forged
+    vote and a crash and restart of node 3, then run B on "auto" for
+    CONS_B_HEIGHTS heights of the same schedule: the same chain."""
+    timer: list = []
+    inner = _time_launches(timer)
+    _zero_launches()
+    node0_log: deque = deque(maxlen=N_RECHECK_CALLS)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-cons-") as home:
+        cuda_of = {i: tverifier.BatchVerifier("cuda", device=device)
+                   for i in range(4)}
+        run_a = _run_consensus("A", cuda_of.__getitem__, CONS_SCHEDULE,
+                               os.path.join(home, "a"), timer, card,
+                               node0_log)
+        launches = dict(ladder.launches)
+        auto = tverifier.BatchVerifier("auto", device=device)
+        run_b = _run_consensus("B", lambda i: auto,
+                               CONS_SCHEDULE._replace(heights=CONS_B_HEIGHTS),
+                               os.path.join(home, "b"), timer, card)
+    ladder._launch = inner
+    rechecked = _recheck_plain(node0_log)
+    emit({"phase": "consensus_summary", "launches": launches,
+          "b_launches": {k: v - launches[k] for k, v in
+                         ladder.launches.items()},
+          "recheck": rechecked,
+          "verifier_stats": [cuda_of[i].stats for i in range(4)],
+          "run_b_hashes_equal": run_b["hashes"][:CONS_B_HEIGHTS]
+          == run_a["hashes"][:CONS_B_HEIGHTS], "card": card})
+    require(run_b["hashes"][:CONS_B_HEIGHTS]
+            == run_a["hashes"][:CONS_B_HEIGHTS],
+            "run B's chain differs from run A's: it depends on the route")
+    # a consensus call verifies 1-4 signatures: its batch pads to 8 lanes,
+    # below the predecompression cache's 64 (ops/ed25519._PREDECOMP_MIN_BATCH),
+    # so the port runs every check on B1 (ladder_kernel<true>) and B2 never
+    # launches; the JAX package at 8 lanes runs its jnp ladder, no Pallas
+    # kernel (verify_from_bytes_best takes verify_pallas from 512 lanes)
+    _require_launched(launches, ("verify",), "consensus")
+    require(launches["verify_pre"] == 0 and launches["sign_rb"] == 0,
+            f"consensus launched a kernel off its route: {launches}")
+    require(ladder.launches == launches,
+            f"run B (auto, host loop) launched kernels: {ladder.launches}")
+    return launches
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -1893,6 +2276,7 @@ def main() -> int:
     lite_launches = phase_lite(card)
     block_launches = phase_block(card, keys, commit_path, device)
     sync_launches = phase_sync(card, device)
+    consensus_launches = phase_consensus(card, device)
     table = []
     for name, info in KERNELS.items():
         table.append({
@@ -1904,7 +2288,8 @@ def main() -> int:
                                  "mixed_commit": mixed_launches[name],
                                  "lite_chain": lite_launches[name],
                                  "block_height": block_launches[name],
-                                 "fast_sync": sync_launches[name]},
+                                 "fast_sync": sync_launches[name],
+                                 "consensus": consensus_launches[name]},
             "max_abs_err": kernels[name]["max_abs_err"],
             "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"],
             "bound_ms": kernels[name]["bound_ms"],

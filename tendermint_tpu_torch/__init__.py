@@ -35,24 +35,42 @@ the card verifies.
     -> state/execution.BlockExecutor.apply_block -> abci/ kvstore app
     -> storage/ block and state stores
 
+Slice 9 is consensus: four validators decide blocks over an in-process
+relay (BASELINE config 1), each signature check on its BlockExecutor's
+verifier, with the WAL, crash replay, the mempool, the evidence pool and
+the event bus.
+
+  consensus/testnet.Testnet -> consensus/state.ConsensusState
+    -> consensus/rstate.HeightVoteSet -> types/vote_set.VoteSet
+    -> models/verifier.BatchVerifier -> the fused verify kernel
+    -> state/execution.BlockExecutor.apply_block (validate, the kvstore
+       app, stores, mempool update, evidence pool, events)
+
   ops/      field, curve, ladder, ed25519, merkle (host and device
             halves), sha256, kernel build
   csrc/     fe25519.cuh (arithmetic), ladder.cu (kernels), cpu_shim.cpp,
             prep.cpp (native host prep)
   types/    keys, encoding, vote, block (Block, Header, Data, Commit,
             EvidenceData, BlockID), part_set, vote_set, evidence,
-            validator_set, params, genesis, proposal, priv_validator
+            validator_set, params, genesis, proposal, priv_validator,
+            events
   models/   verifier
   lite/     certifiers, providers, SignedHeader / FullCommit
-  storage/  MemDB / SQLiteDB, BlockStore, StateStore
-  state/    State, validation, BlockExecutor
-  abci/     results, BaseApplication, LocalClient, AppConns, kvstore app
+  storage/  MemDB / SQLiteDB, BlockStore, StateStore, the consensus WAL
+  state/    State, validation, BlockExecutor (and its event firing)
+  abci/     results, BaseApplication, LocalClient, AppConns, kvstore and
+            counter apps
+  consensus/  ConsensusState, HeightVoteSet, tickers, replay and the
+            handshake, the WAL generator, the config-1 testnet
+  mempool/  CList, TxCache, Mempool
+  evidence/ EvidenceStore, EvidencePool
   blockchain/  BlockPool, BlockchainReactor, ChainBuilder
   p2p/      the flow-rate monitor
   utils/    ed25519_ref, ed25519_fast, secp256k1_ref, clock, device
+  config.py   consensus timeouts and mempool settings
   convert.py  the JAX package's tables and cache rows, and its blocks,
               votes, validator sets, genesis docs, chain states and
-              kvstore apps by their objects
+              kvstore apps by their objects, and a node's files
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,6 @@
-"""Built-in example applications: the kvstore app."""
+"""Built-in example applications: the kvstore app and the counter app."""
 
+from tendermint_tpu_torch.abci.apps.counter import CounterApp
 from tendermint_tpu_torch.abci.apps.kvstore import KVStoreApp
 
-__all__ = ["KVStoreApp"]
+__all__ = ["CounterApp", "KVStoreApp"]

@@ -1,0 +1,895 @@
+"""ConsensusState — the Tendermint BFT algorithm: the port's copy of
+`tendermint_tpu/consensus/state.py` (consensus/state.go) on its serial
+path.
+
+Semantics of the reference's state machine (transitions enterNewRound
+:651, enterPropose :745, enterPrevote :882, enterPrecommit :970,
+enterCommit :1085, finalizeCommit :1153, addVote :1340), with a
+deterministic single-threaded core instead of goroutines + channels:
+
+- every input is a plain dict message (WAL-serializable by construction)
+- inputs enter through submit(); one FIFO drains under a re-entrant lock,
+  so internally-generated messages (our own proposal/parts/votes) are
+  processed in order by the same loop — the reference's internalMsgQueue
+- effects leave through sinks: `broadcast(msg)` (reactor hook), the event
+  bus, scheduled timeouts, and committed blocks via the BlockExecutor
+
+This shape makes WAL replay literally `for msg in tail: submit(msg)` and
+lets tests drive rounds deterministically with a MockTicker.
+
+Every signature check (the proposal, each vote through HeightVoteSet and
+VoteSet, the last commit and evidence in validate_block) goes through
+the BlockExecutor's verifier: on the card, B1/B2 for a "cuda" verifier.
+
+Not ported: the JAX package's pipelined finalize, next-proposal
+precompute and streaming part set (its pipeline knob), the telemetry
+families, causal spans, SLO stamps, the divergence digest, fail points
+and post-commit hooks.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+from collections import deque
+from typing import Callable, List, Optional
+
+from tendermint_tpu_torch.config import ConsensusConfig
+from tendermint_tpu_torch.consensus.rstate import (HeightVoteSet, RoundState,
+                                                   Step)
+from tendermint_tpu_torch.consensus.ticker import TimeoutInfo, TimeoutTicker
+from tendermint_tpu_torch.state.execution import (ApplyBlockError,
+                                                  BlockExecutor,
+                                                  MockEvidencePool,
+                                                  MockMempool)
+from tendermint_tpu_torch.state.state import State
+from tendermint_tpu_torch.state.validation import BlockValidationError
+from tendermint_tpu_torch.storage.wal import NilWAL
+from tendermint_tpu_torch.types.block import (Block, BlockID, Commit,
+                                              PartSetHeader)
+from tendermint_tpu_torch.types.evidence import DuplicateVoteEvidence
+from tendermint_tpu_torch.types.part_set import Part, PartSet
+from tendermint_tpu_torch.types.proposal import Heartbeat, Proposal
+from tendermint_tpu_torch.types.vote import Vote, VoteType
+from tendermint_tpu_torch.types.vote_set import ConflictingVoteError, VoteSet
+from tendermint_tpu_torch.utils import clock
+
+logger = logging.getLogger(__name__)
+
+
+class ConsensusFailure(Exception):
+    """Unrecoverable consensus fault (reference panics / kills process)."""
+
+
+class ConsensusState:
+    def __init__(self, config: ConsensusConfig, state: State,
+                 block_exec: BlockExecutor, block_store,
+                 mempool=None, evidence_pool=None,
+                 priv_validator=None, wal=None, event_bus=None,
+                 ticker_factory=TimeoutTicker):
+        self.config = config
+        self.state = state             # last committed State
+        self.block_exec = block_exec
+        self.block_store = block_store
+        self.mempool = mempool if mempool is not None else MockMempool()
+        self.evidence_pool = (evidence_pool if evidence_pool is not None
+                              else MockEvidencePool())
+        self.priv_validator = priv_validator
+        self.wal = wal if wal is not None else NilWAL()
+        self.event_bus = event_bus
+        self.replay_mode = False
+
+        self.rs = RoundState(height=state.last_block_height + 1)
+
+        self.broadcast_hooks: List[Callable[[dict], None]] = []
+        self.decided_hook: Optional[Callable[[Block], None]] = None
+
+        self._lock = threading.RLock()
+        self._queue: deque = deque()
+        self.fatal_error = None
+        self._processing = False
+        self._stopped = False
+
+        self.ticker = ticker_factory(self._on_timeout_fire)
+
+        if state.last_block_height > 0:
+            self._reconstruct_last_commit()
+        self._update_to_state(state, initial=True)
+
+    # ------------------------------------------------------------------ input
+
+    def submit(self, msg: dict, peer_id: str = "") -> None:
+        """Feed one input (peer message, own message, or timeout). Safe to
+        call from any thread; processing happens inline on the caller that
+        finds the queue idle — the single-writer discipline of the
+        reference's receiveRoutine (consensus/state.go:509-557)."""
+        with self._lock:
+            if self._stopped:
+                return  # late ticker/gossip input after shutdown
+            self._queue.append((msg, peer_id))
+            if self._processing:
+                return
+            self._processing = True
+            try:
+                while self._queue:
+                    m, p = self._queue.popleft()
+                    if not self.replay_mode:
+                        wal_obj = dict(m)
+                        if p:
+                            wal_obj["peer"] = p
+                        self.wal.save(wal_obj, time_ns=clock.now_ns())
+                    try:
+                        self._handle(m, p)
+                    except (ConsensusFailure, AssertionError,
+                            ApplyBlockError) as e:
+                        # unrecoverable: HALT this state machine (the
+                        # reference's receiveRoutine panics the whole
+                        # process), record why, and propagate to the
+                        # driving thread. Without _stopped the next
+                        # input would re-execute the decided block on
+                        # the app — double DeliverTx side effects.
+                        self._stopped = True
+                        self.fatal_error = e
+                        self._log(f"CONSENSUS FAILURE, halting: {e!r}")
+                        raise
+                    except Exception as e:
+                        self._log(f"error handling {m.get('type')}: {e!r}")
+            finally:
+                self._processing = False
+
+    def start(self) -> None:
+        """Schedule round 0 of the current height (OnStart tail)."""
+        self._schedule_round0()
+
+    def stop(self) -> None:
+        with self._lock:
+            self._stopped = True
+        self.ticker.stop()
+        self.wal.flush()
+
+    def _on_timeout_fire(self, ti: TimeoutInfo) -> None:
+        self.submit({"type": "timeout", "ti": ti.to_obj()})
+
+    def _enqueue_own(self, msg: dict) -> None:
+        """Append one of our OWN messages (proposal/part/vote) from inside
+        the drain loop — the still-running drain persists it to the WAL
+        and handles it in order. Asserting _processing keeps the
+        single-writer discipline honest: a caller outside the loop would
+        silently skip WAL persistence and must use submit() instead."""
+        assert self._processing, "outside the drain loop: use submit()"
+        self._queue.append((msg, ""))
+
+    # -------------------------------------------------------------- messaging
+
+    def _handle(self, msg: dict, peer_id: str) -> None:
+        t = msg.get("type")
+        if t == "proposal":
+            self._set_proposal(Proposal.from_obj(msg["proposal"]))
+        elif t == "block_part":
+            try:
+                self._add_proposal_block_part(
+                    msg["height"], Part.from_obj(msg["part"]))
+            except ValueError:
+                if msg.get("round") == self.rs.round:
+                    raise
+        elif t == "vote":
+            self._try_add_vote(Vote.from_obj(msg["vote"]), peer_id)
+        elif t == "vote_agg":
+            # aggregated vote gossip: understood whatever the sender's
+            # settings, so a WAL that holds it always replays
+            self._try_add_votes(
+                [Vote.from_obj(v) for v in msg.get("votes", [])], peer_id)
+        elif t == "timeout":
+            self._handle_timeout(TimeoutInfo.from_obj(msg["ti"]))
+        elif t == "txs_available":
+            self._enter_propose(self.rs.height, 0)
+        else:
+            self._log(f"unknown message type {t!r}")
+
+    def _broadcast(self, msg: dict) -> None:
+        if self.replay_mode:
+            return
+        for hook in self.broadcast_hooks:
+            hook(msg)
+
+    def _log(self, s: str) -> None:
+        logger.error("%s (height=%d round=%d step=%s)", s, self.rs.height,
+                     self.rs.round, self.rs.step.name)
+
+    def _publish(self, event: str, extra: Optional[dict] = None) -> None:
+        if self.event_bus is not None and not self.replay_mode:
+            obj = self.rs.round_state_event_obj()
+            obj.update(extra or {})
+            self.event_bus.publish(event, obj)
+
+    # -------------------------------------------------------------- lifecycle
+
+    def _reconstruct_last_commit(self) -> None:
+        """Rebuild LastCommit VoteSet from the stored SeenCommit
+        (consensus/state.go reconstructLastCommit)."""
+        seen = self.block_store.load_seen_commit(self.state.last_block_height)
+        if seen is None:
+            raise ConsensusFailure(
+                f"no seen commit for height {self.state.last_block_height}")
+        vs = VoteSet(self.state.chain_id, self.state.last_block_height,
+                     seen.round(), VoteType.PRECOMMIT,
+                     self.state.last_validators,
+                     verifier=self.block_exec.verifier)
+        for pc in seen.precommits:
+            if pc is not None:
+                vs.add_vote(pc)
+        if not vs.has_two_thirds_majority():
+            raise ConsensusFailure("reconstructed last commit lacks +2/3")
+        self.rs.last_commit = vs
+
+    def _update_to_state(self, state: State, initial: bool = False) -> None:
+        """consensus/state.go updateToState: move to NewHeight step of
+        state.last_block_height+1."""
+        rs = self.rs
+        if rs.commit_round > -1 and 0 < rs.height and not initial and \
+                rs.height != state.last_block_height:
+            raise ConsensusFailure(
+                f"updateToState expected height {rs.height}, "
+                f"state has {state.last_block_height}")
+
+        last_precommits = None
+        if rs.commit_round > -1 and rs.votes is not None:
+            pc = rs.votes.precommits(rs.commit_round)
+            if pc is None or not pc.has_two_thirds_majority():
+                raise ConsensusFailure(
+                    "updateToState: last precommits lack +2/3")
+            last_precommits = pc
+
+        height = state.last_block_height + 1
+        rs.height = height
+        rs.round = 0
+        rs.step = Step.NEW_HEIGHT
+        if rs.commit_time_ns:
+            rs.start_time_ns = rs.commit_time_ns + int(
+                self.config.commit_timeout_s() * 1e9)
+        else:
+            rs.start_time_ns = clock.now_ns() + int(
+                self.config.commit_timeout_s() * 1e9)
+        rs.validators = state.validators
+        rs.proposal = None
+        rs.proposal_block = None
+        rs.proposal_block_parts = None
+        rs.locked_round = 0
+        rs.locked_block = None
+        rs.locked_block_parts = None
+        rs.votes = HeightVoteSet(state.chain_id, height, state.validators,
+                                 verifier=self.block_exec.verifier)
+        rs.commit_round = -1
+        if last_precommits is not None:
+            rs.last_commit = last_precommits
+        rs.last_validators = state.last_validators
+        self.state = state
+        self._new_step()
+
+    def _new_step(self) -> None:
+        if not self.replay_mode:
+            self.wal.save({"type": "round_state",
+                           **self.rs.round_state_event_obj()})
+        self._publish("NewRoundStep")
+        self._broadcast({"type": "new_round_step",
+                         **self.rs.round_state_event_obj(),
+                         "seconds_since_start_time": 0,
+                         "last_commit_round":
+                             self.rs.last_commit.round
+                             if self.rs.last_commit else -1})
+
+    def _schedule_round0(self) -> None:
+        sleep_s = max(0.0, (self.rs.start_time_ns - clock.now_ns()) / 1e9)
+        self._schedule_timeout(sleep_s, self.rs.height, 0, Step.NEW_HEIGHT)
+
+    def _schedule_timeout(self, duration_s: float, height: int, round_: int,
+                          step: Step) -> None:
+        self.ticker.schedule(TimeoutInfo(duration_s, height, round_, step))
+
+    # --------------------------------------------------------------- timeouts
+
+    def _handle_timeout(self, ti: TimeoutInfo) -> None:
+        rs = self.rs
+        if ti.height != rs.height or ti.round < rs.round or \
+                (ti.round == rs.round and ti.step < rs.step):
+            return  # stale tock
+        if ti.step == Step.NEW_HEIGHT:
+            self._enter_new_round(ti.height, 0)
+        elif ti.step == Step.NEW_ROUND:
+            self._enter_propose(ti.height, 0)
+        elif ti.step == Step.PROPOSE:
+            self._publish("TimeoutPropose")
+            self._enter_prevote(ti.height, ti.round)
+        elif ti.step == Step.PREVOTE_WAIT:
+            self._publish("TimeoutWait")
+            self._enter_precommit(ti.height, ti.round)
+        elif ti.step == Step.PRECOMMIT_WAIT:
+            self._publish("TimeoutWait")
+            self._enter_new_round(ti.height, ti.round + 1)
+        else:
+            raise ConsensusFailure(f"invalid timeout step {ti.step}")
+
+    # ------------------------------------------------------------ transitions
+
+    def _enter_new_round(self, height: int, round_: int) -> None:
+        rs = self.rs
+        if rs.height != height or round_ < rs.round or \
+                (rs.round == round_ and rs.step != Step.NEW_HEIGHT):
+            return
+        validators = rs.validators
+        if rs.round < round_:
+            validators = validators.copy()
+            validators.increment_accum(round_ - rs.round)
+        rs.round = round_
+        rs.step = Step.NEW_ROUND
+        rs.validators = validators
+        if round_ != 0:
+            rs.proposal = None
+            rs.proposal_block = None
+            rs.proposal_block_parts = None
+        rs.votes.set_round(round_ + 1)  # room for round-skip votes
+        self._publish("NewRound")
+
+        wait_for_txs = (not self.config.create_empty_blocks and round_ == 0
+                        and not self._need_proof_block(height))
+        if wait_for_txs:
+            self._send_proposal_heartbeat(height, round_)
+            if self.config.create_empty_blocks_interval > 0:
+                self._schedule_timeout(
+                    self.config.create_empty_blocks_interval,
+                    height, round_, Step.NEW_ROUND)
+        else:
+            self._enter_propose(height, round_)
+
+    def _send_proposal_heartbeat(self, height: int, round_: int) -> None:
+        """Signed liveness signal while waiting for transactions
+        (consensus/state.go:696,713 proposalHeartbeat), one per
+        (height, round) wait entry, as the JAX package sends it."""
+        if self.priv_validator is None:
+            return
+        rs = self.rs
+        addr = self.priv_validator.address
+        idx, _ = rs.validators.get_by_address(addr)
+        if idx < 0:
+            return
+        hb = Heartbeat(addr, idx, height, round_, sequence=0)
+        try:
+            self.priv_validator.sign_heartbeat(self.state.chain_id, hb)
+        except Exception as e:
+            self._log(f"error signing heartbeat: {e!r}")
+            return
+        self._publish("ProposalHeartbeat", {"heartbeat": hb.to_obj()})
+        self._broadcast({"type": "heartbeat", "heartbeat": hb.to_obj()})
+
+    def _need_proof_block(self, height: int) -> bool:
+        if height == 1:
+            return True
+        meta = self.block_store.load_block_meta(height - 1)
+        return meta is None or self.state.app_hash != meta.header.app_hash
+
+    def _enter_propose(self, height: int, round_: int) -> None:
+        rs = self.rs
+        if rs.height != height or round_ < rs.round or \
+                (rs.round == round_ and rs.step >= Step.PROPOSE):
+            return
+        try:
+            self._schedule_timeout(self.config.propose_timeout_s(round_),
+                                   height, round_, Step.PROPOSE)
+            if self.priv_validator is None:
+                return
+            addr = self.priv_validator.address
+            if not rs.validators.has_address(addr):
+                return
+            if rs.validators.proposer().address == addr:
+                self._decide_proposal(height, round_)
+        finally:
+            rs.round = round_
+            rs.step = Step.PROPOSE
+            self._new_step()
+            if self._is_proposal_complete():
+                self._enter_prevote(height, rs.round)
+
+    def _decide_proposal(self, height: int, round_: int) -> None:
+        rs = self.rs
+        if rs.locked_block is not None:
+            block, parts = rs.locked_block, rs.locked_block_parts
+        else:
+            made = self._create_proposal_block()
+            if made is None:
+                return
+            block, parts = made
+
+        pol = rs.votes.pol_info()
+        pol_round = pol.round if pol else -1
+        pol_block_id = pol.block_id if pol else BlockID()
+        proposal = Proposal(height, round_, parts.header(), pol_round,
+                            pol_block_id, timestamp_ns=clock.now_ns())
+        try:
+            self.priv_validator.sign_proposal(self.state.chain_id, proposal)
+        except Exception as e:
+            if not self.replay_mode:
+                self._log(f"error signing proposal: {e!r}")
+            return
+        # own proposal + parts ride the same queue as peer messages; the
+        # part messages are built once for both loops
+        proposal_msg = {"type": "proposal", "proposal": proposal.to_obj()}
+        self._enqueue_own(proposal_msg)
+        part_msgs = [{"type": "block_part", "height": height,
+                      "round": round_, "part": parts.get_part(i).to_obj()}
+                     for i in range(parts.total)]
+        for part_msg in part_msgs:
+            self._enqueue_own(part_msg)
+        self._broadcast(proposal_msg)
+        for part_msg in part_msgs:
+            self._broadcast(part_msg)
+
+    def _create_proposal_block(self):
+        """consensus/state.go:854 createProposalBlock. Returns
+        (block, parts), or None without a commit for the last block."""
+        rs = self.rs
+        if rs.height == 1:
+            commit = Commit()
+        elif rs.last_commit is not None and \
+                rs.last_commit.has_two_thirds_majority():
+            commit = rs.last_commit.make_commit()
+        else:
+            self._log("cannot propose: no commit for previous block")
+            return None
+        txs = self.mempool.reap(self.config.max_block_size_txs)
+        evidence = self.evidence_pool.pending_evidence()
+        part_size = \
+            self.state.consensus_params.block_gossip.block_part_size_bytes
+        block = self.state.make_block(rs.height, txs, commit,
+                                      time_ns=clock.now_ns(),
+                                      evidence=evidence)
+        return block, block.make_part_set(part_size)
+
+    def _is_proposal_complete(self) -> bool:
+        rs = self.rs
+        if rs.proposal is None or rs.proposal_block is None:
+            return False
+        if rs.proposal.pol_round < 0:
+            return True
+        pv = rs.votes.prevotes(rs.proposal.pol_round)
+        return pv is not None and pv.has_two_thirds_majority()
+
+    def _enter_prevote(self, height: int, round_: int) -> None:
+        rs = self.rs
+        if rs.height != height or round_ < rs.round or \
+                (rs.round == round_ and rs.step >= Step.PREVOTE):
+            return
+        if self._is_proposal_complete():
+            self._publish("CompleteProposal")
+        self._do_prevote(height, round_)
+        rs.round = round_
+        rs.step = Step.PREVOTE
+        self._new_step()
+
+    def _do_prevote(self, height: int, round_: int) -> None:
+        rs = self.rs
+        if rs.locked_block is not None:
+            self._sign_add_vote(VoteType.PREVOTE, rs.locked_block.hash(),
+                                rs.locked_block_parts.header())
+            return
+        if rs.proposal_block is None:
+            self._sign_add_vote(VoteType.PREVOTE, b"", PartSetHeader())
+            return
+        try:
+            self.block_exec.validate_block(self.state, rs.proposal_block)
+        except BlockValidationError as e:
+            self._log(f"prevote nil: invalid proposal block: {e}")
+            self._sign_add_vote(VoteType.PREVOTE, b"", PartSetHeader())
+            return
+        self._sign_add_vote(VoteType.PREVOTE, rs.proposal_block.hash(),
+                            rs.proposal_block_parts.header())
+
+    def _enter_prevote_wait(self, height: int, round_: int) -> None:
+        rs = self.rs
+        if rs.height != height or round_ < rs.round or \
+                (rs.round == round_ and rs.step >= Step.PREVOTE_WAIT):
+            return
+        pv = rs.votes.prevotes(round_)
+        if pv is None or not pv.has_two_thirds_any():
+            raise ConsensusFailure(
+                f"enterPrevoteWait({height}/{round_}) without any +2/3")
+        rs.round = round_
+        rs.step = Step.PREVOTE_WAIT
+        self._new_step()
+        self._schedule_timeout(self.config.prevote_timeout_s(round_),
+                               height, round_, Step.PREVOTE_WAIT)
+
+    def _enter_precommit(self, height: int, round_: int) -> None:
+        rs = self.rs
+        if rs.height != height or round_ < rs.round or \
+                (rs.round == round_ and rs.step >= Step.PRECOMMIT):
+            return
+
+        def done():
+            rs.round = round_
+            rs.step = Step.PRECOMMIT
+            self._new_step()
+
+        pv = rs.votes.prevotes(round_)
+        maj = pv.two_thirds_majority() if pv is not None else None
+
+        if maj is None:
+            # no polka: precommit nil
+            self._sign_add_vote(VoteType.PRECOMMIT, b"", PartSetHeader())
+            done()
+            return
+
+        self._publish("Polka")
+
+        if maj.is_zero():
+            # +2/3 prevoted nil: unlock and precommit nil
+            if rs.locked_block is not None:
+                rs.locked_round = 0
+                rs.locked_block = None
+                rs.locked_block_parts = None
+                self._publish("Unlock")
+            self._sign_add_vote(VoteType.PRECOMMIT, b"", PartSetHeader())
+            done()
+            return
+
+        if rs.locked_block is not None and \
+                rs.locked_block.hash() == maj.hash:
+            # relock
+            rs.locked_round = round_
+            self._publish("Relock")
+            self._sign_add_vote(VoteType.PRECOMMIT, maj.hash, maj.parts)
+            done()
+            return
+
+        if rs.proposal_block is not None and \
+                rs.proposal_block.hash() == maj.hash:
+            # lock the proposal block
+            try:
+                self.block_exec.validate_block(self.state, rs.proposal_block)
+            except BlockValidationError as e:
+                raise ConsensusFailure(
+                    f"+2/3 prevoted an invalid block: {e}") from e
+            rs.locked_round = round_
+            rs.locked_block = rs.proposal_block
+            rs.locked_block_parts = rs.proposal_block_parts
+            self._publish("Lock")
+            self._sign_add_vote(VoteType.PRECOMMIT, maj.hash, maj.parts)
+            done()
+            return
+
+        # polka for a block we don't have: unlock, fetch it, precommit nil
+        rs.locked_round = 0
+        rs.locked_block = None
+        rs.locked_block_parts = None
+        if rs.proposal_block_parts is None or \
+                not rs.proposal_block_parts.has_header(maj.parts):
+            rs.proposal_block = None
+            rs.proposal_block_parts = PartSet.from_header(maj.parts)
+        self._publish("Unlock")
+        self._sign_add_vote(VoteType.PRECOMMIT, b"", PartSetHeader())
+        done()
+
+    def _enter_precommit_wait(self, height: int, round_: int) -> None:
+        rs = self.rs
+        if rs.height != height or round_ < rs.round or \
+                (rs.round == round_ and rs.step >= Step.PRECOMMIT_WAIT):
+            return
+        pc = rs.votes.precommits(round_)
+        if pc is None or not pc.has_two_thirds_any():
+            raise ConsensusFailure(
+                f"enterPrecommitWait({height}/{round_}) without any +2/3")
+        rs.round = round_
+        rs.step = Step.PRECOMMIT_WAIT
+        self._new_step()
+        self._schedule_timeout(self.config.precommit_timeout_s(round_),
+                               height, round_, Step.PRECOMMIT_WAIT)
+
+    def _enter_commit(self, height: int, commit_round: int) -> None:
+        rs = self.rs
+        if rs.height != height or rs.step >= Step.COMMIT:
+            return
+        pc = rs.votes.precommits(commit_round)
+        maj = pc.two_thirds_majority() if pc is not None else None
+        if maj is None:
+            raise ConsensusFailure("enterCommit expects +2/3 precommits")
+
+        if rs.locked_block is not None and rs.locked_block.hash() == maj.hash:
+            rs.proposal_block = rs.locked_block
+            rs.proposal_block_parts = rs.locked_block_parts
+        if rs.proposal_block is None or rs.proposal_block.hash() != maj.hash:
+            if rs.proposal_block_parts is None or \
+                    not rs.proposal_block_parts.has_header(maj.parts):
+                rs.proposal_block = None
+                rs.proposal_block_parts = PartSet.from_header(maj.parts)
+
+        rs.step = Step.COMMIT
+        rs.commit_round = commit_round
+        rs.commit_time_ns = clock.now_ns()
+        self._new_step()
+        self._try_finalize_commit(height)
+
+    def _try_finalize_commit(self, height: int) -> None:
+        rs = self.rs
+        if rs.height != height:
+            raise ConsensusFailure("tryFinalizeCommit height mismatch")
+        pc = rs.votes.precommits(rs.commit_round)
+        maj = pc.two_thirds_majority() if pc is not None else None
+        if maj is None or maj.is_zero():
+            return
+        if rs.proposal_block is None or rs.proposal_block.hash() != maj.hash:
+            return  # don't have the block yet
+        self._finalize_commit(height)
+
+    def _finalize_commit(self, height: int) -> None:
+        rs = self.rs
+        if rs.height != height or rs.step != Step.COMMIT:
+            return
+        pc = rs.votes.precommits(rs.commit_round)
+        maj = pc.two_thirds_majority()
+        block, parts = rs.proposal_block, rs.proposal_block_parts
+        if not parts.has_header(maj.parts):
+            raise ConsensusFailure("parts header != commit header")
+        if block.hash() != maj.hash:
+            raise ConsensusFailure("block hash != commit hash")
+        try:
+            self.block_exec.validate_block(self.state, block)
+        except BlockValidationError as e:
+            raise ConsensusFailure(f"+2/3 committed invalid block: {e}") from e
+
+        if self.block_store.height() < block.header.height:
+            self.block_store.save_block(block, parts, pc.make_commit())
+
+        # ENDHEIGHT marks the WAL before ApplyBlock: if we crash between
+        # the two, handshake replay redoes ApplyBlock (consensus/replay.go)
+        self.wal.save_end_height(height)
+
+        block_id = BlockID(block.hash(), parts.header())
+        new_state = self.block_exec.apply_block(
+            self.state.copy(), block_id, block)
+
+        if self.decided_hook is not None:
+            self.decided_hook(block)
+
+        self._update_to_state(new_state)
+        self._schedule_round0()
+
+    # ------------------------------------------------------------- proposals
+
+    def _set_proposal(self, proposal: Proposal) -> None:
+        rs = self.rs
+        if rs.proposal is not None:
+            return
+        if proposal.height != rs.height or proposal.round != rs.round:
+            return
+        if rs.step >= Step.COMMIT:
+            return
+        if proposal.pol_round != -1 and not \
+                (0 <= proposal.pol_round < proposal.round):
+            raise ValueError("invalid proposal POL round")
+        proposer = rs.validators.proposer()
+        if not self.block_exec.verifier.verify_one(
+                proposer.pubkey, proposal.sign_bytes(self.state.chain_id),
+                proposal.signature):
+            raise ValueError("invalid proposal signature")
+        rs.proposal = proposal
+        if rs.proposal_block_parts is None or \
+                not rs.proposal_block_parts.has_header(
+                    proposal.block_parts_header):
+            rs.proposal_block_parts = PartSet.from_header(
+                proposal.block_parts_header)
+
+    def _add_proposal_block_part(self, height: int, part: Part) -> None:
+        rs = self.rs
+        if rs.height != height:
+            return
+        if rs.proposal_block_parts is None:
+            return
+        added = rs.proposal_block_parts.add_part(part)
+        if added and rs.proposal_block_parts.is_complete():
+            rs.proposal_block = Block.from_bytes(
+                rs.proposal_block_parts.get_data())
+            if rs.step == Step.PROPOSE and self._is_proposal_complete():
+                self._enter_prevote(height, rs.round)
+            elif rs.step == Step.COMMIT:
+                self._try_finalize_commit(height)
+
+    # ------------------------------------------------------------------ votes
+
+    def _try_add_vote(self, vote: Vote, peer_id: str) -> None:
+        try:
+            self._add_vote(vote, peer_id)
+        except ConflictingVoteError as e:
+            self._file_duplicate_vote_evidence(vote, e)
+        except ValueError as e:
+            self._log(f"bad vote from {peer_id!r}: {e}")
+
+    def _file_duplicate_vote_evidence(self, vote: Vote,
+                                      e: ConflictingVoteError) -> None:
+        if self.priv_validator is not None and \
+                vote.validator_address == self.priv_validator.address:
+            self._log("conflicting vote from ourselves!")
+            return
+        ev = DuplicateVoteEvidence(
+            pubkey=self._pubkey_of(vote.validator_address),
+            vote_a=e.existing, vote_b=e.new)
+        self.evidence_pool.add_evidence(ev)
+
+    def _pubkey_of(self, addr: bytes) -> bytes:
+        _, val = self.rs.validators.get_by_address(addr)
+        return val.pubkey if val is not None else b""
+
+    def _add_vote(self, vote: Vote, peer_id: str) -> None:
+        rs = self.rs
+
+        # precommit straggler for the previous height (during NewHeight wait)
+        if vote.height + 1 == rs.height:
+            if not (rs.step == Step.NEW_HEIGHT and
+                    vote.type == VoteType.PRECOMMIT):
+                return
+            if rs.last_commit is None:
+                return
+            try:
+                added_lc = rs.last_commit.add_vote(vote)
+            except ConflictingVoteError as e:
+                # same (added, err) pairing as the current-height path:
+                # a counted conflicting straggler must still publish
+                self._file_duplicate_vote_evidence(vote, e)
+                added_lc = e.added
+            if added_lc:
+                self._publish_vote(vote)
+                if self.config.skip_timeout_commit and \
+                        rs.last_commit.has_all():
+                    # zero-duration timeout, NOT a direct call: the next
+                    # height must start from the input queue, or a fast
+                    # chain would run forever inside one submit()
+                    self._schedule_timeout(0.0, rs.height, 0, Step.NEW_HEIGHT)
+            return
+
+        if vote.height != rs.height:
+            return  # height mismatch: ignore
+
+        try:
+            added = rs.votes.add_vote(vote, peer_id)
+        except ConflictingVoteError as e:
+            # The reference's AddVote returns (added, err) TOGETHER: a
+            # conflicting vote for a peer-claimed maj23 block is counted
+            # AND reported. File the evidence here, then — when it was
+            # counted — fall through to the normal quorum-driven
+            # transitions below.
+            self._file_duplicate_vote_evidence(vote, e)
+            if not e.added:
+                return
+            added = True
+        if not added:
+            return
+        self._publish_vote(vote)
+        self._post_add_vote(vote)
+
+    def _post_add_vote(self, vote: Vote) -> None:
+        """Quorum-driven transitions after a vote of the CURRENT height
+        was counted — shared by the scalar add path above and the
+        aggregated bulk path (_try_add_votes), which runs these per
+        applied vote so a quorum formed mid-batch acts immediately."""
+        rs = self.rs
+        height = rs.height
+
+        if vote.type == VoteType.PREVOTE:
+            prevotes = rs.votes.prevotes(vote.round)
+            # unlock on a newer polka for a different block
+            if rs.locked_block is not None and \
+                    rs.locked_round < vote.round <= rs.round:
+                maj = prevotes.two_thirds_majority()
+                if maj is not None and rs.locked_block.hash() != maj.hash:
+                    rs.locked_round = 0
+                    rs.locked_block = None
+                    rs.locked_block_parts = None
+                    self._publish("Unlock")
+            if rs.round <= vote.round and prevotes.has_two_thirds_any():
+                self._enter_new_round(height, vote.round)
+                if prevotes.has_two_thirds_majority():
+                    self._enter_precommit(height, vote.round)
+                else:
+                    self._enter_prevote(height, vote.round)
+                    self._enter_prevote_wait(height, vote.round)
+            elif rs.proposal is not None and \
+                    0 <= rs.proposal.pol_round == vote.round:
+                if self._is_proposal_complete():
+                    self._enter_prevote(height, rs.round)
+
+        elif vote.type == VoteType.PRECOMMIT:
+            precommits = rs.votes.precommits(vote.round)
+            maj = precommits.two_thirds_majority()
+            if maj is not None:
+                if maj.is_zero():
+                    self._enter_new_round(height, vote.round + 1)
+                else:
+                    self._enter_new_round(height, vote.round)
+                    self._enter_precommit(height, vote.round)
+                    self._enter_commit(height, vote.round)
+                    if self.config.skip_timeout_commit and \
+                            precommits.has_all():
+                        # see straggler path above: schedule, don't recurse
+                        self._schedule_timeout(
+                            0.0, self.rs.height, 0, Step.NEW_HEIGHT)
+            elif rs.round <= vote.round and precommits.has_two_thirds_any():
+                self._enter_new_round(height, vote.round)
+                self._enter_precommit(height, vote.round)
+                self._enter_precommit_wait(height, vote.round)
+
+    def _try_add_votes(self, votes: List[Vote], peer_id: str) -> None:
+        """Aggregated vote ingestion (vote_agg): current-height votes are
+        grouped by (round, type) and each group feeds
+        HeightVoteSet.add_votes — VoteSet.add_votes_batch underneath, ONE
+        verifier dispatch per group instead of one per vote. Stragglers
+        and off-height votes take the scalar path, which already
+        classifies them. A commit triggered by an early vote in the batch
+        advances rs.height mid-loop; remaining groups then re-enter
+        through the scalar path, where votes for the just-committed
+        height are reclassified as last-commit stragglers instead of
+        corrupting the new height's sets."""
+        if not votes:
+            return
+        if len(votes) == 1:
+            self._try_add_vote(votes[0], peer_id)
+            return
+        h0 = self.rs.height
+        groups: dict = {}
+        rest: List[Vote] = []
+        for v in votes:
+            if v is not None and v.height == h0:
+                groups.setdefault((v.round, v.type), []).append(v)
+            else:
+                rest.append(v)
+        for v in rest:
+            self._try_add_vote(v, peer_id)
+        for (round_, type_), group in groups.items():
+            if self.rs.height != h0 or len(group) == 1:
+                for v in group:
+                    self._try_add_vote(v, peer_id)
+                continue
+            try:
+                results, errors = self.rs.votes.add_votes(
+                    round_, type_, group, peer_id)
+            except ValueError as e:
+                self._log(f"bad vote batch from {peer_id!r}: {e}")
+                continue
+            for pos, err in errors:
+                if isinstance(err, ConflictingVoteError):
+                    self._file_duplicate_vote_evidence(group[pos], err)
+                else:
+                    self._log(f"bad vote from {peer_id!r}: {err}")
+            for v, added in zip(group, results):
+                if not added:
+                    continue
+                self._publish_vote(v)
+                if self.rs.height == h0:
+                    # a transition fired by an earlier vote may have
+                    # committed the height — stale post-processing
+                    # against the NEW height's sets must not run
+                    self._post_add_vote(v)
+
+    def _publish_vote(self, vote: Vote) -> None:
+        if self.event_bus is not None and not self.replay_mode:
+            self.event_bus.publish_vote(vote)
+        self._broadcast({"type": "has_vote", "height": vote.height,
+                         "round": vote.round, "vote_type": vote.type,
+                         "index": vote.validator_index})
+
+    def _sign_add_vote(self, type_: int, hash_: bytes,
+                       parts_header: PartSetHeader) -> None:
+        rs = self.rs
+        if self.priv_validator is None:
+            return
+        addr = self.priv_validator.address
+        idx, _ = rs.validators.get_by_address(addr)
+        if idx < 0:
+            return
+        vote = Vote(addr, idx, rs.height, rs.round,
+                    clock.now_ns(), type_, BlockID(hash_, parts_header))
+        try:
+            self.priv_validator.sign_vote(self.state.chain_id, vote)
+        except Exception as e:
+            if not self.replay_mode:
+                self._log(f"error signing vote: {e!r}")
+            return
+        self._enqueue_own({"type": "vote", "vote": vote.to_obj()})
+        self._broadcast({"type": "vote", "vote": vote.to_obj()})

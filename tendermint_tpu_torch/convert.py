@@ -20,6 +20,11 @@ object whose canonical bytes do not survive the crossing.
 The chain's state crosses the same way: `chain_state_from_jax` takes the
 JAX package's `State.to_obj()`, and `app_from_jax` rebuilds a kvstore
 app from the JAX app's `snapshot_items()` through `restore_items`.
+
+A node's files cross as they are: `node_files_from_jax` opens a JAX
+node's SQLite block and state stores with the port's SQLiteDB (the key
+layout is the same) and its consensus WAL with the port's WAL (the same
+frames), and refuses files the port cannot read.
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ import numpy as np
 from tendermint_tpu_torch.abci.apps import KVStoreApp
 from tendermint_tpu_torch.ops import ed25519, ladder
 from tendermint_tpu_torch.state.state import State
+from tendermint_tpu_torch.storage import (WAL, BlockStore, SQLiteDB,
+                                          StateStore)
 from tendermint_tpu_torch.types import encoding
 from tendermint_tpu_torch.types.block import Block
 from tendermint_tpu_torch.types.genesis import GenesisDoc
@@ -101,3 +108,25 @@ def app_from_jax(items, height: int, validators=None) -> KVStoreApp:
     app = KVStoreApp()
     app.restore_items(items, height, validators)
     return app
+
+
+def node_files_from_jax(block_db: str, state_db: str, wal_path: str):
+    """(BlockStore, StateStore, WAL) of the port on a JAX node's files:
+    the SQLite block store at `block_db`, the state store at `state_db`
+    and the consensus WAL at `wal_path`. Raises ValueError when the
+    stored state does not parse or round-trip, or when its height is not
+    the block store's or one below it; a WAL whose frames do not decode
+    raises WALCorruptionError."""
+    block_store = BlockStore(SQLiteDB(block_db))
+    state_store = StateStore(SQLiteDB(state_db))
+    state = state_store.load()
+    if state is not None:
+        _carried(state.to_obj(), State.from_obj(state.to_obj()),
+                 "chain state")
+        if block_store.height() - state.last_block_height not in (0, 1):
+            raise ValueError(
+                f"block store at {block_store.height()} does not hold the "
+                f"state's height {state.last_block_height}")
+    wal = WAL(wal_path)
+    wal.all_messages()
+    return block_store, state_store, wal

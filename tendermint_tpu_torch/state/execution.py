@@ -7,9 +7,11 @@ Commit the app with the mempool locked → save state.
 exec_commit_block is the stateless variant of handshake replay
 (state/execution.go:368).
 
+After the app commit and the state save, `fire_events` publishes the
+block, its header and one Tx event a tx on the executor's event bus.
+
 Not ported yet: the divergence recorder, the causal span, the fail
-points, group commit and event firing (the event bus comes with the
-consensus slice).
+points and group commit.
 """
 
 from __future__ import annotations
@@ -135,13 +137,14 @@ class BlockExecutor:
     def __init__(self, state_store, app_conn_consensus,
                  mempool: Optional[Mempool] = None,
                  evidence_pool: Optional[EvidencePool] = None,
-                 verifier=None):
+                 event_bus=None, verifier=None):
         """`verifier` None takes the port's `default_verifier()` (on the
         card; it raises where there is none)."""
         self.state_store = state_store
         self.app_conn = app_conn_consensus
         self.mempool = mempool or MockMempool()
         self.evidence_pool = evidence_pool or MockEvidencePool()
+        self.event_bus = event_bus
         self.verifier = verifier if verifier is not None \
             else default_verifier()
 
@@ -183,6 +186,8 @@ class BlockExecutor:
         if self.state_store is not None:
             self.state_store.save(new_state)
         self.evidence_pool.update(block, new_state)
+        if self.event_bus is not None:
+            fire_events(self.event_bus, block, block_id, responses)
         return new_state
 
     def exec_commit_block(self, block: Block) -> bytes:
@@ -241,3 +246,14 @@ def update_state(state: State, block_id: BlockID, block: Block,
     new_state.last_height_consensus_params_changed = last_height_params_changed
     new_state.last_results_hash = responses.results_hash()
     return new_state
+
+
+def fire_events(event_bus, block: Block, block_id: BlockID,
+                responses: ABCIResponses) -> None:
+    """state/execution.go:343: NewBlock + NewBlockHeader + one EventTx per
+    tx with its DeliverTx result."""
+    event_bus.publish_new_block(block, block_id)
+    event_bus.publish_new_block_header(block.header)
+    for i, tx in enumerate(block.data.txs):
+        event_bus.publish_tx(block.header.height, i, tx,
+                             responses.deliver_txs[i])

@@ -1,7 +1,8 @@
 """Import and device hygiene of the port (tendermint_tpu_torch).
 
 - Importing every module of the port (lite/, storage/, state/, abci/,
-  blockchain/ and p2p/ included), and chip_smoke.py
+  blockchain/, p2p/, consensus/, mempool/ and evidence/ included), and
+  chip_smoke.py
   as a module, in a fresh interpreter loads neither jax nor any
   tendermint_tpu module.
 - No source of the port (nor chip_smoke.py) imports them (AST check).
@@ -33,7 +34,7 @@ def test_walk_covers_every_subpackage():
     mods = set(_modules())
     for pkg in ("ops", "types", "models", "utils", "lite", "storage",
                 "state", "abci", "abci.apps", "blockchain", "p2p",
-                "p2p.conn"):
+                "p2p.conn", "consensus", "mempool", "evidence"):
         assert f"tendermint_tpu_torch.{pkg}" in mods, pkg
     assert "tendermint_tpu_torch.lite.certifier" in mods
     assert "tendermint_tpu_torch.native" in mods
@@ -45,7 +46,12 @@ def test_walk_covers_every_subpackage():
                 "state.execution", "abci.types", "abci.app", "abci.client",
                 "abci.proxy", "abci.apps.kvstore", "p2p.conn.flowrate",
                 "blockchain.pool", "blockchain.reactor",
-                "blockchain.builder"):
+                "blockchain.builder", "config", "storage.wal",
+                "types.events", "consensus.rstate", "consensus.ticker",
+                "consensus.state", "consensus.replay",
+                "consensus.wal_generator", "mempool.clist",
+                "mempool.mempool", "evidence.store", "evidence.pool",
+                "abci.apps.counter"):
         assert f"tendermint_tpu_torch.{mod}" in mods, mod
 
 
@@ -175,3 +181,22 @@ def test_sync_entry_points_without_device_raise(no_cuda):
         verifier.set_default_verifier(saved)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ChainBuilder(2, 1)
+
+
+def test_consensus_entry_points_without_device_raise(no_cuda, tmp_path):
+    from tendermint_tpu_torch.consensus.testnet import Testnet
+    from tendermint_tpu_torch.consensus.wal_generator import wal_with_n_blocks
+    from tendermint_tpu_torch.models import verifier
+
+    saved = verifier._default
+    verifier.set_default_verifier(None)
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Testnet()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            wal_with_n_blocks(1, str(tmp_path / "wal"))
+    finally:
+        verifier.set_default_verifier(saved)
+    # the host verifier needs no device
+    net = Testnet(verifier_of=lambda i: verifier.BatchVerifier("python"))
+    net.close()
