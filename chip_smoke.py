@@ -139,7 +139,50 @@ Phases, each printing its own lines:
    drive. Every check runs on B1 (a batch of 1-4 pads to 8 lanes, below
    the predecompression cache's 64); B2 and B3 must not launch. Launch
    counts zeroed at the start of the phase, read after run A.
-10. the kernel table as one JSON line, the card again, then the last line
+10. p2p: BASELINE.json config 1 over loopback TCP (p2p/socknet.py), every
+   message between nodes on the port's p2p plane: four validators (keys
+   of seed bytes([i + 1]) * 32, power 10, the kvstore app, real mempools,
+   evidence pools and event buses, a real TimeoutTicker) with the four
+   reactors on encrypted Switches (native burst AEAD, compact block relay
+   and vote_agg on), each node dialling the ones built after it as
+   persistent peers; bench_testnet.py run_socket's settings (propose 400
+   ms + 100 a round, prevote and precommit 200 ms + 100, commit 100 ms,
+   1000 txs a block, a mempool of 4000). Every node verifies on its own
+   BatchVerifier("cuda"): the port's default verifier ("auto") would take
+   its host loop for every call of this path (1-4 signatures, and the
+   joiner's 64), and B1 and B2 would not run. A feeder keeps node 0's
+   mempool at >= 2000 fresh txs; mempool gossip alone carries them. When
+   node 0 commits 15, node 3's links are stopped and its handshakes
+   refused; the other three commit 3 more heights alone (30 of 40 power),
+   then node 3's handshakes are allowed again, and the persistent redial
+   of its peers must bring it back and gossip catch it up. At 34 a fifth
+   node (no validator) joins with fast_sync=True and verify_window 16
+   blocks; it first downloads the 34 blocks its peers report, then syncs
+   them in full windows (16 commits of 3-4 signatures, padded to the
+   predecompression cache's 64 lanes: full on B1, then fill on B2),
+   switches to consensus and follows; the download stands in for a long
+   backlog, where the pool runs ahead of the sync. The feeder stops when
+   node 0 commits 40, and the mempools drain. Every switch has a trust
+   store, as the JAX node's has: a peer that scores one bad event (node
+   3's dropped link) as the first event of a 30 s trust interval bans it
+   for 60 s, and then node 3 comes back after the ban (printed as
+   banned_by).
+   Every node must agree on block hash and State bytes at every height it
+   holds, every fed tx be committed once, every frame take the native
+   burst AEAD, and node 0's last 64 verify calls equal the plain versions
+   on the same card tensors. B1 and B2 must launch, B3 not (launch counts
+   zeroed at the start of the phase, read at its end). Prints blocks/s
+   and txs/s over heights 5-40, node 0's per-height medians (proposal to
+   complete block, prevote and precommit quorum, verify calls, signatures
+   a call and ms, apply, validate), frames sealed and opened, frames a
+   burst, the AEAD's host us a frame in the net and alone, bytes a
+   channel, compact offers, reconstructions, fetches and fallbacks, votes
+   a vote_agg, node 3's redial and catch-up, the joiner's download and
+   sync walls and blocks/s, and the kernels' event ms and the device-busy
+   share in the run: every launch timed by events recorded around it in
+   its launching host call (csrc/launch_timer.cpp), the busy share the
+   union of those intervals over the phase's wall.
+11. the kernel table as one JSON line, the card again, then the last line
    {"ok": true, "device": {...}}.
 
 Any mismatch or exception ends the run with a non-zero code before the
@@ -150,6 +193,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
 import dataclasses
 import json
 import os
@@ -158,6 +202,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from collections import Counter, defaultdict, deque
 from concurrent.futures import ThreadPoolExecutor
@@ -1991,22 +2036,26 @@ def _stage_patches(acc: list) -> list:
 
 def _node0_recorder(verifier, log: deque) -> list:
     """Patches that keep, for each of node 0's last N_RECHECK_CALLS verify
-    calls, the card tensors and verdicts of the launches it made."""
+    calls, the card tensors and verdicts of the launches it made (on the
+    calling thread: other nodes' threads launch at the same time over
+    sockets)."""
     inner_async = verifier.verify_async
-    current: list = []
+    current: dict = {}   # thread id -> launches of its call in progress
 
     def verify_async(items):
-        current.append([])
+        me = threading.get_ident()
+        current[me] = []
         try:
             return inner_async(items)
         finally:
-            log.append(current.pop())
+            log.append(current.pop(me))
 
     def rec(name, fn):
         def call(*args):
             out = fn(*args)
-            if current:
-                current[-1].append((name, args, out))
+            mine = current.get(threading.get_ident())
+            if mine is not None:
+                mine.append((name, args, out))
             return out
         return call
 
@@ -2261,6 +2310,547 @@ def phase_consensus(card: str, device) -> dict:
 
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 10: BASELINE.json config 1 over loopback TCP
+# ---------------------------------------------------------------------------
+
+P2P_MEASURE = (5, 40)     # blocks/s, txs/s and stages over these heights
+P2P_DROP_AT = 15          # node 3's links stopped when node 0 commits 15
+P2P_DROPPED_HEIGHTS = 3   # the other three commit this many more alone
+P2P_JOIN_AT = 34          # the fast-syncing joiner added at 34
+P2P_HEIGHTS = 40          # the feeder stops here, then the mempools drain
+P2P_WINDOW = 16           # the joiner's verify_window: a window verifies
+#                           16 commits of 3-4 signatures (the block commits
+#                           at +2/3), 48-64, padded to the predecompression
+#                           cache's 64 lanes. SockNet.add_joiner downloads
+#                           the backlog before the sync starts, as a pool
+#                           runs ahead of a long backlog, so the windows are
+#                           full
+P2P_FEED = 2000           # node 0's mempool kept at >= this many fresh txs
+#                           until node 0 commits P2P_HEIGHTS
+P2P_FEED_BATCH = 500
+P2P_WALL_S = 420.0        # the whole phase's wall limit
+
+
+def _phase_deadline(t0: float):
+    """Seconds left of the phase's wall limit; a stall past it fails."""
+    def left(what: str) -> float:
+        rem = P2P_WALL_S - (time.perf_counter() - t0)
+        require(rem > 0, f"p2p: out of wall time at {what}")
+        return rem
+    return left
+
+
+class _Feeder:
+    """Keeps node 0's mempool at >= P2P_FEED fresh unique txs until node 0
+    commits P2P_HEIGHTS; mempool gossip alone carries them to the others."""
+
+    def __init__(self, node):
+        self.node, self.fed, self.error = node, [], None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="smoke-feeder")
+
+    def _run(self) -> None:
+        try:
+            while not self._stop.is_set():
+                if self.node.block_store.height() >= P2P_HEIGHTS:
+                    return
+                if self.node.mempool.size() < P2P_FEED:
+                    k = len(self.fed)
+                    txs = [b"p2p/k%d=v%d" % (k + i, i)
+                           for i in range(P2P_FEED_BATCH)]
+                    res = self.node.mempool.check_tx_batch(txs)
+                    self.fed += [t for t, r in zip(txs, res) if r.ok]
+                else:
+                    time.sleep(0.005)
+        except Exception as e:  # surfaced by stop()
+            self.error = e
+
+    def start(self) -> None:
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(10)
+        require(self.error is None and not self._thread.is_alive(),
+                f"the feeder failed: {self.error!r}")
+
+
+def _p2p_stage_patches(node, rec: dict) -> list:
+    """Node 0's per-height readings: the first time of each (height,
+    round, step) it enters, when its proposal block completes, and its
+    verify calls, apply and validate ms by height."""
+    cs = node.cs
+
+    def on_step(msg):
+        if msg.get("type") == "new_round_step":
+            rec["steps"].setdefault((msg["height"], msg["round"],
+                                     msg["step"]), time.perf_counter())
+    cs.broadcast_hooks.append(on_step)
+
+    inner_part = cs._add_proposal_block_part
+
+    def add_part(height, part):
+        out = inner_part(height, part)
+        rs = cs.rs
+        if rs.proposal_block is not None:
+            rec["block_done"].setdefault((rs.height, rs.round),
+                                         time.perf_counter())
+        return out
+
+    def timed(fn, key):
+        def call(*args, **kw):
+            h = cs.rs.height
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                rec[key][h] += (time.perf_counter() - t0) * 1e3
+        return call
+
+    verifier = node.block_exec.verifier
+    inner_async = verifier.verify_async
+
+    def verify_async(items):
+        h = cs.rs.height
+        t0 = time.perf_counter()
+        resolve = inner_async(items)
+
+        def wait():
+            try:
+                return resolve()
+            finally:
+                rec["verify_ms"][h] += (time.perf_counter() - t0) * 1e3
+        rec["verify_calls"][h] += 1
+        rec["verify_sigs"][h] += len(items)
+        return wait
+
+    exe = node.block_exec
+    return [(cs, "_add_proposal_block_part", add_part),
+            (verifier, "verify_async", verify_async),
+            (exe, "apply_block", timed(exe.apply_block, "apply_ms")),
+            (exe, "validate_block", timed(exe.validate_block,
+                                          "validate_ms"))]
+
+
+def _p2p_heights(node, rec: dict, heights) -> list:
+    """Per-height rows of node 0 from its readings, at the round that
+    committed each height."""
+    rows = []
+    for h in heights:
+        cr = node.block_store.load_seen_commit(h).round()
+        st = rec["steps"]
+
+        def gap(a, b):
+            ta, tb = st.get((h, cr, a)), st.get((h, cr, b))
+            return None if ta is None or tb is None else (tb - ta) * 1e3
+        t_prop = st.get((h, cr, 3))
+        t_block = rec["block_done"].get((h, cr))
+        calls = rec["verify_calls"][h]
+        rows.append({
+            "height": h, "round": cr,
+            "proposal_to_block_ms": (t_block - t_prop) * 1e3
+            if t_prop is not None and t_block is not None else None,
+            "prevote_quorum_ms": gap(4, 6), "precommit_quorum_ms": gap(6, 8),
+            "verify_calls": calls,
+            "sigs_per_call": rec["verify_sigs"][h] / calls if calls else 0,
+            "verify_ms": rec["verify_ms"][h], "apply_ms": rec["apply_ms"][h],
+            "validate_ms": rec["validate_ms"][h]})
+    return rows
+
+
+def _median(rows: list, key: str):
+    vals = sorted(r[key] for r in rows if r[key] is not None)
+    return vals[len(vals) // 2] if vals else None
+
+
+def _channel_bytes_patches(acc: Counter) -> list:
+    """MConnection.send / try_send add the bytes of every message queued
+    to acc[channel]."""
+    from tendermint_tpu_torch.p2p.conn.mconn import MConnection
+
+    def counted(fn):
+        def call(self, ch_id, msg, *a, **kw):
+            ok = fn(self, ch_id, msg, *a, **kw)
+            if ok:
+                acc[f"{ch_id:#04x}"] += len(msg)
+            return ok
+        return call
+    return [(MConnection, "send", counted(MConnection.send)),
+            (MConnection, "try_send", counted(MConnection.try_send))]
+
+
+def _aead_alone(reps: int = 200) -> dict:
+    """The native burst AEAD on one thread with no net around it: a burst
+    of 64 frames of 1000 bytes (the MConnection packet of a block part)
+    sealed and opened `reps` times; -> host us a frame."""
+    rng = np.random.RandomState(SEED)
+    key = rng.bytes(32)
+    chunks = [rng.bytes(1003) for _ in range(64)]
+    t0 = time.perf_counter()
+    for i in range(reps):
+        wire = native.aead_seal_burst(key, 64 * i, chunks)
+    t1 = time.perf_counter()
+    sealed = native.split_wire(wire)
+    for _ in range(reps):
+        native.aead_open_burst(key, 64 * (reps - 1), sealed)
+    t2 = time.perf_counter()
+    n = reps * len(chunks)
+    return {"seal_us_per_frame": (t1 - t0) * 1e6 / n,
+            "open_us_per_frame": (t2 - t1) * 1e6 / n, "frames": n,
+            "frame_bytes": 1003}
+
+
+def _last_launch_patches(last: dict) -> list:
+    """ladder.verify / verify_pre keep the arguments of their last launch
+    on the card (any node's) in last[name], for _launch_alone."""
+    def keep(name, fn):
+        def call(*args):
+            last[name] = args
+            return fn(*args)
+        return call
+    return [(ladder, n, keep(n, getattr(ladder, n))) for n in VERIFY_KERNELS]
+
+
+def _launch_alone(last: dict, reps: int = 20) -> dict:
+    """Each kernel's device ms a launch on the net's own last arguments,
+    timed alone on one thread after the net (CUDA events around `reps`
+    launches after a warm-up), beside the times in the run, where the
+    nodes' streams share the card."""
+    out = {}
+    for name, args in last.items():
+        fn = getattr(ladder, name)
+        fn(*args)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn(*args)
+        end.record()
+        end.synchronize()
+        out[name] = {"lanes": int(args[0].shape[0]),
+                     "ms": start.elapsed_time(end) / reps}
+    return out
+
+
+def _in_run_timer_patches(log: list) -> list:
+    """The ladder library's verify launchers wrapped so that each launch
+    records CUDA events on its own stream just before and after it, in the
+    same host call (csrc/launch_timer.cpp); `log` gets (name, lanes,
+    start, end) for every launch. Events recorded from Python around a
+    launch would time the interpreter lock of a ~100-thread net as well."""
+    lib = _build.ladder_lib()
+    timer = _build.launch_timer_lib()
+    record = ctypes.cast(ctypes.CDLL("libcuda.so.1").cuEventRecord,
+                         ctypes.c_void_p)
+    patches = []
+    for name, fn_name, timed in (
+            ("verify", "tm_ladder_verify", timer.tm_timed_verify),
+            ("verify_pre", "tm_ladder_verify_pre",
+             timer.tm_timed_verify_pre)):
+        launcher = ctypes.cast(getattr(lib, fn_name), ctypes.c_void_p)
+
+        def call(*args, name=name, timed=timed, launcher=launcher):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()      # creates the events; the timer re-records
+            end.record()
+            err = timed(record, start, end, launcher, *args)
+            log.append((name, args[-3].value, start, end))
+            return err
+        patches.append((lib, fn_name, call))
+    return patches
+
+
+def _in_run_device_time(log: list, ref, wall_s: float) -> dict:
+    """The run's timed launches: event ms by kernel and by lanes, and the
+    device-busy share, the union of the launch intervals (the nodes'
+    streams run concurrently) over the phase's wall."""
+    torch.cuda.synchronize()
+    spans, by = [], {}
+    for name, lanes, start, end in log:
+        t0, t1 = ref.elapsed_time(start), ref.elapsed_time(end)
+        spans.append((t0, t1))
+        k = by.setdefault(name, {"launches": 0, "event_ms": 0.0,
+                                 "by_lanes": {}})
+        k["launches"] += 1
+        k["event_ms"] += t1 - t0
+        row = k["by_lanes"].setdefault(str(lanes), {"launches": 0,
+                                                     "event_ms": 0.0})
+        row["launches"] += 1
+        row["event_ms"] += t1 - t0
+    for k in by.values():
+        for row in k["by_lanes"].values():
+            row["ms_per_launch"] = row["event_ms"] / row["launches"]
+    busy, reach = 0.0, None
+    for t0, t1 in sorted(spans):
+        if reach is None or t0 > reach:
+            busy += t1 - t0
+            reach = t1
+        elif t1 > reach:
+            busy += t1 - reach
+            reach = t1
+    return {"by_kernel": by, "busy_ms": busy,
+            "device_busy": busy / (wall_s * 1e3)}
+
+
+def _drop_and_rejoin(net, left, card: str) -> dict:
+    """Node 3's links stopped at P2P_DROP_AT; the other three commit
+    P2P_DROPPED_HEIGHTS more; then its handshakes are allowed again and the
+    persistent redial must bring it back and gossip catch it up."""
+    n3 = net.nodes[3]
+    at = n3.block_store.height()
+    net.drop_links(3)
+    require(n3.switch.peers.size() == 0, "node 3 kept a link")
+    t0 = time.perf_counter()
+    target = max(net.heights()) + P2P_DROPPED_HEIGHTS
+    net.wait_height(target, left("the three without node 3"),
+                    nodes=net.nodes[:3])
+    alone_s = time.perf_counter() - t0
+    behind = max(net.heights()) - n3.block_store.height()
+    n3_id = n3.switch.node_info.id
+    net.restore_links(3)
+    t1 = time.perf_counter()
+    redial_s = net.wait_for(lambda: n3.switch.peers.size() == 3,
+                            left("node 3's redial"), "node 3's redial")
+    tip = max(net.heights())
+    catchup_s = net.wait_height(tip, left("node 3's catch-up"),
+                                nodes=[n3]) + redial_s
+    out = {"phase": "p2p_rejoin", "node": 3, "dropped_at": at,
+           "three_alone_s": alone_s,
+           "heights_committed_without_node3": target - at,
+           "heights_behind_at_restore": behind,
+           # the peers whose trust store banned node 3 for its dropped
+           # link (a bad event as the first of a trust interval)
+           "banned_by": [i for i, n in enumerate(net.nodes[:3])
+                         if n3_id in n.switch.banned],
+           "redial_s": redial_s,
+           "caught_up_to": tip, "catchup_s": catchup_s,
+           "redial_wall_s": time.perf_counter() - t1, "card": card}
+    emit(out)
+    return out
+
+
+def _join(net, left, card: str) -> dict:
+    """The fifth node, no validator, downloads the backlog its peers
+    report, fast-syncs it by P2P_WINDOW-block windows over the switch,
+    switches to consensus and follows. The sync's wall and blocks/s start
+    when its reactors do, after the download."""
+    before = ted.predecomp_stats()
+    launches = dict(ladder.launches)
+    at = net.nodes[0].block_store.height()
+    t0 = time.perf_counter()
+    joiner = net.add_joiner(verify_window=P2P_WINDOW,
+                            timeout_s=left("the joiner's download"))
+    t1 = time.perf_counter()
+    bc = joiner.blockchain_reactor
+    net.wait_for(lambda: bc.synced or bc.sync_error is not None,
+                 left("the joiner's sync"), "the joiner's sync")
+    wall = time.perf_counter() - t1
+    require(bc.sync_error is None, f"the joiner's sync: {bc.sync_error!r}")
+    synced = joiner.block_store.height()
+    after = ted.predecomp_stats()
+    out = {"phase": "p2p_join", "joined_at": at, "window_blocks": P2P_WINDOW,
+           "download_s": t1 - t0, "synced_to": synced, "sync_wall_s": wall,
+           "blocks_per_s": synced / wall,
+           "routes": {k: after[k] - before[k] for k in ("full", "fill",
+                                                       "hit")},
+           "launches": _launch_delta(launches), "card": card}
+    emit(out)
+    return out
+
+
+def _run_p2p(verifier_of, card: str, node0_log=None, last=None,
+             timed=None) -> dict:
+    """The socket net's run: P2P_HEIGHTS heights with node 3 dropped and
+    redialled and a joiner; then the feeder stops and the mempools drain.
+    With `timed` (a list), every launch is timed in the run, and the
+    result holds `ref`, the event those times count from."""
+    from tendermint_tpu_torch.p2p import socknet
+    from tendermint_tpu_torch.p2p.conn.secret import frame_stats
+
+    t_start = time.perf_counter()
+    left = _phase_deadline(t_start)
+    net = socknet.SockNet(socknet.bench_config(), verifier_of=verifier_of)
+    rec = {"steps": {}, "block_done": {}, **{k: defaultdict(float) for k in (
+        "verify_calls", "verify_sigs", "verify_ms", "apply_ms",
+        "validate_ms")}}
+    chan: Counter = Counter()
+    commit_t: dict = {}
+    saved = _patched(_channel_bytes_patches(chan))
+    feeder = ref = None
+    if timed is not None:
+        ref = torch.cuda.Event(enable_timing=True)
+        ref.record()
+        saved += _patched(_in_run_timer_patches(timed))
+    try:
+        net.start()
+        n0 = net.nodes[0]
+        saved += _patched(_p2p_stage_patches(n0, rec))
+        if node0_log is not None:
+            saved += _patched(_node0_recorder(n0.block_exec.verifier,
+                                              node0_log))
+        if last is not None:
+            saved += _patched(_last_launch_patches(last))
+        inner_save = n0.state_store.save
+
+        def save(state):
+            inner_save(state)
+            commit_t.setdefault(state.last_block_height, time.perf_counter())
+        saved += _patched([(n0.state_store, "save", save)])
+        frame_stats.reset()
+        feeder = _Feeder(n0)
+        feeder.start()
+        net.wait_height(P2P_DROP_AT, left("height 15"), nodes=[n0])
+        rejoin = _drop_and_rejoin(net, left, card)
+        net.wait_height(P2P_JOIN_AT, left("the joiner's height"),
+                        nodes=[n0])
+        join = _join(net, left, card)
+        net.wait_height(P2P_HEIGHTS, left("the last fed height"))
+        feeder.stop()
+        net.wait_for(lambda: all(n.mempool.size() == 0 for n in net.nodes),
+                     left("the drain"), "the mempools' drain")
+        top = min(net.heights())
+        net.wait_height(top, left("the last height"))
+        wall_s = time.perf_counter() - t_start
+        frames = frame_stats.snapshot()
+        bad = net.disagreements()
+        require(not bad, f"p2p: the nodes disagree: {bad[:5]}")
+        blocks = [n0.block_store.load_block(h)
+                  for h in range(1, n0.block_store.height() + 1)]
+        counts = Counter(tx for b in blocks for tx in b.data.txs)
+        require(counts == Counter(feeder.fed) and max(counts.values()) == 1,
+                f"p2p: the committed txs are not the {len(feeder.fed)} fed, "
+                f"each once ({sum(counts.values())} committed)")
+        compact = [n.consensus_reactor.compact_stats.snapshot()
+                   for n in net.nodes]
+        lo, hi = P2P_MEASURE
+        span = commit_t[hi] - commit_t[lo]
+        txs = sum(len(b.data.txs) for b in blocks[lo:hi])
+        rows = _p2p_heights(n0, rec, range(lo + 1, hi + 1))
+        bans = [{"node": i, "peer": pid[:8], "strikes": r["strikes"]}
+                for i, n in enumerate(net.nodes)
+                for pid, r in sorted(n.switch.banned.items())]
+    finally:
+        if feeder is not None and not feeder._stop.is_set():
+            feeder._stop.set()
+        # the net first: the nodes still running while others close go on
+        # verifying, and the launch timer must see every launch
+        net.close()
+        _restore(saved[::-1])   # node 0's verifier is wrapped twice
+    agg_msgs = sum(c["agg_sent"] for c in compact)
+    out = {"phase": "p2p", "validators": 4, "nodes": len(net.nodes),
+           "heights": n0.block_store.height(), "txs_fed": len(feeder.fed),
+           "measured_heights": [lo, hi], "blocks_per_s": (hi - lo) / span,
+           "txs_per_s": txs / span, "wall_s": wall_s,
+           "rounds_above_0": sum(1 for r in rows if r["round"]),
+           "bans": bans, "card": card}
+    emit(out)
+    emit({"phase": "p2p_stages", "node": 0, "unit": "median over heights "
+          f"{lo + 1}-{hi}", "stages": {k: _median(rows, k) for k in (
+              "proposal_to_block_ms", "prevote_quorum_ms",
+              "precommit_quorum_ms", "verify_calls", "sigs_per_call",
+              "verify_ms", "apply_ms", "validate_ms")},
+          "max": {k: max((r[k] for r in rows if r[k] is not None),
+                         default=None) for k in (
+              "proposal_to_block_ms", "prevote_quorum_ms",
+              "precommit_quorum_ms", "verify_ms", "apply_ms")},
+          "card": card})
+    emit({"phase": "p2p_wire", "frames_sealed": frames["sealed_burst"]
+          + frames["sealed_frame"], "frames_opened": frames["opened_burst"]
+          + frames["opened_frame"], "per_frame_sealed": frames["sealed_frame"],
+          "per_frame_opened": frames["opened_frame"],
+          "frames_per_seal_burst": frames["sealed_burst"]
+          / max(1, frames["seal_calls"]),
+          "frames_per_open_burst": frames["opened_burst"]
+          / max(1, frames["open_calls"]),
+          # host wall of the native calls in the net, GIL reacquire
+          # after each call included (aead_alone: the calls by themselves)
+          "seal_wall_us_per_frame": frames["seal_s"] * 1e6
+          / max(1, frames["sealed_burst"]),
+          "open_wall_us_per_frame": frames["open_s"] * 1e6
+          / max(1, frames["opened_burst"]),
+          "bytes_by_channel": dict(sorted(chan.items())),
+          "aead_alone": _aead_alone(), "card": card})
+    emit({"phase": "p2p_compact",
+          "offers": sum(c["sent"] for c in compact),
+          "received": dict(sum((Counter(c["received"]) for c in compact),
+                               Counter())),
+          "reconstructions": dict(sum((Counter(c["reconstruct"])
+                                       for c in compact), Counter())),
+          "fetches": sum(c["fetch_requests"] for c in compact),
+          "fetched_txs": sum(c["fetch_missing_txs"] for c in compact),
+          "vote_agg_msgs": agg_msgs,
+          "votes_per_vote_agg": sum(c["agg_votes_sent"] for c in compact)
+          / max(1, agg_msgs), "card": card})
+    require(frames["sealed_frame"] == 0 and frames["opened_frame"] == 0
+            and frames["sealed_burst"] > 0 and frames["opened_burst"] > 0,
+            f"p2p: a frame left the native burst AEAD: {frames}")
+    require(rejoin["caught_up_to"] >= rejoin["dropped_at"]
+            + rejoin["heights_committed_without_node3"],
+            "p2p: node 3 did not catch up")
+    require(join["synced_to"] >= P2P_JOIN_AT - 1
+            and net.nodes[4].block_store.height() >= P2P_HEIGHTS
+            and not net.nodes[4].consensus_reactor.fast_sync,
+            "p2p: the joiner did not sync and follow")
+    return {"join": join, "rejoin": rejoin, "wall_s": wall_s, "ref": ref}
+
+
+def phase_p2p(card: str, device, verifier=None) -> dict:
+    """BASELINE.json config 1 over loopback TCP (p2p.socknet): four
+    validators and a fast-syncing joiner, every node on its own
+    BatchVerifier("cuda") (`verifier(i)` in a rehearsal, which times no
+    launch)."""
+    if verifier is None:
+        # built before the net: a node whose first verify call built the
+        # kernels would hold its state machine, its peers' recv threads
+        # and their keepalives for the build's minute
+        _build.ladder_lib()
+    native.aead_lib()
+    _zero_launches()
+    node0_log: deque = deque(maxlen=N_RECHECK_CALLS)
+    verifiers: dict = {}
+
+    def verifier_of(i):
+        if i not in verifiers:
+            verifiers[i] = (verifier(i) if verifier is not None else
+                            tverifier.BatchVerifier("cuda", device=device))
+        return verifiers[i]
+    last: dict = {}
+    timed: list = []
+    on_card = verifier is None
+    out = _run_p2p(verifier_of, card, node0_log, last if on_card else None,
+                   timed if on_card else None)
+    launches = dict(ladder.launches)
+    rechecked = _recheck_plain(node0_log)
+    if on_card:
+        dev = _in_run_device_time(timed, out["ref"], out["wall_s"])
+        emit({"phase": "p2p_kernels", "in_run": dev["by_kernel"],
+              "timed_launches": len(timed),
+              "device_busy_ms": dev["busy_ms"],
+              "device_busy": dev["device_busy"],
+              "launch_alone": _launch_alone(last), "wall_s": out["wall_s"],
+              "card": card})
+        require(len(timed) == launches["verify"] + launches["verify_pre"],
+                f"p2p: {len(timed)} launches timed of {launches}")
+    emit({"phase": "p2p_summary", "launches": launches,
+          "join_launches": out["join"]["launches"],
+          "join_routes": out["join"]["routes"], "recheck": rechecked,
+          "verifier_stats": [v.stats for _, v in sorted(verifiers.items())],
+          "card": card})
+    # consensus checks verify 1-4 signatures (B1: 8 lanes, below the
+    # cache's 64); the joiner's 16-block windows verify 64, which walk
+    # the cache full (B1) then fill and hit (B2); nothing signs on the card
+    _require_launched(launches, ("verify", "verify_pre"), "p2p")
+    require(launches["sign_rb"] == 0,
+            f"p2p launched the sign kernel: {launches}")
+    require(rechecked["calls"] == N_RECHECK_CALLS,
+            f"p2p: node 0 made {rechecked['calls']} verify calls")
+    return launches
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -2277,6 +2867,7 @@ def main() -> int:
     block_launches = phase_block(card, keys, commit_path, device)
     sync_launches = phase_sync(card, device)
     consensus_launches = phase_consensus(card, device)
+    p2p_launches = phase_p2p(card, device)
     table = []
     for name, info in KERNELS.items():
         table.append({
@@ -2289,7 +2880,8 @@ def main() -> int:
                                  "lite_chain": lite_launches[name],
                                  "block_height": block_launches[name],
                                  "fast_sync": sync_launches[name],
-                                 "consensus": consensus_launches[name]},
+                                 "consensus": consensus_launches[name],
+                                 "p2p": p2p_launches[name]},
             "max_abs_err": kernels[name]["max_abs_err"],
             "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"],
             "bound_ms": kernels[name]["bound_ms"],

@@ -13,10 +13,10 @@ device dispatch), then stores/applies the verified blocks in order. With
 V validators and a window of W blocks that is one batch of V*W sigs —
 the flagship fast-sync throughput workload (BASELINE.json config 4).
 
-The p2p `Reactor` base waits for the p2p slice: `switch` is an attribute,
-None until then, and any object with `peers.get`, `broadcast_obj` and
-`stop_peer_for_error` serves as one. A peer is any object with `id` and
-`try_send_obj(channel, obj)`.
+It is a p2p `Reactor` on BLOCKCHAIN_CHANNEL; its `switch` is the p2p
+Switch, or any object with `peers.get`, `broadcast_obj` and
+`stop_peer_for_error` (the in-process tests' stub). A peer is any object
+with `id` and `try_send_obj(channel, obj)`.
 """
 
 from __future__ import annotations
@@ -29,6 +29,8 @@ from typing import Optional
 
 from tendermint_tpu_torch.blockchain.pool import BlockPool
 from tendermint_tpu_torch.models.verifier import default_verifier
+from tendermint_tpu_torch.p2p.base_reactor import Reactor
+from tendermint_tpu_torch.p2p.conn import ChannelDescriptor
 from tendermint_tpu_torch.state.execution import ApplyBlockError
 from tendermint_tpu_torch.types import encoding
 from tendermint_tpu_torch.types.block import Block, BlockID
@@ -56,7 +58,7 @@ VERIFY_WINDOW = 256               # blocks batched per device dispatch
 #                                   are downloaded
 
 
-class BlockchainReactor:
+class BlockchainReactor(Reactor):
     def __init__(self, state, block_exec, block_store, fast_sync: bool,
                  consensus_reactor=None, verify_window: int = VERIFY_WINDOW,
                  expect_peers: bool = False, redial=None):
@@ -65,7 +67,7 @@ class BlockchainReactor:
         no-peer window; it redials (bounded) and keeps waiting through
         NO_PEER_GRACE_S. The JAX reactor's state-sync `gate` and
         recovery-plane `after_apply` hook wait with state sync."""
-        self.switch = None
+        super().__init__("blockchain")
         self.state = state
         self.block_exec = block_exec
         self.block_store = block_store
@@ -98,6 +100,10 @@ class BlockchainReactor:
         self._resolver: Optional[ThreadPoolExecutor] = None
 
     # ------------------------------------------------------------- lifecycle
+
+    def get_channels(self):
+        return [ChannelDescriptor(BLOCKCHAIN_CHANNEL, priority=10,
+                                  send_queue_capacity=1000)]
 
     def start(self) -> None:
         if self.fast_sync:

@@ -29,7 +29,6 @@ and post-commit hooks.
 
 from __future__ import annotations
 
-import logging
 import threading
 from collections import deque
 from typing import Callable, List, Optional
@@ -53,8 +52,7 @@ from tendermint_tpu_torch.types.proposal import Heartbeat, Proposal
 from tendermint_tpu_torch.types.vote import Vote, VoteType
 from tendermint_tpu_torch.types.vote_set import ConflictingVoteError, VoteSet
 from tendermint_tpu_torch.utils import clock
-
-logger = logging.getLogger(__name__)
+from tendermint_tpu_torch.utils.log import get_logger
 
 
 class ConsensusFailure(Exception):
@@ -78,6 +76,9 @@ class ConsensusState:
         self.wal = wal if wal is not None else NilWAL()
         self.event_bus = event_bus
         self.replay_mode = False
+        # the reactors log through it as the JAX package's do
+        # (`cs.logger.info(msg, **fields)`)
+        self.logger = get_logger(__name__)
 
         self.rs = RoundState(height=state.last_block_height + 1)
 
@@ -193,8 +194,8 @@ class ConsensusState:
             hook(msg)
 
     def _log(self, s: str) -> None:
-        logger.error("%s (height=%d round=%d step=%s)", s, self.rs.height,
-                     self.rs.round, self.rs.step.name)
+        self.logger.error(s, height=self.rs.height, round=self.rs.round,
+                          step=self.rs.step.name)
 
     def _publish(self, event: str, extra: Optional[dict] = None) -> None:
         if self.event_bus is not None and not self.replay_mode:

@@ -297,7 +297,11 @@ class Mempool:
         self.notified_txs_available = False
         for tx in txs:
             self._drop(tx)
-            # committed txs stay in cache: re-submission is a dup
+            # committed txs go into the cache, also those this node never
+            # held (a block from a peer): re-submission, or gossip that
+            # arrives after the commit, is a dup and cannot be committed
+            # twice (the JAX package caches only txs it admitted)
+            self.cache.push(tx)
         if self.recheck and len(self.txs) > 0:
             self._recheck_txs()
         self._rewrite_wal()

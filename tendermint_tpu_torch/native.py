@@ -1,5 +1,6 @@
-"""Native host ops of the port: batched Ed25519 verify prep and the two
-host phases of batched signing.
+"""Native host ops of the port: batched Ed25519 verify prep, the two host
+phases of batched signing, and the ChaCha20-Poly1305 AEAD of the p2p
+frame plane.
 
 `csrc/prep.cpp` (with `csrc/ed25519_host.h`) is built with g++ at first
 use into `tendermint_tpu_torch/_build/` (named by a hash of both sources
@@ -14,6 +15,12 @@ SHA-512 is OpenSSL's when `libcrypto.so.3` loads at run time, a portable
 one otherwise. A failed build raises with the compiler's output; nothing
 falls back. Callers that want the hashlib versions call them by name
 (`ops/ed25519.*_plain`).
+
+`csrc/aead.cpp` (RFC 8439 ChaCha20-Poly1305, the port's copy of the JAX
+package's host AEAD) is built the same way into its own library, loaded
+with ctypes, and held at first use to the RFC 8439 section 2.8.2 vector,
+a burst round trip and a tamper rejection. A failed build or a failed
+check raises: the frame plane never drops quietly to per-frame crypto.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import os
 import shutil
 import sysconfig
 import threading
+from typing import List
 
 import numpy as np
 
@@ -139,3 +147,173 @@ def sign_phase2(renc: bytes, pks: bytes, msgs, rs: bytes,
     """n*64 bytes of signatures R || s, k = SHA-512(R || A || M) mod L,
     s = (r + k*a) mod L; renc, pks, rs, as_ are n*32 bytes."""
     return module().sign_phase2(renc, pks, msgs, rs, as_)
+
+
+# -- ChaCha20-Poly1305 (p2p SecretConnection frames) ------------------------
+
+AEAD_SRC = _build.CSRC / "aead.cpp"
+AEAD_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+FRAME_MAX = 1024   # plaintext bytes a frame carries (secret.DATA_MAX_SIZE)
+_TAG = 16
+
+_aead_checked = False
+
+
+class AeadTagError(Exception):
+    """A frame of a burst failed Poly1305 authentication."""
+
+
+def aead_build():
+    """Build the AEAD library unless it is built; returns its path."""
+    gxx = shutil.which("g++") or "g++"
+    return _build._build("tmtorch_aead", gxx, AEAD_FLAGS, AEAD_SRC,
+                         headers=())
+
+
+def aead_lib() -> ctypes.CDLL:
+    """The AEAD library, built at first use and self-checked once."""
+    global _aead_checked
+    u64, u32 = ctypes.c_uint64, ctypes.c_uint32
+    lib = _build._load(
+        "tmtorch_aead", aead_build,
+        [("tm_aead_seal_one", [ctypes.c_char_p, ctypes.c_char_p,
+                               ctypes.c_char_p, u64, ctypes.c_char_p, u64,
+                               _P], None),
+         ("tm_aead_seal_burst", [ctypes.c_char_p, u64, u32, ctypes.c_char_p,
+                                 _P, u64, _P], None),
+         ("tm_aead_open_burst", [ctypes.c_char_p, u64, u32, ctypes.c_char_p,
+                                 _P, u64, _P], ctypes.c_int64)])
+    with _lock:
+        if not _aead_checked:
+            _aead_self_check(lib)
+            _aead_checked = True
+    return lib
+
+
+_RFC8439_KEY = bytes(range(0x80, 0xA0))
+_RFC8439_NONCE = bytes.fromhex("070000004041424344454647")
+_RFC8439_AAD = bytes.fromhex("50515253c0c1c2c3c4c5c6c7")
+_RFC8439_PT = (b"Ladies and Gentlemen of the class of '99: If I could "
+               b"offer you only one tip for the future, sunscreen would "
+               b"be it.")
+_RFC8439_CT_HEAD = bytes.fromhex("d31a8d34648e60db7b86afbc53ef7ec2")
+_RFC8439_TAG = bytes.fromhex("1ae10b594f09e26a7e902ecbd0600691")
+
+
+def _aead_self_check(lib) -> None:
+    """Raise unless the built library reproduces the RFC 8439 section
+    2.8.2 seal, round-trips a burst with counter nonces and refuses a
+    flipped ciphertext bit."""
+    sealed = _seal_one(lib, _RFC8439_KEY, _RFC8439_NONCE, _RFC8439_AAD,
+                       _RFC8439_PT)
+    if sealed[:16] != _RFC8439_CT_HEAD or sealed[-16:] != _RFC8439_TAG:
+        raise RuntimeError("csrc/aead.cpp fails the RFC 8439 2.8.2 vector")
+    key = bytes(range(32))
+    chunks = [b"", b"a", b"frame-two", b"x" * FRAME_MAX]
+    frames = split_wire(_seal_burst(lib, key, 5, chunks))
+    opened = _open_burst(lib, key, 5, frames)
+    if opened is None or [p[2:] for p in opened] != chunks or \
+            [int.from_bytes(p[:2], "big") for p in opened] != \
+            [len(c) for c in chunks]:
+        raise RuntimeError("csrc/aead.cpp fails its burst round trip")
+    bad = bytearray(frames[2])
+    bad[0] ^= 1
+    if _open_burst(lib, key, 5, [frames[0], frames[1], bytes(bad)]) \
+            is not None:
+        raise RuntimeError("csrc/aead.cpp opened a tampered frame")
+
+
+def split_wire(wire: bytes) -> List[bytes]:
+    """The sealed frames (ct || tag) of wire bytes: be32 length prefixes
+    stripped."""
+    frames, pos = [], 0
+    while pos < len(wire):
+        clen = int.from_bytes(wire[pos:pos + 4], "big")
+        frames.append(wire[pos + 4:pos + 4 + clen])
+        pos += 4 + clen
+    return frames
+
+
+def _offsets(parts) -> np.ndarray:
+    off = np.zeros(len(parts) + 1, np.uint64)
+    np.cumsum(np.fromiter(map(len, parts), np.uint64, len(parts)),
+              out=off[1:])
+    return off
+
+
+def _nonce_split(nonce_start: int):
+    return nonce_start & 0xFFFFFFFFFFFFFFFF, (nonce_start >> 64) & 0xFFFFFFFF
+
+
+def _seal_one(lib, key, nonce12, aad, pt) -> bytes:
+    out = ctypes.create_string_buffer(len(pt) + _TAG)
+    lib.tm_aead_seal_one(key, nonce12, aad, len(aad), pt, len(pt), out)
+    return out.raw
+
+
+def _seal_burst(lib, key: bytes, nonce_start: int, chunks) -> bytes:
+    off = _offsets(chunks)
+    total = int(off[-1]) + 22 * len(chunks)
+    out = ctypes.create_string_buffer(max(1, total))
+    lo, hi = _nonce_split(nonce_start)
+    lib.tm_aead_seal_burst(key, lo, hi, b"".join(chunks), off.ctypes.data,
+                           len(chunks), out)
+    return out.raw[:total]
+
+
+def _open_burst(lib, key: bytes, nonce_start: int, frames):
+    off = _offsets(frames)
+    sizes = [len(f) - _TAG for f in frames]
+    out = ctypes.create_string_buffer(max(1, sum(max(0, z) for z in sizes)))
+    lo, hi = _nonce_split(nonce_start)
+    rc = lib.tm_aead_open_burst(key, lo, hi, b"".join(frames),
+                                off.ctypes.data, len(frames), out)
+    if rc != len(frames):
+        return None
+    raw = out.raw
+    plains, pos = [], 0
+    for z in sizes:
+        plains.append(raw[pos:pos + z])
+        pos += z
+    return plains
+
+
+def _check_key(key: bytes) -> None:
+    if len(key) != 32:
+        raise ValueError(f"AEAD key must be 32 bytes, got {len(key)}")
+
+
+def aead_seal_one(key: bytes, nonce12: bytes, aad: bytes,
+                  pt: bytes) -> bytes:
+    """One seal with an arbitrary 12-byte nonce and aad -> ct || tag (the
+    surface the RFC vectors drive; frames always take the bursts)."""
+    _check_key(key)
+    if len(nonce12) != 12:
+        raise ValueError(f"AEAD nonce must be 12 bytes, got {len(nonce12)}")
+    return _seal_one(aead_lib(), key, nonce12, aad, pt)
+
+
+def aead_seal_burst(key: bytes, nonce_start: int,
+                    chunks: List[bytes]) -> bytes:
+    """Seal each chunk (a payload of at most FRAME_MAX bytes, without its
+    2-byte length header) as one SecretConnection frame, counter nonces
+    from nonce_start; returns the wire bytes (be32 length prefix, then
+    ct || tag, a frame) that per-frame sealing gives."""
+    _check_key(key)
+    for c in chunks:
+        if len(c) > FRAME_MAX:
+            raise ValueError(f"frame chunk exceeds {FRAME_MAX}B")
+    return _seal_burst(aead_lib(), key, nonce_start, chunks)
+
+
+def aead_open_burst(key: bytes, nonce_start: int,
+                    frames: List[bytes]) -> List[bytes]:
+    """Open sealed frames (ct || tag, wire length prefix stripped) with
+    counter nonces from nonce_start; returns the plaintexts, each still
+    carrying its 2-byte length header. Raises AeadTagError at the first
+    frame that fails authentication."""
+    _check_key(key)
+    out = _open_burst(aead_lib(), key, nonce_start, frames)
+    if out is None:
+        raise AeadTagError("burst frame failed AEAD authentication")
+    return out

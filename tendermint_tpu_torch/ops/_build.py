@@ -12,7 +12,9 @@ the compiler's output; nothing falls back.
 
 The same arithmetic header also builds with g++ into a CPU shim
 (`csrc/cpu_shim.cpp`) that the CPU tests load, and g++ builds the host
-prep extension (`csrc/prep.cpp`, loaded by `tendermint_tpu_torch.native`).
+prep extension (`csrc/prep.cpp`, loaded by `tendermint_tpu_torch.native`)
+and the launch timer (`csrc/launch_timer.cpp`) with which chip_smoke.py
+times the verify launches of a net in the run.
 """
 
 from __future__ import annotations
@@ -134,6 +136,19 @@ def ladder_build_log() -> str:
 
 def cuda_error_string(lib, err: int) -> str:
     return f"{err} ({lib.tm_cuda_error_string(err).decode()})"
+
+
+def launch_timer_lib() -> ctypes.CDLL:
+    """The launch timer (csrc/launch_timer.cpp) built with g++: events
+    recorded around a verify launch in the launching host call."""
+    gxx = shutil.which("g++") or "g++"
+    return _load(
+        "launch_timer",
+        lambda: _build("launch_timer", gxx, GXX_FLAGS,
+                       CSRC / "launch_timer.cpp", headers=[]),
+        [("tm_timed_verify", [_P] * 10 + [_I, _I, _P], _I),
+         ("tm_timed_verify_pre", [_P] * 12 + [_I, _I, _P], _I),
+         ("tm_record_failed_base", [], _I)])
 
 
 def cpu_shim_lib() -> ctypes.CDLL:

@@ -1,7 +1,8 @@
 """Import and device hygiene of the port (tendermint_tpu_torch).
 
 - Importing every module of the port (lite/, storage/, state/, abci/,
-  blockchain/, p2p/, consensus/, mempool/ and evidence/ included), and
+  blockchain/, p2p/ with its conn/ and socknet, consensus/ with its
+  reactor, mempool/ and evidence/ with theirs included), and
   chip_smoke.py
   as a module, in a fresh interpreter loads neither jax nor any
   tendermint_tpu module.
@@ -51,7 +52,12 @@ def test_walk_covers_every_subpackage():
                 "consensus.state", "consensus.replay",
                 "consensus.wal_generator", "mempool.clist",
                 "mempool.mempool", "evidence.store", "evidence.pool",
-                "abci.apps.counter"):
+                "abci.apps.counter", "utils.log", "p2p.base_reactor",
+                "p2p.key", "p2p.netaddress", "p2p.node_info", "p2p.trust",
+                "p2p.peer", "p2p.switch", "p2p.test_util", "p2p.socknet",
+                "p2p.conn.purecrypto", "p2p.conn.burst", "p2p.conn.secret",
+                "p2p.conn.mconn", "consensus.compact", "consensus.reactor",
+                "mempool.reactor", "evidence.reactor"):
         assert f"tendermint_tpu_torch.{mod}" in mods, mod
 
 
@@ -200,3 +206,19 @@ def test_consensus_entry_points_without_device_raise(no_cuda, tmp_path):
     # the host verifier needs no device
     net = Testnet(verifier_of=lambda i: verifier.BatchVerifier("python"))
     net.close()
+
+
+def test_socket_net_without_device_raises(no_cuda):
+    from tendermint_tpu_torch.models import verifier
+    from tendermint_tpu_torch.p2p.socknet import SockNet
+
+    saved = verifier._default
+    verifier.set_default_verifier(None)
+    net = SockNet()
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            net.start()
+        assert net.nodes == []
+    finally:
+        net.close()
+        verifier.set_default_verifier(saved)
