@@ -182,7 +182,37 @@ Phases, each printing its own lines:
    share in the run: every launch timed by events recorded around it in
    its launching host call (csrc/launch_timer.cpp), the busy share the
    union of those intervals over the phase's wall.
-11. the kernel table as one JSON line, the card again, then the last line
+11. processes: BASELINE config 1 as four OS processes, as
+   bench_testnet.py run_socket runs it (procnet.ProcNet): `python -m
+   tendermint_tpu_torch.cli testnet` writes the tree (4 validators of
+   power 10, kvstore, persistent peers, PEX on), each node's config.json
+   takes run_socket's settings (propose 400 ms + 100 a round, prevote
+   and precommit 200 ms + 100, commit 100 ms, 1000 txs a block, a
+   mempool of 4000) and verifier_backend "cuda", and four `cli node --p2p
+   --no-fast-sync` processes start (each a fresh interpreter with its own
+   CUDA context; the ladder library is phase 1's, same digest). Two
+   feeder threads cast broadcast_tx_batch of 128 txs over the port's
+   WSClient to nodes 0 and 1, backing off while num_unconfirmed_txs
+   exceeds 3000, until node 0 commits 40. When node 0 commits 15, node 3
+   is SIGKILLed by its pid and restarted from its home with fast sync:
+   its handshake replays the stored blocks into a fresh app, it syncs
+   the heights it missed, switches to consensus and must sign a later
+   commit. Then every node must agree on block hash and app hash at
+   every height (RPC block metas), no tx be committed twice, 32 seeded
+   committed keys answer abci_query on every node, no node but the
+   killed one exit early, every node process report B1 launches (node
+   3's killed process in the line it printed at the last height it
+   committed, every other process in its stop line), and the phase stay
+   within 180 s. Prints `procnet` (blocks/s and txs/s over heights 5-40 from the
+   block metas, boot seconds, bans from net_info), `procnet_restart`
+   (node 3's handshake seconds and blocks from its start line, restart
+   to RPC, sync and rejoin seconds, its sync routes), `procnet_kernels`
+   (launches, routes, verify calls, and the host ms a call spends in
+   the verifier's dispatch and in its wait for the verdicts, per
+   process; launches summed over all five processes) and
+   `procnet_device` (nvidia-smi's utilization.gpu over the feeders'
+   window, a coarse figure).
+12. the kernel table as one JSON line, the card again, then the last line
    {"ok": true, "device": {...}}.
 
 Any mismatch or exception ends the run with a non-zero code before the
@@ -197,6 +227,7 @@ import ctypes
 import dataclasses
 import json
 import os
+import random
 import re
 import shutil
 import subprocess
@@ -2851,6 +2882,319 @@ def phase_p2p(card: str, device, verifier=None) -> dict:
             f"p2p: node 0 made {rechecked['calls']} verify calls")
     return launches
 
+# ------------------------------------------- phase 11: config 1 as OS processes
+
+PROC_CHAIN = "chip-smoke-procnet"
+PROC_HEIGHTS = 40         # the feeders stop when node 0 commits this
+PROC_CRASH_AT = 15        # node 3 is SIGKILLed when node 0 commits this
+PROC_MEASURE = (5, 40)    # blocks/s and txs/s over these heights (metas)
+PROC_BOOT_S = 90.0        # every node's status at height >= 2 within
+PROC_WALL_S = 180.0       # the phase's wall limit from the nodes' start
+PROC_FEED_BATCH = 128     # txs a broadcast_tx_batch cast
+PROC_BACKLOG = 3000       # a feeder backs off while the mempool holds more
+PROC_SAMPLE_KEYS = 32     # committed keys abci_query'd on every node
+PROC_GPU_POLL_S = 0.25    # nvidia-smi utilization.gpu sampling period
+
+
+class _WSFeeder:
+    """run_socket's spammer (bench_testnet.py :554-585) on the port's
+    WSClient: casts of PROC_FEED_BATCH fresh txs to node `tid`, a
+    num_unconfirmed_txs call after every four, backing off while it
+    exceeds PROC_BACKLOG; a broken socket is reopened."""
+
+    def __init__(self, net, tid: int):
+        self.net, self.tid, self.sent, self.errors = net, tid, 0, 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name=f"smoke-ws-feeder-{tid}")
+
+    def _run(self) -> None:
+        ws = None
+        while not self._stop.is_set():
+            try:
+                if ws is None:
+                    ws = self.net.ws(self.tid, timeout=30.0)
+                for _ in range(4):
+                    ws.cast("broadcast_tx_batch", txs=[
+                        (b"pn%d/k%d=v" % (self.tid, self.sent + k)).hex()
+                        for k in range(PROC_FEED_BATCH)])
+                    self.sent += PROC_FEED_BATCH
+                while not self._stop.is_set() and ws.call(
+                        "num_unconfirmed_txs", timeout=30.0)["n_txs"] \
+                        > PROC_BACKLOG:
+                    time.sleep(0.05)
+            except Exception:
+                self.errors += 1
+                if ws is not None:
+                    ws.close()
+                    ws = None
+                time.sleep(0.2)
+        if ws is not None:
+            ws.close()
+
+    def start(self) -> None:
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(40)
+
+
+class _GpuSampler:
+    """nvidia-smi's utilization.gpu every PROC_GPU_POLL_S: the share of
+    its sample period in which a kernel ran, a coarse figure."""
+
+    def __init__(self):
+        self.samples: list = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="smoke-gpu-sampler")
+
+    def _run(self) -> None:
+        while not self._stop.wait(PROC_GPU_POLL_S):
+            try:
+                out = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=utilization.gpu",
+                     "--format=csv,noheader,nounits", "-i", "0"],
+                    capture_output=True, text=True, timeout=10)
+            except (OSError, subprocess.TimeoutExpired):
+                return   # no nvidia-smi (a CPU rehearsal): no samples
+            if out.returncode == 0 and out.stdout.strip().isdigit():
+                self.samples.append((time.perf_counter(),
+                                     int(out.stdout.strip())))
+
+    def start(self) -> None:
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(10)
+
+    def share(self, t0: float, t1: float):
+        vals = [u for t, u in self.samples if t0 <= t <= t1]
+        return (sum(vals) / len(vals) / 100.0 if vals else None), len(vals)
+
+
+def _proc_status(net, i: int):
+    try:
+        return net.rpc(i, 5.0).call("status")
+    except Exception:
+        return None
+
+
+def _signed_in_commit(net, val_index: int, after: int) -> int:
+    """The first height above `after` whose commit on node 0 holds
+    validator val_index's precommit, or 0."""
+    c = net.rpc(0, 10.0)
+    top = int(c.call("status")["latest_block_height"])
+    for h in range(after + 1, top):
+        pcs = c.call("commit", height=h)["commit"]["precommits"]
+        if pcs[val_index] is not None:
+            return h
+    return 0
+
+
+def _restart_node3(net, left, device: str) -> dict:
+    """SIGKILL node 3 by its pid when node 0 commits PROC_CRASH_AT and
+    restart it from the same home with fast sync on. Its handshake
+    (seconds, blocks replayed into the fresh app) comes from its start
+    line; this script times the restart to its RPC answering (the
+    interpreter, the CUDA context, the handshake and the first of the
+    sync), the sync (to `syncing` false) and the rejoin (to its
+    precommit in a commit of node 0)."""
+    with open(os.path.join(net.home(3), "config",
+                           "priv_validator.json")) as f:
+        pub = json.load(f)["pub_key"]["value"]
+    vals = net.rpc(0).call("validators")["validators"]["validators"]
+    idx = [v["pubkey"] for v in vals].index(pub)
+    net.wait_for(lambda: net.height(0) >= PROC_CRASH_AT,
+                 left("the crash height"), "node 0 at the crash height")
+    killed_at = net.height(3)
+    net.kill(3)
+    t_kill = time.perf_counter()
+    net.start(3, extra=["--device", device])
+    net.wait_for(lambda: _proc_status(net, 3) is not None,
+                 left("node 3's restart"), "node 3's RPC after restart")
+    t_up = time.perf_counter()
+    start_h = net.height(3)
+    started = re.findall(r"^node started: .* height=(\d+) "
+                         r"handshake_s=([\d.]+) replayed=(\d+)$",
+                         net.log(3), re.M)
+    require(len(started) == 2, f"procnet: node 3's start lines {started}")
+    net.wait_for(lambda: (_proc_status(net, 3) or {}).get(
+        "syncing", True) is False, left("node 3's sync"), "node 3's sync")
+    t_synced = time.perf_counter()
+    synced_h = net.height(3)
+    net.wait_for(lambda: _signed_in_commit(net, idx, synced_h) > 0,
+                 left("node 3's rejoin"), "node 3's precommit in a commit",
+                 poll_s=0.5)
+    t_rejoin = time.perf_counter()
+    return {"killed_at_height": killed_at, "node0_at_kill": PROC_CRASH_AT,
+            "start_height": int(started[1][0]),
+            "handshake_s": float(started[1][1]),
+            "handshake_blocks": int(started[1][2]),
+            "height_at_rpc": start_h, "synced_to": synced_h,
+            "signed_at": _signed_in_commit(net, idx, synced_h),
+            "restart_to_rpc_s": t_up - t_kill, "sync_s": t_synced - t_up,
+            "rejoin_s": t_rejoin - t_synced, "down_s": t_rejoin - t_kill,
+            "validator_index": idx}
+
+
+def _proc_rate(net, top: int) -> dict:
+    """Blocks/s and txs/s over PROC_MEASURE from node 0's block metas
+    (header times) and blocks."""
+    lo, hi = PROC_MEASURE
+    metas = net.metas(0, top)
+    t_lo = metas[lo - 1]["header"]["time_ns"]
+    t_hi = metas[hi - 1]["header"]["time_ns"]
+    span = (t_hi - t_lo) / 1e9
+    txs = sum(m["header"]["num_txs"] for m in metas[lo:hi])
+    return {"blocks_per_s": (hi - lo) / span, "txs_per_s": txs / span,
+            "span_s": span, "txs": txs}
+
+
+def _proc_txs(net, top: int) -> tuple:
+    """Every committed tx of node 0's blocks 1..top: (Counter, list)."""
+    txs = [tx for b in net.block_txs(0, top) for tx in b]
+    return Counter(txs), txs
+
+
+def phase_procnet(card: str, device: str = "cuda") -> dict:
+    """BASELINE config 1 as four OS processes (procnet.ProcNet): `cli
+    testnet`, then `cli node --p2p --no-fast-sync --device <device>` x 4
+    on verifier_backend "cuda", fed over WebSocket RPC; node 3 SIGKILLed
+    and restarted with fast sync. A rehearsal on the CPU passes
+    device="cpu": the nodes then run "auto" (the host loop at these
+    batch sizes) and no launch is required."""
+    on_card = device.startswith("cuda")
+    from tendermint_tpu_torch.procnet import (ProcNet, bench_settings,
+                                              free_block)
+    # the node processes load the libraries phase 1 built (same digests)
+    _build.ladder_lib()
+    native.module()
+    native.aead_lib()
+    root = tempfile.mkdtemp(prefix="procnet-")
+    net = ProcNet(root, base_port=free_block(8))
+    net.write_tree(PROC_CHAIN)
+    net.configure(bench_settings("cuda" if on_card else "auto"))
+    sampler = _GpuSampler()
+    feeders = [_WSFeeder(net, tid) for tid in (0, 1)]
+    t_start = time.perf_counter()
+
+    def left(what: str) -> float:
+        rem = PROC_WALL_S - (time.perf_counter() - t_start)
+        require(rem > 0, f"procnet: out of wall time at {what}")
+        return rem
+    ok = False
+    try:
+        net.start_all(extra=["--no-fast-sync", "--device", device])
+        sampler.start()
+        boot_s = net.wait_for(lambda: min(net.heights()) >= 2,
+                              min(PROC_BOOT_S, left("boot")), "boot")
+        for f in feeders:
+            f.start()
+        t_feed = time.perf_counter()
+        restart = _restart_node3(net, left, device)
+        net.wait_for(lambda: net.height(0) >= PROC_HEIGHTS,
+                     left("the last fed height"), "node 0 at the last height")
+        t_fed = time.perf_counter()
+        for f in feeders:
+            f.stop()
+        net.wait_for(lambda: min(net.heights()) >= PROC_HEIGHTS,
+                     left("every node at the last height"),
+                     "every node at the last height")
+        wall_s = time.perf_counter() - t_start
+        top = min(net.heights())
+        bad = net.disagreements(top)
+        require(not bad, f"procnet: the nodes disagree: {bad[:5]}")
+        counts, txs = _proc_txs(net, top)
+        twice = [tx for tx, c in counts.items() if c > 1]
+        require(not twice, f"procnet: {len(twice)} txs committed twice")
+        keys = random.Random(SEED).sample(txs, min(PROC_SAMPLE_KEYS,
+                                                   len(txs)))
+        for tx in keys:
+            k, v = tx.split(b"=", 1)
+            for i in range(net.n):
+                got = net.rpc(i).call("abci_query", data=k.hex())
+                require(bytes.fromhex(got["response"]["value"]) == v,
+                        f"procnet: node {i} answers {k!r} wrong")
+        rate = _proc_rate(net, top)
+        bans = {i: net.rpc(i).call("net_info").get("banned", {})
+                for i in range(net.n)}
+        early = net.early_exits()
+        require(not early, f"procnet: node processes exited early {early}")
+        busy, n_samples = sampler.share(t_feed, t_fed)
+        ok = True
+    finally:
+        for f in feeders:
+            f.stop()
+        codes = net.stop_all()
+        sampler.stop()
+        if not ok:
+            for i in range(net.n):
+                tail = net.log(i).splitlines()[-40:] \
+                    if os.path.exists(net.log_path(i)) else []
+                print(f"procnet node {i} log tail:", *tail, sep="\n",
+                      file=sys.stderr)
+    # one line a process: its stop line, and for node 3's killed first
+    # process the line of the last height it committed before the kill
+    lines = {i: net.kernel_lines(i) for i in range(net.n)}
+    require(all(codes[i] == 0 for i in range(net.n)),
+            f"procnet: node exit codes {codes}")
+    require([len(lines[i]) for i in range(net.n)] == [1, 1, 1, 2],
+            f"procnet: kernel lines a process {lines}")
+    per_node = {i: lines[i][-1] for i in range(net.n)}
+    killed = lines[3][0]
+    launches = {k: sum(line["launches"][k]
+                       for i in lines for line in lines[i])
+                for k in ladder.launches}
+    emit({"phase": "procnet", "validators": 4, "processes": 4,
+          "heights": top, "measured_heights": list(PROC_MEASURE),
+          "blocks_per_s": rate["blocks_per_s"],
+          "txs_per_s": rate["txs_per_s"], "measure_span_s": rate["span_s"],
+          "txs_committed": len(txs), "txs_sent": sum(f.sent for f in feeders),
+          "feeder_errors": sum(f.errors for f in feeders),
+          "boot_s": boot_s, "wall_s": wall_s, "banned_by": {
+              i: sorted(p[:8] for p in b) for i, b in bans.items()},
+          "card": card})
+    emit({"phase": "procnet_restart", **restart,
+          "sync_routes": per_node[3]["routes"],
+          "sync_launches": per_node[3]["launches"], "card": card})
+
+    def process(line: dict) -> dict:
+        v = line["verifier"]
+        calls = max(1, v["calls"])
+        return {"launches": line["launches"], "routes": line["routes"],
+                "verify_calls": v["calls"], "sigs": v["sigs"],
+                "dispatch_ms_per_call": 1e3 * v["dispatch_s"] / calls,
+                "wait_ms_per_call": 1e3 * v["wait_s"] / calls,
+                "device": line["device"], "counted_to_height": line["height"]}
+    emit({"phase": "procnet_kernels",
+          "by_node": {i: process(per_node[i]) for i in per_node},
+          "node3_killed_process": process(killed),
+          "note": "launches sum every process's last line; node 3's killed "
+          "process is counted to the last height it committed before the "
+          "kill", "launches": launches, "card": card})
+    emit({"phase": "procnet_device", "utilization_gpu_mean": busy,
+          "samples": n_samples, "window": "feeders' start to node 0 at "
+          f"{PROC_HEIGHTS}", "note": "coarse: nvidia-smi utilization.gpu "
+          "(share of each sample period with a kernel running), polled "
+          f"every {PROC_GPU_POLL_S} s", "card": card})
+    for i in lines:
+        for line in lines[i]:
+            require(not on_card or (line["device"].startswith("cuda")
+                                    and line["launches"]["verify"] > 0),
+                    f"procnet: a process of node {i} did not launch B1: "
+                    f"{line}")
+    require(launches["sign_rb"] == 0,
+            f"procnet launched the sign kernel: {launches}")
+    require(restart["signed_at"] > restart["synced_to"],
+            f"procnet: node 3 did not sign after its rejoin: {restart}")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -2868,6 +3212,7 @@ def main() -> int:
     sync_launches = phase_sync(card, device)
     consensus_launches = phase_consensus(card, device)
     p2p_launches = phase_p2p(card, device)
+    procnet_launches = phase_procnet(card)
     table = []
     for name, info in KERNELS.items():
         table.append({
@@ -2881,7 +3226,8 @@ def main() -> int:
                                  "block_height": block_launches[name],
                                  "fast_sync": sync_launches[name],
                                  "consensus": consensus_launches[name],
-                                 "p2p": p2p_launches[name]},
+                                 "p2p": p2p_launches[name],
+                                 "procnet": procnet_launches[name]},
             "max_abs_err": kernels[name]["max_abs_err"],
             "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"],
             "bound_ms": kernels[name]["bound_ms"],

@@ -46,6 +46,16 @@ the event bus.
     -> state/execution.BlockExecutor.apply_block (validate, the kvstore
        app, stores, mempool update, evidence pool, events)
 
+Slice 10 is the p2p plane: config 1 over loopback TCP in one process
+(`p2p/socknet.py`) on encrypted switches with the four reactors.
+
+Slice 11 is the node as users run it: `cli.py` (`python -m
+tendermint_tpu_torch.cli`) -> node.Node (stores, app conns local or over
+the ABCI socket, handshake, mempool, evidence pool, executor, WAL,
+consensus, the switch with the reactors, the trust store and PEX, the tx
+indexer, the RPC server over HTTP and WebSocket); `procnet.ProcNet`
+runs config 1 as OS processes from a `cli testnet` tree.
+
   ops/      field, curve, ladder, ed25519, merkle (host and device
             halves), sha256, kernel build
   csrc/     fe25519.cuh (arithmetic), ladder.cu (kernels), cpu_shim.cpp,
@@ -57,17 +67,21 @@ the event bus.
   models/   verifier
   lite/     certifiers, providers, SignedHeader / FullCommit
   storage/  MemDB / SQLiteDB, BlockStore, StateStore, the consensus WAL
-  state/    State, validation, BlockExecutor (and its event firing)
-  abci/     results, BaseApplication, LocalClient, AppConns, kvstore and
-            counter apps
+  state/    State, validation, BlockExecutor (and its event firing),
+            the tx indexer
+  abci/     results, BaseApplication, LocalClient, SocketClient,
+            ABCIServer, AppConns, kvstore and counter apps
   consensus/  ConsensusState, HeightVoteSet, tickers, replay and the
             handshake, the WAL generator, the config-1 testnet
   mempool/  CList, TxCache, Mempool
   evidence/ EvidenceStore, EvidencePool
   blockchain/  BlockPool, BlockchainReactor, ChainBuilder
-  p2p/      the flow-rate monitor
-  utils/    ed25519_ref, ed25519_fast, secp256k1_ref, clock, device
-  config.py   consensus timeouts and mempool settings
+  p2p/      keys, addresses, node info, trust, peers, the switch, the
+            links (p2p/conn), PEX (p2p/pex), the socket net
+  rpc/      JSON-RPC server, route table and clients
+  utils/    ed25519_ref, ed25519_fast, secp256k1_ref, clock, device, log
+  config.py   the node's configuration tree and config.json
+  node.py, cli.py, procnet.py   the node, its CLI, process nets
   convert.py  the JAX package's tables and cache rows, and its blocks,
               votes, validator sets, genesis docs, chain states and
               kvstore apps by their objects, and a node's files

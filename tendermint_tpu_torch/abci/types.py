@@ -4,8 +4,7 @@ Plain dataclasses with canonical-JSON object forms, field for field the
 JAX package's. `UniformDeliverResults` is the lazy sequence the JAX
 package's native kvstore returns; the port's kvstore returns a list, but
 ABCIResponses.from_obj reads the compact form that sequence persists.
-The socket transport's Request/Response envelopes wait with the socket
-client.
+Request and Response are the socket transport's envelopes.
 """
 
 from __future__ import annotations
@@ -208,3 +207,34 @@ class ResultQuery:
         return cls(o["code"], bytes.fromhex(o["key"]),
                    bytes.fromhex(o["value"]), bytes.fromhex(o["proof"]),
                    o["height"], o["log"])
+
+
+# Generic request/response envelopes for the socket transport. `method` maps
+# 1:1 onto Application methods; `payload` is method-specific plain obj.
+
+@dataclass
+class Request:
+    method: str
+    payload: Any = None
+
+    def to_obj(self):
+        return {"method": self.method, "payload": self.payload}
+
+    @classmethod
+    def from_obj(cls, o):
+        return cls(o["method"], o.get("payload"))
+
+
+@dataclass
+class Response:
+    method: str
+    payload: Any = None
+    error: Optional[str] = None
+
+    def to_obj(self):
+        return {"method": self.method, "payload": self.payload,
+                "error": self.error}
+
+    @classmethod
+    def from_obj(cls, o):
+        return cls(o["method"], o.get("payload"), o.get("error"))

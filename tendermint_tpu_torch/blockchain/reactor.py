@@ -28,7 +28,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 from tendermint_tpu_torch.blockchain.pool import BlockPool
-from tendermint_tpu_torch.models.verifier import default_verifier
+from tendermint_tpu_torch.models.verifier import VerifierError, default_verifier
 from tendermint_tpu_torch.p2p.base_reactor import Reactor
 from tendermint_tpu_torch.p2p.conn import ChannelDescriptor
 from tendermint_tpu_torch.state.execution import ApplyBlockError
@@ -231,10 +231,11 @@ class BlockchainReactor(Reactor):
                     retries = 0
                 else:
                     time.sleep(SYNC_TICK_S)
-            except ApplyBlockError as e:
+            except (ApplyBlockError, VerifierError) as e:
                 # store/apply divergence is unrecoverable mid-sync (the
-                # reference panics here, consensus/state.go:1214-1220):
-                # stop LOUDLY instead of silently retrying forever
+                # reference panics here, consensus/state.go:1214-1220),
+                # and so is a device that fails a verify: stop LOUDLY
+                # instead of silently retrying forever
                 self.sync_error = e
                 self.fast_sync = False
                 raise

@@ -1,0 +1,356 @@
+"""CLI (cmd/tendermint): the port's copy of `tendermint_tpu/cli.py`.
+
+    python -m tendermint_tpu_torch.cli --home <h> init
+    python -m tendermint_tpu_torch.cli testnet --n 4 --output <dir>
+    python -m tendermint_tpu_torch.cli --home <h> node --p2p \\
+        --rpc-laddr tcp://127.0.0.1:<port>
+
+Commands: init, node, testnet, show_validator, show_node_id,
+gen_validator, unsafe_reset_all, unsafe_reset_priv_validator, version,
+replay and replay_console. `node` and the replays take `--device`
+(cuda, cuda:N or cpu), the device of the node's BatchVerifier: without
+it the node runs on the card and, with no card, exits non-zero unless
+the config's `verifier_backend` is "python". `node` prints its kernel
+launches (ops/ladder.launches) and its verifier's counts when it stops.
+
+The JAX CLI's `lite`, `replica`, `shardset` and `probe_upnp` commands and
+its TM_NODE_PROFILE sampler wait for later slices.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import sys
+import time
+
+
+def cmd_init(args) -> int:
+    """Write genesis + priv validator + config skeleton (cmd init.go:48)."""
+    from tendermint_tpu_torch.types.genesis import (GenesisDoc,
+                                                    GenesisValidator)
+    from tendermint_tpu_torch.types.priv_validator import PrivValidatorFile
+    home = args.home
+    cfg_dir = os.path.join(home, "config")
+    os.makedirs(cfg_dir, exist_ok=True)
+    pv_path = os.path.join(cfg_dir, "priv_validator.json")
+    pv = PrivValidatorFile.load_or_generate(pv_path)
+    gen_path = os.path.join(cfg_dir, "genesis.json")
+    if not os.path.exists(gen_path):
+        gen = GenesisDoc(
+            chain_id=args.chain_id or f"test-chain-{int(time.time())}",
+            genesis_time_ns=time.time_ns(),
+            validators=[GenesisValidator(pv.pubkey.ed25519, 10)])
+        gen.save(gen_path)
+        print(f"initialized genesis at {gen_path}")
+    else:
+        print(f"genesis already exists at {gen_path}")
+    print(f"priv validator at {pv_path}")
+    return 0
+
+
+def _kernel_line(node) -> str:
+    """The process's kernel launches, its predecompression cache routes
+    and the node verifier's counts, at the node's height."""
+    from tendermint_tpu_torch.ops import ed25519, ladder
+    routes = ed25519.predecomp_stats()
+    return json.dumps({"height": node.height,
+                       "launches": dict(ladder.launches),
+                       "routes": {k: routes[k]
+                                  for k in ("full", "fill", "hit")},
+                       "verifier": dict(node.verifier.stats),
+                       "device": str(node.verifier.device)})
+
+
+def cmd_node(args) -> int:
+    """Run a node (cmd run_node.go). With --p2p it listens, dials
+    configured peers and serves RPC; otherwise it is a self-contained
+    single-process validator."""
+    from tendermint_tpu_torch.abci.apps import CounterApp, KVStoreApp
+    from tendermint_tpu_torch.config import default_config
+    from tendermint_tpu_torch.node import default_node
+    from tendermint_tpu_torch.utils.log import setup_logging
+    setup_logging(default_config(args.home).base.log_level)
+    app = {"kvstore": KVStoreApp, "counter": CounterApp}[args.app]()
+    try:
+        node = default_node(args.home, app=app, with_p2p=args.p2p,
+                            fast_sync=(args.fast_sync if args.p2p else False),
+                            device=args.device or None)
+    except RuntimeError as e:
+        # no card and no --device cpu: the node never moves to the CPU
+        print(f"cannot start the node: {e}", file=sys.stderr, flush=True)
+        return 1
+    if args.p2p_laddr:
+        node.config.p2p.laddr = args.p2p_laddr
+    if args.rpc_laddr:
+        node.config.rpc.laddr = args.rpc_laddr
+        node.with_rpc = True
+    if args.persistent_peers:
+        node.config.p2p.persistent_peers = args.persistent_peers
+    node.start()
+    if node.switch is not None:
+        print(f"p2p listening on {node.switch.listen_address}", flush=True)
+    if node.rpc_address is not None:
+        print(f"rpc listening on {node.rpc_address[0]}:"
+              f"{node.rpc_address[1]}", flush=True)
+    print(f"node started: chain={node.gen_doc.chain_id} "
+          f"height={node.height} handshake_s={node.handshake_s:.3f} "
+          f"replayed={node.handshake_blocks}", flush=True)
+    try:
+        last = -1
+        deadline = time.time() + args.max_seconds if args.max_seconds else None
+        while True:
+            time.sleep(0.2)
+            fatal = node.consensus.fatal_error or getattr(
+                getattr(node, "blockchain_reactor", None), "sync_error",
+                None)
+            if fatal is not None:
+                # consensus OR fast-sync halted unrecoverably (the
+                # reference panics; a failed kernel launch lands here
+                # too): die loudly rather than sit at a frozen height
+                print(f"CONSENSUS FAILURE: {fatal!r}", flush=True)
+                print(f"node kernels {_kernel_line(node)}", flush=True)
+                node.stop()
+                return 1
+            if node.height != last:
+                last = node.height
+                print(f"committed height={last} "
+                      f"app_hash={node.consensus.state.app_hash.hex()[:16]}",
+                      flush=True)
+                # the counts so far: a process killed without its stop
+                # line leaves these behind
+                print(f"node kernels {_kernel_line(node)}", flush=True)
+            if deadline and time.time() > deadline:
+                break
+            if args.max_height and node.height >= args.max_height:
+                break
+    except KeyboardInterrupt:
+        pass
+    node.stop()
+    print(f"node stopped at height {node.height}", flush=True)
+    print(f"node kernels {_kernel_line(node)}", flush=True)
+    return 0
+
+
+def cmd_show_validator(args) -> int:
+    from tendermint_tpu_torch.types.priv_validator import PrivValidatorFile
+    pv = PrivValidatorFile.load(
+        os.path.join(args.home, "config", "priv_validator.json"))
+    print(json.dumps(pv.pubkey.to_obj()))
+    return 0
+
+
+def cmd_gen_validator(args) -> int:
+    from tendermint_tpu_torch.types.keys import PrivKey
+    key = PrivKey.generate()
+    print(json.dumps({"priv_key": key.to_obj(),
+                      "pub_key": key.pubkey.to_obj()}))
+    return 0
+
+
+def cmd_unsafe_reset_all(args) -> int:
+    """Wipe data dir, keep genesis + reset priv validator height state."""
+    data = os.path.join(args.home, "data")
+    if os.path.isdir(data):
+        shutil.rmtree(data)
+        print(f"removed {data}")
+    return cmd_unsafe_reset_priv_validator(args)
+
+
+def cmd_unsafe_reset_priv_validator(args) -> int:
+    """Reset ONLY the double-sign protection state (the reference's
+    unsafe_reset_priv_validator, cmd reset_priv_validator.go) — for a
+    validator that must re-join after losing its state, accepting the
+    double-sign risk."""
+    pv_path = os.path.join(args.home, "config", "priv_validator.json")
+    if os.path.exists(pv_path):
+        from tendermint_tpu_torch.types.priv_validator import (
+            PrivValidatorFile)
+        pv = PrivValidatorFile.load(pv_path)
+        pv.last_height = pv.last_round = pv.last_step = 0
+        pv.last_sign_bytes = None
+        pv.last_signature = None
+        pv._persist()
+        print(f"reset priv validator sign state at {pv_path}")
+    return 0
+
+
+def cmd_version(args) -> int:
+    from tendermint_tpu_torch import __version__
+    print(__version__)
+    return 0
+
+
+def cmd_show_node_id(args) -> int:
+    from tendermint_tpu_torch.p2p import NodeKey
+    nk = NodeKey.load_or_generate(
+        os.path.join(args.home, "config", "node_key.json"))
+    print(nk.id())
+    return 0
+
+
+def cmd_testnet(args) -> int:
+    """Emit an N-validator testnet file tree (cmd testnet.go:97): a shared
+    genesis listing every validator, per-node priv_validator + node_key +
+    config.json with persistent_peers wired to all other nodes."""
+    from tendermint_tpu_torch.config import default_config, save_config
+    from tendermint_tpu_torch.p2p import NodeKey
+    from tendermint_tpu_torch.types.genesis import (GenesisDoc,
+                                                    GenesisValidator)
+    from tendermint_tpu_torch.types.priv_validator import PrivValidatorFile
+
+    n = args.n
+    out = args.output or args.home
+    chain_id = args.chain_id or f"testnet-{int(time.time())}"
+    pvs, node_keys = [], []
+    for i in range(n):
+        home = os.path.join(out, f"node{i}")
+        cfg_dir = os.path.join(home, "config")
+        os.makedirs(cfg_dir, exist_ok=True)
+        pvs.append(PrivValidatorFile.load_or_generate(
+            os.path.join(cfg_dir, "priv_validator.json")))
+        node_keys.append(NodeKey.load_or_generate(
+            os.path.join(cfg_dir, "node_key.json")))
+    gen = GenesisDoc(
+        chain_id=chain_id, genesis_time_ns=time.time_ns(),
+        validators=[GenesisValidator(pv.pubkey.ed25519, 10) for pv in pvs])
+    base_port = args.base_port
+    for i in range(n):
+        home = os.path.join(out, f"node{i}")
+        gen.save(os.path.join(home, "config", "genesis.json"))
+        cfg = default_config(home)
+        cfg.p2p.laddr = f"tcp://127.0.0.1:{base_port + 2 * i}"
+        cfg.rpc.laddr = f"tcp://127.0.0.1:{base_port + 2 * i + 1}"
+        cfg.p2p.addr_book_strict = False
+        cfg.p2p.persistent_peers = ",".join(
+            f"{node_keys[j].id()}@127.0.0.1:{base_port + 2 * j}"
+            for j in range(n) if j != i)
+        save_config(cfg)
+    print(f"wrote {n}-node testnet (chain {chain_id}) under {out}")
+    return 0
+
+
+def cmd_replay(args, console: bool = False) -> int:
+    """Step through the consensus WAL against a fresh state machine
+    (consensus/replay_file.go:32 RunReplayFile). --console pauses for
+    ENTER between messages and accepts 'quit'."""
+    from tendermint_tpu_torch.config import default_config
+    from tendermint_tpu_torch.consensus.replay import (replay_messages,
+                                                       wal_tail_for)
+    from tendermint_tpu_torch.node import Node
+    from tendermint_tpu_torch.storage import WALCorruptionError
+    from tendermint_tpu_torch.types.genesis import GenesisDoc
+
+    config = default_config(args.home)
+    gen_doc = GenesisDoc.load(
+        os.path.join(args.home, "config", "genesis.json"))
+    # readonly WAL: a writable open would trim a live writer's
+    # in-flight frame and corrupt the log. NOTE this protects the WAL
+    # only — the node handshake still opens the state/block stores
+    # writable (as the reference's replay_file does), so the tool is
+    # for stopped nodes / copied data dirs, not a running node's home.
+    print("replay: do not run against a RUNNING node's data dir "
+          "(stores open writable; the WAL itself is opened read-only)",
+          file=sys.stderr)
+    node = Node(config, gen_doc, priv_validator=None, wal_readonly=True,
+                device=args.device or None)
+    cs, wal = node.consensus, node.wal
+    height = cs.state.last_block_height
+    # same tail selection as node-start catchup (incl. the legacy
+    # genesis fallback) so this debugging tool reproduces the node
+    try:
+        tail = wal_tail_for(wal, height)
+    except (ValueError, WALCorruptionError) as e:
+        print(f"cannot replay: {e}")
+        node.stop()
+        return 1
+    if tail is None:
+        print(f"WAL has no messages after height {height}")
+        node.stop()
+        return 1
+
+    def before_submit(msg):
+        if console:
+            cmdline = input(
+                f"> next: {msg.get('type')} (ENTER to apply, q to quit) ")
+            if cmdline.strip().lower() in ("q", "quit"):
+                return False
+        return True
+
+    def after_submit(msg):
+        print(f"replayed {msg.get('type')} -> "
+              f"H/R/S {cs.rs.height}/{cs.rs.round}/{int(cs.rs.step)}")
+
+    # the feed loop itself is replay_messages — the SAME code node
+    # startup runs, so what this tool shows is what recovery does
+    n = replay_messages(cs, tail, before_submit=before_submit,
+                        after_submit=after_submit)
+    print(f"replayed {n} messages; final height {cs.rs.height}")
+    node.stop()
+    return 0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="tendermint_tpu_torch")
+    p.add_argument("--home",
+                   default=os.path.expanduser("~/.tendermint_tpu"))
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    sp = sub.add_parser("init", help="initialize genesis + priv validator")
+    sp.add_argument("--chain-id", default="")
+    sp.set_defaults(fn=cmd_init)
+
+    device_help = ("the verifier's device: cuda, cuda:N or cpu (default: "
+                   "the current CUDA device; without one only the "
+                   "python backend runs)")
+    sp = sub.add_parser("node", help="run a node")
+    sp.add_argument("--app", default="kvstore",
+                    choices=["kvstore", "counter"])
+    sp.add_argument("--max-height", type=int, default=0)
+    sp.add_argument("--max-seconds", type=float, default=0)
+    sp.add_argument("--p2p", action="store_true",
+                    help="run the networking stack")
+    sp.add_argument("--no-fast-sync", dest="fast_sync",
+                    action="store_false", default=True)
+    sp.add_argument("--p2p-laddr", default="",
+                    help="override p2p listen address")
+    sp.add_argument("--rpc-laddr", default="",
+                    help="serve RPC on this address")
+    sp.add_argument("--persistent-peers", default="",
+                    help="comma-separated id@host:port")
+    sp.add_argument("--device", default="", help=device_help)
+    sp.set_defaults(fn=cmd_node)
+
+    sp = sub.add_parser("testnet",
+                        help="write an N-validator testnet file tree")
+    sp.add_argument("--n", type=int, default=4)
+    sp.add_argument("--output", default="")
+    sp.add_argument("--chain-id", default="")
+    sp.add_argument("--base-port", type=int, default=46656)
+    sp.set_defaults(fn=cmd_testnet)
+
+    sp = sub.add_parser("replay", help="replay the consensus WAL")
+    sp.add_argument("--device", default="", help=device_help)
+    sp.set_defaults(fn=cmd_replay)
+
+    sp = sub.add_parser("replay_console",
+                        help="interactively replay the consensus WAL")
+    sp.add_argument("--device", default="", help=device_help)
+    sp.set_defaults(fn=lambda a: cmd_replay(a, console=True))
+
+    sub.add_parser("version").set_defaults(fn=cmd_version)
+    sub.add_parser("show_validator").set_defaults(fn=cmd_show_validator)
+    sub.add_parser("show_node_id").set_defaults(fn=cmd_show_node_id)
+    sub.add_parser("gen_validator").set_defaults(fn=cmd_gen_validator)
+    sub.add_parser("unsafe_reset_all").set_defaults(fn=cmd_unsafe_reset_all)
+    sub.add_parser("unsafe_reset_priv_validator").set_defaults(
+        fn=cmd_unsafe_reset_priv_validator)
+
+    args = p.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,5 @@
-"""Configuration of the consensus engine, the mempool and the p2p layer:
-the port's copy of those sections of `tendermint_tpu/config.py`
-(config/config.go).
+"""The node's configuration tree: the port's copy of
+`tendermint_tpu/config.py` (config/config.go:35-44).
 
 Consensus timeouts are round-scaled functions exactly like the
 reference's (config/config.go:364-385: propose 3000+500·round ms,
@@ -13,20 +12,63 @@ are fields here, with the same defaults: the p2p frame bursts (`burst`,
 and the compact consensus gossip (`compact`, `vote_agg`). The port reads
 no environment knob for them.
 
-The base, RPC and tx-index sections wait for the node slice.
+`config/config.json` is one file for both packages. default_config()
+reads a JAX-written file: the JAX package keeps the bursts and the
+compact gossip under `base` (`p2p_burst`, `p2p_burst_max`, `compact`,
+`vote_agg`, each auto|on|off), and the loader maps those keys onto the
+port's fields. Keys of planes the port does not have (telemetry, chaos,
+pipeline, reactor, trace, SLO, snapshots, ...) are ignored, as the JAX
+loader ignores any key its dataclasses lack. save_config() writes those
+four settings only as the JAX keys, so the file holds one key for each
+and the JAX package reads a port-written file the same way. A file that
+names the port's field itself (`p2p.burst`, say) is read as written: the
+JAX key maps onto a field only where the field's own section leaves it
+out.
 """
 
 from __future__ import annotations
 
+import json
 import os
-from dataclasses import dataclass, field, replace
+from dataclasses import asdict, dataclass, field, replace
+
+
+@dataclass
+class BaseConfig:
+    chain_id: str = ""
+    moniker: str = "anonymous"
+    fast_sync: bool = True
+    db_dir: str = "data"
+    log_level: str = "info"
+    # the node's BatchVerifier (models/verifier.py): auto|cuda|python
+    verifier_backend: str = "auto"
+
+
+# No code of the port reads grpc_laddr or P2PConfig's skip_upnp yet
+# (gRPC and UPnP wait for later slices), nor flush_throttle_ms and
+# max_msg_packet_payload_size (no link of either package reads them);
+# they are kept so that config.json round-trips between the packages.
+@dataclass
+class RPCConfig:
+    laddr: str = "tcp://0.0.0.0:46657"
+    grpc_laddr: str = ""
+    unsafe: bool = False
 
 
 @dataclass
 class P2PConfig:
+    laddr: str = "tcp://0.0.0.0:46656"
+    seeds: str = ""
+    persistent_peers: str = ""
     max_num_peers: int = 50
+    flush_throttle_ms: int = 100
+    max_msg_packet_payload_size: int = 1024
     send_rate: int = 512000  # B/s (p2p/conn/connection.go:33-35)
     recv_rate: int = 512000
+    pex: bool = True
+    seed_mode: bool = False
+    addr_book_strict: bool = True
+    skip_upnp: bool = True
     external_addr: str = ""
     handshake_timeout_s: float = 20.0   # TOTAL handshake deadline
     dial_timeout_s: float = 3.0
@@ -95,14 +137,103 @@ class ConsensusConfig:
 
 
 @dataclass
+class TxIndexConfig:
+    indexer: str = "kv"           # kv | null
+    index_tags: str = ""
+    index_all_tags: bool = False
+
+
+@dataclass
 class Config:
     home: str = ""
+    base: BaseConfig = field(default_factory=BaseConfig)
+    rpc: RPCConfig = field(default_factory=RPCConfig)
     p2p: P2PConfig = field(default_factory=P2PConfig)
     mempool: MempoolConfig = field(default_factory=MempoolConfig)
     consensus: ConsensusConfig = field(default_factory=ConsensusConfig)
+    tx_index: TxIndexConfig = field(default_factory=TxIndexConfig)
 
     def path(self, *parts: str) -> str:
         return os.path.join(self.home, *parts)
+
+
+SECTIONS = ("base", "rpc", "p2p", "mempool", "consensus", "tx_index")
+
+
+def _mode_on(v) -> bool:
+    """A JAX auto|on|off mode (or a bool) as the port's bool: only off is
+    off."""
+    if isinstance(v, bool):
+        return v
+    return str(v).strip().lower() not in ("off", "0", "false", "no")
+
+
+# the port's fields that the JAX package keeps under `base` (as
+# p2p_burst, p2p_burst_max, compact and vote_agg)
+JAX_BASE_FIELDS = (("p2p", "burst"), ("p2p", "burst_max"),
+                   ("consensus", "compact"), ("consensus", "vote_agg"))
+
+
+def _apply_jax_base(cfg: Config, overrides: dict) -> None:
+    """The JAX package's `base` keys for settings the port keeps in
+    another section, each where that section of the file does not set
+    the port's field itself."""
+    base = overrides["base"]
+
+    def unset(section: str, name: str) -> bool:
+        values = overrides.get(section)
+        return not (isinstance(values, dict) and name in values)
+
+    if "p2p_burst" in base and unset("p2p", "burst"):
+        mode = str(base["p2p_burst"]).strip().lower()
+        cfg.p2p.burst = _mode_on(mode)
+        if mode.isdigit() and unset("p2p", "burst_max"):
+            cfg.p2p.burst_max = int(mode)
+    if int(base.get("p2p_burst_max") or 0) > 0 and unset("p2p", "burst_max"):
+        cfg.p2p.burst_max = int(base["p2p_burst_max"])
+    if "compact" in base and unset("consensus", "compact"):
+        cfg.consensus.compact = _mode_on(base["compact"])
+    if "vote_agg" in base and unset("consensus", "vote_agg"):
+        cfg.consensus.vote_agg = _mode_on(base["vote_agg"])
+
+
+def default_config(home: str = "") -> Config:
+    """Defaults, overlaid with `<home>/config/config.json` when present
+    (the reference loads $TMHOME/config.toml via viper, config/toml.go)."""
+    cfg = Config(home=home)
+    path = os.path.join(home, "config", "config.json") if home else ""
+    if path and os.path.exists(path):
+        with open(path) as f:
+            overrides = json.load(f)
+        for section, values in overrides.items():
+            target = getattr(cfg, section, None) \
+                if section in SECTIONS else None
+            if target is None or not isinstance(values, dict):
+                continue
+            for k, v in values.items():
+                if hasattr(target, k):
+                    setattr(target, k, v)
+        if isinstance(overrides.get("base"), dict):
+            _apply_jax_base(cfg, overrides)
+    return cfg
+
+
+def save_config(cfg: Config) -> str:
+    """Persist every section as config/config.json; the bursts and the
+    compact gossip go only under the JAX package's `base` keys."""
+    path = os.path.join(cfg.home, "config", "config.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    obj = {name: asdict(getattr(cfg, name)) for name in SECTIONS}
+    for section, name in JAX_BASE_FIELDS:
+        del obj[section][name]
+    obj["base"].update(
+        p2p_burst="on" if cfg.p2p.burst else "off",
+        p2p_burst_max=cfg.p2p.burst_max,
+        compact="on" if cfg.consensus.compact else "off",
+        vote_agg="on" if cfg.consensus.vote_agg else "off")
+    with open(path, "w") as f:
+        json.dump(obj, f, indent=1, sort_keys=True)
+    return path
 
 
 def test_config(home: str = "") -> Config:

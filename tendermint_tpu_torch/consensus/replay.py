@@ -79,11 +79,14 @@ def wal_tail_for(wal, height: int) -> Optional[list]:
     return msgs
 
 
-def replay_messages(cs, tail) -> int:
+def replay_messages(cs, tail, before_submit=None, after_submit=None) -> int:
     """Feed WAL messages through the state machine's normal handle path
-    with replay-mode side effects suppressed. Returns the number of
-    messages submitted. (The JAX package's pause and progress hooks
-    serve its replay console, which the port does not have.)"""
+    with replay-mode side effects suppressed. ONE definition shared by
+    node-start catchup and the `replay[_console]` CLI so the debug tool
+    can never drift from real node recovery. `before_submit(msg)` (the
+    console's pause hook) may return False to stop early;
+    `after_submit(msg)` is the console's progress print. Returns the
+    number of messages submitted."""
     cs.replay_mode = True
     try:
         n = 0
@@ -92,8 +95,12 @@ def replay_messages(cs, tail) -> int:
             peer = msg.pop("peer", "")
             if msg.get("type") in ("round_state", "endheight"):
                 continue
+            if before_submit is not None and before_submit(msg) is False:
+                break
             cs.submit(msg, peer_id=peer)
             n += 1
+            if after_submit is not None:
+                after_submit(msg)
         return n
     finally:
         cs.replay_mode = False

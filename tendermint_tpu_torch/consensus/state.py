@@ -34,6 +34,7 @@ from collections import deque
 from typing import Callable, List, Optional
 
 from tendermint_tpu_torch.config import ConsensusConfig
+from tendermint_tpu_torch.models.verifier import VerifierError
 from tendermint_tpu_torch.consensus.rstate import (HeightVoteSet, RoundState,
                                                    Step)
 from tendermint_tpu_torch.consensus.ticker import TimeoutInfo, TimeoutTicker
@@ -122,7 +123,7 @@ class ConsensusState:
                     try:
                         self._handle(m, p)
                     except (ConsensusFailure, AssertionError,
-                            ApplyBlockError) as e:
+                            ApplyBlockError, VerifierError) as e:
                         # unrecoverable: HALT this state machine (the
                         # reference's receiveRoutine panics the whole
                         # process), record why, and propagate to the

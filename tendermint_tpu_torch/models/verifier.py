@@ -22,13 +22,17 @@ general prep of `ops/ed25519.prepare_batch_bytes`.
 On the card every call dispatches its chunks on the verifier's own CUDA
 stream and records one event after the verdicts' copy to pinned host
 memory; the resolver waits on that event only, then masks with the host
-precheck. Coalescing of concurrent small calls, telemetry and the
-multi-device mesh come in later slices (`mesh_devices` is always 0).
+precheck. A launch or a wait that fails raises VerifierError: nothing
+falls back to the plain versions, and the consensus state machine and
+the fast-sync loop halt on it. Coalescing of concurrent small calls,
+telemetry and the multi-device mesh come in later slices
+(`mesh_devices` is always 0).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Sequence
 
 import numpy as np
@@ -41,6 +45,10 @@ from tendermint_tpu_torch.types import keys
 from tendermint_tpu_torch.utils import device as _device
 
 BATCH_CHUNK = 8192
+
+
+class VerifierError(RuntimeError):
+    """A batch dispatch or its wait failed on the device."""
 
 
 class BatchVerifier:
@@ -57,8 +65,12 @@ class BatchVerifier:
                         if self.device is not None
                         and self.device.type == "cuda" else None)
         self._stats_lock = threading.Lock()
-        #: guarded_by _stats_lock
-        self.stats = {"calls": 0, "sigs": 0, "cuda_sigs": 0}
+        #: guarded_by _stats_lock; dispatch_s sums the host time of each
+        #: call's dispatch (verify_async up to its return), wait_s the
+        #: time its resolver's first call blocks for the verdicts. The
+        #: caller's own work between the two is in neither.
+        self.stats = {"calls": 0, "sigs": 0, "cuda_sigs": 0,
+                      "dispatch_s": 0.0, "wait_s": 0.0}
 
     def verify(self, items: Sequence[tuple]) -> np.ndarray:
         """items: (pubkey32, message, signature64) triples -> bool[N]."""
@@ -73,6 +85,24 @@ class BatchVerifier:
     def verify_async(self, items: Sequence[tuple]):
         """Dispatch without waiting; returns a zero-arg resolver of
         bool[N]."""
+        t0 = time.perf_counter()
+        inner = self._verify_async(items)
+        with self._stats_lock:
+            self.stats["dispatch_s"] += time.perf_counter() - t0
+        timed = []
+
+        def resolve() -> np.ndarray:
+            t1 = time.perf_counter()
+            out = inner()
+            if not timed:
+                timed.append(True)
+                with self._stats_lock:
+                    self.stats["wait_s"] += time.perf_counter() - t1
+            return out
+
+        return resolve
+
+    def _verify_async(self, items: Sequence[tuple]):
         n = len(items)
         with self._stats_lock:
             self.stats["calls"] += 1
@@ -107,7 +137,7 @@ class BatchVerifier:
         ed_idx = [i for i in range(n) if i not in secp_ok]
         if not ed_idx:
             return lambda: out
-        inner = self.verify_async([items[i] for i in ed_idx])
+        inner = self._verify_async([items[i] for i in ed_idx])
         with self._stats_lock:
             # this call is already counted
             self.stats["calls"] -= 1
@@ -124,7 +154,20 @@ class BatchVerifier:
             self.stats["cuda_sigs"] += n
         if self._stream is None:
             return self._dispatch_cpu(n, pk, rb, sb, hb, pre)
-        return self._dispatch_cuda(n, pk, rb, sb, hb, pre)
+        try:
+            inner = self._dispatch_cuda(n, pk, rb, sb, hb, pre)
+        except RuntimeError as e:
+            raise VerifierError(f"verify dispatch failed on "
+                                f"{self.device}: {e}") from e
+
+        def resolve() -> np.ndarray:
+            try:
+                return inner()
+            except RuntimeError as e:
+                raise VerifierError(f"verify failed on {self.device}: "
+                                    f"{e}") from e
+
+        return resolve
 
     def _chunks(self, n, pk, rb, sb, hb):
         out = []

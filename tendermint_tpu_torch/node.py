@@ -1,0 +1,328 @@
+"""Node — assembles stores, app conns, handshake, WAL, consensus, the
+reactor stack and the p2p switch: the port's copy of
+`tendermint_tpu/node.py` (node/node.go:121-353), on the thread plane.
+
+With `with_p2p=True` the node runs the full networking stack: mempool /
+evidence / blockchain (fast-sync) / consensus reactors + optional PEX on
+an encrypted switch, listening on config.p2p.laddr and dialing seeds and
+persistent peers. Without it, the node is a self-contained single-process
+validator (the in-process test/tooling mode).
+
+Every signature check of the node (handshake replay, consensus votes,
+fast-sync windows, evidence) goes through one BatchVerifier built from
+`config.base.verifier_backend` on `device`: with the all-default
+backend ("auto") and no device, the process-wide default verifier, as
+the JAX node shares its own. Without a device and without a card, any
+backend but "python" raises (utils/device.resolve): the node never moves
+to the CPU quietly.
+
+Left out, with the planes they read: telemetry, chaos, the pipelined
+hot path, the event loop (the port runs the thread plane only, so there
+is no `loop=`), causal tracing and its stall detector, the profiler and
+queue observatory, the SLO plane, the env knob plane, snapshots and
+state sync, and gRPC.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Optional
+
+from tendermint_tpu_torch.abci.proxy import AppConns, local_client_creator
+from tendermint_tpu_torch.config import Config
+from tendermint_tpu_torch.consensus.replay import Handshaker, catchup_replay
+from tendermint_tpu_torch.consensus.state import ConsensusState
+from tendermint_tpu_torch.consensus.ticker import TimeoutTicker
+from tendermint_tpu_torch.state.execution import BlockExecutor
+from tendermint_tpu_torch.storage import WAL, BlockStore, StateStore, open_db
+from tendermint_tpu_torch.types.events import EventBus
+from tendermint_tpu_torch.types.genesis import GenesisDoc
+from tendermint_tpu_torch.types.priv_validator import PrivValidatorFile
+from tendermint_tpu_torch.utils.log import tm_logger
+
+
+def _parse_laddr(laddr: str) -> tuple:
+    """tcp://host:port -> (host, port)."""
+    s = laddr.split("://", 1)[-1]
+    host, _, port = s.rpartition(":")
+    return host or "0.0.0.0", int(port)
+
+
+def build_verifier(backend: str, device=None):
+    """-> (verifier, owned): the process-wide default verifier for the
+    all-default case (backend "auto", no device), else a BatchVerifier
+    of its own. Builds the kernels and the host prep now on a card, so
+    that no verify call of the node pays a build."""
+    from tendermint_tpu_torch.models import verifier as _verifier
+    if backend == "auto" and device is None:
+        v, owned = _verifier.default_verifier(), False
+    else:
+        v, owned = _verifier.BatchVerifier(backend, device=device), True
+    if v.device is not None and v.device.type == "cuda":
+        from tendermint_tpu_torch import native
+        from tendermint_tpu_torch.ops import _build
+        native.module()
+        _build.ladder_lib()
+    return v, owned
+
+
+class Node:
+    def __init__(self, config: Config, gen_doc: GenesisDoc,
+                 priv_validator=None, app=None, client_creator=None,
+                 mempool=None, evidence_pool=None, in_memory=False,
+                 with_p2p=False, fast_sync=False, with_rpc=False,
+                 wal_readonly=False, device=None):
+        # logging is configured once at the CLI entry point; the chain id
+        # rides as a logger field
+        self.logger = tm_logger("node", chain=gen_doc.chain_id)
+        self.config = config
+        self.gen_doc = gen_doc
+
+        def db_path(name):
+            if in_memory:
+                return None
+            p = config.path(config.base.db_dir)
+            os.makedirs(p, exist_ok=True)
+            return os.path.join(p, name + ".db")
+
+        self.block_store = BlockStore(open_db(db_path("blockstore")))
+        self.state_store = StateStore(open_db(db_path("state")))
+
+        if client_creator is None:
+            if app is None:
+                from tendermint_tpu_torch.abci.apps import KVStoreApp
+                app = KVStoreApp()
+            client_creator = local_client_creator(app)
+        self.app = app
+        self.app_conns = AppConns(client_creator)
+
+        # verification plane, built before the first verification path
+        # (handshake replay) so every path of the node uses it
+        self.verifier, self._owns_verifier = build_verifier(
+            config.base.verifier_backend, device)
+
+        # ABCI handshake: sync app with stores (consensus/replay.go:211)
+        t0 = time.perf_counter()
+        handshaker = Handshaker(self.state_store, self.block_store, gen_doc,
+                                verifier=self.verifier)
+        state = handshaker.handshake(self.app_conns)
+        #: the handshake's wall and the blocks it replayed into the app
+        self.handshake_s = time.perf_counter() - t0
+        self.handshake_blocks = handshaker.n_blocks
+
+        if mempool is None:
+            from tendermint_tpu_torch.mempool import Mempool
+            mempool = Mempool(
+                self.app_conns.mempool, config=config.mempool,
+                height=state.last_block_height,
+                wal_dir=(None if in_memory or
+                         not getattr(config.mempool, "wal_dir", "")
+                         else config.path(config.mempool.wal_dir)))
+        self.mempool = mempool
+
+        if evidence_pool is None:
+            from tendermint_tpu_torch.evidence import (EvidencePool,
+                                                       EvidenceStore)
+            evidence_pool = EvidencePool(
+                EvidenceStore(open_db(db_path("evidence"))), state,
+                state_store=self.state_store, verifier=self.verifier)
+        self.evidence_pool = evidence_pool
+
+        self.event_bus = EventBus()
+        self.block_exec = BlockExecutor(
+            self.state_store, self.app_conns.consensus,
+            mempool=mempool, evidence_pool=evidence_pool,
+            event_bus=self.event_bus, verifier=self.verifier)
+
+        if in_memory:
+            from tendermint_tpu_torch.storage.wal import NilWAL
+            self.wal = NilWAL()
+        else:
+            self.wal = WAL(config.path(config.consensus.wal_path),
+                           light=config.consensus.wal_light,
+                           readonly=wal_readonly)
+
+        self.consensus = ConsensusState(
+            config.consensus, state, self.block_exec, self.block_store,
+            mempool=mempool, evidence_pool=evidence_pool,
+            priv_validator=priv_validator, wal=self.wal,
+            event_bus=self.event_bus, ticker_factory=TimeoutTicker)
+        if hasattr(mempool, "txs_available_hook"):
+            mempool.txs_available_hook = lambda: self.consensus.submit(
+                {"type": "txs_available"})
+
+        # ------------------------------------------------ p2p reactor stack
+        self.switch = None
+        self.fast_sync = fast_sync
+        if with_p2p:
+            self._build_p2p(state, fast_sync, in_memory)
+
+        self.rpc_server = None
+        self.rpc_address = None
+        self.with_rpc = with_rpc
+
+        # tx indexer + service (node/node.go:294-320)
+        from tendermint_tpu_torch.state.txindex import (
+            IndexerService, KVTxIndexer, NullTxIndexer)
+        if config.tx_index.indexer == "kv":
+            tags = [t for t in config.tx_index.index_tags.split(",") if t]
+            self.tx_indexer = KVTxIndexer(
+                open_db(db_path("tx_index")), index_tags=tags,
+                index_all_tags=config.tx_index.index_all_tags)
+        else:
+            self.tx_indexer = NullTxIndexer()
+        self.indexer_service = IndexerService(self.tx_indexer,
+                                              self.event_bus)
+
+    def _build_p2p(self, state, fast_sync: bool, in_memory: bool) -> None:
+        """node/node.go:235-265: switch + reactors (+PEX)."""
+        from tendermint_tpu_torch.blockchain import BlockchainReactor
+        from tendermint_tpu_torch.consensus import compact
+        from tendermint_tpu_torch.consensus.reactor import ConsensusReactor
+        from tendermint_tpu_torch.evidence.reactor import EvidenceReactor
+        from tendermint_tpu_torch.mempool.reactor import MempoolReactor
+        from tendermint_tpu_torch.p2p import NodeInfo, NodeKey, Switch
+        from tendermint_tpu_torch.utils import log as _log
+
+        if in_memory:
+            from tendermint_tpu_torch.types.keys import PrivKey
+            node_key = NodeKey(PrivKey.generate())
+        else:
+            node_key = NodeKey.load_or_generate(
+                self.config.path("config/node_key.json"))
+        self.node_key = node_key
+        # compact-plane capabilities ride the handshake's `other` list;
+        # empty (hence byte-identical handshake) with both off
+        cc = self.config.consensus
+        node_info = NodeInfo(
+            pubkey=node_key.pubkey,
+            moniker=self.config.base.moniker,
+            network=self.gen_doc.chain_id,
+            other=compact.wire_capabilities(cc.compact, cc.vote_agg))
+        self.switch = Switch(self.config.p2p, node_key, node_info)
+        # the p2p identity on every tm.* log line of the process
+        _log.bind(node=node_info.id[:8])
+
+        self.consensus_reactor = ConsensusReactor(
+            self.consensus, fast_sync=fast_sync,
+            gossip_sleep_s=self.config.consensus.peer_gossip_sleep_ms / 1e3)
+        expect_peers = bool(self.config.p2p.persistent_peers or
+                            self.config.p2p.seeds)
+        self.blockchain_reactor = BlockchainReactor(
+            state, self.block_exec, self.block_store, fast_sync=fast_sync,
+            consensus_reactor=self.consensus_reactor,
+            expect_peers=expect_peers, redial=self._dial_configured_peers)
+        self.mempool_reactor = MempoolReactor(
+            self.mempool, broadcast=self.config.mempool.broadcast)
+        self.evidence_reactor = EvidenceReactor(self.evidence_pool)
+
+        self.switch.add_reactor("mempool", self.mempool_reactor)
+        self.switch.add_reactor("blockchain", self.blockchain_reactor)
+        self.switch.add_reactor("consensus", self.consensus_reactor)
+        self.switch.add_reactor("evidence", self.evidence_reactor)
+
+        from tendermint_tpu_torch.p2p.trust import TrustMetricStore
+        self.trust_store = TrustMetricStore(
+            open_db(None if in_memory else
+                    self.config.path(self.config.base.db_dir, "trust.db")))
+        self.switch.trust_store = self.trust_store
+
+        if self.config.p2p.pex:
+            from tendermint_tpu_torch.p2p.pex import AddrBook, PEXReactor
+            book_path = None if in_memory else \
+                self.config.path("config/addrbook.json")
+            self.addr_book = AddrBook(
+                path=book_path, strict=self.config.p2p.addr_book_strict)
+            self.pex_reactor = PEXReactor(
+                self.addr_book, seed_mode=self.config.p2p.seed_mode)
+            self.switch.add_reactor("pex", self.pex_reactor)
+            self.switch.addr_book = self.addr_book
+
+    def start(self) -> None:
+        self.logger.info("starting node",
+                         chain_id=self.gen_doc.chain_id,
+                         height=self.consensus.state.last_block_height,
+                         fast_sync=self.fast_sync)
+        # WAL catchup for the in-flight height (consensus/replay.go:93).
+        # In fast-sync mode the consensus reactor replays at
+        # switch_to_consensus instead — replaying now would be wiped by
+        # the post-sync state reset.
+        if not self.fast_sync:
+            try:
+                catchup_replay(self.consensus, self.wal)
+            except ValueError as e:
+                # missing marker for a committed height / multi-height
+                # WAL over genesis state: not fatal (the node proceeds
+                # without replay) but must be visible
+                self.logger.error("WAL catchup replay skipped", err=str(e))
+
+        if self.switch is not None:
+            host, port = _parse_laddr(self.config.p2p.laddr)
+            self.switch.listen(host, port)
+            if hasattr(self, "addr_book"):
+                self.addr_book.add_our_address(self.switch.listen_address)
+            self.switch.start()  # starts all reactors; consensus reactor
+            #                      starts the state machine unless fast-sync
+            self._dial_configured_peers()
+        else:
+            self.consensus.start()
+
+        self.indexer_service.start()
+
+        if self.with_rpc:
+            from tendermint_tpu_torch.rpc import RPCEnv, make_server
+            self.rpc_server, _ = make_server(RPCEnv.from_node(self))
+            host, port = _parse_laddr(self.config.rpc.laddr)
+            self.rpc_address = self.rpc_server.serve(host, port)
+
+    def _dial_configured_peers(self) -> None:
+        from tendermint_tpu_torch.p2p import NetAddress
+        persistent = [a for a in
+                      self.config.p2p.persistent_peers.split(",") if a]
+        seeds = [a for a in self.config.p2p.seeds.split(",") if a]
+        if persistent:
+            self.switch.dial_peers_async(
+                [NetAddress.from_string(a) for a in persistent],
+                persistent=True)
+        if seeds:
+            self.switch.dial_peers_async(
+                [NetAddress.from_string(a) for a in seeds])
+
+    def stop(self) -> None:
+        if self.rpc_server is not None:
+            self.rpc_server.stop()
+        self.indexer_service.stop()
+        if self.switch is not None:
+            self.switch.stop()
+            self.trust_store.save()
+        else:
+            self.consensus.stop()
+        if hasattr(self.mempool, "close"):
+            self.mempool.close()
+        self.app_conns.close()
+        if hasattr(self.wal, "close"):
+            self.wal.close()
+        # only a verifier this node owns: the shared default verifier
+        # keeps serving the process's other nodes
+        if self._owns_verifier:
+            self.verifier.close()
+
+    @property
+    def height(self) -> int:
+        return self.consensus.state.last_block_height
+
+
+def default_node(home: str, app=None, in_memory=False, with_p2p=False,
+                 fast_sync: Optional[bool] = None, device=None) -> Node:
+    """DefaultNewNode (node/node.go:79): load config tree from `home`."""
+    from tendermint_tpu_torch.config import default_config
+    config = default_config(home)
+    gen_doc = GenesisDoc.load(os.path.join(home, "config", "genesis.json"))
+    pv = PrivValidatorFile.load_or_generate(
+        os.path.join(home, "config", "priv_validator.json"))
+    if fast_sync is None:
+        fast_sync = with_p2p and config.base.fast_sync
+    return Node(config, gen_doc, priv_validator=pv, app=app,
+                in_memory=in_memory, with_p2p=with_p2p,
+                fast_sync=fast_sync, device=device)

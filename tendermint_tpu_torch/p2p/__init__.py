@@ -1,7 +1,8 @@
 """The p2p plane of the port: authenticated encrypted links over TCP
 (SecretConnection), prioritised channels (MConnection), peers, the Switch
-that dials, accepts, redials and bans, and the socket net harness
-(`socknet`) that runs BASELINE config 1 over loopback TCP."""
+that dials, accepts, redials and bans, peer exchange (`pex`: AddrBook and
+PEXReactor), and the socket net harness (`socknet`) that runs BASELINE
+config 1 over loopback TCP."""
 
 from tendermint_tpu_torch.p2p.base_reactor import Reactor
 from tendermint_tpu_torch.p2p.conn import (

@@ -101,6 +101,8 @@ class MConnection:
         self._stopped = False                 #: guarded_by _cond
         self._errored = False                 #: guarded_by _cond
         self._last_recv = time.monotonic()    #: guarded_by _cond
+        self._ping_sent = 0.0                 #: guarded_by _cond
+        self._last_rtt = 0.0                  #: guarded_by _cond
         self._threads: List[threading.Thread] = []
         # frame bursts: coalesce up to _burst_max packets per link write
         # (one AEAD burst + one sendall on a SecretConnection) and drain
@@ -144,6 +146,12 @@ class MConnection:
     def running(self) -> bool:
         with self._cond:
             return not self._stopped
+
+    def rtt_s(self) -> float:
+        """Last keepalive ping->pong round trip (0.0 before the first
+        completes)."""
+        with self._cond:
+            return self._last_rtt
 
     def _error(self, e: Exception) -> None:
         with self._cond:
@@ -261,6 +269,8 @@ class MConnection:
                     self.link.write(bytes([PACKET_PONG]))
                     self.send_monitor.update(1)
                 if now - last_ping >= self.ping_interval:
+                    with self._cond:
+                        self._ping_sent = time.monotonic()
                     self.link.write(bytes([PACKET_PING]))
                     self.send_monitor.update(1)
                     last_ping = now
@@ -319,7 +329,13 @@ class MConnection:
                 self._pong_due += 1
                 self._cond.notify_all()
         elif ptype == PACKET_PONG:
-            pass  # a pong's arrival is all the keepalive needs
+            # keepalive RTT sample: at most one ping is in flight
+            # (interval >> RTT), so pairing pong to the last ping is
+            # exact; RPC net_info reports it per peer
+            with self._cond:
+                if self._ping_sent:
+                    self._last_rtt = time.monotonic() - self._ping_sent
+                    self._ping_sent = 0.0
         elif ptype == PACKET_MSG:
             ch_id, eof = frame[1], frame[2]
             ch = self.channels.get(ch_id)

@@ -96,6 +96,11 @@ class Peer:
     def running(self) -> bool:
         return self.mconn.running
 
+    @property
+    def rtt_s(self) -> float:
+        """Keepalive round trip to this peer (0.0 before first pong)."""
+        return self.mconn.rtt_s()
+
     # messaging --------------------------------------------------------------
 
     def has_channel(self, ch_id: int) -> bool:

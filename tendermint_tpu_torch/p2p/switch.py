@@ -174,6 +174,8 @@ class Switch:
         # pluggable filters (switch.go:391-416)
         self.conn_filters: List[Callable[[NetAddress], None]] = []
         self.id_filters: List[Callable[[str], None]] = []
+        # the PEX reactor's AddrBook, when the node runs PEX
+        self.addr_book = None
         # optional TrustMetricStore: good on handshake + per
         # CLEAN_MSGS_PER_GOOD routed messages, bad (weighted) on
         # error-stop — and enforced: a peer whose trust score falls under

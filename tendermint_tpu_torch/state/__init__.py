@@ -6,7 +6,8 @@
   validation.py  block-vs-state checks, the LastCommit on the
                  BatchVerifier
 
-The tx indexer waits for a later slice.
+  txindex.py     KVTxIndexer, NullTxIndexer and the IndexerService that
+                 feeds them from the event bus
 """
 
 from tendermint_tpu_torch.state.state import State, make_genesis_state

@@ -1,16 +1,19 @@
 """Import and device hygiene of the port (tendermint_tpu_torch).
 
-- Importing every module of the port (lite/, storage/, state/, abci/,
-  blockchain/, p2p/ with its conn/ and socknet, consensus/ with its
-  reactor, mempool/ and evidence/ with theirs included), and
-  chip_smoke.py
+- Importing every module of the port (lite/, storage/, state/ with the
+  tx indexer, abci/ with the socket client and server, blockchain/, p2p/
+  with its conn/, pex/ and socknet, consensus/ with its reactor,
+  mempool/ and evidence/ with theirs, rpc/, node, cli, __main__ and
+  procnet included), and chip_smoke.py
   as a module, in a fresh interpreter loads neither jax nor any
   tendermint_tpu module.
 - No source of the port (nor chip_smoke.py) imports them (AST check).
 - No C++/CUDA source of the port's csrc/ includes a file outside csrc/
   (system headers aside).
 - An entry point given no device raises when no CUDA device is present:
-  the port never moves to the CPU quietly.
+  the port never moves to the CPU quietly. `python -m
+  tendermint_tpu_torch.cli node` without a card and without `--device
+  cpu` exits non-zero with the device's message.
 """
 
 import ast
@@ -35,7 +38,8 @@ def test_walk_covers_every_subpackage():
     mods = set(_modules())
     for pkg in ("ops", "types", "models", "utils", "lite", "storage",
                 "state", "abci", "abci.apps", "blockchain", "p2p",
-                "p2p.conn", "consensus", "mempool", "evidence"):
+                "p2p.conn", "consensus", "mempool", "evidence", "rpc",
+                "p2p.pex", "node", "cli"):
         assert f"tendermint_tpu_torch.{pkg}" in mods, pkg
     assert "tendermint_tpu_torch.lite.certifier" in mods
     assert "tendermint_tpu_torch.native" in mods
@@ -57,7 +61,10 @@ def test_walk_covers_every_subpackage():
                 "p2p.peer", "p2p.switch", "p2p.test_util", "p2p.socknet",
                 "p2p.conn.purecrypto", "p2p.conn.burst", "p2p.conn.secret",
                 "p2p.conn.mconn", "consensus.compact", "consensus.reactor",
-                "mempool.reactor", "evidence.reactor"):
+                "mempool.reactor", "evidence.reactor", "abci.server",
+                "state.txindex", "p2p.pex.addrbook", "p2p.pex.pex_reactor",
+                "rpc.server", "rpc.core", "rpc.client", "__main__",
+                "procnet"):
         assert f"tendermint_tpu_torch.{mod}" in mods, mod
 
 
@@ -222,3 +229,17 @@ def test_socket_net_without_device_raises(no_cuda):
     finally:
         net.close()
         verifier.set_default_verifier(saved)
+
+
+def test_cli_node_without_a_card_exits_with_the_device_error(tmp_path):
+    home = str(tmp_path / "h")
+    env = dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="")
+    run = [sys.executable, "-m", "tendermint_tpu_torch.cli", "--home", home]
+    subprocess.run(run + ["init", "--chain-id", "nocard"], check=True,
+                   env=env, cwd=tmp_path, capture_output=True, timeout=120)
+    proc = subprocess.run(run + ["node", "--max-height", "1"], env=env,
+                          cwd=tmp_path, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device is available" in proc.stderr, proc.stderr
+    assert "committed height" not in proc.stdout

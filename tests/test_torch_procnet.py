@@ -1,0 +1,110 @@
+"""Validator nets of OS processes (procnet.ProcNet) on the CPU: every node
+its own interpreter, started as users start it,
+`python -m <cli> --home nodeI node --p2p --rpc-laddr ...`, from a
+`cli testnet` tree, fed and read over JSON-RPC and WebSocket.
+
+- Four port node processes (`--device cpu`) from a port-written tree,
+  on config 1's socket timeouts, take txs through WebSocket
+  broadcast_tx_batch, reach height >= 3 and agree on every block hash
+  and app hash; every fed tx is committed once, and each node answers
+  abci_query for a seeded sample of keys. Node 3 is then SIGKILLed and
+  restarted with fast sync; it catches up, and its killed process's
+  counts are read from the line of the last height it committed.
+- A mixed net of two JAX processes (JAX_PLATFORMS=cpu, verifier_backend
+  "python", the JAX node's defaults otherwise) and two port processes
+  from one JAX-written tree agrees on every block hash and app hash, and
+  commits every fed tx and nothing else. Not each tx once: a JAX node
+  admits a committed tx it never held when late gossip brings it, and
+  proposes it again (ROADMAP Queue 3); the port's nodes commit that
+  block, as the agreement requires.
+Each node's stop line reports its launches (none on the CPU).
+"""
+
+import random
+import shutil
+
+from tendermint_tpu_torch.procnet import ProcNet, bench_settings, free_block
+
+BOOT_S = 90.0
+
+
+def _feed_and_check(net, n_txs: int, top_at_least: int, once: bool):
+    txs = [b"pn/k%d=v%d" % (i, i * 7) for i in range(n_txs)]
+    ws = net.ws(0)
+    try:
+        for lo in range(0, n_txs, 64):
+            res = ws.call("broadcast_tx_batch",
+                          txs=[t.hex() for t in txs[lo:lo + 64]])
+            assert all(r["code"] == 0 for r in res["results"]), res
+    finally:
+        ws.close()
+    net.wait_for(lambda: all(net.rpc(i).call("num_unconfirmed_txs")
+                             ["n_txs"] == 0 for i in range(net.n)),
+                 BOOT_S, "the mempools' drain")
+    net.wait_height(top_at_least, BOOT_S)
+    top = min(net.heights())
+    assert net.disagreements(top) == []
+    committed = [tx for b in net.block_txs(0, top) for tx in b]
+    if once:
+        assert sorted(committed) == sorted(txs)
+    else:
+        assert set(committed) == set(txs)
+    for tx in random.Random(3).sample(txs, 5):
+        k, v = tx.split(b"=")
+        for i in range(net.n):
+            res = net.rpc(i).call("abci_query", data=k.hex())["response"]
+            assert bytes.fromhex(res["value"]) == v, (i, tx)
+    return top
+
+
+def test_four_port_processes_commit_fed_txs_and_agree(tmp_path):
+    net = ProcNet(str(tmp_path), base_port=free_block(8))
+    net.write_tree("procnet-port")
+    net.configure(bench_settings("auto"))
+    net.start_all(extra=["--no-fast-sync", "--device", "cpu"])
+    try:
+        net.wait_height(3, BOOT_S)
+        top = _feed_and_check(net, 300, 4, once=True)
+        net.kill(3)
+        net.start(3, extra=["--device", "cpu"])
+        net.wait_for(lambda: net.height(3) > top and not net.rpc(3).call(
+            "status")["syncing"], BOOT_S, "node 3's catch-up")
+        assert net.early_exits() == {}
+    finally:
+        codes = net.stop_all()
+    assert codes == {i: 0 for i in range(4)}
+    lines = {i: net.kernel_lines(i) for i in range(4)}
+    assert [len(lines[i]) for i in range(4)] == [1, 1, 1, 2]
+    assert lines[3][0]["height"] >= top - 1
+    assert lines[3][1]["height"] >= top + 1
+    for line in sum(lines.values(), []):
+        assert line["device"] == "cpu" and line["verifier"]["calls"] > 0
+        assert sum(line["launches"].values()) == 0
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
+def test_mixed_jax_and_port_processes_agree_on_every_block(tmp_path):
+    jax_nodes = (0, 2)
+    net = ProcNet(
+        str(tmp_path), base_port=free_block(8),
+        cli_of=lambda i: ("tendermint_tpu.cli" if i in jax_nodes
+                          else "tendermint_tpu_torch.cli"),
+        env_of=lambda i: ({"JAX_PLATFORMS": "cpu"} if i in jax_nodes
+                          else None))
+    net.write_tree("procnet-mixed", cli="tendermint_tpu.cli")
+    net.configure(bench_settings("python"), nodes=jax_nodes)
+    net.configure(bench_settings("auto"), nodes=(1, 3))
+    for i in range(4):
+        net.start(i, extra=["--no-fast-sync"] + (
+            [] if i in jax_nodes else ["--device", "cpu"]))
+    try:
+        net.wait_height(3, BOOT_S)
+        top = _feed_and_check(net, 200, 5, once=False)
+        metas = net.metas(1, top)
+        assert len({m["header"]["app_hash"] for m in metas}) > 1
+        assert net.early_exits() == {}
+    finally:
+        codes = net.stop_all()
+    assert codes == {i: 0 for i in range(4)}
+    assert [len(net.kernel_lines(i)) for i in range(4)] == [0, 1, 0, 1]
+    shutil.rmtree(tmp_path, ignore_errors=True)

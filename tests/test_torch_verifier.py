@@ -16,6 +16,8 @@ dispatches walk the cache's routes as the JAX package's do. Tolerance 0
 (booleans and counters).
 """
 
+import time
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -229,6 +231,22 @@ def test_small_auto_batch_stays_on_host():
     assert v.stats["cuda_sigs"] == 0
     np.testing.assert_array_equal(
         got, JVerifier("python", coalesce="off").verify(items))
+
+
+def test_stats_time_the_dispatch_and_the_wait_not_the_callers_work():
+    """A resolver handed back and called later: the caller's work in
+    between is in neither dispatch_s nor wait_s."""
+    sks, pks = _keys(107, 4)
+    items = [(pk, b"m%d" % i, sk.sign(b"m%d" % i))
+             for i, (sk, pk) in enumerate(zip(sks, pks))]
+    v = TVerifier("python")
+    resolve = v.verify_async(items)
+    dispatched = v.stats["dispatch_s"]
+    assert dispatched > 0 and v.stats["wait_s"] == 0
+    time.sleep(0.5)
+    assert resolve().all() and resolve().all()
+    assert v.stats["dispatch_s"] == dispatched
+    assert 0 < v.stats["dispatch_s"] + v.stats["wait_s"] < 0.5
 
 
 def test_secp256k1_mixed_batch_matches_jax_on_every_backend(verifiers):
