@@ -132,8 +132,10 @@ Phases, each printing its own lines:
    validate_block, save_block, the WAL, apply_block with deliver,
    results_hash, the responses save, app commit, the mempool update and
    recheck, the state save, events); the kernels' event ms beside. Node
-   0's last 64 verify calls are held to the plain versions on the same
-   card tensors. Run B: the same schedule to 30 on BatchVerifier("auto")
+   0's last 64 dispatches (calls of its verifier's direct path: since
+   the verifier coalesces by default, a merged dispatch on the
+   coalescer's thread is one) are held to the plain versions on the
+   same card tensors. Run B: the same schedule to 30 on BatchVerifier("auto")
    (the host loop at 1-4 signatures) must give run A's 30 block hashes.
    The schedule is consensus.testnet.run_schedule, the one the CPU tests
    drive. Every check runs on B1 (a batch of 1-4 pads to 8 lanes, below
@@ -169,7 +171,7 @@ Phases, each printing its own lines:
    banned_by).
    Every node must agree on block hash and State bytes at every height it
    holds, every fed tx be committed once, every frame take the native
-   burst AEAD, and node 0's last 64 verify calls equal the plain versions
+   burst AEAD, and node 0's last 64 dispatches equal the plain versions
    on the same card tensors. B1 and B2 must launch, B3 not (launch counts
    zeroed at the start of the phase, read at its end). Prints blocks/s
    and txs/s over heights 5-40, node 0's per-height medians (proposal to
@@ -188,8 +190,11 @@ Phases, each printing its own lines:
    power 10, kvstore, persistent peers, PEX on), each node's config.json
    takes run_socket's settings (propose 400 ms + 100 a round, prevote
    and precommit 200 ms + 100, commit 100 ms, 1000 txs a block, a
-   mempool of 4000) and verifier_backend "cuda", and four `cli node --p2p
-   --no-fast-sync` processes start (each a fresh interpreter with its own
+   mempool of 4000), verifier_backend "cuda" and the thread plane without
+   coalescing (reactor "threads", verifier_coalesce "off", the plane of
+   its runs before the event loop, so that they stay comparable), and
+   four `cli node --p2p --no-fast-sync`
+   processes start (each a fresh interpreter with its own
    CUDA context; the ladder library is phase 1's, same digest). Two
    feeder threads cast broadcast_tx_batch of 128 txs over the port's
    WSClient to nodes 0 and 1, backing off while num_unconfirmed_txs
@@ -207,12 +212,46 @@ Phases, each printing its own lines:
    block metas, boot seconds, bans from net_info), `procnet_restart`
    (node 3's handshake seconds and blocks from its start line, restart
    to RPC, sync and rejoin seconds, its sync routes), `procnet_kernels`
-   (launches, routes, verify calls, and the host ms a call spends in
-   the verifier's dispatch and in its wait for the verdicts, per
+   (launches, routes, verify calls (submissions), dispatches, and the
+   host ms of a dispatch and a call's wait for the verdicts, per
    process; launches summed over all five processes) and
    `procnet_device` (nvidia-smi's utilization.gpu over the feeders'
    window, a coarse figure).
-12. the kernel table as one JSON line, the card again, then the last line
+12. the JAX node's default plane: first the coalescer on the card, one
+   BatchVerifier("cuda") whose first dispatch is held on a gate while 8
+   threads submit 64 single-signature calls (utils/vectors.edge_items'
+   lanes and 8 forged ones); released, they must merge into ONE dispatch
+   and ONE B1 launch, whose verdicts equal the plain version on the same
+   card tensors, each caller's slice its oracle verdict and its own
+   direct launch; then a merge whose launch fails must reach all its
+   callers as VerifierError. Then phase 11's net and checks on reactor
+   "auto" (one event loop a process) and verifier_coalesce "auto"
+   (procnet_loop): 200 WebSocket subscribers of NewBlock on node 1
+   (above the thread server's 100-connection cap), subscribed before
+   the boot and read by one selector thread here, must each see every
+   height 5-40 in order; a third feeder of 32 WebSocket connections to
+   node 2 casts single broadcast_tx_sync calls (the front door's
+   TxBatcher merges them), and every tx answered with code 0 must be
+   committed exactly once (the mempools drain before the checks); every
+   process's thread census (taken before it stops) must show one
+   tm-reactor-loop thread and no mconn-, gossip- or mempool-bcast-
+   thread; every process's coalescer must report submissions, and its
+   counts account for every call (calls = direct calls + merged
+   dispatches + fallback re-runs; the calls of the merges sum to the
+   submissions). Prints `procnet_loop_coalescer_check`, `procnet_loop`,
+   `procnet_loop_restart`, `procnet_loop_kernels` (as procnet_kernels,
+   with merged dispatches, calls a merge (mean, maximum) and the loop
+   thread's waits for verdicts), `procnet_loop_rpc` (the sync feeder's
+   acknowledged and committed txs, node 2's batcher flushes and txs a
+   flush, the subscribers' events and drops), `procnet_loop_threads`
+   (census and the loop's ticks, callbacks, busy share and longest
+   tick), `procnet_loop_device`, and `plane_ab` (phases 11 and 12 side
+   by side, and a third run of the same net and load on the loop with
+   coalescing off, `procnet_loop_off`, which must pass phase 11's checks
+   and launch B1 in every process: blocks/s,
+   B1 launches a node, calls and host ms a call, the loop's busy share;
+   a record, not a check).
+13. the kernel table as one JSON line, the card again, then the last line
    {"ok": true, "device": {...}}.
 
 Any mismatch or exception ends the run with a non-zero code before the
@@ -230,6 +269,8 @@ import os
 import random
 import re
 import shutil
+import socket
+import struct
 import subprocess
 import sys
 import tempfile
@@ -2006,7 +2047,7 @@ CONS_TXS = MAX_BLOCK_TXS  # config 1's block width: max_block_size_txs
 CONS_SCHEDULE = Schedule(heights=100, txs=CONS_TXS, join_at=20, leave_at=40,
                          equivocate_at=50, forge_at=60, restart_after=70)
 CONS_B_HEIGHTS = 30       # run B, the same schedule on "auto"
-N_RECHECK_CALLS = 64      # node 0's last verify calls held to the plain
+N_RECHECK_CALLS = 64      # node 0's last verify dispatches held to the plain
 
 # the host stages of a height, read inside the calls: (owner, attribute)
 CONS_STAGES = {
@@ -2066,18 +2107,21 @@ def _stage_patches(acc: list) -> list:
 
 
 def _node0_recorder(verifier, log: deque) -> list:
-    """Patches that keep, for each of node 0's last N_RECHECK_CALLS verify
-    calls, the card tensors and verdicts of the launches it made (on the
-    calling thread: other nodes' threads launch at the same time over
-    sockets)."""
-    inner_async = verifier.verify_async
-    current: dict = {}   # thread id -> launches of its call in progress
+    """Patches that keep, for each of node 0's last N_RECHECK_CALLS
+    dispatches, the card tensors and verdicts of the launches it made (on
+    the dispatching thread: other nodes' threads launch at the same time
+    over sockets). A dispatch is a call of the verifier's direct path: a
+    call that bypassed the coalescer, or one merged dispatch on the
+    coalescer's thread (which looks the direct path up on the instance at
+    each dispatch)."""
+    inner_direct = verifier._verify_async_direct
+    current: dict = {}   # thread id -> launches of its dispatch in progress
 
-    def verify_async(items):
+    def verify_direct(items):
         me = threading.get_ident()
         current[me] = []
         try:
-            return inner_async(items)
+            return inner_direct(items)
         finally:
             log.append(current.pop(me))
 
@@ -2090,7 +2134,7 @@ def _node0_recorder(verifier, log: deque) -> list:
             return out
         return call
 
-    return [(verifier, "verify_async", verify_async),
+    return [(verifier, "_verify_async_direct", verify_direct),
             (ladder, "verify", rec("verify", ladder.verify)),
             (ladder, "verify_pre", rec("verify_pre", ladder.verify_pre))]
 
@@ -2879,12 +2923,11 @@ def phase_p2p(card: str, device, verifier=None) -> dict:
     require(launches["sign_rb"] == 0,
             f"p2p launched the sign kernel: {launches}")
     require(rechecked["calls"] == N_RECHECK_CALLS,
-            f"p2p: node 0 made {rechecked['calls']} verify calls")
+            f"p2p: node 0 made {rechecked['calls']} verify dispatches")
     return launches
 
 # ------------------------------------------- phase 11: config 1 as OS processes
 
-PROC_CHAIN = "chip-smoke-procnet"
 PROC_HEIGHTS = 40         # the feeders stop when node 0 commits this
 PROC_CRASH_AT = 15        # node 3 is SIGKILLed when node 0 commits this
 PROC_MEASURE = (5, 40)    # blocks/s and txs/s over these heights (metas)
@@ -3059,38 +3102,48 @@ def _proc_txs(net, top: int) -> tuple:
     return Counter(txs), txs
 
 
-def phase_procnet(card: str, device: str = "cuda") -> dict:
-    """BASELINE config 1 as four OS processes (procnet.ProcNet): `cli
-    testnet`, then `cli node --p2p --no-fast-sync --device <device>` x 4
-    on verifier_backend "cuda", fed over WebSocket RPC; node 3 SIGKILLed
-    and restarted with fast sync. A rehearsal on the CPU passes
-    device="cpu": the nodes then run "auto" (the host loop at these
-    batch sizes) and no launch is required."""
-    on_card = device.startswith("cuda")
-    from tendermint_tpu_torch.procnet import (ProcNet, bench_settings,
-                                              free_block)
+def _procnet_net(tag: str, settings: dict, device: str, extra=None) -> dict:
+    """BASELINE config 1 as four OS processes (procnet.ProcNet), the run
+    phases 11 and 12 share: `cli testnet` with `settings`, four `cli node
+    --p2p --no-fast-sync --device <device>` processes, two WebSocket
+    feeders of broadcast_tx_batch to nodes 0 and 1 until node 0 commits
+    PROC_HEIGHTS, node 3 SIGKILLed at PROC_CRASH_AT and restarted with
+    fast sync; then agreement at every height, no tx committed twice,
+    PROC_SAMPLE_KEYS keys answered by every node, no early exit, every
+    node's exit code 0, and one kernel line a process. `extra` (phase 12)
+    subscribes as soon as the nodes answer RPC (`subscribe(net, left)`),
+    starts more load after the boot (`start(net)`), stops it with the
+    feeders (`stop()`), may drain the mempools (`drain`), and ends it
+    once every node is at the last height (`finish(left)`). Returns the
+    run's readings."""
+    from tendermint_tpu_torch.procnet import ProcNet, free_block
     # the node processes load the libraries phase 1 built (same digests)
     _build.ladder_lib()
     native.module()
     native.aead_lib()
-    root = tempfile.mkdtemp(prefix="procnet-")
+    root = tempfile.mkdtemp(prefix=f"{tag}-")
     net = ProcNet(root, base_port=free_block(8))
-    net.write_tree(PROC_CHAIN)
-    net.configure(bench_settings("cuda" if on_card else "auto"))
+    net.write_tree(f"chip-smoke-{tag}")
+    net.configure(settings)
     sampler = _GpuSampler()
     feeders = [_WSFeeder(net, tid) for tid in (0, 1)]
     t_start = time.perf_counter()
 
     def left(what: str) -> float:
         rem = PROC_WALL_S - (time.perf_counter() - t_start)
-        require(rem > 0, f"procnet: out of wall time at {what}")
+        require(rem > 0, f"{tag}: out of wall time at {what}")
         return rem
     ok = False
     try:
         net.start_all(extra=["--no-fast-sync", "--device", device])
         sampler.start()
-        boot_s = net.wait_for(lambda: min(net.heights()) >= 2,
-                              min(PROC_BOOT_S, left("boot")), "boot")
+        if extra is not None:
+            extra.subscribe(net, left)
+        net.wait_for(lambda: min(net.heights()) >= 2,
+                     min(PROC_BOOT_S, left("boot")), "boot")
+        boot_s = time.perf_counter() - t_start
+        if extra is not None:
+            extra.start(net)
         for f in feeders:
             f.start()
         t_feed = time.perf_counter()
@@ -3100,16 +3153,25 @@ def phase_procnet(card: str, device: str = "cuda") -> dict:
         t_fed = time.perf_counter()
         for f in feeders:
             f.stop()
+        if extra is not None:
+            extra.stop()
+            if extra.drain:
+                net.wait_for(lambda: all(
+                    net.rpc(i).call("num_unconfirmed_txs")["n_txs"] == 0
+                    for i in range(net.n)), left("the mempools' drain"),
+                    "the mempools' drain", poll_s=0.25)
         net.wait_for(lambda: min(net.heights()) >= PROC_HEIGHTS,
                      left("every node at the last height"),
                      "every node at the last height")
+        if extra is not None:
+            extra.finish(left)
         wall_s = time.perf_counter() - t_start
         top = min(net.heights())
         bad = net.disagreements(top)
-        require(not bad, f"procnet: the nodes disagree: {bad[:5]}")
+        require(not bad, f"{tag}: the nodes disagree: {bad[:5]}")
         counts, txs = _proc_txs(net, top)
         twice = [tx for tx, c in counts.items() if c > 1]
-        require(not twice, f"procnet: {len(twice)} txs committed twice")
+        require(not twice, f"{tag}: {len(twice)} txs committed twice")
         keys = random.Random(SEED).sample(txs, min(PROC_SAMPLE_KEYS,
                                                    len(txs)))
         for tx in keys:
@@ -3117,82 +3179,632 @@ def phase_procnet(card: str, device: str = "cuda") -> dict:
             for i in range(net.n):
                 got = net.rpc(i).call("abci_query", data=k.hex())
                 require(bytes.fromhex(got["response"]["value"]) == v,
-                        f"procnet: node {i} answers {k!r} wrong")
+                        f"{tag}: node {i} answers {k!r} wrong")
         rate = _proc_rate(net, top)
         bans = {i: net.rpc(i).call("net_info").get("banned", {})
                 for i in range(net.n)}
         early = net.early_exits()
-        require(not early, f"procnet: node processes exited early {early}")
+        require(not early, f"{tag}: node processes exited early {early}")
         busy, n_samples = sampler.share(t_feed, t_fed)
         ok = True
     finally:
         for f in feeders:
             f.stop()
+        if extra is not None:
+            extra.stop()
         codes = net.stop_all()
         sampler.stop()
         if not ok:
             for i in range(net.n):
                 tail = net.log(i).splitlines()[-40:] \
                     if os.path.exists(net.log_path(i)) else []
-                print(f"procnet node {i} log tail:", *tail, sep="\n",
+                print(f"{tag} node {i} log tail:", *tail, sep="\n",
                       file=sys.stderr)
     # one line a process: its stop line, and for node 3's killed first
     # process the line of the last height it committed before the kill
     lines = {i: net.kernel_lines(i) for i in range(net.n)}
     require(all(codes[i] == 0 for i in range(net.n)),
-            f"procnet: node exit codes {codes}")
+            f"{tag}: node exit codes {codes}")
     require([len(lines[i]) for i in range(net.n)] == [1, 1, 1, 2],
-            f"procnet: kernel lines a process {lines}")
-    per_node = {i: lines[i][-1] for i in range(net.n)}
-    killed = lines[3][0]
+            f"{tag}: kernel lines a process {lines}")
     launches = {k: sum(line["launches"][k]
                        for i in lines for line in lines[i])
                 for k in ladder.launches}
-    emit({"phase": "procnet", "validators": 4, "processes": 4,
-          "heights": top, "measured_heights": list(PROC_MEASURE),
-          "blocks_per_s": rate["blocks_per_s"],
-          "txs_per_s": rate["txs_per_s"], "measure_span_s": rate["span_s"],
-          "txs_committed": len(txs), "txs_sent": sum(f.sent for f in feeders),
-          "feeder_errors": sum(f.errors for f in feeders),
-          "boot_s": boot_s, "wall_s": wall_s, "banned_by": {
-              i: sorted(p[:8] for p in b) for i, b in bans.items()},
-          "card": card})
-    emit({"phase": "procnet_restart", **restart,
-          "sync_routes": per_node[3]["routes"],
-          "sync_launches": per_node[3]["launches"], "card": card})
+    shutil.rmtree(root, ignore_errors=True)
+    return {"lines": lines, "launches": launches, "rate": rate,
+            "restart": restart, "busy": busy, "n_samples": n_samples,
+            "boot_s": boot_s, "wall_s": wall_s, "top": top, "txs": txs,
+            "counts": counts, "bans": bans,
+            "sent": sum(f.sent for f in feeders),
+            "errors": sum(f.errors for f in feeders)}
 
-    def process(line: dict) -> dict:
-        v = line["verifier"]
-        calls = max(1, v["calls"])
-        return {"launches": line["launches"], "routes": line["routes"],
-                "verify_calls": v["calls"], "sigs": v["sigs"],
-                "dispatch_ms_per_call": 1e3 * v["dispatch_s"] / calls,
-                "wait_ms_per_call": 1e3 * v["wait_s"] / calls,
-                "device": line["device"], "counted_to_height": line["height"]}
-    emit({"phase": "procnet_kernels",
-          "by_node": {i: process(per_node[i]) for i in per_node},
-          "node3_killed_process": process(killed),
-          "note": "launches sum every process's last line; node 3's killed "
-          "process is counted to the last height it committed before the "
-          "kill", "launches": launches, "card": card})
-    emit({"phase": "procnet_device", "utilization_gpu_mean": busy,
-          "samples": n_samples, "window": "feeders' start to node 0 at "
-          f"{PROC_HEIGHTS}", "note": "coarse: nvidia-smi utilization.gpu "
-          "(share of each sample period with a kernel running), polled "
-          f"every {PROC_GPU_POLL_S} s", "card": card})
+
+def _verifier_reading(line: dict) -> dict:
+    """A process's verify counts from its kernel line. Submissions are the
+    verify_async calls (direct_calls + coalesced_calls); `calls` are the
+    direct path's dispatches (those that bypassed the coalescer, merged
+    ones and fallback re-runs); dispatch ms are host ms a dispatch, wait
+    ms the caller's ms a submission blocked for its verdicts."""
+    v = line["verifier"]
+    c = line.get("coalescer") or {}
+    subs = v.get("direct_calls", v["calls"]) + v.get("coalesced_calls", 0)
+    out = {"launches": line["launches"], "routes": line["routes"],
+           "submissions": subs, "direct_calls": v.get("direct_calls",
+                                                      v["calls"]),
+           "coalesced_calls": v.get("coalesced_calls", 0),
+           "dispatches": v["calls"], "sigs": v["sigs"],
+           "dispatch_ms_per_dispatch": 1e3 * v["dispatch_s"]
+           / max(1, v["calls"]),
+           "wait_ms_per_call": 1e3 * v["wait_s"] / max(1, subs),
+           "host_ms_per_call": 1e3 * (v["dispatch_s"] + v["wait_s"])
+           / max(1, subs),
+           "device": line["device"], "counted_to_height": line["height"]}
+    if c:
+        out.update(merged_dispatches=c["dispatches"],
+                   calls_per_merge_mean=c["merged_calls"]
+                   / max(1, c["dispatches"]),
+                   calls_per_merge_max=c["calls_max"],
+                   fallbacks=c["fallbacks"],
+                   loop_waits=v.get("loop_waits", 0),
+                   loop_wait_ms=1e3 * v.get("loop_wait_s", 0.0))
+    return out
+
+
+def _require_b1_everywhere(tag: str, lines: dict, on_card: bool) -> None:
     for i in lines:
         for line in lines[i]:
             require(not on_card or (line["device"].startswith("cuda")
                                     and line["launches"]["verify"] > 0),
-                    f"procnet: a process of node {i} did not launch B1: "
+                    f"{tag}: a process of node {i} did not launch B1: "
                     f"{line}")
-    require(launches["sign_rb"] == 0,
-            f"procnet launched the sign kernel: {launches}")
+
+
+def phase_procnet(card: str, device: str = "cuda") -> dict:
+    """BASELINE config 1 as four OS processes on the thread plane without
+    coalescing (`reactor: "threads"`, `verifier_coalesce: "off"`), the
+    plane of its runs before the event loop, so that they stay
+    comparable. A rehearsal on the CPU passes device="cpu":
+    the nodes then run "auto" (the host loop at these batch sizes) and
+    no launch is required."""
+    from tendermint_tpu_torch.procnet import bench_settings
+    on_card = device.startswith("cuda")
+    run = _procnet_net("procnet", bench_settings(
+        "cuda" if on_card else "auto", reactor="threads",
+        verifier_coalesce="off"), device)
+    lines, rate, restart = run["lines"], run["rate"], run["restart"]
+    per_node = {i: lines[i][-1] for i in range(4)}
+    emit({"phase": "procnet", "validators": 4, "processes": 4,
+          "plane": {"reactor": "threads", "verifier_coalesce": "off"},
+          "heights": run["top"], "measured_heights": list(PROC_MEASURE),
+          "blocks_per_s": rate["blocks_per_s"],
+          "txs_per_s": rate["txs_per_s"], "measure_span_s": rate["span_s"],
+          "txs_committed": len(run["txs"]), "txs_sent": run["sent"],
+          "feeder_errors": run["errors"], "boot_s": run["boot_s"],
+          "wall_s": run["wall_s"], "banned_by": {
+              i: sorted(p[:8] for p in b) for i, b in run["bans"].items()},
+          "card": card})
+    emit({"phase": "procnet_restart", **restart,
+          "sync_routes": per_node[3]["routes"],
+          "sync_launches": per_node[3]["launches"], "card": card})
+    emit({"phase": "procnet_kernels",
+          "by_node": {i: _verifier_reading(per_node[i]) for i in per_node},
+          "node3_killed_process": _verifier_reading(lines[3][0]),
+          "note": "launches sum every process's last line; node 3's killed "
+          "process is counted to the last height it committed before the "
+          "kill", "launches": run["launches"], "card": card})
+    emit({"phase": "procnet_device", "utilization_gpu_mean": run["busy"],
+          "samples": run["n_samples"], "window": "feeders' start to node 0 "
+          f"at {PROC_HEIGHTS}", "note": "coarse: nvidia-smi "
+          "utilization.gpu (share of each sample period with a kernel "
+          f"running), polled every {PROC_GPU_POLL_S} s", "card": card})
+    _require_b1_everywhere("procnet", lines, on_card)
+    for i in lines:
+        for line in lines[i]:
+            require(line["reactor"] == "threads" and line["loop"] is None
+                    and line["verifier"]["coalesced_calls"] == 0,
+                    f"procnet: node {i} off the thread plane: {line}")
+    require(run["launches"]["sign_rb"] == 0,
+            f"procnet launched the sign kernel: {run['launches']}")
     require(restart["signed_at"] > restart["synced_to"],
             f"procnet: node 3 did not sign after its rejoin: {restart}")
-    shutil.rmtree(root, ignore_errors=True)
-    return launches
+    return run
 
+
+# ----------------------------- phase 12: config 1 on the JAX node's defaults
+
+LOOP_SYNC_CONNS = 32      # the third feeder's WebSocket connections to node 2
+LOOP_SUBSCRIBERS = 200    # WebSocket NewBlock subscribers on node 1
+LOOP_EVENTS = (5, 40)     # every subscriber sees each of these heights
+N_COALESCE_CALLS = 64     # single-signature calls of the coalescer check
+N_COALESCE_THREADS = 8
+
+
+class _SyncFeeder:
+    """LOOP_SYNC_CONNS WebSocket connections to node `tid`, each a thread
+    casting single broadcast_tx_sync calls of fresh txs (the front door's
+    TxBatcher merges them), pausing while node tid's mempool holds more
+    than PROC_BACKLOG. `acked` holds every tx answered with code 0."""
+
+    def __init__(self, tid: int = 2):
+        self.tid = tid
+        self.acked: list = []
+        self.per_conn = [0] * LOOP_SYNC_CONNS
+        self.refused = self.errors = 0
+        self.paused_s = 0.0
+        self.drain = True
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._full = threading.Event()
+        self._threads: list = []
+
+    def start(self, net) -> None:
+        self.net = net
+        self._threads = [threading.Thread(
+            target=self._run, args=(c,), daemon=True,
+            name=f"smoke-sync-feeder-{c}")
+            for c in range(LOOP_SYNC_CONNS)]
+        self._threads.append(threading.Thread(
+            target=self._watch, daemon=True, name="smoke-sync-watch"))
+        for t in self._threads:
+            t.start()
+
+    def _watch(self) -> None:
+        while not self._stop.wait(0.1):
+            try:
+                n = self.net.rpc(self.tid, 5.0).call(
+                    "num_unconfirmed_txs")["n_txs"]
+            except Exception:
+                continue
+            (self._full.set if n > PROC_BACKLOG else self._full.clear)()
+            if self._full.is_set():
+                self.paused_s += 0.1
+
+    def _run(self, c: int) -> None:
+        ws, k = None, 0
+        while not self._stop.is_set():
+            if self._full.is_set():
+                time.sleep(0.05)
+                continue
+            tx = b"sy%02d/k%d=v" % (c, k)
+            k += 1
+            try:
+                if ws is None:
+                    ws = self.net.ws(self.tid, timeout=30.0)
+                res = ws.call("broadcast_tx_sync", tx=tx.hex(),
+                              timeout=30.0)
+            except Exception as e:
+                refused = "mempool is full" in str(e)
+                with self._lock:
+                    if refused:
+                        self.refused += 1
+                    else:
+                        self.errors += 1
+                if not refused and ws is not None:
+                    ws.close()
+                    ws = None
+                continue
+            with self._lock:
+                if res["code"] == 0:
+                    self.acked.append(tx)
+                    self.per_conn[c] += 1
+                else:
+                    self.refused += 1
+        if ws is not None:
+            ws.close()
+
+    def stop(self) -> None:
+        self._stop.set()
+        for t in self._threads:
+            t.join(40)
+
+
+class _Subscribers:
+    """LOOP_SUBSCRIBERS WebSocket connections to node `tid`, each
+    subscribed to NewBlock, read by ONE selector thread of this process
+    (200 reader threads would load this process's interpreter more than
+    the node's loop): each event's block height is the first "height" of
+    its frame. `heights[i]` lists what subscriber i received, in order."""
+
+    def __init__(self, tid: int = 1):
+        self.tid = tid
+        self.drain = False
+        self.heights: list = []
+        self.closed = self.replies = 0
+        self.subscribed_at = -1
+        self._stop = threading.Event()
+        self._thread = None
+        self._socks: list = []
+
+    def start(self, net, left) -> None:
+        """Connect and subscribe every subscriber, and wait for each
+        subscription's reply."""
+        import selectors
+        net.wait_for(lambda: _proc_status(net, self.tid) is not None,
+                     left("node 1's RPC"), "node 1's RPC")
+        port = net.rpc_port(self.tid)
+        self._sel = selectors.DefaultSelector()
+        for i in range(LOOP_SUBSCRIBERS):
+            s = socket.create_connection(("127.0.0.1", port), timeout=30)
+            s.sendall(b"GET /websocket HTTP/1.1\r\nHost: x\r\n"
+                      b"Upgrade: websocket\r\nConnection: Upgrade\r\n"
+                      b"Sec-WebSocket-Key: c21va2Utc3Vic2NyaWJlcg==\r\n"
+                      b"Sec-WebSocket-Version: 13\r\n\r\n")
+            head = b""
+            while b"\r\n\r\n" not in head:
+                chunk = s.recv(4096)
+                require(chunk, "loop: a subscriber's upgrade was refused")
+                head += chunk
+            require(b" 101 " in head.split(b"\r\n")[0],
+                    f"loop: subscriber upgrade {head[:60]!r}")
+            body = json.dumps({"jsonrpc": "2.0", "id": i,
+                               "method": "subscribe", "params": {
+                                   "query": "tm.event = 'NewBlock'"}}
+                              ).encode()
+            s.sendall(bytes([0x81, 0x80 | 126]) + struct.pack(">H",
+                                                               len(body))
+                      + b"\x00" * 4 + body)
+            s.setblocking(False)
+            self._socks.append(s)
+            self.heights.append([])
+            self._sel.register(s, selectors.EVENT_READ,
+                               [i, bytearray(head.partition(b"\r\n\r\n")[2])])
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="smoke-subscribers")
+        self._thread.start()
+        net.wait_for(lambda: self.replies == LOOP_SUBSCRIBERS,
+                     left("the subscriptions"), "the subscriptions' replies")
+        self.subscribed_at = net.height(self.tid)
+
+    def _frames(self, i: int, buf: bytearray) -> None:
+        while len(buf) >= 2:
+            n, pos = buf[1] & 0x7F, 2
+            if n == 126:
+                if len(buf) < 4:
+                    return
+                n, pos = struct.unpack(">H", bytes(buf[2:4]))[0], 4
+            elif n == 127:
+                if len(buf) < 10:
+                    return
+                n, pos = struct.unpack(">Q", bytes(buf[2:10]))[0], 10
+            if len(buf) < pos + n:
+                return
+            payload = bytes(buf[pos:pos + n])
+            del buf[:pos + n]
+            if b'"#event"' in payload[:64]:
+                m = re.search(rb'"height": (\d+)', payload)
+                if m:
+                    self.heights[i].append(int(m.group(1)))
+            else:
+                self.replies += 1
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            for key, _ in self._sel.select(0.2):
+                i, buf = key.data
+                try:
+                    data = key.fileobj.recv(1 << 20)
+                except (BlockingIOError, InterruptedError):
+                    continue
+                except OSError:
+                    data = b""
+                if not data:
+                    self._sel.unregister(key.fileobj)
+                    self.closed += 1
+                    continue
+                buf += data
+                self._frames(i, buf)
+
+    def seen_through(self, h: int) -> bool:
+        return all(hs and hs[-1] >= h for hs in self.heights)
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(10)
+            self._thread = None
+        for s in self._socks:
+            s.close()
+        self._socks = []
+
+
+class _LoopLoad:
+    """Phase 12's load beside the two feeders: the sync feeder to node 2
+    and the subscribers of node 1; the mempools drain before the checks,
+    so that every acknowledged tx is in a block."""
+
+    drain = True
+
+    def __init__(self):
+        self.sync = _SyncFeeder()
+        self.subs = _Subscribers()
+
+    def subscribe(self, net, left) -> None:
+        self.subs.start(net, left)
+
+    def start(self, net) -> None:
+        self.sync.start(net)
+
+    def stop(self) -> None:
+        self.sync.stop()
+
+    def finish(self, left) -> None:
+        """Every subscriber through the last height, then closed (before
+        the nodes stop, so that a close by the server is counted)."""
+        deadline = time.monotonic() + min(30.0, left("the subscribers"))
+        while not self.subs.seen_through(LOOP_EVENTS[1]) and \
+                time.monotonic() < deadline:
+            time.sleep(0.1)
+        self.subs.stop()
+
+
+def _coalescer_check(device) -> dict:
+    """The coalescer on the card, before the net: one call's dispatch is
+    held on a gate while N_COALESCE_THREADS threads submit
+    N_COALESCE_CALLS single-signature calls (utils/vectors.edge_items'
+    lanes and forged ones); released, the dispatcher merges them into ONE
+    dispatch and one verify launch. That launch's verdicts must equal the
+    plain version on the same card tensors, each caller's slice its own
+    oracle verdict and its own direct launch. Then a dispatch made to
+    raise (a failing launch) must reach every caller of its merge as
+    VerifierError."""
+    items, expect = vectors.edge_items(N_COALESCE_CALLS - 8, SEED + 12)
+    for i in range(8):           # forged: a valid signature, one byte off
+        sk = (SEED + 100 + i).to_bytes(32, "little")
+        msg = b"coalesce-forged-%d" % i
+        sig = bytearray(ed25519_ref.sign(sk, msg))
+        sig[(7 * i) % 64] ^= 0x10
+        items.append((ed25519_ref.public_key(sk), msg, bytes(sig)))
+        expect.append(ed25519_fast.verify(items[-1][0], msg, bytes(sig)))
+    v = tverifier.BatchVerifier("cuda", device=device)
+    entered, gate = threading.Event(), threading.Event()
+    sizes, recorded = [], []
+    inner = v._verify_async_direct
+
+    def held(batch):
+        sizes.append(len(batch))
+        if len(sizes) == 1:
+            entered.set()
+            require(gate.wait(60), "loop: the held dispatch was not released")
+        return inner(batch)
+
+    def rec(name, fn):
+        def call(*args):
+            out = fn(*args)
+            recorded.append((name, args, out))
+            return out
+        return call
+
+    def submit_all() -> list:
+        """The calls from N_COALESCE_THREADS threads while the first
+        dispatch is held; their resolvers in item order."""
+        resolvers = [None] * len(items)
+        entered.clear()
+        gate.clear()
+        sizes.clear()
+        first = v.verify_async([items[0]])
+        require(entered.wait(60), "loop: the first dispatch never ran")
+
+        def worker(t):
+            for j in range(t, len(items), N_COALESCE_THREADS):
+                resolvers[j] = v.verify_async([items[j]])
+        ths = [threading.Thread(target=worker, args=(t,))
+               for t in range(N_COALESCE_THREADS)]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(60)
+        co = v._coalescer
+        deadline = time.monotonic() + 60
+        while len(co._queue) < len(items):
+            require(time.monotonic() < deadline, "loop: calls not queued")
+            time.sleep(0.001)
+        gate.set()
+        return [first] + resolvers
+
+    saved = _patched([(v, "_verify_async_direct", held),
+                      (ladder, "verify", rec("verify", ladder.verify)),
+                      (ladder, "verify_pre",
+                       rec("verify_pre", ladder.verify_pre))])
+    try:
+        before = dict(ladder.launches)
+        resolvers = submit_all()
+        got = [bool(r()[0]) for r in resolvers[1:]]
+        merged = [x for x in recorded if x[1][0].shape[0] >= len(items)]
+        launched = {k: ladder.launches[k] - before[k] for k in before}
+        require(sizes == [1, len(items)],
+                f"loop: the calls were not merged into one dispatch: {sizes}")
+        require(len(merged) == 1 and merged[0][0] == "verify",
+                f"loop: the merge did not make one B1 launch: "
+                f"{[(n, a[0].shape[0]) for n, a, _ in recorded]}")
+        _, args, out = merged[0]
+        pk, rb, sb, hb = args
+        plain = ladder.verify_plain(pk, rb, ladder.digits_from_bytes(sb),
+                                    ladder.digits_from_bytes(hb))
+        require(torch.equal(out.cpu(), plain.cpu()),
+                "loop: the merged launch differs from the plain version")
+        require(got == expect, "loop: a caller's merged verdict differs "
+                "from the oracle")
+        direct = [bool(v._verify_async_direct([it])()[0]) for it in items]
+        require(direct == got, "loop: a caller's merged verdict differs "
+                "from its own direct launch")
+        st = v.coalescer_stats()
+        # a failing launch: every caller of the merge raises VerifierError
+        fail_calls = []
+
+        def failing(*a):
+            fail_calls.append(1)
+            raise RuntimeError("tm_ladder_verify launch failed: injected")
+        saved += _patched([(v, "_dispatch_cuda", failing)])
+        resolvers = submit_all()
+        errors = 0
+        for r in resolvers:
+            try:
+                r()
+            except tverifier.VerifierError:
+                errors += 1
+        require(errors == len(resolvers),
+                f"loop: {errors} of {len(resolvers)} callers of a failed "
+                f"merge saw VerifierError")
+    finally:
+        _restore(saved)
+        v.close()
+    return {"calls": len(items), "threads": N_COALESCE_THREADS,
+            "dispatch_sizes": [1, len(items)], "merged_lanes":
+            int(merged[0][1][0].shape[0]), "valid": sum(got),
+            "launches": launched, "coalescer": st,
+            "failed_merge": {"callers": len(resolvers),
+                             "verifier_errors": errors,
+                             "launch_attempts": len(fail_calls)}}
+
+
+def phase_procnet_loop(card: str, device: str = "cuda",
+                       procnet: dict = None) -> dict:
+    """BASELINE config 1 as four OS processes on the JAX node's defaults
+    (`reactor: "auto"`, the event loop; `verifier_coalesce: "auto"`;
+    `verifier_backend: "cuda"`): phase 11's net and checks, plus the
+    front door's load (the sync feeder to node 2 through its TxBatcher,
+    LOOP_SUBSCRIBERS NewBlock subscribers on node 1) and the plane's
+    checks. `procnet` is phase 11's run, for the plane_ab line. A CPU
+    rehearsal passes device="cpu" (no coalescer kernel check, no launch
+    required)."""
+    from tendermint_tpu_torch.procnet import bench_settings
+    on_card = device.startswith("cuda")
+    if on_card:
+        check = _coalescer_check(torch.device(device))
+        emit({"phase": "procnet_loop_coalescer_check", **check,
+              "card": card})
+    load = _LoopLoad()
+    try:
+        run = _procnet_net("procnet_loop", bench_settings(
+            "cuda" if on_card else "auto", reactor="auto",
+            verifier_coalesce="auto"), device, extra=load)
+    finally:
+        load.subs.stop()
+    lines, rate, restart = run["lines"], run["rate"], run["restart"]
+    per_node = {i: lines[i][-1] for i in range(4)}
+    acked = Counter(load.sync.acked)
+    committed = {tx: run["counts"][tx] for tx in acked}
+    lo, hi = LOOP_EVENTS
+    want = list(range(lo, hi + 1))
+    drops = [sorted(set(want) - set(hs)) for hs in load.subs.heights]
+    out_of_order = sum(1 for hs in load.subs.heights if hs != sorted(hs))
+    emit({"phase": "procnet_loop", "validators": 4, "processes": 4,
+          "plane": {"reactor": "auto", "verifier_coalesce": "auto"},
+          "heights": run["top"], "measured_heights": list(PROC_MEASURE),
+          "blocks_per_s": rate["blocks_per_s"],
+          "txs_per_s": rate["txs_per_s"], "measure_span_s": rate["span_s"],
+          "txs_committed": len(run["txs"]), "txs_sent": run["sent"],
+          "feeder_errors": run["errors"], "boot_s": run["boot_s"],
+          "wall_s": run["wall_s"], "banned_by": {
+              i: sorted(p[:8] for p in b) for i, b in run["bans"].items()},
+          "card": card})
+    emit({"phase": "procnet_loop_restart", **restart,
+          "sync_routes": per_node[3]["routes"],
+          "sync_launches": per_node[3]["launches"], "card": card})
+    emit({"phase": "procnet_loop_kernels",
+          "by_node": {i: _verifier_reading(per_node[i]) for i in per_node},
+          "node3_killed_process": _verifier_reading(lines[3][0]),
+          "launches": run["launches"], "card": card})
+    batcher = per_node[2]["tx_batcher"] or {}
+    emit({"phase": "procnet_loop_rpc", "sync_conns": LOOP_SYNC_CONNS,
+          "sync_acked": len(acked), "sync_committed": sum(
+              1 for c in committed.values() if c == 1),
+          "sync_refused": load.sync.refused, "sync_errors": load.sync.errors,
+          "sync_acked_per_conn": [min(load.sync.per_conn),
+                                  max(load.sync.per_conn)],
+          "sync_paused_s": load.sync.paused_s,
+          "batcher_node2": batcher, "txs_per_flush": batcher.get("txs", 0)
+          / max(1, batcher.get("flushes", 0)),
+          "subscribers": LOOP_SUBSCRIBERS, "events": sum(
+              len(h) for h in load.subs.heights),
+          "subscribed_at_height": load.subs.subscribed_at,
+          "subscriber_drops": sum(len(d) for d in drops),
+          "subscribers_with_drops": sum(1 for d in drops if d),
+          "missed_heights": sorted(Counter(h for d in drops for h in d)
+                                   .items())[:10],
+          "out_of_order": out_of_order, "closed_by_server":
+          load.subs.closed, "card": card})
+    emit({"phase": "procnet_loop_threads", "by_node": {
+        i: [{"threads": ln["threads"], "loop": ln["loop"]}
+            for ln in lines[i]] for i in lines}, "card": card})
+    emit({"phase": "procnet_loop_device",
+          "utilization_gpu_mean": run["busy"], "samples": run["n_samples"],
+          "window": f"feeders' start to node 0 at {PROC_HEIGHTS}",
+          "card": card})
+    # the same net and load on the loop with coalescing off: the plane_ab
+    # line's third arm, which isolates the coalescer's share
+    off_load = _LoopLoad()
+    try:
+        off = _procnet_net("procnet_loop_off", bench_settings(
+            "cuda" if on_card else "auto", reactor="auto",
+            verifier_coalesce="off"), device, extra=off_load)
+    finally:
+        off_load.subs.stop()
+    emit({"phase": "procnet_loop_off", "plane": {
+        "reactor": "auto", "verifier_coalesce": "off"},
+        "heights": off["top"], "blocks_per_s": off["rate"]["blocks_per_s"],
+        "txs_per_s": off["rate"]["txs_per_s"], "boot_s": off["boot_s"],
+        "wall_s": off["wall_s"], "by_node": {
+            i: _verifier_reading(off["lines"][i][-1]) for i in range(4)},
+        "loop": {i: off["lines"][i][-1]["loop"] for i in range(4)},
+        "sync_acked": len(off_load.sync.acked), "subscriber_events": sum(
+            len(h) for h in off_load.subs.heights),
+        "utilization_gpu_mean": off["busy"], "card": card})
+    _require_b1_everywhere("procnet_loop_off", off["lines"], on_card)
+    if procnet is not None:
+        def plane(r):
+            readings = [_verifier_reading(r["lines"][i][-1])
+                        for i in range(4)]
+            return {"blocks_per_s": r["rate"]["blocks_per_s"],
+                    "b1_launches_a_node": r["launches"]["verify"] / 4,
+                    "submissions_a_node": sum(x["submissions"]
+                                              for x in readings) / 4,
+                    "dispatches_a_node": sum(x["dispatches"]
+                                             for x in readings) / 4,
+                    "host_ms_a_call": [x["host_ms_per_call"]
+                                       for x in readings],
+                    "loop_busy_share": [
+                        (r["lines"][i][-1]["loop"] or {}).get("busy_share")
+                        for i in range(4)],
+                    "wait_ms_a_call": [x["wait_ms_per_call"]
+                                       for x in readings]}
+        emit({"phase": "plane_ab", "threads_off": plane(procnet),
+              "loop_off": plane(off), "loop_auto": plane(run),
+              "note": "a record, not a check: phase 11 (reactor threads, "
+              "coalescing off, no front-door load) beside phase 12 on the "
+              "loop with coalescing on (the JAX defaults) and off, both "
+              "with the sync feeder and the subscribers; nodes 0-3's last "
+              "processes; in this order: threads_off, loop_auto, loop_off",
+              "card": card})
+    # checks
+    _require_b1_everywhere("procnet_loop", lines, on_card)
+    require(run["launches"]["sign_rb"] == 0,
+            f"procnet_loop launched the sign kernel: {run['launches']}")
+    require(restart["signed_at"] > restart["synced_to"],
+            f"procnet_loop: node 3 did not sign after its rejoin: {restart}")
+    require(acked and all(c == 1 for c in committed.values()),
+            f"procnet_loop: {sum(1 for c in committed.values() if c != 1)} "
+            f"of {len(acked)} sync-acknowledged txs not committed once")
+    require(not any(drops) and not out_of_order and not load.subs.closed,
+            f"procnet_loop: subscribers missed heights ({sum(map(len, drops))}"
+            f" drops, {out_of_order} out of order, {load.subs.closed} closed)")
+    for i in lines:
+        for j, line in enumerate(lines[i]):
+            th, v, c = line["threads"], line["verifier"], line["coalescer"]
+            require(line["reactor"] == "loop" and th["tm-reactor-loop"] == 1
+                    and th["mconn-"] == th["gossip-"]
+                    == th["mempool-bcast-"] == 0,
+                    f"procnet_loop: node {i}'s threads {th}")
+            stopped = not (i == 3 and j == 0)   # the killed one
+            require(c["submissions"] > 0
+                    and v["coalesced_calls"] == c["submissions"]
+                    and v["calls"] == v["direct_calls"] + c["dispatches"]
+                    + c["isolated_calls"]
+                    and (c["merged_calls"] == c["submissions"] if stopped
+                         else c["merged_calls"] <= c["submissions"]),
+                    f"procnet_loop: node {i}'s coalescer does not account "
+                    f"for its calls: {v} {c}")
+    return run
 
 
 def main() -> int:
@@ -3212,7 +3824,8 @@ def main() -> int:
     sync_launches = phase_sync(card, device)
     consensus_launches = phase_consensus(card, device)
     p2p_launches = phase_p2p(card, device)
-    procnet_launches = phase_procnet(card)
+    procnet = phase_procnet(card)
+    procnet_loop = phase_procnet_loop(card, procnet=procnet)
     table = []
     for name, info in KERNELS.items():
         table.append({
@@ -3227,7 +3840,9 @@ def main() -> int:
                                  "fast_sync": sync_launches[name],
                                  "consensus": consensus_launches[name],
                                  "p2p": p2p_launches[name],
-                                 "procnet": procnet_launches[name]},
+                                 "procnet": procnet["launches"][name],
+                                 "procnet_loop":
+                                     procnet_loop["launches"][name]},
             "max_abs_err": kernels[name]["max_abs_err"],
             "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"],
             "bound_ms": kernels[name]["bound_ms"],

@@ -7,14 +7,18 @@
 
 Commands: init, node, testnet, show_validator, show_node_id,
 gen_validator, unsafe_reset_all, unsafe_reset_priv_validator, version,
-replay and replay_console. `node` and the replays take `--device`
-(cuda, cuda:N or cpu), the device of the node's BatchVerifier: without
-it the node runs on the card and, with no card, exits non-zero unless
-the config's `verifier_backend` is "python". `node` prints its kernel
-launches (ops/ladder.launches) and its verifier's counts when it stops.
+replay, replay_console and probe_upnp. `node` and the replays take
+`--device` (cuda, cuda:N or cpu), the device of the node's BatchVerifier:
+without it the node runs on the card and, with no card, exits non-zero
+unless the config's `verifier_backend` is "python". `node` runs the
+socket plane of `base.reactor` (the event loop by default, "threads" for
+the thread plane). At each committed height and when it stops it prints
+`node kernels {...}`: its kernel launches (ops/ladder.launches), its
+verifier's and coalescer's counts, the RPC front door's tx batcher and
+the process's threads by name prefix, with the event loop's busy share.
 
-The JAX CLI's `lite`, `replica`, `shardset` and `probe_upnp` commands and
-its TM_NODE_PROFILE sampler wait for later slices.
+The JAX CLI's `lite`, `replica` and `shardset` commands and its
+TM_NODE_PROFILE sampler wait for later slices.
 """
 
 from __future__ import annotations
@@ -51,17 +55,43 @@ def cmd_init(args) -> int:
     return 0
 
 
-def _kernel_line(node) -> str:
-    """The process's kernel launches, its predecompression cache routes
-    and the node verifier's counts, at the node's height."""
+#: thread-name prefixes of the census in `node kernels` lines
+THREAD_PREFIXES = ("tm-reactor-loop", "mconn-", "gossip-", "mempool-bcast-",
+                   "tm-rpc-", "tm-verify-coalesce")
+
+
+def thread_census() -> dict:
+    """Live threads of the process by name prefix, and all of them."""
+    import threading
+    names = [t.name for t in threading.enumerate()]
+    out = {p: sum(1 for n in names if n.startswith(p))
+           for p in THREAD_PREFIXES}
+    out["total"] = len(names)
+    return out
+
+
+def _kernel_line(node, threads=None) -> str:
+    """The process's kernel launches, its predecompression cache routes,
+    the node verifier's and coalescer's counts, the tx batcher's, the
+    thread census (`threads`: one taken before the node stopped) and the
+    event loop's counts, at the node's height."""
     from tendermint_tpu_torch.ops import ed25519, ladder
     routes = ed25519.predecomp_stats()
-    return json.dumps({"height": node.height,
-                       "launches": dict(ladder.launches),
-                       "routes": {k: routes[k]
-                                  for k in ("full", "fill", "hit")},
-                       "verifier": dict(node.verifier.stats),
-                       "device": str(node.verifier.device)})
+    with node.verifier._stats_lock:
+        vstats = dict(node.verifier.stats)
+    batcher = getattr(node.rpc_core, "tx_batcher", None)
+    loop = node.loop
+    return json.dumps({
+        "height": node.height, "launches": dict(ladder.launches),
+        "routes": {k: routes[k] for k in ("full", "fill", "hit")},
+        "verifier": vstats,
+        "coalescer": node.verifier.coalescer_stats(),
+        "device": str(node.verifier.device), "reactor": node.reactor,
+        "tx_batcher": batcher.snapshot() if batcher is not None else None,
+        "threads": threads or thread_census(),
+        "loop": None if loop is None else {
+            **loop.stats, "busy_share": loop.busy_share(),
+            "fds": loop.n_fds, "tasks": loop.n_tasks}})
 
 
 def cmd_node(args) -> int:
@@ -111,8 +141,10 @@ def cmd_node(args) -> int:
                 # reference panics; a failed kernel launch lands here
                 # too): die loudly rather than sit at a frozen height
                 print(f"CONSENSUS FAILURE: {fatal!r}", flush=True)
-                print(f"node kernels {_kernel_line(node)}", flush=True)
+                census = thread_census()
                 node.stop()
+                print(f"node kernels {_kernel_line(node, census)}",
+                      flush=True)
                 return 1
             if node.height != last:
                 last = node.height
@@ -128,9 +160,11 @@ def cmd_node(args) -> int:
                 break
     except KeyboardInterrupt:
         pass
+    # the census of the running node: its stop joins the threads
+    census = thread_census()
     node.stop()
     print(f"node stopped at height {node.height}", flush=True)
-    print(f"node kernels {_kernel_line(node)}", flush=True)
+    print(f"node kernels {_kernel_line(node, census)}", flush=True)
     return 0
 
 
@@ -180,6 +214,19 @@ def cmd_unsafe_reset_priv_validator(args) -> int:
 def cmd_version(args) -> int:
     from tendermint_tpu_torch import __version__
     print(__version__)
+    return 0
+
+
+def cmd_probe_upnp(args) -> int:
+    """cmd/tendermint/commands/probe_upnp.go: discover an IGD and report
+    its capabilities as JSON."""
+    from tendermint_tpu_torch.p2p import upnp
+    try:
+        report = upnp.probe(timeout=args.timeout)
+    except upnp.UPnPError as e:
+        print(json.dumps({"ok": False, "error": str(e)}))
+        return 1
+    print(json.dumps({"ok": True, "capabilities": report}))
     return 0
 
 
@@ -341,6 +388,11 @@ def main(argv=None) -> int:
     sp.set_defaults(fn=lambda a: cmd_replay(a, console=True))
 
     sub.add_parser("version").set_defaults(fn=cmd_version)
+
+    sp = sub.add_parser("probe_upnp",
+                        help="probe the local network for a UPnP IGD")
+    sp.add_argument("--timeout", type=float, default=3.0)
+    sp.set_defaults(fn=cmd_probe_upnp)
     sub.add_parser("show_validator").set_defaults(fn=cmd_show_validator)
     sub.add_parser("show_node_id").set_defaults(fn=cmd_show_node_id)
     sub.add_parser("gen_validator").set_defaults(fn=cmd_gen_validator)

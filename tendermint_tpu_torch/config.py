@@ -8,16 +8,22 @@ shrinks them for fast in-process nets, mirroring config.TestConfig.
 
 Settings that the JAX package reads from `TM_TPU_*` environment knobs
 are fields here, with the same defaults: the p2p frame bursts (`burst`,
-`burst_max`), the ban plane (`ban_score`, `ban_base_s`, `fd_headroom`)
-and the compact consensus gossip (`compact`, `vote_agg`). The port reads
-no environment knob for them.
+`burst_max`), the ban plane (`ban_score`, `ban_base_s`, `fd_headroom`),
+the compact consensus gossip (`compact`, `vote_agg`), the socket plane
+(`base.reactor`: auto|loop|threads, auto being the event loop) and the
+verifier's dispatch coalescing (`base.verifier_coalesce`: auto|on|off,
+`verifier_coalesce_wait_ms`, `verifier_coalesce_max_batch`). The port
+reads no environment knob for them. `validate()` refuses a value outside
+those sets when the config is loaded.
 
 `config/config.json` is one file for both packages. default_config()
 reads a JAX-written file: the JAX package keeps the bursts and the
 compact gossip under `base` (`p2p_burst`, `p2p_burst_max`, `compact`,
 `vote_agg`, each auto|on|off), and the loader maps those keys onto the
-port's fields. Keys of planes the port does not have (telemetry, chaos,
-pipeline, reactor, trace, SLO, snapshots, ...) are ignored, as the JAX
+port's fields. `reactor` and the `verifier_coalesce*` keys have the
+same names and meanings in both packages. Keys of planes the port does
+not have (telemetry, chaos, pipeline, trace, SLO, snapshots, ...) are
+ignored, as the JAX
 loader ignores any key its dataclasses lack. save_config() writes those
 four settings only as the JAX keys, so the file holds one key for each
 and the JAX package reads a port-written file the same way. A file that
@@ -42,12 +48,24 @@ class BaseConfig:
     log_level: str = "info"
     # the node's BatchVerifier (models/verifier.py): auto|cuda|python
     verifier_backend: str = "auto"
+    # cross-call dispatch coalescing (models/coalescer.py): auto|on|off
+    # merge concurrent calls of at most the verifier's auto threshold
+    # into one launch; wait_ms caps a merge's linger, max_batch its
+    # items (0: the verifier's BATCH_CHUNK)
+    verifier_coalesce: str = "auto"
+    verifier_coalesce_wait_ms: float = 2.0
+    verifier_coalesce_max_batch: int = 0
+    # socket plane (p2p/conn/loop.py): "loop" (= "auto") runs every peer
+    # socket, gossip routine and RPC connection of the node on ONE event
+    # loop thread; "threads" is the thread-per-connection plane
+    reactor: str = "auto"
 
 
-# No code of the port reads grpc_laddr or P2PConfig's skip_upnp yet
-# (gRPC and UPnP wait for later slices), nor flush_throttle_ms and
-# max_msg_packet_payload_size (no link of either package reads them);
-# they are kept so that config.json round-trips between the packages.
+# No code of the port reads grpc_laddr yet (gRPC waits for a later
+# slice), nor flush_throttle_ms and max_msg_packet_payload_size (no link
+# of either package reads them); they are kept so that config.json
+# round-trips between the packages. skip_upnp false makes a wildcard
+# listener ask a UPnP gateway for its external address (p2p/upnp.py).
 @dataclass
 class RPCConfig:
     laddr: str = "tcp://0.0.0.0:46657"
@@ -215,7 +233,52 @@ def default_config(home: str = "") -> Config:
                     setattr(target, k, v)
         if isinstance(overrides.get("base"), dict):
             _apply_jax_base(cfg, overrides)
+    validate(cfg)
     return cfg
+
+
+_OFF = ("off", "0", "false", "no", "none", "disabled")
+
+
+def parse_coalesce(spec) -> str:
+    """'auto' | 'on' | 'off', with the spellings the JAX package's
+    `_parse_coalesce_spec` accepts; anything else raises."""
+    s = str(spec).strip().lower()
+    if s in ("auto", ""):
+        return "auto"
+    if s in ("on", "1", "true", "yes"):
+        return "on"
+    if s in ("off", "0", "false", "no", "none"):
+        return "off"
+    raise ValueError(f"verifier coalesce must be auto|on|off, got {spec!r}")
+
+
+def resolve_reactor(mode) -> str:
+    """-> 'loop' | 'threads' for a `base.reactor` value, with the
+    spellings of the JAX package's `loop.resolve`: auto is the event
+    loop, an off value the thread plane; anything else raises."""
+    m = str(mode if mode is not None else "auto").strip().lower()
+    if m in ("threads", "thread"):
+        return "threads"
+    if m in ("loop", "auto", "on", ""):
+        return "loop"
+    if m in _OFF:
+        return "threads"
+    raise ValueError(f"reactor must be loop|threads|auto, got {mode!r}")
+
+
+def validate(cfg: Config) -> None:
+    """Refuse a socket plane or coalescing setting outside its set, as the
+    JAX package does when a node builds its verifier and its loop."""
+    b = cfg.base
+    resolve_reactor(b.reactor)
+    parse_coalesce(b.verifier_coalesce)
+    if float(b.verifier_coalesce_wait_ms) < 0:
+        raise ValueError(f"verifier_coalesce_wait_ms must be >= 0, got "
+                         f"{b.verifier_coalesce_wait_ms!r}")
+    if int(b.verifier_coalesce_max_batch) < 0:
+        raise ValueError(f"verifier_coalesce_max_batch must be >= 0, got "
+                         f"{b.verifier_coalesce_max_batch!r}")
 
 
 def save_config(cfg: Config) -> str:

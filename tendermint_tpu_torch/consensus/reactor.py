@@ -1,12 +1,15 @@
 """ConsensusReactor — gossips the BFT state machine over p2p: the port's
-copy of `tendermint_tpu/consensus/reactor.py` (consensus/reactor.go), on
-the thread plane.
+copy of `tendermint_tpu/consensus/reactor.py` (consensus/reactor.go).
 
 Four channels: STATE (round-step + has-vote + maj23 announcements), DATA
 (proposals + block parts), VOTE, and VOTE_SET_BITS (:24-27). Each peer
-gets a PeerState mirror (:828) plus two gossip threads — data and votes
+gets a PeerState mirror (:828) plus two gossip routines — data and votes
 (:137-156) — that push whatever the peer provably lacks; vote/part
-bitmaps in the PeerState prevent re-sending.
+bitmaps in the PeerState prevent re-sending. On the thread plane each
+routine is a thread; when the switch runs on a ReactorLoop each is one
+of the loop's tasks running the same pass body, woken by the same
+_GossipWake edges and by its connection's drain, with the same 100 ms
+idle backstop.
 
 Unlike the reference's goroutine/channel fabric, the state machine itself
 is the deterministic submit()-loop in ConsensusState; this reactor is
@@ -14,8 +17,7 @@ pure I/O around it: peer messages feed cs.submit(), and the gossip
 threads read RoundState snapshots under the state machine's lock.
 
 Compact block relay and vote aggregation follow the ConsensusState's
-config (`compact`, `vote_agg`). Not ported: the causal trace stamps and
-the event-loop tasks (the JAX package's `switch.loop` branch).
+config (`compact`, `vote_agg`). Not ported: the causal trace stamps.
 """
 
 from __future__ import annotations
@@ -49,6 +51,21 @@ GOSSIP_SLEEP_S = 0.1
 # missed edge.
 
 
+class _GossipWake(threading.Event):
+    """A threading.Event that also calls its listeners on set(): the loop
+    plane's gossip tasks park on the loop, not on the event, so a wake
+    reaches them through their thread-safe ``Task.wake``."""
+
+    def __init__(self):
+        super().__init__()
+        self.listeners: list = []
+
+    def set(self) -> None:
+        super().set()
+        for cb in list(self.listeners):
+            cb()
+
+
 class PeerRoundState:
     """What we know the peer knows (consensus/reactor.go:828 PeerState)."""
 
@@ -71,8 +88,9 @@ class PeerRoundState:
         self.votes_known: Dict[tuple, set] = {}
         # wake signal for this peer's gossip threads: set whenever our
         # own state gains something sendable OR the peer's state
-        # changes; the gossip loops park on it instead of polling
-        self.wake = threading.Event()
+        # changes; the gossip loops park on it instead of polling. On the
+        # loop plane the same signal wakes the cooperative tasks.
+        self.wake = _GossipWake()
 
     def apply_new_round_step(self, msg: dict) -> None:
         with self.lock:
@@ -243,6 +261,11 @@ class ConsensusReactor(Reactor):
         # (consensus/reactor.go AddPeer gates on conR.FastSync())
         if not self.fast_sync:
             peer.try_send_obj(STATE_CHANNEL, self._our_round_step_msg())
+        loop = getattr(self.switch, "loop", None) \
+            if self.switch is not None else None
+        if loop is not None:
+            self._add_peer_tasks(loop, peer, ps)
+            return
         threads = []
         for fn, name in ((self._gossip_data_routine, "data"),
                          (self._gossip_votes_routine, "votes")):
@@ -253,14 +276,53 @@ class ConsensusReactor(Reactor):
         with self._lock:
             self._peer_threads[peer.id] = threads
 
+    def _add_peer_tasks(self, loop, peer, ps: PeerRoundState) -> None:
+        """The loop plane's gossip: the data and votes passes as two of
+        the loop's tasks, woken by the peer's _GossipWake and by its
+        connection's drain (which replaces the blocking send the thread
+        routines relied on for backpressure)."""
+        st = {"idle": 0}
+
+        def data_task():
+            if not self._peer_alive(peer):
+                return "stop"
+            if self.fast_sync:
+                return self.gossip_sleep_s
+            ps.wake.clear()
+            return 0.0 if self._gossip_data_pass(peer, ps) \
+                else self.gossip_sleep_s
+
+        def votes_task():
+            if not self._peer_alive(peer):
+                return "stop"
+            if self.fast_sync:
+                return self.gossip_sleep_s
+            ps.wake.clear()
+            return 0.0 if self._gossip_votes_pass(peer, ps, st) \
+                else self.gossip_sleep_s
+
+        tasks = [loop.spawn(data_task, owner="consensus",
+                            name=f"gossip-data-{peer.id[:8]}"),
+                 loop.spawn(votes_task, owner="consensus",
+                            name=f"gossip-votes-{peer.id[:8]}")]
+        for t in tasks:
+            ps.wake.listeners.append(t.wake)
+            getattr(peer.mconn, "drain_listeners", []).append(t.wake)
+        with self._lock:
+            self._peer_threads[peer.id] = tasks
+
     def remove_peer(self, peer, reason) -> None:
         with self._compact_lock:
             self._compact_sent.pop(peer.id, None)
         self._strikes.forget(peer.id)
         with self._lock:
             self.peer_states.pop(peer.id, None)
-            self._peer_threads.pop(peer.id, None)
-        # the gossip threads exit via _peer_alive
+            entries = self._peer_threads.pop(peer.id, None)
+        # the gossip threads exit via _peer_alive; the loop's tasks would
+        # stay parked (no wake reaches a removed peer): stop them
+        for t in entries or ():
+            if not isinstance(t, threading.Thread):
+                t.stop()
 
     def _our_round_step_msg(self) -> dict:
         rs = self.cs.rs

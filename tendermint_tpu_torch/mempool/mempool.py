@@ -287,6 +287,21 @@ class Mempool:
         self._by_hash.pop(hashlib.sha256(tx).digest(), None)
         return True
 
+    def drop_committed(self, txs: List[bytes]) -> int:
+        """Drop txs a stored block already committed (and cache them),
+        then rewrite the tx WAL; returns how many were pending. The node
+        calls it with its last stored block's txs after the WAL replay: a
+        crash between that block's save and its update() leaves them in
+        the WAL (a fault of the reference, which proposes them again)."""
+        with self.proxy_mtx:
+            n = 0
+            for tx in txs:
+                n += self._drop(tx)
+                self.cache.push(tx)
+            if n:
+                self._rewrite_wal()
+            return n
+
     def update(self, height: int, txs: List[bytes]) -> None:
         """Remove committed txs, then recheck the remainder against the
         post-commit app state (mempool/mempool.go:362). The caller (the

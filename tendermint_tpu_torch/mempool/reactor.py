@@ -1,11 +1,13 @@
 """MempoolReactor — tx gossip on channel 0x30: the port's copy of
-`tendermint_tpu/mempool/reactor.py` (mempool/reactor.go), on the thread
-plane.
+`tendermint_tpu/mempool/reactor.py` (mempool/reactor.go).
 
-One broadcast thread per peer walks the mempool CList at its own pace,
+One broadcast routine per peer walks the mempool CList at its own pace,
 parking on next_wait when it reaches the tip (:104-157); received txs
 funnel into Mempool.check_tx (:82-87). Peers lagging more than one height
-behind a tx's admission height are skipped until they catch up."""
+behind a tx's admission height are skipped until they catch up. On the
+thread plane the routine is a thread; on a ReactorLoop it is a task whose
+`_broadcast_pass` makes the same walk and returns its next delay instead
+of blocking in the clist's waits."""
 
 from __future__ import annotations
 
@@ -24,6 +26,8 @@ PEER_CATCHUP_SLEEP_S = 0.1  # peerCatchupSleepIntervalMS (reactor.go:24)
 
 
 class MempoolReactor(Reactor):
+    _GOSSIP_BATCH = 64   # txs a batched "txs" gossip message at most
+
     def __init__(self, mempool: Mempool, broadcast: bool = True):
         super().__init__("mempool")
         self.mempool = mempool
@@ -41,6 +45,14 @@ class MempoolReactor(Reactor):
     def add_peer(self, peer) -> None:
         if not self.broadcast:
             return
+        loop = getattr(self.switch, "loop", None) \
+            if self.switch is not None else None
+        if loop is not None:
+            st = {"el": None, "sent": set()}
+            self._peer_threads[peer.id] = loop.spawn(
+                lambda: self._broadcast_pass(peer, st),
+                owner="mempool", name=f"mempool-bcast-{peer.id[:8]}")
+            return
         t = threading.Thread(target=self._broadcast_tx_routine,
                              args=(peer,), daemon=True,
                              name=f"mempool-bcast-{peer.id[:8]}")
@@ -48,8 +60,11 @@ class MempoolReactor(Reactor):
         self._peer_threads[peer.id] = t
 
     def remove_peer(self, peer, reason) -> None:
-        # the broadcast thread exits on its own: peer.running is False
-        self._peer_threads.pop(peer.id, None)
+        # a broadcast thread exits on its own (peer.running is False); a
+        # loop task is stopped, as nothing wakes a removed peer's
+        entry = self._peer_threads.pop(peer.id, None)
+        if entry is not None and not isinstance(entry, threading.Thread):
+            entry.stop()
 
     def receive(self, ch_id: int, peer, msg_bytes: bytes) -> None:
         msg = encoding.cloads(msg_bytes)
@@ -103,7 +118,6 @@ class MempoolReactor(Reactor):
         every hop)."""
         el = None
         sent: set = set()   # tx counters already sent to this peer
-        _GOSSIP_BATCH = 64
         _COALESCE_S = 0.02  # let a burst of insertions accumulate so
         #                     one message carries many txs; block
         #                     cadence is 100x this, so the added gossip
@@ -117,25 +131,8 @@ class MempoolReactor(Reactor):
                     sent.clear()  # mempool drained: forget history
                     continue
                 time.sleep(_COALESCE_S)
-            # collect a run of ready txs starting at el; the peer's
-            # height is read once per batch (it moves per block, not
-            # per tx)
-            batch: list = []
-            batch_counters: list = []
-            last = el
-            cur = el
-            catchup = False
-            peer_h = self._peer_height(peer)
-            while cur is not None and len(batch) < _GOSSIP_BATCH:
-                mtx = cur.value
-                if mtx.counter not in sent and not cur.removed:
-                    if peer_h >= 0 and peer_h < mtx.height - 1:
-                        catchup = True
-                        break
-                    batch.append(mtx.tx.hex())
-                    batch_counters.append(mtx.counter)
-                last = cur
-                cur = cur.next()
+            batch, batch_counters, last, catchup = self._collect(
+                peer, el, sent)
             if catchup and not batch:
                 time.sleep(PEER_CATCHUP_SLEEP_S)
                 continue
@@ -152,10 +149,70 @@ class MempoolReactor(Reactor):
             nxt = el.next_wait(timeout=0.5)
             if nxt is not None:
                 el = nxt
-                if len(batch) < _GOSSIP_BATCH:
+                if len(batch) < self._GOSSIP_BATCH:
                     # trickle: let the burst behind it accumulate.
                     # A FULL batch means a backlog is draining — no
                     # sleep, or the ceiling becomes BATCH/COALESCE
                     time.sleep(_COALESCE_S)
             elif el.removed:
                 el = None  # tip removed: restart from the live front
+
+    def _collect(self, peer, el, sent: set) -> tuple:
+        """A run of ready txs from `el`, at most _GOSSIP_BATCH, none in
+        `sent`: (hex txs, their counters, the last element walked, whether
+        the walk stopped at a tx the peer is too far behind for). The
+        peer's height is read once a batch (it moves a block, not a tx)."""
+        batch: list = []
+        counters: list = []
+        last = cur = el
+        peer_h = self._peer_height(peer)
+        while cur is not None and len(batch) < self._GOSSIP_BATCH:
+            mtx = cur.value
+            if mtx.counter not in sent and not cur.removed:
+                if peer_h >= 0 and peer_h < mtx.height - 1:
+                    return batch, counters, last, True
+                batch.append(mtx.tx.hex())
+                counters.append(mtx.counter)
+            last = cur
+            cur = cur.next()
+        return batch, counters, last, False
+
+    def _broadcast_pass(self, peer, st: dict) -> object:
+        """One cooperative pass of the broadcast walk (loop plane): the
+        batch collection of _broadcast_tx_routine, returning the next
+        delay instead of blocking in the clist's waits. `st` carries the
+        cursor (`el`) and the counters already sent."""
+        if self._stopped or not peer.running:
+            return "stop"
+        el = st["el"]
+        sent = st["sent"]
+        if el is None or el.removed:
+            el = self.mempool.txs.front()
+            if el is None:
+                sent.clear()   # mempool drained: forget history
+                st["el"] = None
+                return 0.1
+            st["el"] = el
+        batch, batch_counters, last, catchup = self._collect(peer, el, sent)
+        if catchup and not batch:
+            return PEER_CATCHUP_SLEEP_S
+        if batch:
+            msg = ({"type": "tx", "tx": batch[0]} if len(batch) == 1
+                   else {"type": "txs", "txs": batch})
+            if not peer.send(MEMPOOL_CHANNEL, encoding.cdumps(msg)):
+                # channel queue full (backpressure) or conn stopping:
+                # retry after the catchup interval
+                return PEER_CATCHUP_SLEEP_S
+            sent.update(batch_counters)
+            if len(sent) > 200_000:
+                sent.clear()
+        st["el"] = last
+        nxt = last.next()
+        if nxt is not None:
+            st["el"] = nxt
+            # trickle pacing as in the thread routine: a full batch
+            # means a backlog is draining, so no pause
+            return 0.0 if len(batch) >= self._GOSSIP_BATCH else 0.02
+        if last.removed:
+            st["el"] = None
+        return 0.05   # parked at the tip: poll for the next insertion

@@ -24,9 +24,38 @@ stream and records one event after the verdicts' copy to pinned host
 memory; the resolver waits on that event only, then masks with the host
 precheck. A launch or a wait that fails raises VerifierError: nothing
 falls back to the plain versions, and the consensus state machine and
-the fast-sync loop halt on it. Coalescing of concurrent small calls,
-telemetry and the multi-device mesh come in later slices
-(`mesh_devices` is always 0).
+the fast-sync loop halt on it.
+
+Calls of 1..auto_threshold items route through a DispatchCoalescer
+(models/coalescer.py) unless `coalesce` is "off" (the default "auto"
+coalesces, as the JAX verifier's does): concurrent small calls merge into
+one dispatch on the coalescer's thread, each caller getting back its own
+verdicts. That thread launches on the verifier's own device and stream.
+A merged dispatch that fails is re-run call by call on the same path; a
+VerifierError of the device reaches every caller of the merge. Telemetry
+and the multi-device mesh come in later slices (`mesh_devices` is
+always 0).
+
+`stats` (under one lock):
+  calls            direct dispatches: calls that bypassed the coalescer,
+                   merged dispatches and fallback re-dispatches
+  direct_calls     verify_async calls that bypassed the coalescer
+  coalesced_calls  verify_async calls submitted to the coalescer
+  sigs, cuda_sigs  items dispatched, and of those on the batch path
+  dispatch_s       host time of the direct dispatches, on the thread
+                   that ran each (the caller's, or the coalescer's for
+                   a merged one)
+  wait_s           the time each verify_async call's resolver first
+                   blocks for its verdicts, on the caller's thread: for
+                   a coalesced call the linger, the merged dispatch if
+                   it is not done yet, and the device wait
+  loop_waits, loop_wait_s
+                   those first waits made on a node's event-loop thread
+                   (`tm-reactor-loop*`): time the loop was blocked on
+                   verdicts, as when the consensus state machine runs
+                   inline on a receive
+The coalescer's own counts (merged dispatches, calls a merge, fallbacks)
+are `coalescer_stats()`.
 """
 
 from __future__ import annotations
@@ -39,21 +68,33 @@ import numpy as np
 import torch
 
 from tendermint_tpu_torch import native
+from tendermint_tpu_torch.config import parse_coalesce
+from tendermint_tpu_torch.models.coalescer import DispatchCoalescer
 from tendermint_tpu_torch.ops import _build
 from tendermint_tpu_torch.ops import ed25519
 from tendermint_tpu_torch.types import keys
 from tendermint_tpu_torch.utils import device as _device
 
 BATCH_CHUNK = 8192
+#: the name prefix of a node's event-loop thread (p2p/conn/loop.py)
+LOOP_THREAD_PREFIX = "tm-reactor-loop"
 
 
 class VerifierError(RuntimeError):
     """A batch dispatch or its wait failed on the device."""
 
 
+def _merge_counts(a: dict, b: dict) -> dict:
+    """Two coalescers' counts as one: sums, and maxima for *_max."""
+    return {k: max(a[k], b[k]) if k.endswith("_max") else a[k] + b[k]
+            for k in a}
+
+
 class BatchVerifier:
     def __init__(self, backend: str = "auto", device=None,
-                 auto_threshold: int = 128):
+                 auto_threshold: int = 128, coalesce: str = "auto",
+                 coalesce_wait_ms: float = 2.0,
+                 coalesce_max_batch: int = 0):
         if backend not in ("auto", "cuda", "python"):
             raise ValueError(
                 f"verifier backend must be auto|cuda|python, got {backend!r}")
@@ -64,13 +105,21 @@ class BatchVerifier:
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device is not None
                         and self.device.type == "cuda" else None)
+        self.coalesce = parse_coalesce(coalesce)
+        if coalesce_wait_ms < 0:
+            raise ValueError(f"coalesce wait must be >= 0 ms, got "
+                             f"{coalesce_wait_ms}")
+        self._coalesce_wait_s = coalesce_wait_ms / 1e3
+        self._coalesce_max_batch = int(coalesce_max_batch) or BATCH_CHUNK
+        self._coalescer = None  #: guarded_by _resolve_lock
+        #: the counts of coalescers closed before; guarded_by _resolve_lock
+        self._retired = dict.fromkeys(DispatchCoalescer.STATS, 0)
+        self._resolve_lock = threading.Lock()
         self._stats_lock = threading.Lock()
-        #: guarded_by _stats_lock; dispatch_s sums the host time of each
-        #: call's dispatch (verify_async up to its return), wait_s the
-        #: time its resolver's first call blocks for the verdicts. The
-        #: caller's own work between the two is in neither.
-        self.stats = {"calls": 0, "sigs": 0, "cuda_sigs": 0,
-                      "dispatch_s": 0.0, "wait_s": 0.0}
+        #: guarded_by _stats_lock (see the module docstring)
+        self.stats = {"calls": 0, "direct_calls": 0, "coalesced_calls": 0,
+                      "sigs": 0, "cuda_sigs": 0, "dispatch_s": 0.0,
+                      "wait_s": 0.0, "loop_waits": 0, "loop_wait_s": 0.0}
 
     def verify(self, items: Sequence[tuple]) -> np.ndarray:
         """items: (pubkey32, message, signature64) triples -> bool[N]."""
@@ -80,15 +129,48 @@ class BatchVerifier:
         return bool(self.verify([(pubkey, msg, sig)])[0])
 
     def close(self) -> None:
-        """Nothing to stop in this slice (no coalescer thread)."""
+        """Stop the coalescer's dispatcher, if one was started. The
+        verifier stays usable: a later coalesced call starts a fresh
+        one."""
+        with self._resolve_lock:
+            c, self._coalescer = self._coalescer, None
+        if c is not None:
+            c.close()
+            with self._resolve_lock:
+                self._retired = _merge_counts(self._retired, c.snapshot())
+
+    def coalescer_stats(self) -> dict:
+        """The coalescer's counts, those of coalescers closed before
+        included (zeros before the first coalesced call)."""
+        with self._resolve_lock:
+            c, retired = self._coalescer, dict(self._retired)
+        return retired if c is None else _merge_counts(retired,
+                                                        c.snapshot())
+
+    def _coalescer_get(self) -> DispatchCoalescer:
+        with self._resolve_lock:
+            if self._coalescer is None:
+                self._coalescer = DispatchCoalescer(
+                    # looked up at each dispatch, so that a wrapper of
+                    # the instance's direct path sees merged dispatches
+                    lambda items: self._verify_async_direct(items),
+                    max_batch=self._coalesce_max_batch,
+                    max_wait_s=self._coalesce_wait_s)
+            return self._coalescer
 
     def verify_async(self, items: Sequence[tuple]):
         """Dispatch without waiting; returns a zero-arg resolver of
-        bool[N]."""
-        t0 = time.perf_counter()
-        inner = self._verify_async(items)
+        bool[N]. Calls of 1..auto_threshold items go through the
+        coalescer unless coalesce is "off"."""
+        n = len(items)
+        coalesced = self.coalesce != "off" and 0 < n <= self.auto_threshold
         with self._stats_lock:
-            self.stats["dispatch_s"] += time.perf_counter() - t0
+            self.stats["coalesced_calls" if coalesced
+                       else "direct_calls"] += 1
+        if coalesced:
+            inner = self._coalescer_get().submit(items)
+        else:
+            inner = self._verify_async_direct(items)
         timed = []
 
         def resolve() -> np.ndarray:
@@ -96,11 +178,26 @@ class BatchVerifier:
             out = inner()
             if not timed:
                 timed.append(True)
+                dt = time.perf_counter() - t1
+                on_loop = threading.current_thread().name.startswith(
+                    LOOP_THREAD_PREFIX)
                 with self._stats_lock:
-                    self.stats["wait_s"] += time.perf_counter() - t1
+                    self.stats["wait_s"] += dt
+                    if on_loop:
+                        self.stats["loop_waits"] += 1
+                        self.stats["loop_wait_s"] += dt
             return out
 
         return resolve
+
+    def _verify_async_direct(self, items: Sequence[tuple]):
+        """The non-coalescing dispatch (also the coalescer's merge
+        target: it never re-enters verify_async)."""
+        t0 = time.perf_counter()
+        inner = self._verify_async(items)
+        with self._stats_lock:
+            self.stats["dispatch_s"] += time.perf_counter() - t0
+        return inner
 
     def _verify_async(self, items: Sequence[tuple]):
         n = len(items)
@@ -127,8 +224,8 @@ class BatchVerifier:
         return self._dispatch(n, pk, rb, sb, hb, pre)
 
     def _verify_mixed(self, items, secp_idx):
-        """secp256k1 items on the host now, the rest through verify_async;
-        the resolver puts the verdicts back in the items' order."""
+        """secp256k1 items on the host now, the rest through the batch
+        path; the resolver puts the verdicts back in the items' order."""
         n = len(items)
         secp_ok = {i: keys.verify_any(*items[i]) for i in secp_idx}
         out = np.zeros(n, np.bool_)
@@ -187,17 +284,21 @@ class BatchVerifier:
 
     def _dispatch_cuda(self, n, pk, rb, sb, hb, pre):
         stream = self._stream
-        # the stream waits for work already queued on the caller's stream
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream):
-            pending = self._chunks(n, pk, rb, sb, hb)
-            host = []
-            for lo, hi, res in pending:
-                h = torch.empty(res.shape, dtype=res.dtype, pin_memory=True)
-                h.copy_(res, non_blocking=True)
-                host.append((lo, hi, h))
-            done = torch.cuda.Event()
-            done.record(stream)
+        # the current device and stream are per thread, and a merged
+        # dispatch runs on the coalescer's: both are named explicitly.
+        # The stream waits for work already queued on the caller's.
+        with torch.cuda.device(self.device):
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(stream):
+                pending = self._chunks(n, pk, rb, sb, hb)
+                host = []
+                for lo, hi, res in pending:
+                    h = torch.empty(res.shape, dtype=res.dtype,
+                                    pin_memory=True)
+                    h.copy_(res, non_blocking=True)
+                    host.append((lo, hi, h))
+                done = torch.cuda.Event()
+                done.record(stream)
 
         def resolve() -> np.ndarray:
             done.synchronize()
@@ -244,8 +345,8 @@ _default_lock = threading.Lock()
 
 
 def default_verifier() -> BatchVerifier:
-    """Process-wide verifier: backend "auto" on the current CUDA device
-    (raises when there is none)."""
+    """Process-wide verifier: backend "auto" on the current CUDA device,
+    coalescing "auto" (raises when there is none)."""
     global _default
     with _default_lock:
         if _default is None:

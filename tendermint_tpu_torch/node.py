@@ -1,6 +1,6 @@
 """Node — assembles stores, app conns, handshake, WAL, consensus, the
 reactor stack and the p2p switch: the port's copy of
-`tendermint_tpu/node.py` (node/node.go:121-353), on the thread plane.
+`tendermint_tpu/node.py` (node/node.go:121-353).
 
 With `with_p2p=True` the node runs the full networking stack: mempool /
 evidence / blockchain (fast-sync) / consensus reactors + optional PEX on
@@ -10,17 +10,25 @@ validator (the in-process test/tooling mode).
 
 Every signature check of the node (handshake replay, consensus votes,
 fast-sync windows, evidence) goes through one BatchVerifier built from
-`config.base.verifier_backend` on `device`: with the all-default
-backend ("auto") and no device, the process-wide default verifier, as
-the JAX node shares its own. Without a device and without a card, any
-backend but "python" raises (utils/device.resolve): the node never moves
-to the CPU quietly.
+`config.base.verifier_backend` and `verifier_coalesce*` on `device`:
+with every one of them at its default and no device, the process-wide
+default verifier, as the JAX node shares its own. Without a device and
+without a card, any backend but "python" raises (utils/device.resolve):
+the node never moves to the CPU quietly.
+
+Socket plane: with `config.base.reactor` "auto" or "loop" (the default,
+as in the JAX node) the node runs ONE ReactorLoop thread,
+`tm-reactor-loop-<pid>`, that owns every peer socket, the reactors'
+per-peer gossip tasks and the async RPC front door's connections; it is
+created when the switch or the RPC server first needs it. `loop=`
+injects a loop the caller owns (and stops); a loop the node created is
+stopped after the switch. "threads" runs the thread-per-connection plane
+and the threaded RPC server.
 
 Left out, with the planes they read: telemetry, chaos, the pipelined
-hot path, the event loop (the port runs the thread plane only, so there
-is no `loop=`), causal tracing and its stall detector, the profiler and
-queue observatory, the SLO plane, the env knob plane, snapshots and
-state sync, and gRPC.
+hot path, causal tracing and its stall detector, the profiler and queue
+observatory, the SLO plane, the env knob plane, snapshots and state
+sync, and gRPC.
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ import time
 from typing import Optional
 
 from tendermint_tpu_torch.abci.proxy import AppConns, local_client_creator
-from tendermint_tpu_torch.config import Config
+from tendermint_tpu_torch.config import Config, resolve_reactor
 from tendermint_tpu_torch.consensus.replay import Handshaker, catchup_replay
 from tendermint_tpu_torch.consensus.state import ConsensusState
 from tendermint_tpu_torch.consensus.ticker import TimeoutTicker
@@ -49,16 +57,24 @@ def _parse_laddr(laddr: str) -> tuple:
     return host or "0.0.0.0", int(port)
 
 
-def build_verifier(backend: str, device=None):
-    """-> (verifier, owned): the process-wide default verifier for the
-    all-default case (backend "auto", no device), else a BatchVerifier
-    of its own. Builds the kernels and the host prep now on a card, so
-    that no verify call of the node pays a build."""
+def build_verifier(base, device=None):
+    """-> (verifier, owned) for a BaseConfig: the process-wide default
+    verifier when the backend and the coalescing settings are at their
+    defaults and there is no device, else a BatchVerifier of its own.
+    Builds the kernels and the host prep now on a card, so that no
+    verify call of the node pays a build."""
     from tendermint_tpu_torch.models import verifier as _verifier
-    if backend == "auto" and device is None:
+    settings = (base.verifier_backend, str(base.verifier_coalesce),
+                float(base.verifier_coalesce_wait_ms),
+                int(base.verifier_coalesce_max_batch))
+    if settings == ("auto", "auto", 2.0, 0) and device is None:
         v, owned = _verifier.default_verifier(), False
     else:
-        v, owned = _verifier.BatchVerifier(backend, device=device), True
+        v, owned = _verifier.BatchVerifier(
+            base.verifier_backend, device=device,
+            coalesce=base.verifier_coalesce,
+            coalesce_wait_ms=float(base.verifier_coalesce_wait_ms),
+            coalesce_max_batch=int(base.verifier_coalesce_max_batch)), True
     if v.device is not None and v.device.type == "cuda":
         from tendermint_tpu_torch import native
         from tendermint_tpu_torch.ops import _build
@@ -72,12 +88,17 @@ class Node:
                  priv_validator=None, app=None, client_creator=None,
                  mempool=None, evidence_pool=None, in_memory=False,
                  with_p2p=False, fast_sync=False, with_rpc=False,
-                 wal_readonly=False, device=None):
+                 wal_readonly=False, device=None, loop=None):
         # logging is configured once at the CLI entry point; the chain id
         # rides as a logger field
         self.logger = tm_logger("node", chain=gen_doc.chain_id)
         self.config = config
         self.gen_doc = gen_doc
+        # the socket plane, validated now; the loop itself is created
+        # when the switch or the RPC listener first needs one
+        self.reactor = resolve_reactor(config.base.reactor)
+        self.loop = loop
+        self._owns_loop = loop is None
 
         def db_path(name):
             if in_memory:
@@ -100,7 +121,7 @@ class Node:
         # verification plane, built before the first verification path
         # (handshake replay) so every path of the node uses it
         self.verifier, self._owns_verifier = build_verifier(
-            config.base.verifier_backend, device)
+            config.base, device)
 
         # ABCI handshake: sync app with stores (consensus/replay.go:211)
         t0 = time.perf_counter()
@@ -119,6 +140,13 @@ class Node:
                 wal_dir=(None if in_memory or
                          not getattr(config.mempool, "wal_dir", "")
                          else config.path(config.mempool.wal_dir)))
+            # the tx WAL just replayed may hold the last stored block's
+            # txs (a crash between its save and the mempool's update); a
+            # restarted proposer would commit them twice
+            top = self.block_store.height()
+            if top > 0:
+                mempool.drop_committed(
+                    self.block_store.load_block(top).data.txs)
         self.mempool = mempool
 
         if evidence_pool is None:
@@ -159,6 +187,7 @@ class Node:
             self._build_p2p(state, fast_sync, in_memory)
 
         self.rpc_server = None
+        self.rpc_core = None
         self.rpc_address = None
         self.with_rpc = with_rpc
 
@@ -174,6 +203,14 @@ class Node:
             self.tx_indexer = NullTxIndexer()
         self.indexer_service = IndexerService(self.tx_indexer,
                                               self.event_bus)
+
+    def _ensure_loop(self):
+        """The node's ONE event loop when the plane is the loop, else
+        None; shared by the p2p switch and the RPC listener."""
+        if self.loop is None and self.reactor == "loop":
+            from tendermint_tpu_torch.p2p.conn.loop import ReactorLoop
+            self.loop = ReactorLoop(name=f"tm-reactor-loop-{os.getpid()}")
+        return self.loop
 
     def _build_p2p(self, state, fast_sync: bool, in_memory: bool) -> None:
         """node/node.go:235-265: switch + reactors (+PEX)."""
@@ -200,7 +237,8 @@ class Node:
             moniker=self.config.base.moniker,
             network=self.gen_doc.chain_id,
             other=compact.wire_capabilities(cc.compact, cc.vote_agg))
-        self.switch = Switch(self.config.p2p, node_key, node_info)
+        self.switch = Switch(self.config.p2p, node_key, node_info,
+                             loop=self._ensure_loop())
         # the p2p identity on every tm.* log line of the process
         _log.bind(node=node_info.id[:8])
 
@@ -257,6 +295,9 @@ class Node:
                 # without replay) but must be visible
                 self.logger.error("WAL catchup replay skipped", err=str(e))
 
+        if self.loop is not None:
+            self.loop.start()
+
         if self.switch is not None:
             host, port = _parse_laddr(self.config.p2p.laddr)
             self.switch.listen(host, port)
@@ -272,7 +313,13 @@ class Node:
 
         if self.with_rpc:
             from tendermint_tpu_torch.rpc import RPCEnv, make_server
-            self.rpc_server, _ = make_server(RPCEnv.from_node(self))
+            # the loop plane serves RPC on the SAME loop as the p2p
+            # sockets (rpc/aserver.py); threads keep the threaded server
+            rpc_loop = self._ensure_loop()
+            if rpc_loop is not None and not rpc_loop.running:
+                rpc_loop.start()
+            self.rpc_server, self.rpc_core = make_server(
+                RPCEnv.from_node(self), loop=rpc_loop)
             host, port = _parse_laddr(self.config.rpc.laddr)
             self.rpc_address = self.rpc_server.serve(host, port)
 
@@ -298,6 +345,10 @@ class Node:
             self.trust_store.save()
         else:
             self.consensus.stop()
+        if self.loop is not None and self._owns_loop:
+            # after the switch: peer teardowns run ON the loop; an
+            # injected loop belongs to its creator
+            self.loop.stop()
         if hasattr(self.mempool, "close"):
             self.mempool.close()
         self.app_conns.close()
@@ -314,7 +365,8 @@ class Node:
 
 
 def default_node(home: str, app=None, in_memory=False, with_p2p=False,
-                 fast_sync: Optional[bool] = None, device=None) -> Node:
+                 fast_sync: Optional[bool] = None, device=None,
+                 loop=None) -> Node:
     """DefaultNewNode (node/node.go:79): load config tree from `home`."""
     from tendermint_tpu_torch.config import default_config
     config = default_config(home)
@@ -325,4 +377,4 @@ def default_node(home: str, app=None, in_memory=False, with_p2p=False,
         fast_sync = with_p2p and config.base.fast_sync
     return Node(config, gen_doc, priv_validator=pv, app=app,
                 in_memory=in_memory, with_p2p=with_p2p,
-                fast_sync=fast_sync, device=device)
+                fast_sync=fast_sync, device=device, loop=loop)

@@ -1,7 +1,7 @@
 """Peer — one connected node: secret link + MConnection + NodeInfo: the
-port's copy of `tendermint_tpu/p2p/peer.py` (p2p/peer.go), on the thread
-plane (the JAX package's `LoopMConnection` branch waits for the event
-loop's port)."""
+port's copy of `tendermint_tpu/p2p/peer.py` (p2p/peer.go). Handed the
+node's ReactorLoop (`loop=`), the peer's socket runs on it through a
+LoopMConnection; without one, on the threaded MConnection."""
 
 from __future__ import annotations
 
@@ -45,13 +45,15 @@ class Peer:
                  dial_addr: Optional[NetAddress] = None,
                  send_rate: float = 512_000, recv_rate: float = 512_000,
                  ping_interval: float = 10.0, idle_timeout: float = 35.0,
-                 burst: Burst = Burst()):
+                 burst: Burst = Burst(), loop=None):
         self.node_info = node_info
         self.outbound = outbound
         self.persistent = persistent
         self.dial_addr = dial_addr
+        self.loop = loop
         # steady-state trust accounting: routed messages since the last
-        # good-event credit. Touched only by this peer's recv thread.
+        # good-event credit. Touched only by this peer's one delivery
+        # context (its recv thread or the loop).
         self._clean_msgs = 0
         # channels the REMOTE advertised: sends on others are no-ops —
         # the receiving MConnection treats unknown channels as a protocol
@@ -62,13 +64,20 @@ class Peer:
             lambda ch, p, m: None
         self._on_error: Callable[["Peer", Exception], None] = \
             lambda p, e: None
-        self.mconn = MConnection(
-            link, channel_descs,
+        conn_cls = MConnection
+        kw = {}
+        if loop is not None:
+            # the node's ONE event loop owns this peer's socket: no
+            # send/recv threads
+            from tendermint_tpu_torch.p2p.conn.loop import LoopMConnection
+            conn_cls, kw = LoopMConnection, {"loop": loop}
+        self.mconn = conn_cls(
+            link=link, channel_descs=channel_descs,
             on_receive=lambda ch, m: self._on_receive(ch, self, m),
             on_error=lambda e: self._on_error(self, e),
             send_rate=send_rate, recv_rate=recv_rate,
             ping_interval=ping_interval, idle_timeout=idle_timeout,
-            burst=burst)
+            burst=burst, **kw)
 
     # identity ---------------------------------------------------------------
 

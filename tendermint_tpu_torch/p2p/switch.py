@@ -10,10 +10,14 @@ The full connection path for either direction:
   -> NodeInfo exchange (version/network/channel compatibility)
   -> Peer(MConnection) started -> reactors notified
 
-The ban plane's settings and the frame bursts come from the P2PConfig
-(`ban_score`, `ban_base_s`, `fd_headroom`, `burst`, `burst_max`). Not
-ported: the telemetry families, the chaos link wrapper, UPnP and the
-event-loop plane.
+Handed the node's ReactorLoop (`loop=`), every peer's socket runs on it
+(LoopMConnection) once its handshake is done, and the reactors run their
+per-peer routines as the loop's tasks; accepts, handshakes and dials keep
+their threads, as in the JAX package. The ban plane's settings and the
+frame bursts come from the P2PConfig (`ban_score`, `ban_base_s`,
+`fd_headroom`, `burst`, `burst_max`). A wildcard listener asks a UPnP
+gateway for its external address when `skip_upnp` is false. Not ported:
+the telemetry families and the chaos link wrapper.
 """
 
 from __future__ import annotations
@@ -144,7 +148,7 @@ class SwitchError(Exception):
 
 class Switch:
     def __init__(self, config: P2PConfig, node_key: NodeKey,
-                 node_info: NodeInfo, encrypt: bool = True):
+                 node_info: NodeInfo, encrypt: bool = True, loop=None):
         # bound node id: several switches share a process, and a p2p line
         # is useless without knowing WHOSE switch logged it
         self.logger = get_logger(__name__, node=node_info.id[:8])
@@ -152,6 +156,8 @@ class Switch:
         self.node_key = node_key
         self.node_info = node_info
         self.encrypt = encrypt
+        # None: the thread-per-connection plane
+        self.loop = loop
         self.burst = Burst.from_config(config)
         self.reactors: Dict[str, object] = {}
         self.channel_descs: List[ChannelDescriptor] = []
@@ -314,6 +320,11 @@ class Switch:
         self._listener = ls
         bound = ls.getsockname()
         adv_host = external_host or self.config.external_addr or bound[0]
+        if adv_host in ("0.0.0.0", "::") and not self.config.skip_upnp:
+            # UPnP external-address detection (p2p/listener.go:51);
+            # best effort, within a 1.5 s budget
+            from tendermint_tpu_torch.p2p import upnp
+            adv_host = upnp.external_address() or adv_host
         if adv_host in ("0.0.0.0", "::"):
             # best effort: a wildcard bind with no configured external
             # address advertises the hostname's primary IP
@@ -491,7 +502,8 @@ class Switch:
             persistent=persistent, dial_addr=dial_addr,
             send_rate=self.config.send_rate, recv_rate=self.config.recv_rate,
             ping_interval=self.config.ping_interval_s,
-            idle_timeout=self.config.idle_timeout_s, burst=self.burst)
+            idle_timeout=self.config.idle_timeout_s, burst=self.burst,
+            loop=self.loop)
         peer.set_handlers(self._route, self._peer_error)
 
         if not self.peers.add(peer):
@@ -524,7 +536,8 @@ class Switch:
             # conn threads have exited to bound growth under churn —
             # but KEEP not-yet-started entries (empty thread list,
             # still running): another thread may be between registering
-            # and start().
+            # and start(). Loop conns have no threads: they are pruned
+            # once stopped (their teardown runs on the loop).
             self._started_peers = [
                 p for p in self._started_peers
                 if (any(t.is_alive() for t in p.mconn._threads)

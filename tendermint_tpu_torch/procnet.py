@@ -51,10 +51,13 @@ SRC_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def free_block(n_ports: int) -> int:
-    """A base port whose n_ports consecutive ports are free now."""
+    """A base port whose n_ports consecutive ports are free now, below
+    Linux's default ephemeral range (32768-60999): a node restarted on
+    its port must not find it taken by an outgoing connection, such as
+    a peer's redial to it that the kernel connected to itself."""
     rng = random.Random()
     for _ in range(200):
-        base = rng.randrange(20000, 60000, 2)
+        base = rng.randrange(20000, 32768 - n_ports, 2)
         socks = []
         try:
             for p in range(base, base + n_ports):
@@ -70,11 +73,14 @@ def free_block(n_ports: int) -> int:
     raise RuntimeError("no free block of ports")
 
 
-def bench_settings(verifier_backend: str = "auto") -> Dict[str, dict]:
+def bench_settings(verifier_backend: str = "auto", reactor: str = "auto",
+                   verifier_coalesce: str = "auto") -> Dict[str, dict]:
     """Config 1's socket settings (bench_testnet.py run_socket,
     :471-480): propose 400 ms + 100 a round, prevote and precommit
     200 ms + 100, commit 100 ms, 1000 txs a block, a mempool of 4000;
-    and the node's verifier backend."""
+    and the node's verifier backend and plane (`reactor`,
+    `verifier_coalesce`), written as the JAX `base` keys that both
+    packages read."""
     return {
         "consensus": {"timeout_propose": 400, "timeout_propose_delta": 100,
                       "timeout_prevote": 200, "timeout_prevote_delta": 100,
@@ -82,7 +88,8 @@ def bench_settings(verifier_backend: str = "auto") -> Dict[str, dict]:
                       "timeout_precommit_delta": 100,
                       "timeout_commit": 100, "max_block_size_txs": 1000},
         "mempool": {"size": 4000},
-        "base": {"verifier_backend": verifier_backend},
+        "base": {"verifier_backend": verifier_backend, "reactor": reactor,
+                 "verifier_coalesce": verifier_coalesce},
     }
 
 

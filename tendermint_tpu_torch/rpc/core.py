@@ -1,6 +1,6 @@
 """RPC core — the route table + handlers over node internals: the port's
 copy of `tendermint_tpu/rpc/core.py` (rpc/core/routes.go:8-50 + handlers;
-env injection mirrors rpc/core/pipe.go:42-119), on the thread plane.
+env injection mirrors rpc/core/pipe.go:42-119).
 
 Every handler returns plain JSON-able objects (bytes as hex). The route
 set matches the reference: status, net_info, blockchain, genesis, block,
@@ -13,17 +13,21 @@ Routes of the JAX table that read planes the port does not have yet are
 left out, all named in LEFT_OUT: the telemetry plane's `metrics`,
 `dump_height_timeline`, `debug_profile`, `healthz`, `slo` and the
 unsafe `unsafe_dump_trace` (with the raw GET /metrics, /debug/timeline,
-/healthz, /slo and /debug/pprof paths). The async front door's
-TxBatcher waits with the event-loop plane, and the broadcast routes'
-SLO stamps with the SLO plane. `net_info` also lists the switch's
-active bans, which the JAX route does not."""
+/healthz, /slo and /debug/pprof paths), and the broadcast routes' SLO
+stamps wait with the SLO plane. `net_info` also lists the switch's
+active bans, which the JAX route does not.
+
+`make_server(env)` builds the threaded server; `make_server(env, loop=)`
+the async front door on the node's ReactorLoop (rpc/aserver.py), with
+front-door tx batching: concurrent broadcast_tx_sync / _async calls merge
+into one Mempool.check_tx_batch a linger window (TxBatcher)."""
 
 from __future__ import annotations
 
 import queue
 import threading
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 from tendermint_tpu_torch.rpc.server import RPCError
 from tendermint_tpu_torch.types.events import Query, TagTxHash
@@ -83,11 +87,97 @@ class RPCEnv:
             blockchain_reactor=getattr(node, "blockchain_reactor", None))
 
 
+class TxBatcher:
+    """Front-door admission coalescing: concurrent broadcast_tx_sync /
+    _async calls arriving within a short linger merge into ONE
+    Mempool.check_tx_batch (one mempool lock and one tx-WAL append for
+    the batch); each waiter gets its own result back. `stats` counts the
+    txs and the flushes."""
+
+    def __init__(self, mempool, wait_s: float = 0.002,
+                 max_batch: int = 256):
+        self.mempool = mempool
+        self.wait_s = wait_s
+        self.max_batch = max_batch
+        self._cond = threading.Condition()
+        self._queue: list = []        #: guarded_by _cond
+        self._closed = False          #: guarded_by _cond
+        #: guarded_by _cond
+        self.stats = {"txs": 0, "flushes": 0, "max_batch_seen": 0}
+        # eager worker: part of the node's fixed thread set from
+        # construction
+        self._thread = threading.Thread(
+            target=self._run, daemon=True, name="tm-rpc-txbatch")
+        self._thread.start()
+
+    def snapshot(self) -> dict:
+        with self._cond:
+            return dict(self.stats)
+
+    def submit(self, tx: bytes, wait: bool = True):
+        """Queue one tx; wait=True blocks for its ResultCheckTx."""
+        slot: Optional[queue.SimpleQueue] = \
+            queue.SimpleQueue() if wait else None
+        with self._cond:
+            if self._closed:
+                raise RPCError(-32000, "tx batcher closed")
+            self._queue.append((bytes(tx), slot))
+            self._cond.notify()
+        if slot is None:
+            return None
+        res = slot.get()
+        if isinstance(res, BaseException):
+            raise res
+        return res
+
+    def close(self, timeout: float = 2.0) -> None:
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+        if self._thread is not threading.current_thread():
+            self._thread.join(timeout)
+
+    def _run(self) -> None:
+        while True:
+            with self._cond:
+                while not self._queue and not self._closed:
+                    self._cond.wait()
+                if self._closed and not self._queue:
+                    return
+            time.sleep(self.wait_s)   # linger: let a burst accumulate
+            with self._cond:
+                batch, self._queue = (self._queue[:self.max_batch],
+                                      self._queue[self.max_batch:])
+            if not batch:
+                continue
+            txs = [tx for tx, _ in batch]
+            try:
+                results = self.mempool.check_tx_batch(txs)
+            except Exception as e:
+                results = [e] * len(batch)
+            with self._cond:
+                self.stats["txs"] += len(batch)
+                self.stats["flushes"] += 1
+                self.stats["max_batch_seen"] = max(
+                    self.stats["max_batch_seen"], len(batch))
+            for (_, slot), res in zip(batch, results):
+                if slot is not None:
+                    slot.put(res)
+
+
 class RPCCore:
     def __init__(self, env: RPCEnv):
         self.env = env
+        self.tx_batcher: Optional[TxBatcher] = None
         self._profiler = None
         self._profiler_lock = threading.Lock()
+
+    def enable_tx_batching(self) -> None:
+        """Async front door: coalesce concurrent broadcast_tx admissions
+        (a no-op when the mempool lacks check_tx_batch)."""
+        if self.tx_batcher is None and \
+                hasattr(self.env.mempool, "check_tx_batch"):
+            self.tx_batcher = TxBatcher(self.env.mempool)
 
     def routes(self) -> Dict[str, Any]:
         """rpc/core/routes.go:8-37 (+ unsafe :39-50)."""
@@ -318,6 +408,17 @@ class RPCCore:
 
     def _check_tx(self, tx: bytes):
         from tendermint_tpu_torch.mempool import MempoolFull, TxAlreadyInCache
+        if self.tx_batcher is not None:
+            # front-door coalescing: admission errors come back as result
+            # codes and map onto the direct path's RPCError surface
+            res = self.tx_batcher.submit(tx)
+            if isinstance(res, Exception):
+                raise RPCError(-32000, str(res))
+            if res.code != 0 and (
+                    res.log == "tx already in cache" or
+                    res.log.startswith("mempool is full")):
+                raise RPCError(-32000, res.log)
+            return res
         try:
             return self.env.mempool.check_tx(tx)
         except TxAlreadyInCache:
@@ -326,11 +427,15 @@ class RPCCore:
             raise RPCError(-32000, str(e))
 
     def broadcast_tx_async(self, tx: bytes) -> dict:
-        """Fire-and-forget (rpc/core/mempool.go:51): the check runs on a
-        one-off thread."""
+        """Fire-and-forget (rpc/core/mempool.go:51): with the front-door
+        batcher the tx rides its next merged check_tx_batch; the thread
+        plane runs the check on a one-off thread."""
         import hashlib
-        threading.Thread(target=lambda: self._try_check(tx),
-                         daemon=True).start()
+        if self.tx_batcher is not None:
+            self.tx_batcher.submit(tx, wait=False)
+        else:
+            threading.Thread(target=lambda: self._try_check(tx),
+                             daemon=True).start()
         return jsonify({"hash": hashlib.sha256(tx).digest()})
 
     def _try_check(self, tx: bytes) -> None:
@@ -546,6 +651,21 @@ class RPCCore:
             raise RPCError(-32602, f"bad query: {e}")
         sub = bus.subscribe(ws.subscriber_id, query)
 
+        attach = getattr(ws, "attach_subscription", None)
+        if attach is not None:
+            # async front door: loop-native fan-out, no thread a
+            # subscriber; the drain renders each event as the pump does
+            def render(item):
+                return {"jsonrpc": "2.0", "id": "#event",
+                        "result": {"query": item.query,
+                                   "data": jsonify(item.data),
+                                   "tags": jsonify(item.tags)}}
+
+            attach(sub, render)
+            ws.on_close.append(
+                lambda w: bus.unsubscribe_all(w.subscriber_id))
+            return {}
+
         def pump():
             while ws.open and not sub.cancelled:
                 try:
@@ -575,11 +695,19 @@ class RPCCore:
         return {}
 
 
-def make_server(env: RPCEnv):
-    """Assemble the threaded RPCServer with the full route table."""
-    from tendermint_tpu_torch.rpc.server import RPCServer
+def make_server(env: RPCEnv, loop=None):
+    """Assemble a server with the full route table: the threaded
+    RPCServer, or, handed the node's ReactorLoop, the async front door
+    serving every connection on that loop with broadcast_tx batching."""
     core = RPCCore(env)
-    server = RPCServer()
+    if loop is not None:
+        from tendermint_tpu_torch.rpc.aserver import AsyncRPCServer
+        server = AsyncRPCServer(loop)
+        core.enable_tx_batching()
+        server._tx_batcher = core.tx_batcher
+    else:
+        from tendermint_tpu_torch.rpc.server import RPCServer
+        server = RPCServer()
     server.register_all(core.routes())
     for name, fn in core.ws_routes().items():
         server.register(name, fn, ws_only=True)

@@ -22,7 +22,7 @@ import re
 import threading
 from collections import deque
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 # reserved event types (types/events.go:12-32)
 EventNewBlock = "NewBlock"
@@ -133,6 +133,11 @@ class Subscription:
         self.capacity = max(1, int(capacity))
         self.cancelled = False
         self.dropped = 0
+        # optional push hook (the async RPC server): called after every
+        # put(), outside the buffer lock, on the publisher's thread; the
+        # loop plane's WebSocket fan-out schedules its drain here
+        # instead of running a pump thread a subscriber
+        self.on_put: Optional[Callable[[], None]] = None
         self._items: "deque[EventItem]" = deque()
         self._cond = threading.Condition()
 
@@ -145,6 +150,9 @@ class Subscription:
                 self.dropped += 1
             self._items.append(item)
             self._cond.notify()
+        hook = self.on_put
+        if hook is not None:
+            hook()
         return dropped
 
     def get(self, timeout: Optional[float] = None) -> EventItem:

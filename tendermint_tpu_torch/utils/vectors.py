@@ -24,7 +24,8 @@ small-order and non-canonical encodings:
   x0_sign_ym1  pubkey x = 0 with the sign bit set and y = p - 1
 
 Rows are the kernels' inputs: pk, R, s, h as uint8[n, 32] (h already
-reduced mod L) and the oracle's verdict per lane.
+reduced mod L) and the oracle's verdict per lane. `edge_items(n, seed)`
+gives edge_batch's lanes as (pubkey, msg, sig) verifier items.
 """
 
 from __future__ import annotations
@@ -52,9 +53,9 @@ def _invalid_pubkey(rng) -> bytes:
             return b
 
 
-def edge_batch(n: int, seed: int, n_keys: int = 16) -> dict:
-    """{"pk", "rb", "s", "h": uint8[n, 32], "expect": bool[n],
-    "kind": list[str]}."""
+def _edge_lanes(n: int, seed: int, n_keys: int):
+    """(kind, pubkey, msg, sig) of each lane of KINDS, cycled ("zero"
+    lanes carry the honest values, which edge_batch replaces)."""
     rng = np.random.RandomState(seed)
     keys = []
     for _ in range(n_keys):
@@ -63,7 +64,6 @@ def edge_batch(n: int, seed: int, n_keys: int = 16) -> dict:
         keys.append((a, prefix, ed25519_fast.public_key(sk)))
     noncanon = (ref.P + 1).to_bytes(32, "little")
     x0_sign = (1 | (1 << 255)).to_bytes(32, "little")
-    rows = {"pk": [], "rb": [], "s": [], "h": [], "expect": [], "kind": []}
     for i in range(n):
         kind = KINDS[i % len(KINDS)]
         msg = rng.bytes(int(rng.randint(0, 64)))
@@ -85,6 +85,14 @@ def edge_batch(n: int, seed: int, n_keys: int = 16) -> dict:
             pk = noncanon
             sig = ref.point_compress(ed25519_fast._mul_base(s)) + \
                 s.to_bytes(32, "little")
+        yield kind, pk, msg, sig
+
+
+def edge_batch(n: int, seed: int, n_keys: int = 16) -> dict:
+    """{"pk", "rb", "s", "h": uint8[n, 32], "expect": bool[n],
+    "kind": list[str]}."""
+    rows = {"pk": [], "rb": [], "s": [], "h": [], "expect": [], "kind": []}
+    for kind, pk, msg, sig in _edge_lanes(n, seed, n_keys):
         if kind == "zero":
             pk, rb, s_b, h_b, ok = (b"\x00" * 32,) * 4 + (False,)
         else:
@@ -98,6 +106,18 @@ def edge_batch(n: int, seed: int, n_keys: int = 16) -> dict:
     out["expect"] = np.array(rows["expect"], np.bool_)
     out["kind"] = rows["kind"]
     return out
+
+
+def edge_items(n: int, seed: int, n_keys: int = 16) -> tuple:
+    """The lanes of edge_batch as verifier items: ([(pubkey, msg, sig)],
+    [oracle verdict]); a "zero" lane is an all-zero key and signature."""
+    items, expect = [], []
+    for kind, pk, msg, sig in _edge_lanes(n, seed, n_keys):
+        if kind == "zero":
+            pk, msg, sig = b"\x00" * 32, b"", b"\x00" * 64
+        items.append((pk, msg, sig))
+        expect.append(ed25519_fast.verify(pk, msg, sig))
+    return items, expect
 
 
 PROBE_KINDS = ("torsion_pk", "torsion_r", "mixed_order", "noncanon_r",

@@ -3,13 +3,18 @@
 - Importing every module of the port (lite/, storage/, state/ with the
   tx indexer, abci/ with the socket client and server, blockchain/, p2p/
   with its conn/, pex/ and socknet, consensus/ with its reactor,
-  mempool/ and evidence/ with theirs, rpc/, node, cli, __main__ and
-  procnet included), and chip_smoke.py
+  mempool/ and evidence/ with theirs, rpc/ with the async front door,
+  the event loop, the coalescer, UPnP, node, cli, __main__ and procnet
+  included), and chip_smoke.py
   as a module, in a fresh interpreter loads neither jax nor any
   tendermint_tpu module.
 - No source of the port (nor chip_smoke.py) imports them (AST check).
 - No C++/CUDA source of the port's csrc/ includes a file outside csrc/
   (system headers aside).
+- The modules of the node's default plane (config, the event loop, the
+  coalescer and verifier, the async front door and RPC core, UPnP, the
+  node) read no environment variable: their settings are config fields
+  and constructor arguments.
 - An entry point given no device raises when no CUDA device is present:
   the port never moves to the CPU quietly. `python -m
   tendermint_tpu_torch.cli node` without a card and without `--device
@@ -64,7 +69,8 @@ def test_walk_covers_every_subpackage():
                 "mempool.reactor", "evidence.reactor", "abci.server",
                 "state.txindex", "p2p.pex.addrbook", "p2p.pex.pex_reactor",
                 "rpc.server", "rpc.core", "rpc.client", "__main__",
-                "procnet"):
+                "procnet", "models.coalescer", "p2p.conn.loop",
+                "p2p.upnp", "rpc.aserver"):
         assert f"tendermint_tpu_torch.{mod}" in mods, mod
 
 
@@ -128,6 +134,23 @@ def test_port_source_imports_no_jax(path):
         else:
             continue
         assert not any(_forbidden(n) for n in names), (path, names)
+
+
+PLANE_SOURCES = [PORT / m for m in (
+    "config.py", "p2p/conn/loop.py", "models/coalescer.py",
+    "models/verifier.py", "rpc/aserver.py", "rpc/core.py", "p2p/upnp.py",
+    "p2p/switch.py", "p2p/peer.py", "node.py", "cli.py")]
+
+
+@pytest.mark.parametrize("path", PLANE_SOURCES,
+                         ids=lambda p: str(p.relative_to(PORT)))
+def test_plane_modules_read_no_environment_variable(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        name = (node.attr if isinstance(node, ast.Attribute) else
+                node.id if isinstance(node, ast.Name) else None)
+        assert name not in ("environ", "getenv", "putenv"), \
+            (path, getattr(node, "lineno", None))
 
 
 @pytest.fixture

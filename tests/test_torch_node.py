@@ -473,3 +473,185 @@ def test_a_failed_device_verify_halts_the_node(monkeypatch):
         node.stop()
     assert isinstance(node.consensus.fatal_error, tverifier.VerifierError)
     assert node.height == 0
+
+
+# ------------------------------------------------------ the socket plane
+
+def _plane_net(reactor: str, coalesce: str):
+    """Two port validators in one process, in-memory, on `reactor`, the
+    second dialling the first."""
+    keys = [tkeys.PrivKey.generate(bytes([0x31 + i]) * 32) for i in range(2)]
+    gen = tgen.GenesisDoc(
+        chain_id="plane", genesis_time_ns=T0,
+        validators=[tgen.GenesisValidator(k.pubkey.ed25519, 10)
+                    for k in keys])
+    nodes = []
+    for k in keys:
+        cfg = tconfig.test_config()
+        cfg.base.verifier_backend = "python"
+        cfg.base.reactor = reactor
+        cfg.base.verifier_coalesce = coalesce
+        cfg.p2p.laddr = "tcp://127.0.0.1:0"
+        cfg.p2p.pex = False
+        nodes.append(tnode.Node(
+            cfg, gen, priv_validator=tpv.PrivValidator(tpv.LocalSigner(k)),
+            in_memory=True, with_p2p=True))
+    return nodes
+
+
+@pytest.mark.parametrize("reactor,coalesce", [("auto", "auto"),
+                                              ("threads", "off")])
+def test_two_node_net_runs_the_configured_plane(reactor, coalesce):
+    """The default plane ("auto") runs one tm-reactor-loop thread a node
+    and no per-peer thread (mconn-, gossip-, mempool-bcast-), with every
+    peer a LoopMConnection and a coalescing verifier; "threads" with
+    coalescing off is the plane before the event loop: no loop, threaded
+    MConnections and gossip threads, every verify a direct call."""
+    import threading
+    from tendermint_tpu_torch.p2p.conn.loop import LoopMConnection
+    from tendermint_tpu_torch.p2p.conn.mconn import MConnection
+    before = {t.ident for t in threading.enumerate()}
+    nodes = _plane_net(reactor, coalesce)
+    try:
+        for n in nodes:
+            n.start()
+        nodes[1].switch.dial_peer(nodes[0].switch.listen_address)
+        t0 = time.monotonic()
+        while min(n.height for n in nodes) < 3:
+            assert time.monotonic() - t0 < 60, [n.height for n in nodes]
+            time.sleep(0.02)
+        new = [t.name for t in threading.enumerate()
+               if t.ident not in before]
+        per_peer = [x for x in new
+                    if x.startswith(("mconn-", "gossip-", "mempool-bcast-"))]
+        loops = [x for x in new if x.startswith("tm-reactor-loop")]
+        for n in nodes:
+            peer = n.switch.peers.list()[0]
+            v = n.verifier.stats
+            if reactor == "auto":
+                assert n.reactor == "loop" and n.loop.running
+                assert type(peer.mconn) is LoopMConnection
+                assert n.verifier.coalesce == "auto"
+                assert v["coalesced_calls"] > 0
+                st = n.verifier.coalescer_stats()
+                assert st["merged_calls"] <= st["submissions"] == \
+                    v["coalesced_calls"]
+            else:
+                assert n.reactor == "threads" and n.loop is None
+                assert type(peer.mconn) is MConnection
+                assert v["coalesced_calls"] == 0
+                assert v["calls"] == v["direct_calls"] > 0
+        if reactor == "auto":
+            assert per_peer == [] and len(loops) == 2, new
+        else:
+            assert loops == [] and len(per_peer) >= 2 * 5, new
+        assert tcli.thread_census()["tm-reactor-loop"] >= len(loops)
+    finally:
+        for n in nodes:
+            n.stop()
+    assert all(n.loop is None or not n.loop.running for n in nodes)
+
+
+def test_plane_settings_of_a_jax_tree_reach_the_port_node(tmp_path):
+    """`reactor` and `verifier_coalesce*` are the JAX `base` keys; a
+    value outside their sets refuses the config at load, as the JAX
+    node refuses it when it builds its loop and its verifier."""
+    _tree(JAX, tmp_path, 47700)
+    home = str(tmp_path / "node0")
+    path = os.path.join(home, "config", "config.json")
+    cfg = tconfig.default_config(home)
+    assert (cfg.base.reactor, cfg.base.verifier_coalesce,
+            cfg.base.verifier_coalesce_wait_ms,
+            cfg.base.verifier_coalesce_max_batch) == ("auto", "auto", 2.0, 0)
+    obj = json.load(open(path))
+    obj["base"].update(reactor="threads", verifier_coalesce="off",
+                       verifier_coalesce_wait_ms=3.5,
+                       verifier_coalesce_max_batch=64,
+                       verifier_backend="python")
+    json.dump(obj, open(path, "w"))
+    cfg = tconfig.default_config(home)
+    j = jconfig.default_config(home)
+    assert (cfg.base.reactor, cfg.base.verifier_coalesce,
+            cfg.base.verifier_coalesce_wait_ms,
+            cfg.base.verifier_coalesce_max_batch) == \
+        (j.base.reactor, j.base.verifier_coalesce,
+         j.base.verifier_coalesce_wait_ms,
+         j.base.verifier_coalesce_max_batch) == ("threads", "off", 3.5, 64)
+    node = tnode.default_node(home, with_p2p=True)
+    try:
+        assert node.reactor == "threads" and node.loop is None
+        assert node.verifier.coalesce == "off"
+        assert node._owns_verifier
+    finally:
+        node.stop()
+    for key, bad in (("reactor", "fibers"), ("verifier_coalesce", "maybe"),
+                     ("verifier_coalesce_wait_ms", -1)):
+        obj2 = json.loads(json.dumps(obj))
+        obj2["base"][key] = bad
+        json.dump(obj2, open(path, "w"))
+        with pytest.raises(ValueError):
+            tconfig.default_config(home)
+
+
+def _restart_after_a_crash_before_the_update(P, home):
+    """A node of package P whose last stored block holds txs that its tx
+    WAL still holds, as after a SIGKILL between the block's save and the
+    mempool's update: the rebuilt node's pending txs, and the block's."""
+    single_node(P, home=home).stop()
+    P.clock.set_source(None)
+    key, gen = genesis(P)
+    pv_path = os.path.join(home, "pv.json")
+    holder = []
+    height_clock(P, holder)
+    node = P.node.Node(node_config(P, home), gen,
+                       priv_validator=P.pv.PrivValidatorFile.load(pv_path))
+    holder.append(node)
+    inner = node.mempool.update
+    crash_txs = [b"crash=1"]
+
+    def update(height, txs):
+        inner(height, txs)
+        if crash_txs[0] in txs:
+            # the state machine ends with this block: no proof block
+            node.consensus._stopped = True
+    node.mempool.update = update
+    for tx in crash_txs:
+        node.mempool.check_tx(tx)
+    try:
+        node.start()
+        t0 = time.monotonic()
+        while not node.consensus._stopped:
+            assert time.monotonic() - t0 < 30
+            time.sleep(0.01)
+        top = node.block_store.height()
+        txs = list(node.block_store.load_block(top).data.txs)
+    finally:
+        node.stop()
+        P.clock.set_source(None)
+    with open(os.path.join(home, "data", "mempool.wal", "wal"), "ab") as f:
+        for tx in txs:                  # the WAL as the crash left it
+            f.write(len(tx).to_bytes(4, "big") + tx)
+    node = P.node.Node(node_config(P, home), gen,
+                       priv_validator=P.pv.PrivValidatorFile.load(pv_path))
+    try:
+        return [bytes(t) for t in node.mempool.reap(-1)], txs
+    finally:
+        node.stop()
+
+
+def test_a_crash_before_the_mempool_update_does_not_replay_the_block(
+        tmp_path):
+    """A fault of the reference the port fixes (ROADMAP Queue 3): the
+    tx WAL is rewritten by the mempool's update after each commit, and
+    replayed at start; a SIGKILL between a block's save and that update
+    leaves the block's txs in the WAL, so the restarted JAX node holds
+    them pending again and proposes them at its next turn (committed
+    twice). The port's node drops its last stored block's txs after
+    the replay."""
+    port, txs = _restart_after_a_crash_before_the_update(
+        PORT, str(tmp_path / "port"))
+    jax, jtxs = _restart_after_a_crash_before_the_update(
+        JAX, str(tmp_path / "jax"))
+    assert txs == jtxs == [b"crash=1"]
+    assert port == []
+    assert jax == txs

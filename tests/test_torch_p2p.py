@@ -890,28 +890,52 @@ def test_ban_escalation_and_decay_match_jax(monkeypatch):
     assert t._ban_score == j._ban_score and t._fd_headroom == j._fd_headroom
 
 
-def test_add_peer_reaches_reactors_only_for_the_registered_connection():
+@pytest.mark.parametrize("plane", ["threads", "loop"])
+def test_add_peer_reaches_reactors_only_for_the_registered_connection(plane):
     """The simultaneous-dial tiebreak can replace a connection between its
     registration and the reactors' add_peer; the JAX package's switch
     then still calls add_peer for the dead one, whose state overwrites
     the live peer's by id. The port's switch tells the reactors only of
-    the connection registered for the id."""
-    sw = make_switch(seed=b"\x01" * 32)
-    r = EchoReactor()
-    sw.add_reactor("echo", r)
-    other = make_switch(seed=b"\x02" * 32).node_info
-    dead, live = (tp2p.Peer(tmconn.PlainFramedConn(SinkSock()), other,
-                            sw.channel_descs, outbound=o) for o in (True,
-                                                                    False))
-    assert sw.peers.add(live)
-    sw._notify_added(dead)
-    assert r.added == []
-    sw._notify_added(live)
-    assert r.added == [other.id]
-    sw._remove_peer(dead, "replaced")       # a late error of the dead one
-    assert r.removed == [] and sw.peers.get(other.id) is live
-    sw._remove_peer(live, "gone")
-    assert r.removed == [other.id] and sw.peers.size() == 0
+    the connection registered for the id, on the thread plane and on the
+    event loop (where each peer is a LoopMConnection)."""
+    from tendermint_tpu_torch.p2p.conn.loop import (LoopMConnection,
+                                                    ReactorLoop)
+    loop = ReactorLoop(name="tm-reactor-loop-test") \
+        if plane == "loop" else None
+    socks = []
+
+    def link():
+        if loop is None:
+            return tmconn.PlainFramedConn(SinkSock())
+        a, b = socket.socketpair()
+        socks.extend((a, b))
+        return tmconn.PlainFramedConn(a)
+    try:
+        if loop is not None:
+            loop.start()
+        sw = make_switch(seed=b"\x01" * 32)
+        sw.loop = loop
+        r = EchoReactor()
+        sw.add_reactor("echo", r)
+        other = make_switch(seed=b"\x02" * 32).node_info
+        dead, live = (tp2p.Peer(link(), other, sw.channel_descs,
+                                outbound=o, loop=loop)
+                      for o in (True, False))
+        assert isinstance(live.mconn, LoopMConnection) == (plane == "loop")
+        assert sw.peers.add(live)
+        sw._notify_added(dead)
+        assert r.added == []
+        sw._notify_added(live)
+        assert r.added == [other.id]
+        sw._remove_peer(dead, "replaced")   # a late error of the dead one
+        assert r.removed == [] and sw.peers.get(other.id) is live
+        sw._remove_peer(live, "gone")
+        assert r.removed == [other.id] and sw.peers.size() == 0
+    finally:
+        if loop is not None:
+            loop.stop()
+        for s in socks:
+            s.close()
 
 
 # ------------------------------------------------- settings off their default

@@ -4,15 +4,20 @@ its own interpreter, started as users start it,
 `cli testnet` tree, fed and read over JSON-RPC and WebSocket.
 
 - Four port node processes (`--device cpu`) from a port-written tree,
-  on config 1's socket timeouts, take txs through WebSocket
+  on config 1's socket timeouts and the JAX node's default plane (the
+  event loop, a coalescing verifier, the async RPC front door), take
+  txs through WebSocket
   broadcast_tx_batch, reach height >= 3 and agree on every block hash
   and app hash; every fed tx is committed once, and each node answers
   abci_query for a seeded sample of keys. Node 3 is then SIGKILLed and
   restarted with fast sync; it catches up, and its killed process's
-  counts are read from the line of the last height it committed.
+  counts are read from the line of the last height it committed. Every
+  process reports one tm-reactor-loop thread, no per-peer thread and
+  coalesced verify calls.
 - A mixed net of two JAX processes (JAX_PLATFORMS=cpu, verifier_backend
-  "python", the JAX node's defaults otherwise) and two port processes
-  from one JAX-written tree agrees on every block hash and app hash, and
+  "python", the JAX node's defaults otherwise) and two port processes,
+  both packages on the loop plane, from one JAX-written tree agrees on
+  every block hash and app hash, and
   commits every fed tx and nothing else. Not each tx once: a JAX node
   admits a committed tx it never held when late gossip brings it, and
   proposes it again (ROADMAP Queue 3); the port's nodes commit that
@@ -80,7 +85,20 @@ def test_four_port_processes_commit_fed_txs_and_agree(tmp_path):
     for line in sum(lines.values(), []):
         assert line["device"] == "cpu" and line["verifier"]["calls"] > 0
         assert sum(line["launches"].values()) == 0
+        _assert_loop_plane(line)
     shutil.rmtree(tmp_path, ignore_errors=True)
+
+
+def _assert_loop_plane(line):
+    """A port process's `node kernels` line on the JAX default plane."""
+    th = line["threads"]
+    assert line["reactor"] == "loop" and th["tm-reactor-loop"] == 1, th
+    assert th["mconn-"] == th["gossip-"] == th["mempool-bcast-"] == 0, th
+    v, c = line["verifier"], line["coalescer"]
+    assert v["coalesced_calls"] > 0 and c["submissions"] > 0
+    assert v["calls"] == v["direct_calls"] + c["dispatches"] + \
+        c["isolated_calls"]
+    assert line["loop"]["ticks"] > 0
 
 
 def test_mixed_jax_and_port_processes_agree_on_every_block(tmp_path):
@@ -107,4 +125,6 @@ def test_mixed_jax_and_port_processes_agree_on_every_block(tmp_path):
         codes = net.stop_all()
     assert codes == {i: 0 for i in range(4)}
     assert [len(net.kernel_lines(i)) for i in range(4)] == [0, 1, 0, 1]
+    for i in (1, 3):
+        _assert_loop_plane(net.kernel_lines(i)[0])
     shutil.rmtree(tmp_path, ignore_errors=True)

@@ -235,11 +235,14 @@ def test_small_auto_batch_stays_on_host():
 
 def test_stats_time_the_dispatch_and_the_wait_not_the_callers_work():
     """A resolver handed back and called later: the caller's work in
-    between is in neither dispatch_s nor wait_s."""
+    between is in neither dispatch_s nor wait_s. On the direct path
+    (coalesce "off") the dispatch is timed before verify_async returns;
+    a coalesced call (the default) is dispatched on the coalescer's
+    thread, timed there."""
     sks, pks = _keys(107, 4)
     items = [(pk, b"m%d" % i, sk.sign(b"m%d" % i))
              for i, (sk, pk) in enumerate(zip(sks, pks))]
-    v = TVerifier("python")
+    v = TVerifier("python", coalesce="off")
     resolve = v.verify_async(items)
     dispatched = v.stats["dispatch_s"]
     assert dispatched > 0 and v.stats["wait_s"] == 0
@@ -247,6 +250,16 @@ def test_stats_time_the_dispatch_and_the_wait_not_the_callers_work():
     assert resolve().all() and resolve().all()
     assert v.stats["dispatch_s"] == dispatched
     assert 0 < v.stats["dispatch_s"] + v.stats["wait_s"] < 0.5
+    v = TVerifier("python")
+    try:
+        resolve = v.verify_async(items)
+        time.sleep(0.5)
+        assert resolve().all() and resolve().all()
+        assert v.stats["dispatch_s"] > 0 and v.stats["wait_s"] > 0
+        assert v.stats["dispatch_s"] + v.stats["wait_s"] < 0.5
+        assert (v.stats["coalesced_calls"], v.stats["calls"]) == (1, 1)
+    finally:
+        v.close()
 
 
 def test_secp256k1_mixed_batch_matches_jax_on_every_backend(verifiers):
