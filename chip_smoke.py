@@ -104,7 +104,13 @@ Phases, each printing its own lines:
    wait in fut.result(); apply: the power check, save_block,
    validate_block and validate_basic, exec_block_on_app with deliver,
    results_hash, the persisted responses, app commit, state save), with
-   the kernels' event ms and the device-busy share. Then a second node
+   the kernels' event ms and the device-busy share; `sync_apply_per_block`
+   gives those apply stages a block. Every synced block must take the
+   kvstore's native core (kvstore.route_stats), and `sync_native_record`
+   (a record, not a check) times one synced block's txs on a fresh
+   native and a fresh pure app, and its per-tx responses object through
+   the codec and the specification path (equal bytes and hashes are
+   required). Then a second node
    syncs 300 blocks from a peer whose block 201 carries a flipped
    signature byte in its last commit: the window must stop at 199 applied
    blocks, height 200 be re-requested, the peer stopped and the window in
@@ -115,7 +121,8 @@ Phases, each printing its own lines:
 9. consensus: BASELINE.json config 1, four in-process validators (keys
    of seed bytes([i + 1]) * 32, power 10, the kvstore app, a real mempool,
    evidence pool and event bus each, MockTicker) over a full-mesh relay
-   (consensus/testnet.Testnet), node 3 on SQLite stores and a file WAL.
+   (consensus/testnet.Testnet), node 3 on SQLite stores and a file WAL,
+   on the serial commit path (pipeline "off", as phase 10).
    Run A on BatchVerifier("cuda"): 100 heights, 1000 fresh txs fed to
    every mempool before each (check_tx_batch) on a clock stepped one
    second a height; a standby key joins by a val: tx at 20 and leaves at
@@ -192,7 +199,9 @@ Phases, each printing its own lines:
    and precommit 200 ms + 100, commit 100 ms, 1000 txs a block, a
    mempool of 4000), verifier_backend "cuda" and the thread plane without
    coalescing (reactor "threads", verifier_coalesce "off", the plane of
-   its runs before the event loop, so that they stay comparable), and
+   its runs before the event loop, so that they stay comparable) on the
+   serial commit path (pipeline "off"; the native codec and kv core run
+   in every phase), and
    four `cli node --p2p --no-fast-sync`
    processes start (each a fresh interpreter with its own
    CUDA context; the ladder library is phase 1's, same digest). Two
@@ -225,8 +234,8 @@ Phases, each printing its own lines:
    card tensors, each caller's slice its oracle verdict and its own
    direct launch; then a merge whose launch fails must reach all its
    callers as VerifierError. Then phase 11's net and checks on reactor
-   "auto" (one event loop a process) and verifier_coalesce "auto"
-   (procnet_loop): 200 WebSocket subscribers of NewBlock on node 1
+   "auto" (one event loop a process) and verifier_coalesce "auto", still
+   on the serial commit path (pipeline "off") (procnet_loop): 200 WebSocket subscribers of NewBlock on node 1
    (above the thread server's 100-connection cap), subscribed before
    the boot and read by one selector thread here, must each see every
    height 5-40 in order; a third feeder of 32 WebSocket connections to
@@ -251,7 +260,28 @@ Phases, each printing its own lines:
    and launch B1 in every process: blocks/s,
    B1 launches a node, calls and host ms a call, the loop's busy share;
    a record, not a check).
-13. the kernel table as one JSON line, the card again, then the last line
+13. the JAX node's default commit path (procnet_pipeline): phase 12's
+   net, load and checks with pipeline "auto", the node's default (the
+   pipelined finalize with group commit, streaming part sets from
+   tm_partset_build, the precomputed next proposal; the native codec and
+   kv core). Every process must also show one group flush a height it
+   committed in consensus (node 3's killed process within one of its
+   last printed height; its restarted process between the heights after
+   its sync and after its handshake), no failed precompute, every part
+   set built natively and every block on the kv core; node 3's restart
+   must find its block store at its state's height or one above. Prints
+   `procnet_pipeline`, `procnet_pipeline_restart`,
+   `procnet_pipeline_kernels`, `procnet_pipeline_commit_path` (each
+   process's group flushes, stage ms, precompute outcomes, overlap
+   ratio, part sets, codec calls and fallbacks, kvstore routes, B1
+   launches), `procnet_pipeline_device` and `pipeline_ab` (phase 12's
+   blocks/s beside this one's; a record). Then the crash sweep in this
+   process (`procnet_pipeline_crash_sweep`): tests/test_fail_points.py's
+   sweep on a single-validator node verifying on the card, crashed at
+   each of the ten pipelined fail points that fire without the state
+   tree, rebuilt from its files; app hash and every block equal to an
+   uncrashed run's, B1 launched.
+14. the kernel table as one JSON line, the card again, then the last line
    {"ok": true, "device": {...}}.
 
 Any mismatch or exception ends the run with a non-zero code before the
@@ -285,7 +315,9 @@ import numpy as np
 import torch
 
 from tendermint_tpu_torch import native
+from tendermint_tpu_torch import pipeline as tpipeline
 from tendermint_tpu_torch.abci.apps import KVStoreApp
+from tendermint_tpu_torch.abci.apps import kvstore
 from tendermint_tpu_torch.abci.client import LocalClient
 from tendermint_tpu_torch.abci.proxy import AppConns, local_client_creator
 from tendermint_tpu_torch.abci.types import ValidatorUpdate
@@ -322,6 +354,7 @@ from tendermint_tpu_torch.types.validator_set import Validator, ValidatorSet
 from tendermint_tpu_torch.types.vote import Vote, VoteType
 from tendermint_tpu_torch.types.vote_set import ConflictingVoteError, VoteSet
 from tendermint_tpu_torch.utils import clock as tclock
+from tendermint_tpu_torch.utils import fail as tfail
 from tendermint_tpu_torch.utils import (ed25519_fast, ed25519_ref,
                                         secp256k1_ref, vectors)
 
@@ -1604,7 +1637,7 @@ def _step_merkle(block, device, card) -> None:
     txs = block.data.txs
     n = len(txs)
     t0 = _ms()
-    host_root = merkle.root_host(txs)
+    host_root = merkle.root_plain(txs)
     t1 = _ms()
     dev_root = merkle.root(txs)
     t2 = _ms()
@@ -1634,17 +1667,21 @@ def _step_merkle(block, device, card) -> None:
         [flat[64 * i:64 * (i + 1)] for i in range(SHA_ROWS)])
     t9 = _ms()
     sha_equal = got.cpu().numpy().tobytes() == b"".join(want)
+    t10 = _ms()
+    native_root = merkle.root_host(txs)
+    t11 = _ms()
     emit({"phase": "block_merkle", "leaves": n,
           "padded_leaves": padded.shape[0],
           "root_equal": dev_root == host_root == block.data.hash(),
           "root_wall_ms": t2 - t1, "root_wall_warm_ms": t3 - t2,
           "host_leaf_ms": t4 - t3, "device_tree_ms": tree_ms,
           "device_level_ms": level_ms, "device_level_kernel_ms": level_busy_ms,
-          "hashlib_root_ms": t1 - t0, "sha_rows": SHA_ROWS,
+          "hashlib_root_ms": t1 - t0, "native_root_ms": t11 - t10,
+          "sha_rows": SHA_ROWS,
           "hash_fixed_ms": sha_ms, "hash_fixed_kernel_ms": sha_busy_ms,
           "hashlib_ms": t9 - t8, "hash_fixed_equal": sha_equal,
           "profiler_wall_ms": (t6 - t5) + (t8 - t7), "card": card})
-    require(dev_root == host_root == block.data.hash()
+    require(dev_root == host_root == native_root == block.data.hash()
             and tree_root.cpu().numpy().tobytes() == host_root,
             "the device Merkle root differs from the host's")
     require(sha_equal, "hash_fixed differs from hashlib")
@@ -1882,6 +1919,7 @@ def _sync_step(gen, recv, blocks, state_final, verifier, timer, card):
     collected: list = []
     saved = _patched(_sync_patches(reactor, ss, bs, exe, st, collected))
     calls, marks = [], []
+    kv_before = kvstore.route_stats()
     try:
         t0 = time.perf_counter()
         reactor.pool.make_next_requests()
@@ -1908,6 +1946,7 @@ def _sync_step(gen, recv, blocks, state_final, verifier, timer, card):
     finally:
         _restore(saved)
         reactor.stop()
+    kv_routes = {k: v - kv_before[k] for k, v in kvstore.route_stats().items()}
     for c, mark, end in zip(calls, marks, marks[1:] + [len(timer)]):
         c.update(_step_kernels(timer[:end], mark))
     routes = [c["route"] for c in calls]
@@ -1921,9 +1960,21 @@ def _sync_step(gen, recv, blocks, state_final, verifier, timer, card):
           "calls": calls, "kernel_ms": kernel_ms, "launches_ms": per_launch,
           "device_busy": sum(kernel_ms.values()) / (wall_s * 1e3),
           "verifier_stats": dict(verifier.stats), "card": card})
+    applied = sum(c["applied"] for c in calls)
+    emit({"phase": "sync_apply_per_block", "blocks": applied,
+          "stages_ms_per_block": {
+              k: sum(c[k] for c in calls) / max(1, applied) for k in
+              ("apply_ms", "save_block_ms", "validate_ms",
+               "validate_basic_ms", "exec_ms", "deliver_ms",
+               "results_hash_ms", "responses_obj_ms", "save_responses_ms",
+               "app_commit_ms", "state_save_ms")},
+          "kvstore_routes": kv_routes, "card": card})
     want = _expected_routes(SYNC_BLOCKS, reactor.verify_window, verifier)
     require(routes == want, f"the windows took cache routes {routes}, "
                             f"want {want}")
+    require(kv_routes == {"native": SYNC_BLOCKS, "per_tx": 0, "pure": 0},
+            f"synced blocks off the kv core: {kv_routes}")
+    _sync_native_record(blocks[SYNC_BLOCKS // 2], card)
     require(tenc.cdumps(reactor.state.to_obj())
             == tenc.cdumps(state_final.to_obj())
             and ss.load().equals(state_final),
@@ -1935,6 +1986,43 @@ def _sync_step(gen, recv, blocks, state_final, verifier, timer, card):
         for h in range(1, SYNC_BLOCKS + 1)),
         "a stored block or seen commit differs from the chain builder's")
     return calls
+
+
+def _sync_native_record(block, card) -> None:
+    """A record, not a check: on one synced block's txs, the native app's
+    deliver and commit against the pure app's (fresh apps), and the
+    canonical JSON of its per-tx responses object through the codec
+    against the specification path. The two must give equal bytes and
+    hashes."""
+    txs = block.data.txs
+    t0 = _ms()
+    nat = KVStoreApp()
+    res_n = nat.deliver_tx_batch(txs)
+    hash_n = nat.commit()
+    t1 = _ms()
+    pure = KVStoreApp(use_native=False)
+    res_p = pure.deliver_tx_batch(txs)
+    hash_p = pure.commit()
+    t2 = _ms()
+    obj = texec.ABCIResponses(res_p, {"validator_updates": [],
+                                      "consensus_param_updates": None,
+                                      "tags": {}}).to_obj()
+    t3 = _ms()
+    got = tenc.cdumps(obj)
+    t4 = _ms()
+    want = tenc._pure_cdumps(obj)
+    t5 = _ms()
+    emit({"phase": "sync_native_record", "height": block.header.height,
+          "txs": len(txs), "responses_bytes": len(got),
+          "codec_ms": t4 - t3, "pure_codec_ms": t5 - t4,
+          "kv_native_deliver_commit_ms": t1 - t0,
+          "kv_pure_deliver_commit_ms": t2 - t1,
+          "note": "a record, not a check: host times of one block's txs "
+          "on fresh apps and of its per-tx responses object", "card": card})
+    require(got == want, "the codec's bytes differ from the specification")
+    require(hash_n == hash_p
+            and texec.results_hash(res_n) == texec.results_hash(res_p),
+            "the kv core's app or results hash differs from the pure app's")
 
 
 def _forge(raw: bytes) -> Block:
@@ -3060,7 +3148,8 @@ def _restart_node3(net, left, device: str) -> dict:
                  left("node 3's restart"), "node 3's RPC after restart")
     t_up = time.perf_counter()
     start_h = net.height(3)
-    started = re.findall(r"^node started: .* height=(\d+) "
+    started = re.findall(r"^node started: .* store_height=(\d+) "
+                         r"state_height=(\d+) height=(\d+) "
                          r"handshake_s=([\d.]+) replayed=(\d+)$",
                          net.log(3), re.M)
     require(len(started) == 2, f"procnet: node 3's start lines {started}")
@@ -3073,9 +3162,11 @@ def _restart_node3(net, left, device: str) -> dict:
                  poll_s=0.5)
     t_rejoin = time.perf_counter()
     return {"killed_at_height": killed_at, "node0_at_kill": PROC_CRASH_AT,
-            "start_height": int(started[1][0]),
-            "handshake_s": float(started[1][1]),
-            "handshake_blocks": int(started[1][2]),
+            "store_height": int(started[1][0]),
+            "state_height": int(started[1][1]),
+            "start_height": int(started[1][2]),
+            "handshake_s": float(started[1][3]),
+            "handshake_blocks": int(started[1][4]),
             "height_at_rpc": start_h, "synced_to": synced_h,
             "signed_at": _signed_in_commit(net, idx, synced_h),
             "restart_to_rpc_s": t_up - t_kill, "sync_s": t_synced - t_up,
@@ -3121,6 +3212,9 @@ def _procnet_net(tag: str, settings: dict, device: str, extra=None) -> dict:
     _build.ladder_lib()
     native.module()
     native.aead_lib()
+    native.hostops_lib()
+    native.codec()
+    native.kv()
     root = tempfile.mkdtemp(prefix=f"{tag}-")
     net = ProcNet(root, base_port=free_block(8))
     net.write_tree(f"chip-smoke-{tag}")
@@ -3259,6 +3353,16 @@ def _require_b1_everywhere(tag: str, lines: dict, on_card: bool) -> None:
                     f"{line}")
 
 
+def _require_serial_commit_path(tag: str, lines: dict) -> None:
+    """Every process ran the serial commit path it was configured with."""
+    for i in lines:
+        for line in lines[i]:
+            p = line["pipeline"]
+            require(p["mode"] == "off" and p["group_flushes"] == 0
+                    and line["native"]["partsets"]["native"] == 0,
+                    f"{tag}: node {i} off the serial commit path: {p}")
+
+
 def phase_procnet(card: str, device: str = "cuda") -> dict:
     """BASELINE config 1 as four OS processes on the thread plane without
     coalescing (`reactor: "threads"`, `verifier_coalesce: "off"`), the
@@ -3270,7 +3374,7 @@ def phase_procnet(card: str, device: str = "cuda") -> dict:
     on_card = device.startswith("cuda")
     run = _procnet_net("procnet", bench_settings(
         "cuda" if on_card else "auto", reactor="threads",
-        verifier_coalesce="off"), device)
+        verifier_coalesce="off", pipeline="off"), device)
     lines, rate, restart = run["lines"], run["rate"], run["restart"]
     per_node = {i: lines[i][-1] for i in range(4)}
     emit({"phase": "procnet", "validators": 4, "processes": 4,
@@ -3303,6 +3407,7 @@ def phase_procnet(card: str, device: str = "cuda") -> dict:
             require(line["reactor"] == "threads" and line["loop"] is None
                     and line["verifier"]["coalesced_calls"] == 0,
                     f"procnet: node {i} off the thread plane: {line}")
+    _require_serial_commit_path("procnet", lines)
     require(run["launches"]["sign_rb"] == 0,
             f"procnet launched the sign kernel: {run['launches']}")
     require(restart["signed_at"] > restart["synced_to"],
@@ -3677,7 +3782,7 @@ def phase_procnet_loop(card: str, device: str = "cuda",
     try:
         run = _procnet_net("procnet_loop", bench_settings(
             "cuda" if on_card else "auto", reactor="auto",
-            verifier_coalesce="auto"), device, extra=load)
+            verifier_coalesce="auto", pipeline="off"), device, extra=load)
     finally:
         load.subs.stop()
     lines, rate, restart = run["lines"], run["rate"], run["restart"]
@@ -3737,7 +3842,8 @@ def phase_procnet_loop(card: str, device: str = "cuda",
     try:
         off = _procnet_net("procnet_loop_off", bench_settings(
             "cuda" if on_card else "auto", reactor="auto",
-            verifier_coalesce="off"), device, extra=off_load)
+            verifier_coalesce="off", pipeline="off"), device,
+            extra=off_load)
     finally:
         off_load.subs.stop()
     emit({"phase": "procnet_loop_off", "plane": {
@@ -3751,6 +3857,7 @@ def phase_procnet_loop(card: str, device: str = "cuda",
             len(h) for h in off_load.subs.heights),
         "utilization_gpu_mean": off["busy"], "card": card})
     _require_b1_everywhere("procnet_loop_off", off["lines"], on_card)
+    _require_serial_commit_path("procnet_loop_off", off["lines"])
     if procnet is not None:
         def plane(r):
             readings = [_verifier_reading(r["lines"][i][-1])
@@ -3776,17 +3883,34 @@ def phase_procnet_loop(card: str, device: str = "cuda",
               "with the sync feeder and the subscribers; nodes 0-3's last "
               "processes; in this order: threads_off, loop_auto, loop_off",
               "card": card})
-    # checks
-    _require_b1_everywhere("procnet_loop", lines, on_card)
+    _check_loop_run("procnet_loop", run, load, on_card)
+    _require_serial_commit_path("procnet_loop", lines)
+    return run
+
+
+def _check_loop_run(tag: str, run: dict, load, on_card: bool) -> None:
+    """Phase 12's checks of a run on the loop plane with the front door's
+    load: B1 in every process and no B3, node 3 signing after its
+    rejoin, every sync-acknowledged tx committed once, every subscriber
+    seeing every height in order, one loop thread and no per-peer thread
+    in every process, and every coalescer accounting for its calls."""
+    lines, restart = run["lines"], run["restart"]
+    acked = Counter(load.sync.acked)
+    committed = {tx: run["counts"][tx] for tx in acked}
+    lo, hi = LOOP_EVENTS
+    want = list(range(lo, hi + 1))
+    drops = [sorted(set(want) - set(hs)) for hs in load.subs.heights]
+    out_of_order = sum(1 for hs in load.subs.heights if hs != sorted(hs))
+    _require_b1_everywhere(tag, lines, on_card)
     require(run["launches"]["sign_rb"] == 0,
-            f"procnet_loop launched the sign kernel: {run['launches']}")
+            f"{tag} launched the sign kernel: {run['launches']}")
     require(restart["signed_at"] > restart["synced_to"],
-            f"procnet_loop: node 3 did not sign after its rejoin: {restart}")
+            f"{tag}: node 3 did not sign after its rejoin: {restart}")
     require(acked and all(c == 1 for c in committed.values()),
-            f"procnet_loop: {sum(1 for c in committed.values() if c != 1)} "
+            f"{tag}: {sum(1 for c in committed.values() if c != 1)} "
             f"of {len(acked)} sync-acknowledged txs not committed once")
     require(not any(drops) and not out_of_order and not load.subs.closed,
-            f"procnet_loop: subscribers missed heights ({sum(map(len, drops))}"
+            f"{tag}: subscribers missed heights ({sum(map(len, drops))}"
             f" drops, {out_of_order} out of order, {load.subs.closed} closed)")
     for i in lines:
         for j, line in enumerate(lines[i]):
@@ -3794,7 +3918,7 @@ def phase_procnet_loop(card: str, device: str = "cuda",
             require(line["reactor"] == "loop" and th["tm-reactor-loop"] == 1
                     and th["mconn-"] == th["gossip-"]
                     == th["mempool-bcast-"] == 0,
-                    f"procnet_loop: node {i}'s threads {th}")
+                    f"{tag}: node {i}'s threads {th}")
             stopped = not (i == 3 and j == 0)   # the killed one
             require(c["submissions"] > 0
                     and v["coalesced_calls"] == c["submissions"]
@@ -3802,9 +3926,312 @@ def phase_procnet_loop(card: str, device: str = "cuda",
                     + c["isolated_calls"]
                     and (c["merged_calls"] == c["submissions"] if stopped
                          else c["merged_calls"] <= c["submissions"]),
-                    f"procnet_loop: node {i}'s coalescer does not account "
+                    f"{tag}: node {i}'s coalescer does not account "
                     f"for its calls: {v} {c}")
+
+
+# -------------------- phase 13: config 1 on the JAX node's default commit path
+
+SWEEP_TARGET = 4          # the crash sweep commits to this height; it crashes
+#                           the first commit after wave B's injection
+SWEEP_WAVES = ([b"fp/a%d=v%d" % (i, i) for i in range(1, 4)],
+               [b"fp/b%d=w%d" % (i, i) for i in range(1, 4)])
+
+
+def _commit_path_reading(line: dict) -> dict:
+    """A process's pipeline and native-route counts from its kernel line."""
+    p, nat = line["pipeline"], line["native"]
+    return {"height": line["height"], "mode": p["mode"],
+            "group_flushes": p["group_flushes"], "stage_ms": p["stage_ms"],
+            "stage_n": p["stage_n"], "precompute": p["precompute"],
+            "overlap_ratio": p["overlap_ratio"],
+            "partsets": nat["partsets"], "codec": nat["codec"],
+            "kvstore": nat["kvstore"],
+            "b1_launches": line["launches"]["verify"]}
+
+
+def _require_pipelined(tag: str, run: dict) -> None:
+    """Every process on the pipelined commit path: one group flush a
+    height it committed in consensus (node 3's killed process within one
+    of its last printed height; its restarted process at most the
+    heights after its handshake, at least those after its sync), no
+    failed precompute, every part set from tm_partset_build, every block
+    with txs on the kv core; and node 3's restart found its block store
+    at its state's height or one above."""
+    lines, restart = run["lines"], run["restart"]
+    for i in lines:
+        for j, line in enumerate(lines[i]):
+            r = _commit_path_reading(line)
+            h, f = r["height"], r["group_flushes"]
+            if i != 3:
+                flushes_ok = f == h
+            elif j == 0:
+                flushes_ok = h - 1 <= f <= h + 1
+            else:
+                flushes_ok = h - restart["synced_to"] <= f \
+                    <= h - restart["start_height"]
+            require(r["mode"] == "on" and flushes_ok,
+                    f"{tag}: node {i} process {j}: {f} group flushes at "
+                    f"height {h} ({restart})")
+            require(r["precompute"]["failed"] == 0,
+                    f"{tag}: node {i}'s precompute failed: {r['precompute']}")
+            require(r["partsets"]["python"] == 0,
+                    f"{tag}: node {i} built part sets in Python: "
+                    f"{r['partsets']}")
+            kv = r["kvstore"]
+            require(kv["native"] > 0 and kv["per_tx"] == kv["pure"] == 0,
+                    f"{tag}: node {i}'s blocks off the kv core: {kv}")
+            require(r["codec"]["native"] > 0,
+                    f"{tag}: node {i} never took the codec: {r['codec']}")
+    require(restart["store_height"] in (restart["state_height"],
+                                        restart["state_height"] + 1),
+            f"{tag}: node 3's handshake found the store at "
+            f"{restart['store_height']}, the state at "
+            f"{restart['state_height']}")
+
+
+class _Crash(BaseException):
+    """A simulated process death: nothing between the fail point and the
+    sweep may swallow it."""
+
+
+def _sweep_node(home: str, gen, key, device: str):
+    """A single-validator port Node on the pipelined path (MockTicker,
+    the kvstore app, files under `home`), verifying on `device`."""
+    from tendermint_tpu_torch.config import test_config
+    from tendermint_tpu_torch.consensus.ticker import MockTicker
+    from tendermint_tpu_torch.node import Node
+    from tendermint_tpu_torch.types.priv_validator import PrivValidatorFile
+    pv_path = os.path.join(home, "priv_validator.json")
+    if os.path.exists(pv_path):
+        pv = PrivValidatorFile.load(pv_path)
+    else:
+        os.makedirs(home, exist_ok=True)
+        pv = PrivValidatorFile(pv_path, key)
+        pv._persist()
+    cfg = test_config(home)
+    cfg.base.verifier_backend = "cuda" if device.startswith("cuda") \
+        else "python"
+    cfg.base.pipeline = "auto"
+    node = Node(cfg, gen, priv_validator=pv, app=KVStoreApp(),
+                device=device if device.startswith("cuda") else None)
+    node.consensus.ticker.stop()
+    node.consensus.ticker = MockTicker(node.consensus._on_timeout_fire)
+    return node
+
+
+def _sweep_inject(node, txs) -> None:
+    """Duplicate-tolerant: after a restart the mempool WAL replays its
+    pending txs; kvstore sets are idempotent."""
+    for tx in txs:
+        try:
+            node.mempool.check_tx(tx)
+        except Exception:
+            pass
+
+
+def _sweep_commit_to(node, height: int, max_ticks: int = 400) -> None:
+    for _ in range(max_ticks):
+        if node.height >= height:
+            return
+        node.consensus.ticker.fire_next()
+    require(False, f"crash sweep: stuck at height {node.height}")
+
+
+def _sweep_drain(node, max_ticks: int = 200) -> None:
+    for _ in range(max_ticks):
+        if node.mempool.size() == 0:
+            return
+        node.consensus.ticker.fire_next()
+    require(False, f"crash sweep: the mempool never drained "
+                   f"({node.mempool.size()})")
+
+
+def _sweep_chain(node) -> list:
+    return [node.block_store.load_block(h).to_bytes()
+            for h in range(1, node.block_store.height() + 1)]
+
+
+def phase_crash_sweep(card: str, device: str = "cuda") -> dict:
+    """tests/test_fail_points.py's crash-at-every-index sweep on the port,
+    verifying on `device`: for each of the ten pipelined COMMIT_POINTS
+    that fire without the state tree, a single-validator node commits
+    to height 2 (and its proof block), is crashed (fail.set_callback
+    raising) at that point of its next commit, a height >= 3, is rebuilt
+    from its stores and WAL (the
+    handshake's replay, the WAL catchup), and commits to SWEEP_TARGET
+    and drains its mempool. Its app hash and every block must equal an
+    uncrashed run's (pinned clock), and B1 must launch. Launch counts
+    zeroed at the start, read at the end."""
+    on_card = device.startswith("cuda")
+    root = tempfile.mkdtemp(prefix="crash-sweep-")
+    key = PrivKey.generate(b"\x0a" * 32)
+    from tendermint_tpu_torch.types.genesis import (GenesisDoc,
+                                                    GenesisValidator)
+    gen = GenesisDoc(chain_id="crash-sweep", genesis_time_ns=1,
+                     validators=[GenesisValidator(key.pubkey.ed25519, 10)])
+    points = [p for p in tfail.COMMIT_POINTS
+              if not p.startswith("statetree.")]
+    wave_a, wave_b = SWEEP_WAVES
+    rows = []
+    _zero_launches()
+    tclock.set_source(lambda: T0)
+    t_start = time.perf_counter()
+    try:
+        control = _sweep_node(os.path.join(root, "control"), gen, key,
+                              device)
+        control.start()
+        _sweep_inject(control, wave_a)
+        _sweep_commit_to(control, 2)
+        _sweep_inject(control, wave_b)
+        _sweep_commit_to(control, SWEEP_TARGET)
+        _sweep_drain(control)
+        want_hash, want_chain = control.consensus.state.app_hash, \
+            _sweep_chain(control)
+        control.stop()
+        for index, point in enumerate(points, start=1):
+            home = os.path.join(root, f"crash{index}")
+            node = _sweep_node(home, gen, key, device)
+            node.start()
+            _sweep_inject(node, wave_a)
+            _sweep_commit_to(node, 2)
+            hit = []
+
+            def crash(i):
+                hit.append(i)
+                raise _Crash(f"index {i}")
+
+            tfail.reset()
+            tfail.set_callback(crash)
+            tfail.set_target(index)
+            try:
+                _sweep_inject(node, wave_b)
+                _sweep_commit_to(node, SWEEP_TARGET)
+            except _Crash:
+                pass
+            finally:
+                tfail.set_target(None)
+                tfail.clear_callback()
+                tfail.reset()
+            require(hit == [index], f"crash sweep: {point} did not fire")
+            crashed_at = node.height
+            node.consensus._stopped = True
+            try:
+                node.stop()
+            except Exception:
+                pass
+            t0 = time.perf_counter()
+            node2 = _sweep_node(home, gen, key, device)
+            node2.start()
+            recover_s = time.perf_counter() - t0
+            recovered_at = node2.height
+            store_h, state_h = node2.handshake_heights
+            _sweep_inject(node2, wave_b)
+            _sweep_commit_to(node2, SWEEP_TARGET)
+            _sweep_drain(node2)
+            chain = _sweep_chain(node2)
+            rows.append({"index": index, "point": point,
+                         "crashed_at_height": crashed_at,
+                         "store_height": store_h, "state_height": state_h,
+                         "handshake_blocks": node2.handshake_blocks,
+                         "recovered_at_height": recovered_at,
+                         "final_height": node2.height,
+                         "recover_s": recover_s,
+                         "app_hash_equal":
+                             node2.consensus.state.app_hash == want_hash,
+                         "blocks_equal": chain == want_chain})
+            node2.stop()
+            require(recovered_at >= crashed_at,
+                    f"crash sweep: {point} lost a committed height")
+            require(rows[-1]["app_hash_equal"] and rows[-1]["blocks_equal"],
+                    f"crash sweep: {point} recovered to another chain: "
+                    f"{rows[-1]}")
+    finally:
+        tclock.set_source(None)
+        shutil.rmtree(root, ignore_errors=True)
+    launches = dict(ladder.launches)
+    emit({"phase": "procnet_pipeline_crash_sweep", "points": rows,
+          "target_height": SWEEP_TARGET, "blocks": len(want_chain),
+          "launches": launches, "wall_s": time.perf_counter() - t_start,
+          "card": card})
+    require(not on_card or launches["verify"] >= 1,
+            f"crash sweep: B1 did not launch: {launches}")
+    return launches
+
+
+def phase_procnet_pipeline(card: str, device: str = "cuda",
+                           loop: dict = None) -> dict:
+    """BASELINE config 1 as four OS processes on the JAX node's full
+    defaults: phase 12's net, load and checks with `pipeline: "auto"`
+    (the pipelined finalize with group commit, streaming part sets from
+    tm_partset_build, the precomputed next proposal), the native codec
+    and the kv core; then the pipeline's checks (_require_pipelined).
+    `loop` is phase 12's run, for the pipeline_ab line. A CPU rehearsal
+    passes device="cpu" (no launch required)."""
+    from tendermint_tpu_torch.procnet import bench_settings
+    on_card = device.startswith("cuda")
+    load = _LoopLoad()
+    try:
+        run = _procnet_net("procnet_pipeline", bench_settings(
+            "cuda" if on_card else "auto", reactor="auto",
+            verifier_coalesce="auto", pipeline="auto"), device, extra=load)
+    finally:
+        load.subs.stop()
+    lines, rate, restart = run["lines"], run["rate"], run["restart"]
+    per_node = {i: lines[i][-1] for i in range(4)}
+    emit({"phase": "procnet_pipeline", "validators": 4, "processes": 4,
+          "plane": {"reactor": "auto", "verifier_coalesce": "auto",
+                    "pipeline": "auto"},
+          "heights": run["top"], "measured_heights": list(PROC_MEASURE),
+          "blocks_per_s": rate["blocks_per_s"],
+          "txs_per_s": rate["txs_per_s"], "measure_span_s": rate["span_s"],
+          "txs_committed": len(run["txs"]), "txs_sent": run["sent"],
+          "feeder_errors": run["errors"], "boot_s": run["boot_s"],
+          "wall_s": run["wall_s"], "sync_acked": len(load.sync.acked),
+          "subscriber_events": sum(len(h) for h in load.subs.heights),
+          "banned_by": {i: sorted(p[:8] for p in b)
+                        for i, b in run["bans"].items()}, "card": card})
+    emit({"phase": "procnet_pipeline_restart", **restart,
+          "sync_routes": per_node[3]["routes"],
+          "sync_launches": per_node[3]["launches"], "card": card})
+    emit({"phase": "procnet_pipeline_kernels",
+          "by_node": {i: _verifier_reading(per_node[i]) for i in per_node},
+          "node3_killed_process": _verifier_reading(lines[3][0]),
+          "loop": {i: per_node[i]["loop"] for i in per_node},
+          "launches": run["launches"], "card": card})
+    emit({"phase": "procnet_pipeline_commit_path", "by_node": {
+        i: [_commit_path_reading(ln) for ln in lines[i]] for i in lines},
+        "note": "node 3's first entry is its killed process, counted to "
+        "the last height it committed", "card": card})
+    emit({"phase": "procnet_pipeline_device",
+          "utilization_gpu_mean": run["busy"], "samples": run["n_samples"],
+          "window": f"feeders' start to node 0 at {PROC_HEIGHTS}",
+          "card": card})
+    if loop is not None:
+        emit({"phase": "pipeline_ab",
+              "pipeline_off": {"blocks_per_s": loop["rate"]["blocks_per_s"],
+                               "txs_per_s": loop["rate"]["txs_per_s"]},
+              "pipeline_on": {"blocks_per_s": rate["blocks_per_s"],
+                              "txs_per_s": rate["txs_per_s"]},
+              "note": "a record, not a check: phase 12 (pipeline off, the "
+              "native codec and kv core on) beside phase 13 (the JAX "
+              "defaults) in this call, the same net and load", "card": card})
+    _check_loop_run("procnet_pipeline", run, load, on_card)
+    _require_pipelined("procnet_pipeline", run)
     return run
+
+
+@contextlib.contextmanager
+def _serial_commit_path():
+    """Phases 9 and 10 on the serial commit path (pipeline "off"), the
+    path of their earlier runs: run A and run B of phase 9 must
+    give the same blocks, and the precompute's header stamp comes from
+    a worker thread's read of the stepped clock."""
+    tpipeline.configure("off")
+    try:
+        yield
+    finally:
+        tpipeline.configure("auto")
 
 
 def main() -> int:
@@ -3822,10 +4249,13 @@ def main() -> int:
     lite_launches = phase_lite(card)
     block_launches = phase_block(card, keys, commit_path, device)
     sync_launches = phase_sync(card, device)
-    consensus_launches = phase_consensus(card, device)
-    p2p_launches = phase_p2p(card, device)
+    with _serial_commit_path():
+        consensus_launches = phase_consensus(card, device)
+        p2p_launches = phase_p2p(card, device)
     procnet = phase_procnet(card)
     procnet_loop = phase_procnet_loop(card, procnet=procnet)
+    procnet_pipeline = phase_procnet_pipeline(card, loop=procnet_loop)
+    sweep_launches = phase_crash_sweep(card)
     table = []
     for name, info in KERNELS.items():
         table.append({
@@ -3842,7 +4272,10 @@ def main() -> int:
                                  "p2p": p2p_launches[name],
                                  "procnet": procnet["launches"][name],
                                  "procnet_loop":
-                                     procnet_loop["launches"][name]},
+                                     procnet_loop["launches"][name],
+                                 "procnet_pipeline":
+                                     procnet_pipeline["launches"][name],
+                                 "crash_sweep": sweep_launches[name]},
             "max_abs_err": kernels[name]["max_abs_err"],
             "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"],
             "bound_ms": kernels[name]["bound_ms"],

@@ -15,7 +15,10 @@ socket plane of `base.reactor` (the event loop by default, "threads" for
 the thread plane). At each committed height and when it stops it prints
 `node kernels {...}`: its kernel launches (ops/ladder.launches), its
 verifier's and coalescer's counts, the RPC front door's tx batcher and
-the process's threads by name prefix, with the event loop's busy share.
+the process's threads by name prefix, with the event loop's busy share,
+the pipeline's counts (`pipeline.stats()`) and the native host cores'
+routes (part sets built natively or in Python, canonical-JSON calls and
+their fallbacks, kvstore blocks on the kv core and on the per-tx route).
 
 The JAX CLI's `lite`, `replica` and `shardset` commands and its
 TM_NODE_PROFILE sampler wait for later slices.
@@ -73,9 +76,13 @@ def thread_census() -> dict:
 def _kernel_line(node, threads=None) -> str:
     """The process's kernel launches, its predecompression cache routes,
     the node verifier's and coalescer's counts, the tx batcher's, the
-    thread census (`threads`: one taken before the node stopped) and the
-    event loop's counts, at the node's height."""
+    thread census (`threads`: one taken before the node stopped), the
+    event loop's, the pipeline's and the native routes' counts, at the
+    node's height."""
+    from tendermint_tpu_torch import pipeline
+    from tendermint_tpu_torch.abci.apps import kvstore
     from tendermint_tpu_torch.ops import ed25519, ladder
+    from tendermint_tpu_torch.types import encoding, part_set
     routes = ed25519.predecomp_stats()
     with node.verifier._stats_lock:
         vstats = dict(node.verifier.stats)
@@ -91,7 +98,11 @@ def _kernel_line(node, threads=None) -> str:
         "threads": threads or thread_census(),
         "loop": None if loop is None else {
             **loop.stats, "busy_share": loop.busy_share(),
-            "fds": loop.n_fds, "tasks": loop.n_tasks}})
+            "fds": loop.n_fds, "tasks": loop.n_tasks},
+        "pipeline": pipeline.stats(),
+        "native": {"partsets": part_set.build_stats(),
+                   "codec": encoding.stats(),
+                   "kvstore": kvstore.route_stats()}})
 
 
 def cmd_node(args) -> int:
@@ -125,7 +136,9 @@ def cmd_node(args) -> int:
     if node.rpc_address is not None:
         print(f"rpc listening on {node.rpc_address[0]}:"
               f"{node.rpc_address[1]}", flush=True)
+    store_h, state_h = node.handshake_heights
     print(f"node started: chain={node.gen_doc.chain_id} "
+          f"store_height={store_h} state_height={state_h} "
           f"height={node.height} handshake_s={node.handshake_s:.3f} "
           f"replayed={node.handshake_blocks}", flush=True)
     try:

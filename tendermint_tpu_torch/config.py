@@ -10,19 +10,20 @@ Settings that the JAX package reads from `TM_TPU_*` environment knobs
 are fields here, with the same defaults: the p2p frame bursts (`burst`,
 `burst_max`), the ban plane (`ban_score`, `ban_base_s`, `fd_headroom`),
 the compact consensus gossip (`compact`, `vote_agg`), the socket plane
-(`base.reactor`: auto|loop|threads, auto being the event loop) and the
+(`base.reactor`: auto|loop|threads, auto being the event loop), the
 verifier's dispatch coalescing (`base.verifier_coalesce`: auto|on|off,
-`verifier_coalesce_wait_ms`, `verifier_coalesce_max_batch`). The port
-reads no environment knob for them. `validate()` refuses a value outside
+`verifier_coalesce_wait_ms`, `verifier_coalesce_max_batch`) and the
+pipelined block hot path (`base.pipeline`: auto|on|off, auto being on;
+pipeline.py). The port reads no environment knob for them. `validate()` refuses a value outside
 those sets when the config is loaded.
 
 `config/config.json` is one file for both packages. default_config()
 reads a JAX-written file: the JAX package keeps the bursts and the
 compact gossip under `base` (`p2p_burst`, `p2p_burst_max`, `compact`,
 `vote_agg`, each auto|on|off), and the loader maps those keys onto the
-port's fields. `reactor` and the `verifier_coalesce*` keys have the
-same names and meanings in both packages. Keys of planes the port does
-not have (telemetry, chaos, pipeline, trace, SLO, snapshots, ...) are
+port's fields. `reactor`, `pipeline` and the `verifier_coalesce*` keys
+have the same names and meanings in both packages. Keys of planes the
+port does not have (telemetry, chaos, trace, SLO, snapshots, ...) are
 ignored, as the JAX
 loader ignores any key its dataclasses lack. save_config() writes those
 four settings only as the JAX keys, so the file holds one key for each
@@ -59,6 +60,10 @@ class BaseConfig:
     # socket, gossip routine and RPC connection of the node on ONE event
     # loop thread; "threads" is the thread-per-connection plane
     reactor: str = "auto"
+    # pipelined block hot path (pipeline.py): native part-set build,
+    # streaming proposal gossip, the precomputed next proposal and
+    # group-commit persistence. auto|on|off; "off" is the serial path
+    pipeline: str = "auto"
 
 
 # No code of the port reads grpc_laddr yet (gRPC waits for a later

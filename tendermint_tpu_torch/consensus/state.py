@@ -1,6 +1,5 @@
 """ConsensusState — the Tendermint BFT algorithm: the port's copy of
-`tendermint_tpu/consensus/state.py` (consensus/state.go) on its serial
-path.
+`tendermint_tpu/consensus/state.py` (consensus/state.go).
 
 Semantics of the reference's state machine (transitions enterNewRound
 :651, enterPropose :745, enterPrevote :882, enterPrecommit :970,
@@ -21,18 +20,27 @@ Every signature check (the proposal, each vote through HeightVoteSet and
 VoteSet, the last commit and evidence in validate_block) goes through
 the BlockExecutor's verifier: on the card, B1/B2 for a "cuda" verifier.
 
-Not ported: the JAX package's pipelined finalize, next-proposal
-precompute and streaming part set (its pipeline knob), the telemetry
-families, causal spans, SLO stamps, the divergence digest, fail points
-and post-commit hooks.
+With the pipeline on (pipeline.resolve(): config.base.pipeline "auto",
+the default) a height runs the JAX package's default path: the proposer
+builds its part set natively and gossips each part as it is made
+(streaming), precomputes the next height's proposal on a `cs-precompute`
+worker while the commit timeout runs (used only when it matches the
+fresh reap, commit and evidence exactly), and finalizes with group
+commit (`_finalize_commit_pipelined`). "off" is the serial path. The
+commit-critical fail points (utils/fail.py) sit on both paths.
+
+Not ported: the telemetry families, causal spans, SLO stamps, the
+divergence digest and post-commit hooks.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
 from typing import Callable, List, Optional
 
+from tendermint_tpu_torch import pipeline
 from tendermint_tpu_torch.config import ConsensusConfig
 from tendermint_tpu_torch.models.verifier import VerifierError
 from tendermint_tpu_torch.consensus.rstate import (HeightVoteSet, RoundState,
@@ -44,15 +52,16 @@ from tendermint_tpu_torch.state.execution import (ApplyBlockError,
                                                   MockMempool)
 from tendermint_tpu_torch.state.state import State
 from tendermint_tpu_torch.state.validation import BlockValidationError
+from tendermint_tpu_torch.storage.block_store import BlockStore
 from tendermint_tpu_torch.storage.wal import NilWAL
 from tendermint_tpu_torch.types.block import (Block, BlockID, Commit,
-                                              PartSetHeader)
+                                              EvidenceData, PartSetHeader)
 from tendermint_tpu_torch.types.evidence import DuplicateVoteEvidence
 from tendermint_tpu_torch.types.part_set import Part, PartSet
 from tendermint_tpu_torch.types.proposal import Heartbeat, Proposal
 from tendermint_tpu_torch.types.vote import Vote, VoteType
 from tendermint_tpu_torch.types.vote_set import ConflictingVoteError, VoteSet
-from tendermint_tpu_torch.utils import clock
+from tendermint_tpu_torch.utils import clock, fail
 from tendermint_tpu_torch.utils.log import get_logger
 
 
@@ -91,6 +100,16 @@ class ConsensusState:
         self.fatal_error = None
         self._processing = False
         self._stopped = False
+        # the pipelined hot path, resolved once so that a state machine
+        # never switches modes mid-height; off = the serial path
+        self._pipeline = pipeline.resolve()
+        self._pre_lock = threading.Lock()
+        # next-proposal precompute handoff (worker -> propose step)
+        self._precomputed = None  #: guarded_by _pre_lock
+        # a height's stage seconds for the overlap ratio (consensus
+        # thread only: reset a height, read at finalize)
+        self._overlap_s = 0.0
+        self._serial_s = 0.0
 
         self.ticker = ticker_factory(self._on_timeout_fire)
 
@@ -266,6 +285,8 @@ class ConsensusState:
             rs.last_commit = last_precommits
         rs.last_validators = state.last_validators
         self.state = state
+        self._overlap_s = 0.0   # a height's stage accounting restarts
+        self._serial_s = 0.0
         self._new_step()
 
     def _new_step(self) -> None:
@@ -393,13 +414,14 @@ class ConsensusState:
 
     def _decide_proposal(self, height: int, round_: int) -> None:
         rs = self.rs
+        parts_iter = None
         if rs.locked_block is not None:
             block, parts = rs.locked_block, rs.locked_block_parts
         else:
             made = self._create_proposal_block()
             if made is None:
                 return
-            block, parts = made
+            block, parts, parts_iter = made
 
         pol = rs.votes.pol_info()
         pol_round = pol.round if pol else -1
@@ -412,10 +434,23 @@ class ConsensusState:
             if not self.replay_mode:
                 self._log(f"error signing proposal: {e!r}")
             return
-        # own proposal + parts ride the same queue as peer messages; the
-        # part messages are built once for both loops
+        # own proposal + parts ride the same queue as peer messages
         proposal_msg = {"type": "proposal", "proposal": proposal.to_obj()}
         self._enqueue_own(proposal_msg)
+        if parts_iter is not None:
+            # streaming gossip (pipeline on): the proposal ships first
+            # (peers must be able to place the parts), then each part is
+            # enqueued and broadcast as it is made
+            self._broadcast(proposal_msg)
+            with pipeline.stage_timer("gossip") as t:
+                for part in parts_iter:
+                    part_msg = {"type": "block_part", "height": height,
+                                "round": round_, "part": part.to_obj()}
+                    self._enqueue_own(part_msg)
+                    self._broadcast(part_msg)
+            self._serial_s += t.seconds
+            return
+        # serial path: the part messages are built once for both loops
         part_msgs = [{"type": "block_part", "height": height,
                       "round": round_, "part": parts.get_part(i).to_obj()}
                      for i in range(parts.total)]
@@ -427,7 +462,10 @@ class ConsensusState:
 
     def _create_proposal_block(self):
         """consensus/state.go:854 createProposalBlock. Returns
-        (block, parts), or None without a commit for the last block."""
+        (block, parts, parts_iter), or None without a commit for the last
+        block: parts_iter is a streaming part iterator when the pipeline
+        built the set lazily (consume it fully before using `parts` as a
+        full set), else None."""
         rs = self.rs
         if rs.height == 1:
             commit = Commit()
@@ -441,10 +479,100 @@ class ConsensusState:
         evidence = self.evidence_pool.pending_evidence()
         part_size = \
             self.state.consensus_params.block_gossip.block_part_size_bytes
+        if self._pipeline:
+            pre = self._take_precomputed(rs.height, txs, commit, evidence,
+                                         part_size)
+            if pre is not None:
+                return pre
         block = self.state.make_block(rs.height, txs, commit,
                                       time_ns=clock.now_ns(),
                                       evidence=evidence)
-        return block, block.make_part_set(part_size)
+        if not self._pipeline:
+            return block, block.make_part_set(part_size), None
+        with pipeline.stage_timer("serialize") as t_ser:
+            data = block.to_bytes()
+        with pipeline.stage_timer("partset") as t_ps:
+            parts, parts_iter = PartSet.from_data_streaming(data, part_size)
+        self._serial_s += t_ser.seconds + t_ps.seconds
+        return block, parts, parts_iter
+
+    # ------------------------------------------------- pipeline: precompute
+
+    def _kick_precompute(self) -> None:
+        """While the committed height waits out the commit timeout, build
+        the next height's proposal block and part set on a worker
+        thread. _create_proposal_block uses it only when the fresh
+        mempool reap, commit and evidence still match exactly (anything
+        changed: discarded, the serial build runs). Kicked only when this
+        node proposes round 0 of the next height."""
+        if self.priv_validator is None or self.replay_mode:
+            return
+        rs = self.rs
+        if rs.validators.proposer().address != self.priv_validator.address:
+            return
+        height, state = rs.height, self.state
+        if height == 1:
+            commit = Commit()
+        elif rs.last_commit is not None and \
+                rs.last_commit.has_two_thirds_majority():
+            # the commit is taken on the consensus thread: the VoteSet
+            # may gain late precommits while the worker runs (the
+            # propose-time compare catches that and discards)
+            commit = rs.last_commit.make_commit()
+        else:
+            return
+        part_size = \
+            state.consensus_params.block_gossip.block_part_size_bytes
+        max_txs = self.config.max_block_size_txs
+
+        def work():
+            try:
+                t0 = time.perf_counter()
+                txs = self.mempool.reap(max_txs)
+                evidence = self.evidence_pool.pending_evidence()
+                block = state.make_block(height, txs, commit,
+                                         time_ns=clock.now_ns(),
+                                         evidence=evidence)
+                parts = PartSet.from_data(block.to_bytes(), part_size)
+                seconds = time.perf_counter() - t0
+                pipeline.observe_stage("precompute", seconds)
+                with self._pre_lock:
+                    cur = self._precomputed
+                    # a slow worker of an earlier height must not replace
+                    # a fresher handoff
+                    if cur is None or cur["height"] <= height:
+                        self._precomputed = {
+                            "height": height, "state": state,
+                            "part_size": part_size, "block": block,
+                            "parts": parts, "seconds": seconds}
+            except Exception:
+                pipeline.note_precompute("failed")
+
+        threading.Thread(target=work, daemon=True,
+                         name="cs-precompute").start()
+
+    def _take_precomputed(self, height: int, txs, commit, evidence,
+                          part_size: int):
+        """The precomputed (block, parts, None) when it matches exactly
+        what the serial build would make now; else None (and the stale
+        entry is dropped). The block's header time is the worker's
+        stamp, carried verbatim in the gossiped block."""
+        with self._pre_lock:
+            pre, self._precomputed = self._precomputed, None
+        if pre is None:
+            return None
+        block = pre["block"]
+        if (pre["height"] != height or pre["state"] is not self.state
+                or pre["part_size"] != part_size
+                or block.data.txs != list(txs)
+                or block.last_commit.to_bytes() != commit.to_bytes()
+                or block.evidence.to_obj()
+                != EvidenceData(list(evidence or [])).to_obj()):
+            pipeline.note_precompute("discarded")
+            return None
+        pipeline.note_precompute("used")
+        self._overlap_s += pre["seconds"]
+        return block, pre["parts"], None
 
     def _is_proposal_complete(self) -> bool:
         rs = self.rs
@@ -637,21 +765,81 @@ class ConsensusState:
         except BlockValidationError as e:
             raise ConsensusFailure(f"+2/3 committed invalid block: {e}") from e
 
+        if self._pipeline:
+            self._finalize_commit_pipelined(height, block, parts, pc)
+            return
+        fail.fail_point("consensus.before_save_block")
         if self.block_store.height() < block.header.height:
             self.block_store.save_block(block, parts, pc.make_commit())
 
+        fail.fail_point("consensus.before_wal_end_height")
         # ENDHEIGHT marks the WAL before ApplyBlock: if we crash between
         # the two, handshake replay redoes ApplyBlock (consensus/replay.go)
         self.wal.save_end_height(height)
+        fail.fail_point("consensus.after_wal_end_height")
 
         block_id = BlockID(block.hash(), parts.header())
         new_state = self.block_exec.apply_block(
             self.state.copy(), block_id, block)
+        fail.fail_point("consensus.after_apply_block")
 
         if self.decided_hook is not None:
             self.decided_hook(block)
 
         self._update_to_state(new_state)
+        self._schedule_round0()
+
+    def _finalize_commit_pipelined(self, height: int, block, parts,
+                                   pc) -> None:
+        """Group-commit finalize (pipeline on): every store write of the
+        height (save_block, save_abci_responses, save_state) is staged
+        into one GroupCommit and flushed as one batch a db after
+        ApplyBlock, then the height's one WAL fsync (the ENDHEIGHT
+        marker). Crash ordering:
+
+        - before the flush: nothing of height H is on disk; the WAL tail
+          after ENDHEIGHT(H-1) holds every input of H, so catchup replay
+          decides and commits it again.
+        - between the flush and ENDHEIGHT: the stores hold H, the WAL
+          has no marker for it; catchup finds no tail and is skipped,
+          and the node proposes H+1.
+        - mid-flush: the block db commits before the state db
+          (registration order), so a torn flush leaves store_height ==
+          state_height + 1, the handshake's replay-forward case.
+
+        Events fire only after the flush (GroupCommit.after_flush)."""
+        fail.fail_point("consensus.before_save_block")
+        group = pipeline.GroupCommit()
+        if self.block_store.height() < block.header.height:
+            # staged first: the block db flushes before the state db
+            BlockStore(group.staged(self.block_store.db)).save_block(
+                block, parts, pc.make_commit())
+
+        block_id = BlockID(block.hash(), parts.header())
+        with pipeline.stage_timer("apply") as t_apply:
+            # pre_validated: _finalize_commit just validated this exact
+            # (state, block) pair; the commit is not verified twice
+            new_state = self.block_exec.apply_block(
+                self.state.copy(), block_id, block, group=group,
+                pre_validated=True)
+        fail.fail_point("consensus.before_group_flush")
+        with pipeline.stage_timer("persist") as t_persist:
+            group.flush()
+            fail.fail_point("consensus.after_group_flush")
+            fail.fail_point("consensus.before_wal_end_height")
+            self.wal.save_end_height(height)  # the height's one fsync
+        fail.fail_point("consensus.after_wal_end_height")
+        fail.fail_point("consensus.after_apply_block")
+        self._serial_s += t_apply.seconds + t_persist.seconds
+
+        if self.decided_hook is not None:
+            self.decided_hook(block)
+        if not self.replay_mode:
+            pipeline.observe_overlap(self._overlap_s,
+                                     self._overlap_s + self._serial_s)
+
+        self._update_to_state(new_state)
+        self._kick_precompute()
         self._schedule_round0()
 
     # ------------------------------------------------------------- proposals

@@ -21,6 +21,16 @@ package's host AEAD) is built the same way into its own library, loaded
 with ctypes, and held at first use to the RFC 8439 section 2.8.2 vector,
 a burst round trip and a tamper rejection. A failed build or a failed
 check raises: the frame plane never drops quietly to per-frame crypto.
+
+`csrc/hostops.cpp` (SHA-256 with its SHA-NI compress, Merkle roots and
+proofs, the part-set skeleton) is built the same way and loaded with
+ctypes. `csrc/codec.cpp` (the canonical-JSON encoder) and
+`csrc/kvcore.cpp` (the kvstore app's core; it includes hostops.cpp) are
+CPython extensions, `_tmtorch_codec` and `_tmtorch_kv`. Each is the
+port's copy of the JAX package's `native/` source of that name. A failed
+build or load raises with the compiler's output; the plain Python
+versions are called by name (`ops/merkle.*_plain`,
+`types/encoding._pure_cdumps`, `KVStoreApp(use_native=False)`).
 """
 
 from __future__ import annotations
@@ -317,3 +327,188 @@ def aead_open_burst(key: bytes, nonce_start: int,
     if out is None:
         raise AeadTagError("burst frame failed AEAD authentication")
     return out
+
+
+# -- SHA-256, Merkle trees and part sets (csrc/hostops.cpp) -----------------
+
+HOSTOPS_SRC = _build.CSRC / "hostops.cpp"
+HOSTOPS_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+# the same source with the SHA-NI route compiled out (tests of the
+# portable compress on a CPU that has SHA-NI)
+HOSTOPS_PORTABLE_FLAGS = HOSTOPS_FLAGS + ["-DTM_SHA256_PORTABLE"]
+
+_U64 = ctypes.c_uint64
+_HOSTOPS_SIGNATURES = [
+    ("tm_sha256_batch", [ctypes.c_char_p, _P, _U64, _P], None),
+    ("tm_merkle_root", [ctypes.c_char_p, _P, _U64, _P], None),
+    ("tm_merkle_root_from_digests", [ctypes.c_char_p, _U64, _P], None),
+    ("tm_merkle_proof", [ctypes.c_char_p, _P, _U64, _U64, _P, _P], _U64),
+    ("tm_merkle_tree_proofs", [ctypes.c_char_p, _P, _U64, _P, _P], _U64),
+    ("tm_partset_build", [ctypes.c_char_p, _U64, _U64, _P, _P], _U64),
+    ("tm_sha256_shani", [], ctypes.c_int)]
+
+
+def hostops_build(portable: bool = False):
+    """Build the host-ops library unless it is built; returns its path."""
+    gxx = shutil.which("g++") or "g++"
+    if portable:
+        return _build._build("tmtorch_hostops_portable", gxx,
+                             HOSTOPS_PORTABLE_FLAGS, HOSTOPS_SRC, headers=())
+    return _build._build("tmtorch_hostops", gxx, HOSTOPS_FLAGS, HOSTOPS_SRC,
+                         headers=())
+
+
+def hostops_lib(portable: bool = False) -> ctypes.CDLL:
+    """The host-ops library (`portable`: without SHA-NI), built at first
+    use."""
+    return _build._load("hostops_portable" if portable else "hostops",
+                        lambda: hostops_build(portable), _HOSTOPS_SIGNATURES)
+
+
+def sha256_shani(lib=None) -> bool:
+    """True when the library compresses SHA-256 with SHA-NI."""
+    return bool((lib or hostops_lib()).tm_sha256_shani())
+
+
+def _packed(items):
+    """(concatenated bytes, uint64 offsets[n + 1]) of a list of bytes."""
+    return b"".join(items), _offsets(items)
+
+
+def _depth(n: int) -> int:
+    return max(0, (max(n, 1) - 1).bit_length())
+
+
+def _split_proofs(raw: bytes, n: int, depth: int) -> list:
+    step = 32 * depth
+    return [[raw[step * i + 32 * j:step * i + 32 * (j + 1)]
+             for j in range(depth)] for i in range(n)]
+
+
+def sha256_batch(items: List[bytes], lib=None) -> List[bytes]:
+    """One SHA-256 digest an item, in one C call."""
+    lib = lib or hostops_lib()
+    data, off = _packed(items)
+    out = ctypes.create_string_buffer(32 * max(1, len(items)))
+    lib.tm_sha256_batch(data, off.ctypes.data, len(items), out)
+    raw = out.raw
+    return [raw[32 * i:32 * (i + 1)] for i in range(len(items))]
+
+
+def merkle_root(items: List[bytes], lib=None) -> bytes:
+    """Merkle root of raw items (leaf = SHA-256(0x00 || item))."""
+    lib = lib or hostops_lib()
+    data, off = _packed(items)
+    out = ctypes.create_string_buffer(32)
+    lib.tm_merkle_root(data, off.ctypes.data, len(items), out)
+    return out.raw
+
+
+def merkle_root_from_digests(digests, lib=None) -> bytes:
+    """Merkle root over 32-byte leaf digests: a list of them or one flat
+    bytes-like blob (length a multiple of 32)."""
+    lib = lib or hostops_lib()
+    if isinstance(digests, (bytes, bytearray, memoryview)):
+        data = bytes(digests)
+        n = len(data) // 32
+    else:
+        data = b"".join(digests)
+        n = len(digests)
+    out = ctypes.create_string_buffer(32)
+    lib.tm_merkle_root_from_digests(data, n, out)
+    return out.raw
+
+
+def merkle_proof(items: List[bytes], index: int, lib=None):
+    """(root, aunts leaf-up) of item `index`."""
+    lib = lib or hostops_lib()
+    data, off = _packed(items)
+    root = ctypes.create_string_buffer(32)
+    aunts = ctypes.create_string_buffer(32 * max(1, _depth(len(items))))
+    depth = lib.tm_merkle_proof(data, off.ctypes.data, len(items), index,
+                                root, aunts)
+    raw = aunts.raw
+    return root.raw, [raw[32 * j:32 * (j + 1)] for j in range(depth)]
+
+
+def merkle_tree_proofs(items: List[bytes], lib=None):
+    """(root, [aunts of each item]) from one tree build."""
+    lib = lib or hostops_lib()
+    n = len(items)
+    data, off = _packed(items)
+    root = ctypes.create_string_buffer(32)
+    aunts = ctypes.create_string_buffer(32 * max(1, _depth(n) * n))
+    depth = lib.tm_merkle_tree_proofs(data, off.ctypes.data, n, root, aunts)
+    return root.raw, _split_proofs(aunts.raw, n, depth)
+
+
+def partset_build(data: bytes, part_size: int, lib=None):
+    """(root, [aunts of each part]) of the split of `data` into part_size
+    chunks (one empty part for empty data): split, leaf hashing, tree and
+    every proof in one C call."""
+    if part_size <= 0:
+        raise ValueError("part_size must be positive")
+    lib = lib or hostops_lib()
+    n = max(1, -(-len(data) // part_size))
+    data = bytes(data)
+    root = ctypes.create_string_buffer(32)
+    aunts = ctypes.create_string_buffer(32 * max(1, _depth(n) * n))
+    depth = lib.tm_partset_build(data, len(data), part_size, root, aunts)
+    return root.raw, _split_proofs(aunts.raw, n, depth)
+
+
+# -- canonical JSON and the kvstore core (CPython extensions) ---------------
+
+CODEC_SRC = _build.CSRC / "codec.cpp"
+KV_SRC = _build.CSRC / "kvcore.cpp"
+
+_ext_mods: dict = {}
+
+
+def codec_flags() -> list:
+    return ["-O2", "-shared", "-fPIC", "-std=c++17",
+            f"-I{python_include()}"]
+
+
+def kv_flags() -> list:
+    # C++20: the core's unordered_map takes transparent lookups
+    return ["-O3", "-shared", "-fPIC", "-std=c++20",
+            f"-I{python_include()}"]
+
+
+def codec_build():
+    """Build the canonical-JSON extension unless it is built."""
+    gxx = shutil.which("g++") or "g++"
+    return _build._build("tmtorch_codec", gxx, codec_flags(), CODEC_SRC,
+                         headers=())
+
+
+def kv_build():
+    """Build the kvstore core extension unless it is built."""
+    gxx = shutil.which("g++") or "g++"
+    return _build._build("tmtorch_kv", gxx, kv_flags(), KV_SRC,
+                         headers=(HOSTOPS_SRC,))
+
+
+def _extension(modname: str, build):
+    with _lock:
+        mod = _ext_mods.get(modname)
+        if mod is None:
+            spec = importlib.util.spec_from_file_location(modname,
+                                                          str(build()))
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            _ext_mods[modname] = mod
+        return mod
+
+
+def codec():
+    """The `_tmtorch_codec` extension: canonical_dumps(obj) -> bytes, and
+    the Fallback exception it raises for a shape it does not encode."""
+    return _extension("_tmtorch_codec", codec_build)
+
+
+def kv():
+    """The `_tmtorch_kv` extension: kv_new, deliver_batch, set_one,
+    commit, get, size, items."""
+    return _extension("_tmtorch_kv", kv_build)

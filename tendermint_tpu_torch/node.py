@@ -25,10 +25,13 @@ injects a loop the caller owns (and stops); a loop the node created is
 stopped after the switch. "threads" runs the thread-per-connection plane
 and the threaded RPC server.
 
-Left out, with the planes they read: telemetry, chaos, the pipelined
-hot path, causal tracing and its stall detector, the profiler and queue
-observatory, the SLO plane, the env knob plane, snapshots and state
-sync, and gRPC.
+The pipelined block hot path follows `config.base.pipeline` ("auto", on,
+by default, as in the JAX node): the node configures `pipeline` before
+it builds its ConsensusState.
+
+Left out, with the planes they read: telemetry, chaos, causal tracing
+and its stall detector, the profiler and queue observatory, the SLO
+plane, the env knob plane, snapshots and state sync, and gRPC.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import os
 import time
 from typing import Optional
 
+from tendermint_tpu_torch import pipeline
 from tendermint_tpu_torch.abci.proxy import AppConns, local_client_creator
 from tendermint_tpu_torch.config import Config, resolve_reactor
 from tendermint_tpu_torch.consensus.replay import Handshaker, catchup_replay
@@ -98,6 +102,8 @@ class Node:
         # when the switch or the RPC listener first needs one
         self.reactor = resolve_reactor(config.base.reactor)
         self.loop = loop
+        # the pipelined hot path ("off": the serial path)
+        pipeline.configure(mode=config.base.pipeline)
         self._owns_loop = loop is None
 
         def db_path(name):
@@ -124,6 +130,11 @@ class Node:
             config.base, device)
 
         # ABCI handshake: sync app with stores (consensus/replay.go:211)
+        stored = self.state_store.load()
+        #: the block store's and the state's heights the handshake found
+        self.handshake_heights = (
+            self.block_store.height(),
+            stored.last_block_height if stored is not None else 0)
         t0 = time.perf_counter()
         handshaker = Handshaker(self.state_store, self.block_store, gen_doc,
                                 verifier=self.verifier)

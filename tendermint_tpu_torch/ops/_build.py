@@ -12,8 +12,10 @@ the compiler's output; nothing falls back.
 
 The same arithmetic header also builds with g++ into a CPU shim
 (`csrc/cpu_shim.cpp`) that the CPU tests load, and g++ builds the host
-prep extension (`csrc/prep.cpp`, loaded by `tendermint_tpu_torch.native`)
-and the launch timer (`csrc/launch_timer.cpp`) with which chip_smoke.py
+libraries of `tendermint_tpu_torch.native` (the prep extension
+`csrc/prep.cpp`, the AEAD, the Merkle and part-set host ops
+`csrc/hostops.cpp`, the canonical-JSON codec and the kvstore core) and
+the launch timer (`csrc/launch_timer.cpp`) with which chip_smoke.py
 times the verify launches of a net in the run.
 """
 

@@ -8,11 +8,15 @@ Counterpart of `tendermint_tpu/ops/merkle.py`, byte for byte:
   tree     = leaves padded to the next power of two, perfect binary tree
   root     = SHA256(0x02 || uint64_le(n_leaves) || tree_root)
 
-The host half is the JAX package's pure-Python branches (its native C++
-tree builder gives the same bytes). Headers, commits, validator sets,
-block data and part sets hash with it. The device half runs each tree
-level as one batched `ops/sha256.hash_fixed` over [m, 65] rows; `root`
-hashes the leaves on the host and the tree on the card.
+The host half takes the native C++ tree builder (`csrc/hostops.cpp`
+through `native.py`), as the JAX package's does: `root_host`,
+`root_from_digests_host`, `proof_host` and `tree_proofs_host` are one C
+call a tree. Their hashlib versions stay, as `*_plain`, for the tests.
+Headers, commits, validator sets, block data, results and part sets hash
+with it. `sha256_many_host` is the hashlib loop (its JAX caller is the
+state tree, not ported yet). The device half runs each tree level as one
+batched `ops/sha256.hash_fixed` over [m, 65] rows; `root` hashes the
+leaves on the host and the tree on the card.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import struct
 import numpy as np
 import torch
 
+from tendermint_tpu_torch import native
 from tendermint_tpu_torch.ops import sha256
 from tendermint_tpu_torch.utils import device as _device
 
@@ -49,17 +54,38 @@ def _padded_size(n: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Host half (hashlib)
+# Host half: the native tree builder, and its hashlib versions
 # ---------------------------------------------------------------------------
 
 def root_host(items: list) -> bytes:
-    """Merkle root of raw items."""
-    return root_from_digests_host([leaf_hash(it) for it in items])
+    """Merkle root of raw items, in one C call."""
+    return native.merkle_root(items)
 
 
 def root_from_digests_host(digests) -> bytes:
-    """Root over leaf digests: a list of 32-byte hashes or one flat
-    bytes-like blob (length a multiple of 32)."""
+    """Root over leaf digests (a list of 32-byte hashes or one flat
+    bytes-like blob, length a multiple of 32), in one C call."""
+    return native.merkle_root_from_digests(digests)
+
+
+def proof_host(items: list, index: int):
+    """(root, aunts): the aunts leaf-up, 32 bytes each."""
+    assert 0 <= index < len(items)
+    return native.merkle_proof(items, index)
+
+
+def tree_proofs_host(items: list):
+    """(root, [aunts of each item]): every proof from one tree build."""
+    return native.merkle_tree_proofs(items)
+
+
+def root_plain(items: list) -> bytes:
+    """root_host in hashlib."""
+    return root_from_digests_plain([leaf_hash(it) for it in items])
+
+
+def root_from_digests_plain(digests) -> bytes:
+    """root_from_digests_host in hashlib."""
     if isinstance(digests, (bytes, bytearray, memoryview)):
         flat = bytes(digests)
         digests = [flat[32 * i:32 * (i + 1)] for i in range(len(flat) // 32)]
@@ -108,8 +134,8 @@ def root_from_repeated_digest(digest: bytes, n: int) -> bytes:
     return _final_hash(n, runs[0][0])
 
 
-def proof_host(items: list, index: int):
-    """(root, aunts): the aunts leaf-up, 32 bytes each."""
+def proof_plain(items: list, index: int):
+    """proof_host in hashlib."""
     n = len(items)
     assert 0 <= index < n
     level = [leaf_hash(it) for it in items] + \
@@ -124,8 +150,8 @@ def proof_host(items: list, index: int):
     return _final_hash(n, level[0]), aunts
 
 
-def tree_proofs_host(items: list):
-    """(root, [aunts of each item]): every proof from one tree build."""
+def tree_proofs_plain(items: list):
+    """tree_proofs_host in hashlib: the levels built once."""
     n = len(items)
     level = [leaf_hash(it) for it in items] + \
         [EMPTY_DIGEST] * (_padded_size(max(n, 1)) - n)

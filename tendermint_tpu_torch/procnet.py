@@ -74,13 +74,14 @@ def free_block(n_ports: int) -> int:
 
 
 def bench_settings(verifier_backend: str = "auto", reactor: str = "auto",
-                   verifier_coalesce: str = "auto") -> Dict[str, dict]:
+                   verifier_coalesce: str = "auto",
+                   pipeline: str = "auto") -> Dict[str, dict]:
     """Config 1's socket settings (bench_testnet.py run_socket,
     :471-480): propose 400 ms + 100 a round, prevote and precommit
     200 ms + 100, commit 100 ms, 1000 txs a block, a mempool of 4000;
-    and the node's verifier backend and plane (`reactor`,
-    `verifier_coalesce`), written as the JAX `base` keys that both
-    packages read."""
+    and the node's verifier backend, plane (`reactor`,
+    `verifier_coalesce`) and commit path (`pipeline`), written as the
+    JAX `base` keys that both packages read."""
     return {
         "consensus": {"timeout_propose": 400, "timeout_propose_delta": 100,
                       "timeout_prevote": 200, "timeout_prevote_delta": 100,
@@ -89,7 +90,8 @@ def bench_settings(verifier_backend: str = "auto", reactor: str = "auto",
                       "timeout_commit": 100, "max_block_size_txs": 1000},
         "mempool": {"size": 4000},
         "base": {"verifier_backend": verifier_backend, "reactor": reactor,
-                 "verifier_coalesce": verifier_coalesce},
+                 "verifier_coalesce": verifier_coalesce,
+                 "pipeline": pipeline},
     }
 
 

@@ -9,9 +9,12 @@ exec_commit_block is the stateless variant of handshake replay
 
 After the app commit and the state save, `fire_events` publishes the
 block, its header and one Tx event a tx on the executor's event bus.
+With a `group` (pipeline.GroupCommit, the pipelined finalize) the store
+writes are staged into it and the events wait for its flush. The four
+`execution.*` fail points (utils/fail.py) sit where the JAX package has
+them.
 
-Not ported yet: the divergence recorder, the causal span, the fail
-points and group commit.
+Not ported yet: the divergence recorder and the causal span.
 """
 
 from __future__ import annotations
@@ -25,9 +28,11 @@ from tendermint_tpu_torch.models.verifier import default_verifier
 from tendermint_tpu_torch.ops import merkle
 from tendermint_tpu_torch.state.state import State
 from tendermint_tpu_torch.state.validation import validate_block
+from tendermint_tpu_torch.storage.state_store import StateStore
 from tendermint_tpu_torch.types import encoding
 from tendermint_tpu_torch.types.block import Block, BlockID
 from tendermint_tpu_torch.types.validator_set import Validator
+from tendermint_tpu_torch.utils import fail
 
 
 class Mempool(Protocol):
@@ -156,10 +161,18 @@ class BlockExecutor:
 
     def apply_block(self, state: State, block_id: BlockID,
                     block: Block, trust_last_commit: bool = False,
-                    pre_validated: bool = False) -> State:
+                    group=None, pre_validated: bool = False) -> State:
         """state/execution.go:71-119. Returns the new State; raises
         BlockValidationError on an invalid block. `trust_last_commit`:
         see validation.validate_block (fast sync's pre-verified path).
+
+        `group` (a pipeline.GroupCommit) stages the height's store writes
+        (save_abci_responses, save_state) into the group instead of
+        committing each one (the caller flushes once after this
+        returns), and defers the event fan-out to after that flush:
+        subscribers never see a block the stores could still lose to a
+        crash. The app Commit and mempool order are unchanged.
+
         `pre_validated=True` skips validation for a caller that just ran
         validate_block on the same (state, block) pair."""
         if not pre_validated:
@@ -167,9 +180,14 @@ class BlockExecutor:
                                 trust_last_commit=trust_last_commit)
         responses = exec_block_on_app(self.app_conn, block,
                                       state.validators)
-        if self.state_store is not None:
-            self.state_store.save_abci_responses(
+        fail.fail_point("execution.after_exec_block")
+        state_store = self.state_store
+        if group is not None and state_store is not None:
+            state_store = StateStore(group.staged(self.state_store.db))
+        if state_store is not None:
+            state_store.save_abci_responses(
                 block.header.height, responses.to_obj())
+        fail.fail_point("execution.after_save_abci_responses")
         new_state = update_state(state, block_id, block, responses)
 
         # Commit app + update mempool under the mempool lock
@@ -182,12 +200,19 @@ class BlockExecutor:
         finally:
             self.mempool.unlock()
 
+        fail.fail_point("execution.after_app_commit")
         new_state.app_hash = app_hash
-        if self.state_store is not None:
-            self.state_store.save(new_state)
+        if state_store is not None:
+            state_store.save(new_state)
+        fail.fail_point("execution.after_save_state")
         self.evidence_pool.update(block, new_state)
         if self.event_bus is not None:
-            fire_events(self.event_bus, block, block_id, responses)
+            if group is None:
+                fire_events(self.event_bus, block, block_id, responses)
+            else:
+                bus = self.event_bus
+                group.after_flush(
+                    lambda: fire_events(bus, block, block_id, responses))
         return new_state
 
     def exec_commit_block(self, block: Block) -> bytes:

@@ -4,8 +4,9 @@
 The interface is the reference's (the tmlibs/db shape); the backends are
 an in-memory ordered dict (tests, ephemeral nodes) and SQLite (stdlib,
 crash-safe). Keys and values are opaque bytes; prefix iteration is
-ordered lexicographically, matching LevelDB semantics. The write-staging
-view `StagedDB` (group commit) is not ported yet.
+ordered lexicographically, matching LevelDB semantics. `StagedDB` is the
+write-staging view that group commit (`pipeline.GroupCommit`) flushes as
+one batch.
 """
 
 from __future__ import annotations
@@ -165,6 +166,70 @@ class SQLiteDB:
             except sqlite3.ProgrammingError:
                 pass
         self._local.con = None
+
+
+class StagedDB:
+    """Write-staging view over a KVStore, the group-commit substrate
+    (pipeline.py). set/set_batch/delete collect into an in-memory
+    overlay; get/iterate read their own writes (a staged deletion
+    shadows the inner row); nothing touches the inner store until
+    flush_into_inner() applies the whole overlay as one set_batch and
+    one delete_batch.
+
+    Single writer: the consensus drain loop is the only staging writer.
+    Readers of the inner store (RPC, gossip catchup) miss rows not yet
+    flushed, as they would mid-save without group commit."""
+
+    def __init__(self, inner: KVStore):
+        self.inner = inner
+        self.staged: dict[bytes, Optional[bytes]] = {}  # None = deleted
+
+    def get(self, key: bytes) -> Optional[bytes]:
+        k = bytes(key)
+        if k in self.staged:
+            return self.staged[k]
+        return self.inner.get(k)
+
+    def set(self, key: bytes, value: bytes) -> None:
+        self.staged[bytes(key)] = bytes(value)
+
+    def set_batch(self, pairs: Sequence[tuple[bytes, bytes]]) -> None:
+        for k, v in pairs:
+            self.staged[bytes(k)] = bytes(v)
+
+    def delete(self, key: bytes) -> None:
+        self.staged[bytes(key)] = None
+
+    def delete_batch(self, keys: Sequence[bytes]) -> None:
+        for k in keys:
+            self.staged[bytes(k)] = None
+
+    def iterate(self, prefix: bytes = b"") -> Iterator[tuple[bytes, bytes]]:
+        over = {k: v for k, v in self.staged.items() if k.startswith(prefix)}
+        for k, v in self.inner.iterate(prefix):
+            if k not in over:  # a staged value or deletion shadows it
+                over[k] = v
+        for k in sorted(over):
+            if over[k] is not None:
+                yield k, over[k]
+
+    def compact(self) -> None:
+        pass  # a view; compaction belongs to the inner store
+
+    def close(self) -> None:
+        pass  # a view; the inner store's owner closes it
+
+    def flush_into_inner(self) -> None:
+        """Apply the overlay to the inner store (one set_batch of the
+        staged writes, then one delete_batch of the staged deletions) and
+        clear it."""
+        sets = [(k, v) for k, v in self.staged.items() if v is not None]
+        dels = [k for k, v in self.staged.items() if v is None]
+        if sets:
+            self.inner.set_batch(sets)
+        if dels:
+            self.inner.delete_batch(dels)
+        self.staged.clear()
 
 
 def open_db(path: Optional[str]) -> KVStore:

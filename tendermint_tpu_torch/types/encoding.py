@@ -1,15 +1,24 @@
 """Canonical deterministic encoding: UTF-8 JSON with sorted keys, minimal
 separators, bytes as lowercase hex, integer nanosecond times, no floats.
 
-Counterpart of `tendermint_tpu/types/encoding.py` (its specification
-path; the JAX package's native encoder is byte-equal to it).
+Counterpart of `tendermint_tpu/types/encoding.py`. `cdumps` encodes with
+the native codec (`csrc/codec.cpp` through `native.codec()`), as the JAX
+package does; `_pure_cdumps` is the specification, which the codec
+equals byte for byte. The codec raises its `Fallback` for shapes it does
+not encode (a non-str dict key, a lone surrogate, an object type it does
+not know), and only then does `cdumps` take the specification path, the
+reference's own rule. `stats()` counts the calls and those fallbacks. A
+codec that fails to build raises; nothing drops quietly to Python.
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import threading
 from typing import Any
+
+from tendermint_tpu_torch import native
 
 
 def _canon(obj: Any) -> Any:
@@ -27,10 +36,42 @@ def _canon(obj: Any) -> Any:
     return obj
 
 
-def cdumps(obj: Any) -> bytes:
-    """Canonical JSON bytes of a plain obj tree."""
+def _pure_cdumps(obj: Any) -> bytes:
+    """The specification path: _canon + json.dumps."""
     return json.dumps(_canon(obj), sort_keys=True, separators=(",", ":"),
                       ensure_ascii=False).encode()
+
+
+# (canonical_dumps, Fallback) of the codec, resolved at the first cdumps
+_codec = None
+_stats_lock = threading.Lock()
+_stats = {"native": 0, "fallback": 0}
+
+
+def cdumps(obj: Any) -> bytes:
+    """Canonical JSON bytes of a plain obj tree (dicts, lists, ints, str,
+    bytes, None), through the native codec."""
+    global _codec
+    if _codec is None:
+        mod = native.codec()
+        _codec = (mod.canonical_dumps, mod.Fallback)
+    fn, fallback = _codec
+    try:
+        out = fn(obj)
+    except fallback:
+        with _stats_lock:
+            _stats["fallback"] += 1
+        return _pure_cdumps(obj)
+    with _stats_lock:
+        _stats["native"] += 1
+    return out
+
+
+def stats() -> dict:
+    """Calls the codec encoded (`native`) and those it handed to the
+    specification path (`fallback`), since the process started."""
+    with _stats_lock:
+        return dict(_stats)
 
 
 def cloads(data: bytes) -> Any:

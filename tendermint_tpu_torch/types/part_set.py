@@ -1,16 +1,22 @@
 """PartSet: a block's bytes split into Merkle-proven parts for gossip.
 
 Counterpart of `tendermint_tpu/types/part_set.py`: the same split, root,
-proofs and refusals. The skeleton (root and every proof) comes from one
-host tree build (`merkle.tree_proofs_host`), the JAX package's route
-when its native part-set builder is off; both give the same bytes.
+proofs and refusals. With the pipeline on (config.base.pipeline, the
+default) the skeleton (root and every proof) is one native call,
+`tm_partset_build` (split, leaf hashing, tree and proofs); off, the
+Python split feeds one host tree build (`merkle.tree_proofs_host`), as
+in the JAX package. Both give the same bytes. `build_stats()` counts the
+builds of each route. `from_data_streaming` yields the parts one at a
+time, so that a proposer gossips early parts while later ones are made.
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Iterator, List, Optional, Tuple
 
+from tendermint_tpu_torch import native
 from tendermint_tpu_torch.ops import merkle
 from tendermint_tpu_torch.types.block import PartSetHeader
 
@@ -31,13 +37,36 @@ class Part:
                    [bytes.fromhex(a) for a in o["proof"]])
 
 
+_builds_lock = threading.Lock()
+_builds = {"native": 0, "python": 0}
+
+
+def build_stats() -> dict:
+    """Part-set skeletons built by each route since the process started:
+    `native` (tm_partset_build) and `python` (the split and a tree)."""
+    with _builds_lock:
+        return dict(_builds)
+
+
 def _build_skeleton(data: bytes, part_size: int):
-    """(n_parts, root, proofs) of the split of `data` into part_size
-    chunks (one empty part for empty data)."""
-    chunks = [data[i:i + part_size]
-              for i in range(0, len(data), part_size)] or [b""]
-    root, proofs = merkle.tree_proofs_host(chunks)
-    return len(chunks), root, proofs
+    """(n_parts, root, proofs, impl) of the split of `data` into
+    part_size chunks (one empty part for empty data): one native call
+    when the pipeline is on, else the Python split and one tree build."""
+    # imported here: pipeline imports storage, whose block store imports
+    # this module
+    from tendermint_tpu_torch import pipeline
+    n = max(1, -(-len(data) // part_size))
+    if pipeline.resolve():
+        root, proofs = native.partset_build(data, part_size)
+        impl = "native"
+    else:
+        chunks = [data[i:i + part_size]
+                  for i in range(0, len(data), part_size)] or [b""]
+        root, proofs = merkle.tree_proofs_host(chunks)
+        impl = "python"
+    with _builds_lock:
+        _builds[impl] += 1
+    return n, root, proofs, impl
 
 
 class PartSet:
@@ -50,7 +79,7 @@ class PartSet:
 
     @classmethod
     def from_data(cls, data: bytes, part_size: int) -> "PartSet":
-        n, root, proofs = _build_skeleton(data, part_size)
+        n, root, proofs, _ = _build_skeleton(data, part_size)
         ps = cls(n, root)
         for i in range(n):
             ps.parts[i] = Part(i, data[i * part_size:(i + 1) * part_size],
@@ -65,7 +94,7 @@ class PartSet:
         """(ps, parts): the header (total and root) is usable at once; the
         parts are made as the iterator is consumed, each added to `ps` as
         it is yielded. Consumed fully, `ps` equals from_data()'s."""
-        n, root, proofs = _build_skeleton(data, part_size)
+        n, root, proofs, _ = _build_skeleton(data, part_size)
         ps = cls(n, root)
 
         def gen() -> Iterator[Part]:

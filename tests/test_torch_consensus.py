@@ -9,9 +9,11 @@ test's own assertions, and the two runs must give the same per-height
 block bytes, State bytes and app hashes, and the same final (height,
 round, step) on every node. Tolerance 0.
 
-The JAX ConsensusState runs with its pipeline off (TM_TPU_PIPELINE=off,
-the serial path the port has); the 4-node net below is also held to it
-with the pipeline at its default. Port nodes verify on
+Both packages' ConsensusStates run with their pipeline off
+(TM_TPU_PIPELINE=off, and the port's pipeline "off"), on the serial
+path; the 4-node net below is also held to the JAX net with its pipeline
+at its default. Both run their kvstore app at its default, the native
+core. Port nodes verify on
 BatchVerifier("python"), JAX nodes on their default verifier (the host
 loop at these sizes); two cases take the port's batch path on the CPU,
 BatchVerifier("cuda", device="cpu"): one vote_agg group and one
@@ -48,6 +50,7 @@ from tendermint_tpu.types import vote as jvote
 from tendermint_tpu.utils import clock as jclock
 from tendermint_tpu import config as jconfig
 from tendermint_tpu_torch import config as tconfig
+from tendermint_tpu_torch import pipeline as tpipeline
 from tendermint_tpu_torch import consensus as tcons
 from tendermint_tpu_torch.abci import proxy as tproxy
 from tendermint_tpu_torch.abci import types as tabci
@@ -82,7 +85,7 @@ JAX = SimpleNamespace(
     evpool=jevpool, evstore=jevstore, mempool=jmempool, exe=jexec,
     bs=jbs, db=jdb, ss=jss, wal=jwal, blk=jblock, enc=jenc, events=jevents,
     gen=jgen, keys=jkeys, pv=jpv, prop=jprop, vote=jvote, clock=jclock,
-    config=jconfig, app=lambda: jkv.KVStoreApp(use_native=False),
+    config=jconfig, app=jkv.KVStoreApp,
     verifier=lambda: None)
 PORT = SimpleNamespace(
     name="port", cons=tcons, proxy=tproxy, abci=tabci, replay=treplay,
@@ -96,8 +99,11 @@ T0 = 1_700_000_000 * 10 ** 9
 
 @pytest.fixture(autouse=True)
 def serial_pipeline(monkeypatch):
-    """The JAX ConsensusState on its serial path, as the port has it."""
+    """Both packages' ConsensusStates on their serial path: the clocks
+    tick at every read, and the precompute worker of the pipelined path
+    reads them from its own thread."""
     monkeypatch.setenv("TM_TPU_PIPELINE", "off")
+    monkeypatch.setattr(tpipeline, "_configured", "off")
 
 
 def ticking_clocks():
@@ -1031,9 +1037,15 @@ def drive_net(P, net, standby):
 @pytest.fixture(scope="module")
 def port_net(tmp_path_factory):
     home = str(tmp_path_factory.mktemp("port_net"))
-    net = ttestnet.Testnet(verifier_of=lambda i: _PY, home=home,
-                           file_nodes=(ttestnet.FILE_NODE,))
-    return drive_net(PORT, net, ttestnet.standby_key())
+    # the serial path, as the JAX net of the comparisons below runs it
+    # (tests/test_torch_pipeline.py holds the pipelined net)
+    tpipeline.configure("off")
+    try:
+        net = ttestnet.Testnet(verifier_of=lambda i: _PY, home=home,
+                               file_nodes=(ttestnet.FILE_NODE,))
+        return drive_net(PORT, net, ttestnet.standby_key())
+    finally:
+        tpipeline.configure("auto")
 
 
 def _jax_net(tmp_path_factory, name):

@@ -13,12 +13,16 @@ its own interpreter, started as users start it,
   restarted with fast sync; it catches up, and its killed process's
   counts are read from the line of the last height it committed. Every
   process reports one tm-reactor-loop thread, no per-peer thread and
-  coalesced verify calls.
+  coalesced verify calls, and the JAX node's default commit path: the
+  pipeline on, one group flush a height it committed in consensus, no
+  failed precompute, part sets built natively, every block with txs
+  delivered by the kv core and the canonical JSON on the native codec.
 - A mixed net of two JAX processes (JAX_PLATFORMS=cpu, verifier_backend
   "python", the JAX node's defaults otherwise) and two port processes,
   both packages on the loop plane, from one JAX-written tree agrees on
   every block hash and app hash, and
-  commits every fed tx and nothing else. Not each tx once: a JAX node
+  commits every fed tx and nothing else; the port processes run the
+  default commit path as above. Not each tx once: a JAX node
   admits a committed tx it never held when late gossip brings it, and
   proposes it again (ROADMAP Queue 3); the port's nodes commit that
   block, as the agreement requires.
@@ -86,6 +90,10 @@ def test_four_port_processes_commit_fed_txs_and_agree(tmp_path):
         assert line["device"] == "cpu" and line["verifier"]["calls"] > 0
         assert sum(line["launches"].values()) == 0
         _assert_loop_plane(line)
+        _assert_commit_path(line)
+    for i in range(3):   # never restarted: every height by consensus
+        assert lines[i][0]["pipeline"]["group_flushes"] == \
+            lines[i][0]["height"]
     shutil.rmtree(tmp_path, ignore_errors=True)
 
 
@@ -99,6 +107,18 @@ def _assert_loop_plane(line):
     assert v["calls"] == v["direct_calls"] + c["dispatches"] + \
         c["isolated_calls"]
     assert line["loop"]["ticks"] > 0
+
+
+def _assert_commit_path(line):
+    """A port process's `node kernels` line on the JAX node's default
+    commit path."""
+    p, nat = line["pipeline"], line["native"]
+    assert p["mode"] == "on" and p["group_flushes"] > 0, p
+    assert p["precompute"]["failed"] == 0, p
+    assert nat["partsets"]["python"] == 0, nat
+    kv = nat["kvstore"]
+    assert kv["native"] > 0 and kv["per_tx"] == kv["pure"] == 0, nat
+    assert nat["codec"]["native"] > 0, nat
 
 
 def test_mixed_jax_and_port_processes_agree_on_every_block(tmp_path):
@@ -127,4 +147,5 @@ def test_mixed_jax_and_port_processes_agree_on_every_block(tmp_path):
     assert [len(net.kernel_lines(i)) for i in range(4)] == [0, 1, 0, 1]
     for i in (1, 3):
         _assert_loop_plane(net.kernel_lines(i)[0])
+        _assert_commit_path(net.kernel_lines(i)[0])
     shutil.rmtree(tmp_path, ignore_errors=True)

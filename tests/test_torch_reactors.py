@@ -29,8 +29,8 @@ socket nets against the JAX package's, on the CPU, tolerance 0.
   lets a GIL-bound in-process socket net fall into rounds that its
   message latency never catches up with.
 
-The JAX side runs with its pipeline off (TM_TPU_PIPELINE=off, the serial
-path the port has). Port nodes verify on BatchVerifier("auto",
+Both packages run with their pipeline off (TM_TPU_PIPELINE=off, and the
+port's pipeline "off"): the serial path. Port nodes verify on BatchVerifier("auto",
 device="cpu"): the host loop at these batch sizes.
 """
 
@@ -76,6 +76,7 @@ from tendermint_tpu.types.priv_validator import PrivValidator as JPrivVal
 from tendermint_tpu.types.proposal import Heartbeat as JHeartbeat
 from tendermint_tpu.types.vote import Vote as JVote
 from tendermint_tpu.utils import clock as jclock
+from tendermint_tpu_torch import pipeline as tpipeline
 from tendermint_tpu_torch.abci.apps import KVStoreApp
 from tendermint_tpu_torch.abci.proxy import AppConns, local_client_creator
 from tendermint_tpu_torch.config import test_config as ttest_config
@@ -115,7 +116,7 @@ CPU = BatchVerifier("auto", device="cpu")
 
 JAX = SimpleNamespace(
     name="jax", PrivKey=JPrivKey, GenesisDoc=JGenesisDoc, GenVal=JGenVal,
-    app=lambda: jkv.KVStoreApp(use_native=False), AppConns=JAppConns,
+    app=jkv.KVStoreApp, AppConns=JAppConns,
     lcc=jlcc, MemDB=JMemDB, StateStore=JStateStore, BlockStore=JBlockStore,
     Handshaker=JHandshaker, Mempool=JMempool, EvPool=JEvPool,
     EvStore=JEvStore, EventBus=JEventBus, BlockExecutor=JBlockExecutor,
@@ -139,8 +140,9 @@ PKGS = (JAX, PORT)
 
 @pytest.fixture(autouse=True)
 def serial_pipeline(monkeypatch):
-    """The JAX ConsensusState on its serial path, as the port has it."""
+    """Both packages' ConsensusStates on their serial path."""
     monkeypatch.setenv("TM_TPU_PIPELINE", "off")
+    monkeypatch.setattr(tpipeline, "_configured", "off")
 
 
 def wait_for(cond, timeout=WAIT_S):
@@ -684,7 +686,7 @@ class JaxSockNode:
             timeout_commit=100, skip_timeout_commit=False,
             peer_gossip_sleep_ms=100, max_block_size_txs=1000)
         self.index, self.states = i, {}
-        self.app = jkv.KVStoreApp(use_native=False)
+        self.app = jkv.KVStoreApp()
         self.conns = JAppConns(jlcc(self.app))
         self.state_store = JStateStore(JMemDB())
         self.block_store = JBlockStore(JMemDB())

@@ -22,6 +22,7 @@ from tendermint_tpu.storage import db as jdb
 from tendermint_tpu_torch import convert
 from tendermint_tpu_torch.consensus import wal_generator as twalgen
 from tendermint_tpu_torch.storage import db as tdb
+from tendermint_tpu_torch import pipeline as tpipeline
 from tests.test_torch_consensus import JAX, PORT, PKGS, genesis, ticking_clocks
 
 JAX.sqlite, PORT.sqlite = jdb.SQLiteDB, tdb.SQLiteDB
@@ -31,6 +32,7 @@ JAX.walgen, PORT.walgen = jwalgen, twalgen
 @pytest.fixture(autouse=True)
 def serial_pipeline(monkeypatch):
     monkeypatch.setenv("TM_TPU_PIPELINE", "off")
+    monkeypatch.setattr(tpipeline, "_configured", "off")
 
 
 @pytest.fixture(autouse=True)
@@ -354,6 +356,7 @@ MATRIX = [(0, 0, 0), (3, 3, 0), (3, 3, 2), (3, 3, 3), (3, 2, 3), (3, 2, 2),
 def chains():
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("TM_TPU_PIPELINE", "off")
+        mp.setattr(tpipeline, "_configured", "off")
         out = {}
         for P in PKGS:
             ticking_clocks()

@@ -61,7 +61,7 @@ def _ns(**kw):
 JAX = _ns(name="jax", proxy=jproxy, abci=jabci, kv=jkv, exe=jexec, st=jstate,
           val=jval, bs=jbs, db=jdb, ss=jss, blk=jblock, enc=jenc, ev=jev,
           gen=jgen, keys=jkeys, ps=jps, vote=jvote,
-          app=lambda: jkv.KVStoreApp(use_native=False))
+          app=jkv.KVStoreApp)
 PORT = _ns(name="port", proxy=tproxy, abci=tabci, kv=tkv, exe=texec,
            st=tstate, val=tval, bs=tbs, db=tdb, ss=tss, blk=tblock, enc=tenc,
            ev=tev, gen=tgen, keys=tkeys, ps=tps, vote=tvote,
