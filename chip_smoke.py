@@ -281,7 +281,49 @@ Phases, each printing its own lines:
    each of the ten pipelined fail points that fire without the state
    tree, rebuilt from its files; app hash and every block equal to an
    uncrashed run's, B1 launched.
-14. the kernel table as one JSON line, the card again, then the last line
+14. the recovery plane, four arms. `statesync_chain`: bench_sync.py's
+   recorded shape (BENCH_sync.json) on the port's ChainBuilder, nothing
+   imported from it: 1920 heights, 4 validators, 100 txs a block, every
+   tx a new key, one B3 launch a block, and a snapshot at 1900 in 256 KiB
+   chunks; two fresh nodes over in-process switches (bench_sync's 64 MB/s
+   links), each verifying on BatchVerifier("cuda"): one restores the
+   snapshot (StateSyncReactor: discovery, manifest, chunks, apply_restore
+   with the light verify on B1) and fast-syncs the tail to 1919, the other
+   fast-syncs from genesis. Both must reach 1919 with the source's State
+   bytes and app hash, the restored store's base must be 1901 and its pin
+   the source's manifest, and the restore must launch B1. Prints the
+   build (chunks, bytes, seconds), each arm's seconds split into
+   discovery, manifest, fetch, restore (assemble, verify, app install,
+   stores) and tail, and the kernels' launches and event ms, timed in the
+   launching host call. `statesync_wide`: a snapshot whose commit is phase
+   3's 10,000-validator commit, restored by a fresh node from a cold
+   predecompression cache (B1 at 10,000 lanes in the light verify); a copy
+   with one flipped signature byte must be refused with "invalid
+   signature in commit", poisoned, and leave every store as it was.
+   `procnet_statesync`: phase 13's net, load (the two feeders, 200
+   NewBlock subscribers on node 1, 32 broadcast_tx_sync connections to
+   node 2) and defaults, with snapshots every 10 heights, 2 kept and 20
+   heights retained on nodes 0-2 (evidence max_age 10 in the genesis);
+   node 3 SIGKILLed at 15, wiped with `cli unsafe_reset_all` and
+   restarted with --state-sync once nodes 0-2 pass 21; the feeders stop 5
+   heights after node 3 signs again. Node 3 must restore a multiple of 10,
+   sync the tail, sign again and agree with every node at every height
+   above its restore (block metas read every second while the pruning
+   nodes hold them); nodes 0-2 must end with both stores pruned above 1,
+   never above their latest snapshot, at most 2 snapshots; every
+   subscriber must see heights 5-40 in order, sampled fed and
+   sync-acknowledged keys be answered by every node (node 0's pruned
+   blocks can no longer be counted), one loop thread a process; node 3's
+   restarted process must launch B1. Blocks/s over heights 5-40 from the
+   watched metas. Prints the rejoin's stages (restart -> RPC -> restored -> synced ->
+   signed) and every process's plane counts. `recovery_sweep`:
+   tests/test_snapshot.py's crash sweep (snapshot.after_chunk,
+   snapshot.before_publish, prune.mid_range) and tests/test_statesync.py's
+   restore crashes (statesync.before_apply, statesync.after_restore, here
+   inside a Node's start) on a single-validator node verifying on the
+   card, each recovering to the uncrashed run's app hash and blocks.
+   Launch counts zeroed at the start of each arm, read at its end.
+15. the kernel table as one JSON line, the card again, then the last line
    {"ok": true, "device": {...}}.
 
 Any mismatch or exception ends the run with a non-zero code before the
@@ -3995,9 +4037,10 @@ class _Crash(BaseException):
     sweep may swallow it."""
 
 
-def _sweep_node(home: str, gen, key, device: str):
+def _sweep_node(home: str, gen, key, device: str, recovery=None):
     """A single-validator port Node on the pipelined path (MockTicker,
-    the kvstore app, files under `home`), verifying on `device`."""
+    the kvstore app, files under `home`), verifying on `device`, with
+    the `base` settings `recovery` (the recovery plane's keys)."""
     from tendermint_tpu_torch.config import test_config
     from tendermint_tpu_torch.consensus.ticker import MockTicker
     from tendermint_tpu_torch.node import Node
@@ -4013,6 +4056,8 @@ def _sweep_node(home: str, gen, key, device: str):
     cfg.base.verifier_backend = "cuda" if device.startswith("cuda") \
         else "python"
     cfg.base.pipeline = "auto"
+    for k, v in (recovery or {}).items():
+        setattr(cfg.base, k, v)
     node = Node(cfg, gen, priv_validator=pv, app=KVStoreApp(),
                 device=device if device.startswith("cuda") else None)
     node.consensus.ticker.stop()
@@ -4221,6 +4266,950 @@ def phase_procnet_pipeline(card: str, device: str = "cuda",
     return run
 
 
+# ------------------------------------------ phase 14: the recovery plane
+
+SS_HEIGHTS = 1920         # bench_sync.py's recorded run (BENCH_sync.json):
+SS_VALIDATORS = 4         # 1920 heights, 4 validators, 100 txs a block,
+SS_TXS = 100              # every tx a new key, a snapshot at 1900 in
+SS_SNAPSHOT_AT = 1900     # 256 KiB chunks
+SS_CHUNK_KB = 256
+SS_WINDOW = 64            # bench_sync's fresh node's verify_window
+SS_LINK_RATE = 64_000_000  # bench_sync's in-process links, B/s a direction
+SS_TIMEOUT_S = 300.0      # an arm's limit to the frontier
+SS_GIVE_UP_S = 10.0       # bench_sync's give_up_s
+WIDE_GIVE_UP_S = 3.0      # the flipped copy's fall-back
+PROC_SS_RECOVERY = {"snapshot_interval": 10, "snapshot_keep": 2,
+                    "retain_heights": 20}   # nodes 0-2
+PROC_SS_MAX_AGE = 10      # the genesis' evidence horizon: the state store
+#                           prunes behind h - 9 (the default 100000 would
+#                           keep every state row)
+PROC_SS_RESTART_ABOVE = 21  # node 3 restarts when nodes 0-2 pass this
+PROC_SS_AFTER = 5         # heights node 0 commits after node 3 signs again
+PROC_SS_WALL_S = 300.0
+PROC_SS_WATCH_S = 1.0     # the meta watcher's period
+SWEEP_SS_TARGET = 6       # tests/test_snapshot.py's sweep: commit to 6
+SWEEP_SS_RECOVERY = {"snapshot_interval": 2, "snapshot_keep": 2,
+                     "retain_heights": 2}
+SWEEP_SS_MAX_AGE = 4
+SWEEP_SS_WAVES = ([b"sn/a%d=v%d" % (i, i) for i in range(1, 4)],
+                  [b"sn/b%d=w%d" % (i, i) for i in range(1, 4)],
+                  [b"sn/c%d=u%d" % (i, i) for i in range(1, 4)])
+
+
+def _ss_verifier(device):
+    """The fresh nodes' verifier: BatchVerifier("cuda") on the card (every
+    verify of the path reaches the kernels), the host one in a CPU
+    rehearsal."""
+    if device is not None and device.type == "cuda":
+        return tverifier.BatchVerifier("cuda", device=device)
+    return tverifier.BatchVerifier("python")
+
+
+def _cold_cache() -> None:
+    with ted._predecomp_lock:
+        ted._predecomp.clear()
+        ted._predecomp_seen.clear()
+
+
+def _link_config():
+    from tendermint_tpu_torch.config import P2PConfig
+    return P2PConfig(send_rate=SS_LINK_RATE, recv_rate=SS_LINK_RATE)
+
+
+def _ss_source(device, root: str) -> dict:
+    """bench_sync.build_source's chain on the port's ChainBuilder (B3 signs
+    every commit), each block saved with its commit as the serving node's
+    block store does, and the snapshot at SS_SNAPSHOT_AT taken from the
+    builder's app at that height."""
+    from tendermint_tpu_torch.storage.snapshot import (SnapshotStore,
+                                                       build_payload)
+    b = ChainBuilder(SS_VALIDATORS, SS_TXS, key_space=1 << 40,
+                     chain_id="chip-smoke-statesync", device=device)
+    bs = BlockStore(MemDB())
+    snaps = SnapshotStore(os.path.join(root, "src-snapshots"))
+    times: dict = {}
+    t0 = time.perf_counter()
+    take_s = frontier = None
+    for h in range(1, SS_HEIGHTS + 1):
+        block = b.build(1, times)[0]
+        bs.save_block(block, block.make_part_set(b.part_size), b.last_commit)
+        if h == SS_SNAPSHOT_AT:
+            t1 = time.perf_counter()
+            snaps.take(h, build_payload(b.state, b.last_commit,
+                                        b.app.snapshot_items()),
+                       SS_CHUNK_KB * 1024)
+            take_s = time.perf_counter() - t1
+        if h == SS_HEIGHTS - 1:
+            frontier = b.state     # the height a syncing node reaches
+    return {"gen": b.gen, "state": b.state, "block_store": bs,
+            "snaps": snaps, "manifest": snaps.load_manifest(SS_SNAPSHOT_AT),
+            "frontier": frontier, "build_s": time.perf_counter() - t0,
+            "take_s": take_s, "build_stages_ms": times}
+
+
+def _fresh_side(gen, root: str, verifier, restore: bool,
+                give_up_s: float = SS_GIVE_UP_S, with_blocks: bool = True):
+    """bench_sync._fresh_arm's fresh node on the port: MemDB stores, the
+    kvstore app after init_chain, a fast-syncing blockchain reactor at
+    SS_WINDOW behind the state-sync gate, and with `restore` the
+    StateSyncReactor. Returns its parts; `on_done` stamps the restore."""
+    from tendermint_tpu_torch.config import test_config
+    from tendermint_tpu_torch.consensus import ConsensusState, MockTicker
+    from tendermint_tpu_torch.consensus.reactor import ConsensusReactor
+    from tendermint_tpu_torch.p2p.test_util import make_switch
+    from tendermint_tpu_torch.statesync import StateSyncReactor
+    from tendermint_tpu_torch.storage import SnapshotStore
+    app = KVStoreApp()
+    conns = AppConns(local_client_creator(app))
+    ss, bs = StateStore(MemDB()), BlockStore(MemDB())
+    state = ss.load_or_genesis(gen)
+    conns.consensus.init_chain(
+        [ValidatorUpdate(v.pubkey, v.voting_power)
+         for v in state.validators.validators], gen.chain_id)
+    genesis_rows = dict(ss.db.iterate())
+    exe = BlockExecutor(ss, conns.consensus, verifier=verifier)
+    side = SimpleNamespace(app=app, ss=ss, bs=bs, gate=threading.Event(),
+                           genesis_rows=genesis_rows, restored_at=None,
+                           restore_launches=None, reactor=None, bc=None)
+    sw = make_switch(network=gen.chain_id, seed=b"\x52" * 32,
+                     config=_link_config())
+    if with_blocks:
+        cs = ConsensusState(test_config().consensus, state, exe, bs,
+                            priv_validator=None, ticker_factory=MockTicker)
+        cons = ConsensusReactor(cs, fast_sync=True)
+        side.bc = BlockchainReactor(state, exe, bs, fast_sync=True,
+                                    consensus_reactor=cons,
+                                    verify_window=SS_WINDOW,
+                                    gate=side.gate if restore else None)
+        sw.add_reactor("consensus", cons)
+        sw.add_reactor("blockchain", side.bc)
+    if restore:
+        def on_done(st):
+            side.restored_at = time.perf_counter()
+            side.restore_launches = dict(ladder.launches)
+            if st is not None and side.bc is not None:
+                cs.state = st
+                side.bc.adopt_restored(st)
+            side.gate.set()
+
+        side.local = SnapshotStore(os.path.join(root, "snapshots"))
+        side.reactor = StateSyncReactor(
+            side.local, gen.chain_id, restore=True,
+            statesync_dir=os.path.join(root, "statesync"), block_store=bs,
+            state_store=ss, app=app, verifier=verifier, on_restored=on_done,
+            give_up_s=give_up_s)
+        sw.add_reactor("statesync", side.reactor)
+    side.sw = sw
+    return side
+
+
+def _serving_switch(gen, state, block_store, snaps):
+    from tendermint_tpu_torch.p2p.test_util import make_switch
+    from tendermint_tpu_torch.statesync import StateSyncReactor
+    sw = make_switch(network=gen.chain_id, seed=b"\x51" * 32,
+                     config=_link_config())
+    if block_store is not None:
+        sw.add_reactor("blockchain", BlockchainReactor(
+            state, None, block_store, fast_sync=False))
+    sw.add_reactor("statesync", StateSyncReactor(snaps, gen.chain_id))
+    sw.start()
+    return sw
+
+
+def _ss_arm(src: dict, use_statesync: bool, root: str, device) -> dict:
+    """One of bench_sync's two arms: a fresh node to the frontier, by a
+    snapshot restore and the tail, or by fast sync from genesis. Its
+    seconds split into discovery, manifest, fetch, restore (assemble,
+    verify, app install, stores) and tail; its kernel launches, the
+    restore's apart."""
+    from tendermint_tpu_torch.p2p.test_util import connect_switches
+    verifier = _ss_verifier(device)
+    _cold_cache()
+    sw_src = _serving_switch(src["gen"], src["state"], src["block_store"],
+                             src["snaps"])
+    side = _fresh_side(src["gen"], root, verifier, use_statesync)
+    side.sw.start()
+    log: list = []
+    on_card = device is not None and device.type == "cuda"
+    saved = _patched(_in_run_timer_patches(log)) if on_card else []
+    ref = None
+    if on_card:
+        ref = torch.cuda.Event(enable_timing=True)
+        ref.record()
+    before = dict(ladder.launches)
+    try:
+        t0 = time.perf_counter()
+        connect_switches(sw_src, side.sw)
+        deadline = time.monotonic() + SS_TIMEOUT_S
+        while time.monotonic() < deadline and not side.bc.synced:
+            require(side.bc.sync_error is None,
+                    f"statesync_chain: the sync failed: {side.bc.sync_error!r}")
+            if side.reactor is not None:
+                require(side.reactor.restore_error is None,
+                        "statesync_chain: the restore failed: "
+                        f"{side.reactor.restore_error!r}")
+            time.sleep(0.01)
+        t1 = time.perf_counter()
+    finally:
+        _restore(saved)
+        sw_src.stop()
+        side.sw.stop()
+        verifier.close()
+    require(side.bc.synced, f"statesync_chain: the "
+            f"{'statesync' if use_statesync else 'replay'} arm did not reach "
+            f"the frontier within {SS_TIMEOUT_S} s "
+            f"(at {side.bs.height()})")
+    launches = {k: ladder.launches[k] - before[k] for k in before}
+    out = {"seconds": t1 - t0, "frontier": side.bs.height(),
+           "launches": launches, "verifier_stats": dict(verifier.stats),
+           "side": side}
+    if use_statesync:
+        status = side.reactor.status()
+        tm = status["timings"]
+        out.update(
+            restored_height=status["restore_height"],
+            discovery_s=tm.get("discovery_s", 0.0),
+            manifest_s=tm.get("manifest_s", 0.0),
+            fetch_s=tm.get("fetch_s", 0.0),
+            restore_s=sum(tm.get(k, 0.0) for k in
+                          ("assemble_s", "verify_s", "app_s", "stores_s")),
+            restore_stages_s={k: tm.get(k, 0.0) for k in
+                              ("assemble_s", "verify_s", "app_s",
+                               "stores_s")},
+            to_restored_s=side.restored_at - t0,
+            tail_s=t1 - side.restored_at,
+            restore_launches={k: side.restore_launches[k] - before[k]
+                              for k in before},
+            chunks=status["chunks_total"], chunks_ok=status["chunks_ok"],
+            chunks_bad=status["chunks_bad"], banned=status["banned"],
+            local_snapshots=side.local.list_heights())
+    if on_card:
+        out["device"] = _in_run_device_time(log, ref, t1 - t0)
+    return out
+
+
+def phase_statesync_chain(card: str, device) -> dict:
+    """Phase 14, arm 1: bench_sync.py's shape on the port. Two fresh
+    nodes over in-process switches, each verifying on `device`: one
+    restores the snapshot at 1900 and fast-syncs the tail to 1919, the
+    other fast-syncs from genesis. Launch counts zeroed before the chain
+    build (B3), read after both arms."""
+    root = tempfile.mkdtemp(prefix="statesync-chain-")
+    _zero_launches()
+    try:
+        src = _ss_source(device, root)
+        build_launches = dict(ladder.launches)
+        m = src["manifest"]
+        emit({"phase": "statesync_build", "heights": SS_HEIGHTS,
+              "validators": SS_VALIDATORS, "txs_per_block": SS_TXS,
+              "snapshot_height": m["height"], "chunks": len(m["chunks"]),
+              "bytes": m["size"], "chunk_kb": SS_CHUNK_KB,
+              "build_s": src["build_s"], "snapshot_take_s": src["take_s"],
+              "build_stages_ms": src["build_stages_ms"],
+              "sign_launches": build_launches["sign_rb"], "card": card})
+        arms = {"statesync": _ss_arm(src, True, os.path.join(root, "ss"),
+                                     device),
+                "replay": _ss_arm(src, False, os.path.join(root, "replay"),
+                                  device)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = dict(ladder.launches)
+    final = tenc.cdumps(src["frontier"].to_obj())
+    for name, arm in arms.items():
+        side = arm.pop("side")
+        require(arm["frontier"] == SS_HEIGHTS - 1,
+                f"statesync_chain: the {name} arm stopped at "
+                f"{arm['frontier']}")
+        require(tenc.cdumps(side.bc.state.to_obj()) == final
+                and side.ss.load().equals(src["frontier"])
+                and side.app.app_hash == src["frontier"].app_hash,
+                f"statesync_chain: the {name} arm's state or app hash differs "
+                "from the source's")
+        if name == "statesync":
+            require(arm["restored_height"] == SS_SNAPSHOT_AT,
+                    f"statesync_chain: restored {arm['restored_height']}")
+            require(side.bs.base() == SS_SNAPSHOT_AT + 1,
+                    f"statesync_chain: the restored store's base is "
+                    f"{side.bs.base()}, the reference writes "
+                    f"{SS_SNAPSHOT_AT + 1}")
+            require(side.ss.load_snapshot_pin(SS_SNAPSHOT_AT) == m
+                    and side.ss.latest_snapshot_height() == SS_SNAPSHOT_AT
+                    and arm["local_snapshots"] == [SS_SNAPSHOT_AT],
+                    "statesync_chain: the snapshot pin or the adopted "
+                    "snapshot differs from the source's manifest")
+    emit({"phase": "statesync_chain", "arms": arms,
+          "speedup_statesync_vs_replay":
+              arms["replay"]["seconds"] / arms["statesync"]["seconds"],
+          "links_bytes_per_s": SS_LINK_RATE, "verify_window": SS_WINDOW,
+          "launches": launches, "card": card})
+    on_card = device is not None and device.type == "cuda"
+    require(not on_card
+            or arms["statesync"]["restore_launches"]["verify"] >= 1,
+            "statesync_chain: the restore's light verify did not launch B1: "
+            f"{arms['statesync']['restore_launches']}")
+    require(not on_card or (arms["statesync"]["launches"]["verify"] >= 1
+                            and launches["sign_rb"] >= SS_HEIGHTS),
+            f"statesync_chain: launches {launches}")
+    return launches
+
+
+def _wide_snapshot(commit_path, root: str):
+    """A snapshot at phase 3's height whose commit is phase 3's 10,000-
+    validator commit: the State of a chain whose last block is phase 3's
+    block id, signed by that set, over a kvstore app of seeded pairs."""
+    from tendermint_tpu_torch.state.state import make_genesis_state
+    from tendermint_tpu_torch.storage import SnapshotStore
+    from tendermint_tpu_torch.storage.snapshot import build_payload
+    from tendermint_tpu_torch.types.genesis import (GenesisDoc,
+                                                    GenesisValidator)
+    vs, bid, commit = commit_path
+    gen = GenesisDoc(chain_id=CHAIN, genesis_time_ns=1, validators=[
+        GenesisValidator(v.pubkey, v.voting_power) for v in vs.validators])
+    state = make_genesis_state(gen)
+    app = KVStoreApp()
+    rng = random.Random(SEED)
+    items = sorted((b"wide/k%d" % i, b"v%d" % rng.randrange(1 << 30))
+                   for i in range(4096))
+    state.last_block_height = HEIGHT
+    state.last_block_id = bid
+    state.last_block_time_ns = HEIGHT * 10 ** 9
+    state.last_validators = vs
+    state.app_hash = app.restore_items(
+        items, HEIGHT, validators=[(v.pubkey, v.voting_power)
+                                   for v in vs.validators])
+    payload = build_payload(state, commit, app.snapshot_items())
+    snaps = SnapshotStore(os.path.join(root, "wide-src"))
+    manifest = snaps.take(HEIGHT, payload, SS_CHUNK_KB * 1024)
+    # the same payload with one signature byte flipped
+    bad = tenc.cloads(tenc.cdumps(payload))
+    k = len(vs.validators) // 3
+    sig = bytes.fromhex(bad["commit"]["precommits"][k]["signature"])
+    bad["commit"]["precommits"][k]["signature"] = _flip(sig, 20).hex()
+    evil = SnapshotStore(os.path.join(root, "wide-evil"))
+    evil_manifest = evil.take(HEIGHT, bad, SS_CHUNK_KB * 1024)
+    return gen, state, snaps, manifest, evil, evil_manifest
+
+
+def _wide_restore(gen, snaps, root: str, device, give_up_s: float):
+    """A fresh node (state sync only: there are no blocks to sync) restores
+    from a switch serving `snaps`. Returns (side, seconds, device time)."""
+    from tendermint_tpu_torch.p2p.test_util import connect_switches
+    verifier = _ss_verifier(device)
+    sw_src = _serving_switch(gen, None, None, snaps)
+    side = _fresh_side(gen, root, verifier, True, give_up_s=give_up_s,
+                       with_blocks=False)
+    side.sw.start()
+    log: list = []
+    on_card = device is not None and device.type == "cuda"
+    saved = _patched(_in_run_timer_patches(log)) if on_card else []
+    ref = None
+    if on_card:
+        ref = torch.cuda.Event(enable_timing=True)
+        ref.record()
+    try:
+        t0 = time.perf_counter()
+        connect_switches(sw_src, side.sw)
+        require(side.reactor.finished.wait(SS_TIMEOUT_S),
+                "statesync_wide: the restore never concluded")
+        t1 = time.perf_counter()
+    finally:
+        _restore(saved)
+        sw_src.stop()
+        side.sw.stop()
+        verifier.close()
+    dev = _in_run_device_time(log, ref, t1 - t0) if on_card else None
+    return side, t1 - t0, dev, log
+
+
+def phase_statesync_wide(card: str, commit_path, device) -> dict:
+    """Phase 14, arm 2: a snapshot whose commit is signed by 10,000
+    validators (phase 3's keys and commit, config 3's width). A fresh
+    node restores it from a cold predecompression cache, so its light
+    verify runs B1 at 10,000 lanes; then a copy with one flipped
+    signature byte must be refused with "invalid signature in commit",
+    the snapshot poisoned and no store touched. Launch counts zeroed
+    before, read after."""
+    from tendermint_tpu_torch.statesync import apply_restore
+    from tendermint_tpu_torch.storage import SnapshotStore
+    root = tempfile.mkdtemp(prefix="statesync-wide-")
+    _zero_launches()
+    try:
+        gen, state, snaps, manifest, evil, evil_manifest = \
+            _wide_snapshot(commit_path, root)
+        _cold_cache()
+        side, secs, dev, log = _wide_restore(
+            gen, snaps, os.path.join(root, "good"), device, SS_GIVE_UP_S)
+        good = side.reactor.status()
+        require(side.reactor.restore_error is None
+                and good["restore_height"] == HEIGHT
+                and side.bs.height() == HEIGHT
+                and side.bs.base() == HEIGHT + 1
+                and side.ss.load_snapshot_pin(HEIGHT) == manifest
+                and side.app.app_hash == state.app_hash
+                and side.ss.load().last_validators.hash() ==
+                commit_path[0].hash(),
+                f"statesync_wide: the restore of {HEIGHT}: {good}")
+        b1_lanes = sum(n for name, n, _, _ in log if name == "verify")
+        # the refusal, from the apply itself and through a restore
+        scratch = SnapshotStore(os.path.join(root, "scratch"))
+        refused = None
+        try:
+            check = _ss_verifier(device)
+            apply_restore(evil, evil_manifest, BlockStore(MemDB()),
+                          StateStore(MemDB()), scratch, KVStoreApp(),
+                          gen.chain_id, verifier=check)
+        except ValueError as e:
+            refused = str(e)
+        finally:
+            check.close()
+        require(refused == "invalid signature in commit",
+                f"statesync_wide: the flipped copy: {refused!r}")
+        bad_side, bad_s, _, _ = _wide_restore(
+            gen, evil, os.path.join(root, "bad"), device, WIDE_GIVE_UP_S)
+        bad = bad_side.reactor.status()
+        poisoned = sorted(bad_side.reactor._poisoned)
+        require(bad_side.reactor.restore_error is None
+                and bad_side.reactor.restored_state is None
+                and poisoned == [(HEIGHT, evil_manifest["root"])]
+                and bad_side.bs.height() == 0
+                and dict(bad_side.ss.db.iterate()) == bad_side.genesis_rows
+                and bad_side.local.list_heights() == []
+                and bad["fallback"] == 1,
+                f"statesync_wide: the flipped copy was not refused cleanly: "
+                f"{bad}, poisoned {poisoned}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = dict(ladder.launches)
+    emit({"phase": "statesync_wide", "validators": len(commit_path[0]
+                                                         .validators),
+          "height": HEIGHT, "chunks": len(manifest["chunks"]),
+          "bytes": manifest["size"], "restore_s": secs,
+          "stages_s": good["timings"], "b1_lanes": b1_lanes,
+          "device": dev, "refused": refused, "refusal_s": bad_s,
+          "refusal_stages_s": bad["timings"], "launches": launches,
+          "card": card})
+    on_card = device is not None and device.type == "cuda"
+    require(not on_card or b1_lanes >= len(commit_path[0].validators),
+            f"statesync_wide: B1 ran {b1_lanes} lanes in the restore")
+    return launches
+
+
+class _MetaWatch:
+    """Every PROC_SS_WATCH_S, the newest 20 block metas of every node that
+    answers: height -> node -> (block hash, app hash). A pruning node keeps
+    only its last ~20 heights, so the agreement at every height is read
+    while the heights are held."""
+
+    def __init__(self, net):
+        self.net = net
+        self.seen: dict = defaultdict(dict)
+        self.time_ns: dict = {}         # height -> its header's time
+        self.txs: dict = {}             # height -> its header's num_txs
+        self.failed_reads = Counter()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="smoke-meta-watch")
+
+    def read(self) -> None:
+        for i in range(self.net.n):
+            top = self.net.height(i)
+            if top < 1:
+                continue
+            try:
+                metas = self.net.held_metas(i, max(1, top - 19), top)
+            except Exception as e:
+                self.failed_reads[f"{i}: {type(e).__name__}"] += 1
+                continue
+            for h, m in metas.items():
+                self.seen[h][i] = (m["block_id"]["hash"],
+                                   m["header"]["app_hash"])
+                self.time_ns[h] = m["header"]["time_ns"]
+                self.txs[h] = m["header"]["num_txs"]
+
+    def _run(self) -> None:
+        while not self._stop.wait(PROC_SS_WATCH_S):
+            self.read()
+
+    def start(self) -> None:
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(30)
+
+
+def _set_max_age(net, max_age: int) -> None:
+    """Every node's genesis gets evidence max_age `max_age` (one shared
+    genesis, rewritten in each home before any node starts)."""
+    for i in range(net.n):
+        path = os.path.join(net.home(i), "config", "genesis.json")
+        with open(path) as f:
+            doc = json.load(f)
+        doc["consensus_params"]["evidence"]["max_age"] = max_age
+        with open(path, "w") as f:
+            json.dump(doc, f, indent=1, sort_keys=True)
+
+
+def _signed_in_held_commit(net, val_index: int, after: int) -> int:
+    """_signed_in_commit over the commits node 0 still holds: a pruning
+    node answers no commit below its base."""
+    from tendermint_tpu_torch.rpc.client import RPCClientError
+    c = net.rpc(0, 10.0)
+    top = int(c.call("status")["latest_block_height"])
+    for h in range(after + 1, top):
+        try:
+            pcs = c.call("commit", height=h)["commit"]["precommits"]
+        except RPCClientError:
+            continue            # pruned since `after` was read
+        if pcs[val_index] is not None:
+            return h
+    return 0
+
+
+def _rejoin_by_snapshot(net, left, device: str) -> dict:
+    """Node 3 SIGKILLed when node 0 commits PROC_CRASH_AT, wiped with `cli
+    unsafe_reset_all`, and restarted with --state-sync once nodes 0-2 pass
+    PROC_SS_RESTART_ABOVE; the restart timed to its RPC, to its restore (its
+    status at a height >= 1 while syncing), to the end of its sync and to
+    its precommit in a commit of node 0."""
+    with open(os.path.join(net.home(3), "config",
+                           "priv_validator.json")) as f:
+        pub = json.load(f)["pub_key"]["value"]
+    vals = net.rpc(0).call("validators")["validators"]["validators"]
+    idx = [v["pubkey"] for v in vals].index(pub)
+    net.wait_for(lambda: net.height(0) >= PROC_CRASH_AT,
+                 left("the crash height"), "node 0 at the crash height")
+    killed_at = net.height(3)
+    net.kill(3)
+    net.reset(3)
+    require(not os.path.exists(os.path.join(net.home(3), "data")),
+            "procnet_statesync: unsafe_reset_all left node 3's data")
+    net.wait_for(lambda: min(net.height(i) for i in range(3))
+                 > PROC_SS_RESTART_ABOVE, left("the restart height"),
+                 "nodes 0-2 past the restart height")
+    net_at_restart = net.height(0)
+    t_kill_done = time.perf_counter()
+    net.start(3, extra=["--state-sync", "--device", device])
+    net.wait_for(lambda: _proc_status(net, 3) is not None,
+                 left("node 3's restart"), "node 3's RPC after restart")
+    t_up = time.perf_counter()
+    net.wait_for(lambda: net.height(3) >= 1, left("node 3's restore"),
+                 "node 3's restore", poll_s=0.05)
+    t_restored = time.perf_counter()
+    restored_seen = net.height(3)
+    net.wait_for(lambda: (_proc_status(net, 3) or {}).get(
+        "syncing", True) is False, left("node 3's sync"), "node 3's sync")
+    t_synced = time.perf_counter()
+    synced_h = net.height(3)
+    signed = {}
+
+    def signs() -> bool:
+        signed["at"] = _signed_in_held_commit(net, idx, synced_h)
+        return signed["at"] > 0
+    net.wait_for(signs, left("node 3's rejoin"),
+                 "node 3's precommit in a commit", poll_s=0.5)
+    t_rejoin = time.perf_counter()
+    return {"killed_at_height": killed_at, "node0_at_kill": PROC_CRASH_AT,
+            "node0_at_restart": net_at_restart,
+            "height_seen_restored": restored_seen, "synced_to": synced_h,
+            "signed_at": signed["at"],
+            "restart_to_rpc_s": t_up - t_kill_done,
+            "rpc_to_restored_s": t_restored - t_up,
+            "restored_to_synced_s": t_synced - t_restored,
+            "synced_to_signed_s": t_rejoin - t_synced,
+            "restart_to_signed_s": t_rejoin - t_kill_done,
+            "validator_index": idx}
+
+
+def phase_procnet_statesync(card: str, device: str = "cuda") -> dict:
+    """Phase 14, arm 3: phase 13's net and load (four `cli node --p2p`
+    processes on the JAX node's defaults: loop plane, coalescing, the
+    pipeline; two feeders, the subscribers and the sync connections of
+    _LoopLoad) with snapshots every 10 heights, 2 kept and 20 heights
+    retained on nodes 0-2 (and the evidence horizon at PROC_SS_MAX_AGE in
+    the genesis, so that the state store prunes too). Node 3 is SIGKILLed
+    at 15, wiped, and restarted with --state-sync after the net passes
+    21: it must restore a snapshot height that is a multiple of 10,
+    fast-sync the tail, sign again, and agree with every node at every
+    height above its restore; nodes 0-2 must end pruned above 1, never
+    above their latest snapshot, with at most 2 snapshots. A CPU
+    rehearsal passes device="cpu" (no launch required)."""
+    from tendermint_tpu_torch.procnet import (ProcNet, bench_settings,
+                                              free_block)
+    on_card = device.startswith("cuda")
+    _build.ladder_lib()
+    native.module()
+    native.aead_lib()
+    native.hostops_lib()
+    native.codec()
+    native.kv()
+    tag = "procnet_statesync"
+    root = tempfile.mkdtemp(prefix=f"{tag}-")
+    net = ProcNet(root, base_port=free_block(8))
+    net.write_tree(f"chip-smoke-{tag}")
+    net.configure(bench_settings("cuda" if on_card else "auto",
+                                 reactor="auto", verifier_coalesce="auto",
+                                 pipeline="auto"))
+    net.configure({"base": PROC_SS_RECOVERY}, nodes=range(3))
+    _set_max_age(net, PROC_SS_MAX_AGE)
+    feeders = [_WSFeeder(net, tid) for tid in (0, 1)]
+    load = _LoopLoad()
+    watch = _MetaWatch(net)
+    t_start = time.perf_counter()
+
+    def left(what: str) -> float:
+        rem = PROC_SS_WALL_S - (time.perf_counter() - t_start)
+        require(rem > 0, f"{tag}: out of wall time at {what}")
+        return rem
+    ok = False
+    try:
+        net.start_all(extra=["--no-fast-sync", "--device", device])
+        load.subscribe(net, left)
+        net.wait_for(lambda: min(net.heights()) >= 2,
+                     min(PROC_BOOT_S, left("boot")), "boot")
+        boot_s = time.perf_counter() - t_start
+        load.start(net)
+        for f in feeders:
+            f.start()
+        watch.start()
+        rejoin = _rejoin_by_snapshot(net, left, device)
+        stop_at = max(PROC_HEIGHTS, rejoin["signed_at"] + PROC_SS_AFTER)
+        net.wait_for(lambda: net.height(0) >= stop_at,
+                     left("the last fed height"), "node 0 at the last height")
+        for f in feeders:
+            f.stop()
+        load.stop()
+        net.wait_for(lambda: all(
+            net.rpc(i).call("num_unconfirmed_txs")["n_txs"] == 0
+            for i in range(net.n)), left("the mempools' drain"),
+            "the mempools' drain", poll_s=0.25)
+        net.wait_for(lambda: min(net.heights()) >= stop_at,
+                     left("every node at the last height"),
+                     "every node at the last height")
+        load.finish(left)
+        watch.stop()
+        watch.read()
+        top = min(net.heights())
+        c0, fed = net.rpc(0, 30.0), []
+        for h in range(stop_at - 4, stop_at + 1):
+            fed += [bytes.fromhex(t) for t in
+                    c0.call("block", height=h)["block"]["data"]["txs"]]
+        require(fed, f"{tag}: no tx in node 0's blocks "
+                     f"{stop_at - 4}-{stop_at}")
+        keys = random.Random(SEED).sample(fed, min(PROC_SAMPLE_KEYS,
+                                                   len(fed)))
+        # the sync feeder's acknowledged txs: node 0 prunes its blocks, so
+        # a seeded sample is read back from every node's app instead of
+        # counted in the blocks
+        keys += random.Random(SEED + 1).sample(
+            load.sync.acked, min(PROC_SAMPLE_KEYS, len(load.sync.acked)))
+        for tx in keys:
+            k, v = tx.split(b"=", 1)
+            for i in range(net.n):
+                got = net.rpc(i).call("abci_query", data=k.hex())
+                require(bytes.fromhex(got["response"]["value"]) == v,
+                        f"{tag}: node {i} answers {k!r} wrong")
+        early = net.early_exits()
+        require(not early, f"{tag}: node processes exited early {early}")
+        wall_s = time.perf_counter() - t_start
+        ok = True
+    finally:
+        for f in feeders:
+            f.stop()
+        load.stop()
+        load.subs.stop()
+        watch.stop()
+        codes = net.stop_all()
+        if not ok:
+            for i in range(net.n):
+                tail = net.log(i).splitlines()[-40:] \
+                    if os.path.exists(net.log_path(i)) else []
+                print(f"{tag} node {i} log tail:", *tail, sep="\n",
+                      file=sys.stderr)
+    lines = {i: net.kernel_lines(i) for i in range(net.n)}
+    shutil.rmtree(root, ignore_errors=True)
+    require(all(codes[i] == 0 for i in range(net.n)),
+            f"{tag}: node exit codes {codes}")
+    require([len(lines[i]) for i in range(net.n)] == [1, 1, 1, 2],
+            f"{tag}: kernel lines a process {lines}")
+    rec = {i: lines[i][-1]["recovery"] for i in range(net.n)}
+    n3 = rec[3]["statesync"]
+    restored = n3["restore_height"]
+    # agreement at every height above node 3's restore that it holds, up
+    # to the last height another node was read at (the last read of node
+    # 3 can be a height ahead of the others')
+    others_top = max((h for h, by in watch.seen.items() if set(by) - {3}),
+                     default=0)
+    bad, unseen = [], []
+    for h, by in sorted(watch.seen.items()):
+        if len({v for v in by.values()}) > 1:
+            bad.append((h, by))
+        if restored < h <= others_top and 3 in by and not set(by) - {3}:
+            unseen.append(h)
+    n3_heights = sorted(h for h, by in watch.seen.items()
+                        if 3 in by and h > restored)
+    lo, hi = PROC_MEASURE      # phase 13's window, from the watched metas
+    require(lo in watch.time_ns and hi in watch.time_ns,
+            f"{tag}: the watcher missed height {lo} or {hi}")
+    span = (watch.time_ns[hi] - watch.time_ns[lo]) / 1e9
+    rate = {"blocks_per_s": (hi - lo) / span, "txs_per_s": sum(
+        watch.txs[h] for h in range(lo + 1, hi + 1)) / span,
+        "span_s": span}
+    launches = {k: sum(line["launches"][k]
+                       for i in lines for line in lines[i])
+                for k in ladder.launches}
+    emit({"phase": tag, "validators": 4, "processes": 4,
+          "plane": {"reactor": "auto", "verifier_coalesce": "auto",
+                    "pipeline": "auto"}, "recovery": PROC_SS_RECOVERY,
+          "evidence_max_age": PROC_SS_MAX_AGE, "heights": top,
+          "measured_heights": list(PROC_MEASURE), **rate,
+          "boot_s": boot_s, "wall_s": wall_s, "rejoin": rejoin,
+          "node3_restore": n3, "heights_compared": len(watch.seen),
+          "meta_reads_failed": dict(watch.failed_reads),
+          "node3_heights_seen": [n3_heights[0], n3_heights[-1]]
+          if n3_heights else [], "txs_sent": sum(f.sent for f in feeders),
+          "sync_acked": len(load.sync.acked),
+          "subscriber_events": sum(len(h) for h in load.subs.heights),
+          "card": card})
+    emit({"phase": f"{tag}_planes", "by_node": {
+        i: {"process": j, "height": ln["height"],
+            "launches": ln["launches"], "recovery": ln["recovery"]}
+        for i in lines for j, ln in enumerate(lines[i])},
+        "note": "node 3's entry is its restarted process (its killed "
+        "process counted to the last height it committed, before the "
+        "wipe)", "launches": launches, "card": card})
+    require(not bad, f"{tag}: the nodes disagree: {bad[:3]}")
+    lo_ev, hi_ev = LOOP_EVENTS
+    want = list(range(lo_ev, hi_ev + 1))
+    drops = [sorted(set(want) - set(hs)) for hs in load.subs.heights]
+    require(load.sync.acked and not any(drops) and not load.subs.closed
+            and all(hs == sorted(hs) for hs in load.subs.heights),
+            f"{tag}: {len(load.sync.acked)} sync acks; subscribers missed "
+            f"{sum(map(len, drops))} heights, {load.subs.closed} closed")
+    for i in lines:
+        for line in lines[i]:
+            th = line["threads"]
+            require(line["reactor"] == "loop" and th["tm-reactor-loop"] == 1
+                    and th["mconn-"] == th["gossip-"]
+                    == th["mempool-bcast-"] == 0,
+                    f"{tag}: node {i}'s threads {th}")
+    require(restored > 0 and restored % PROC_SS_RECOVERY[
+        "snapshot_interval"] == 0 and n3["error"] is None
+            and rec[3]["block_base"] == restored + 1,
+            f"{tag}: node 3 restored {restored}: {rec[3]}")
+    require(not unseen and n3_heights and n3_heights[-1] >= stop_at,
+            f"{tag}: node 3's heights without another node's: {unseen} "
+            f"(failed reads {dict(watch.failed_reads)}, "
+            f"{[(h, watch.seen[h]) for h in unseen[:3]]})")
+    require(rejoin["signed_at"] > rejoin["synced_to"],
+            f"{tag}: node 3 did not sign after its rejoin: {rejoin}")
+    for i in range(3):
+        r = rec[i]
+        require(r["block_base"] > 1 and r["state_floor"] > 1
+                and r["block_base"] <= r["latest_pin"]
+                and len(r["snapshot_heights"]) <= PROC_SS_RECOVERY[
+                    "snapshot_keep"]
+                and r["snapshots"]["published"] >= 1,
+                f"{tag}: node {i}'s pruning or snapshots: {r}")
+    require(not on_card or (lines[3][-1]["device"].startswith("cuda")
+                            and lines[3][-1]["launches"]["verify"] > 0),
+            f"{tag}: node 3's restarted process did not launch B1: "
+            f"{lines[3][-1]['launches']}")
+    return {"launches": launches, "lines": lines, "rejoin": rejoin}
+
+
+def _crash_stop(node) -> None:
+    node.consensus._stopped = True
+    try:
+        node.stop()
+    except Exception:
+        pass
+
+
+def _held_blocks(node) -> dict:
+    bs = node.block_store
+    return {h: bs.load_block(h).to_bytes()
+            for h in range(bs.base(), bs.height() + 1)}
+
+
+def phase_recovery_sweep(card: str, device: str = "cuda") -> dict:
+    """Phase 14, arm 4: the reference's recovery crash sweeps on a
+    single-validator node verifying on `device`, on a pinned clock.
+    tests/test_snapshot.py's: a node with snapshots every 2 heights, 2
+    kept, 2 heights retained, crashed at snapshot.after_chunk,
+    snapshot.before_publish and prune.mid_range on its way to
+    SWEEP_SS_TARGET, rebuilt from its files, must reach the app hash and
+    the blocks of an uncrashed control run with the plane off, with no
+    half snapshot visible. tests/test_statesync.py's: a restore of the
+    source node's snapshot at SWEEP_SS_TARGET, its chunks on disk, crashed
+    at statesync.before_apply and statesync.after_restore inside a Node's
+    start, must be completed by the next start (resume_pending_restore)
+    and the node then commit the source's next heights to its blocks and
+    app hash. Launch counts zeroed at the start, read at the end."""
+    from tendermint_tpu_torch.types.genesis import (GenesisDoc,
+                                                    GenesisValidator)
+    on_card = device.startswith("cuda")
+    root = tempfile.mkdtemp(prefix="recovery-sweep-")
+    key = PrivKey.generate(b"\x0b" * 32)
+    gen = GenesisDoc(chain_id="recovery-sweep", genesis_time_ns=1,
+                     validators=[GenesisValidator(key.pubkey.ed25519, 10)])
+    gen.consensus_params.evidence.max_age = SWEEP_SS_MAX_AGE
+    wave_a, wave_b, wave_c = SWEEP_SS_WAVES
+    rows = []
+    _zero_launches()
+    tclock.set_source(lambda: T0)
+    t_start = time.perf_counter()
+    try:
+        control = _sweep_node(os.path.join(root, "control"), gen, key,
+                                 device)
+        control.start()
+        _sweep_inject(control, wave_a)
+        _sweep_commit_to(control, 3)
+        _sweep_inject(control, wave_b)
+        _sweep_commit_to(control, SWEEP_SS_TARGET)
+        _sweep_drain(control)
+        want_hash, want_blocks = control.consensus.state.app_hash, \
+            _held_blocks(control)
+        control.stop()
+        for point in ("snapshot.after_chunk", "snapshot.before_publish",
+                      "prune.mid_range"):
+            home = os.path.join(root, point)
+            node = _sweep_node(home, gen, key, device, SWEEP_SS_RECOVERY)
+            node.start()
+            _sweep_inject(node, wave_a)
+            _sweep_commit_to(node, 3)
+            hit = []
+
+            def crash(name):
+                hit.append(name)
+                raise _Crash(name)
+
+            tfail.arm(point, crash)
+            try:
+                _sweep_inject(node, wave_b)
+                _sweep_commit_to(node, SWEEP_SS_TARGET)
+            except _Crash:
+                pass
+            finally:
+                tfail.disarm_all()
+            require(hit == [point], f"recovery sweep: {point} did not fire")
+            crashed_at = node.height
+            _crash_stop(node)
+            t0 = time.perf_counter()
+            node2 = _sweep_node(home, gen, key, device, SWEEP_SS_RECOVERY)
+            node2.start()
+            recover_s = time.perf_counter() - t0
+            recovered_at = node2.height
+            _sweep_inject(node2, wave_b)
+            _sweep_commit_to(node2, SWEEP_SS_TARGET)
+            _sweep_drain(node2)
+            held = _held_blocks(node2)
+            snaps = node2.snapshot_store
+            for h in snaps.list_heights():
+                snaps.assemble_payload(h)
+            tmp_left = [n for n in os.listdir(snaps.root_dir)
+                        if n.startswith(".tmp-")]
+            rows.append({"point": point, "crashed_at_height": crashed_at,
+                         "recovered_at_height": recovered_at,
+                         "final_height": node2.height,
+                         "handshake_blocks": node2.handshake_blocks,
+                         "recover_s": recover_s,
+                         "recovery": node2.recovery_counts(),
+                         "app_hash_equal":
+                             node2.consensus.state.app_hash == want_hash,
+                         "blocks_equal": all(want_blocks.get(h) == b
+                                             for h, b in held.items()),
+                         "blocks_held": [min(held), max(held)],
+                         "tmp_dirs_left": tmp_left})
+            node2.stop()
+            require(recovered_at >= crashed_at,
+                    f"recovery sweep: {point} lost a committed height")
+            require(rows[-1]["app_hash_equal"] and rows[-1]["blocks_equal"]
+                    and not tmp_left,
+                    f"recovery sweep: {point}: {rows[-1]}")
+        # the restore crashes, from the source's snapshot at the target
+        src = _sweep_node(os.path.join(root, "source"), gen, key,
+                             device, SWEEP_SS_RECOVERY)
+        src.start()
+        _sweep_inject(src, wave_a)
+        _sweep_commit_to(src, 3)
+        _sweep_inject(src, wave_b)
+        _sweep_commit_to(src, SWEEP_SS_TARGET)
+        snap_h = SWEEP_SS_TARGET
+        require(snap_h in src.snapshot_store.list_heights()
+                and src.height == snap_h and src.mempool.size() == 0
+                and src.consensus.state.app_hash == want_hash,
+                "recovery sweep: the source's snapshot at the target")
+        _sweep_inject(src, wave_c)
+        _sweep_commit_to(src, snap_h + 1)
+        src_top, src_hash = src.height, src.consensus.state.app_hash
+        src_blocks = _held_blocks(src)
+        snap_dir = src.snapshot_store.dir_for(snap_h)
+        src.stop()
+        for point in ("statesync.before_apply", "statesync.after_restore"):
+            home = os.path.join(root, point)
+            target = os.path.join(home, "data", "statesync", str(snap_h))
+            shutil.copytree(snap_dir, target)
+            hit = []
+
+            def crash(name):
+                hit.append(name)
+                raise _Crash(name)
+
+            tfail.arm(point, crash)
+            try:
+                _sweep_node(home, gen, key, device, SWEEP_SS_RECOVERY)
+            except _Crash:
+                pass
+            finally:
+                tfail.disarm_all()
+            require(hit == [point], f"recovery sweep: {point} did not fire")
+            t0 = time.perf_counter()
+            node = _sweep_node(home, gen, key, device, SWEEP_SS_RECOVERY)
+            recover_s = time.perf_counter() - t0
+            counts = node.recovery_counts()
+            restored = (node.height, node.consensus.state.app_hash,
+                        node.block_store.base())
+            node.start()
+            _sweep_inject(node, wave_c)
+            _sweep_commit_to(node, src_top)
+            got = _held_blocks(node)
+            both = sorted(set(got) & set(src_blocks))
+            rows.append({"point": point, "resumed_restore":
+                         counts["resumed_restore"], "height": restored[0],
+                         "base": restored[2], "recover_s": recover_s,
+                         "recovery": counts,
+                         "app_hash_equal": restored[1] == want_hash,
+                         "next_blocks_compared": both,
+                         "next_blocks_equal": bool(both) and all(
+                             got[h] == src_blocks[h] for h in both),
+                         "next_app_hash_equal": node.height == src_top and
+                         node.consensus.state.app_hash == src_hash,
+                         "statesync_left": os.listdir(os.path.dirname(
+                             target))})
+            node.stop()
+            require(counts["resumed_restore"] == snap_h
+                    and restored[0] == snap_h
+                    and restored[2] == snap_h + 1
+                    and rows[-1]["app_hash_equal"]
+                    and rows[-1]["next_blocks_equal"]
+                    and rows[-1]["next_app_hash_equal"]
+                    and counts["snapshot_heights"][-1:] == [snap_h]
+                    and rows[-1]["statesync_left"] == [],
+                    f"recovery sweep: {point}: {rows[-1]}")
+    finally:
+        tclock.set_source(None)
+        shutil.rmtree(root, ignore_errors=True)
+    launches = dict(ladder.launches)
+    emit({"phase": "recovery_sweep", "points": rows,
+          "target_height": SWEEP_SS_TARGET, "launches": launches,
+          "wall_s": time.perf_counter() - t_start, "card": card})
+    require(not on_card or launches["verify"] >= 1,
+            f"recovery sweep: B1 did not launch: {launches}")
+    return launches
+
+
+
 @contextlib.contextmanager
 def _serial_commit_path():
     """Phases 9 and 10 on the serial commit path (pipeline "off"), the
@@ -4256,6 +5245,10 @@ def main() -> int:
     procnet_loop = phase_procnet_loop(card, procnet=procnet)
     procnet_pipeline = phase_procnet_pipeline(card, loop=procnet_loop)
     sweep_launches = phase_crash_sweep(card)
+    ss_chain_launches = phase_statesync_chain(card, device)
+    ss_wide_launches = phase_statesync_wide(card, commit_path, device)
+    procnet_ss = phase_procnet_statesync(card)
+    recovery_launches = phase_recovery_sweep(card)
     table = []
     for name, info in KERNELS.items():
         table.append({
@@ -4275,7 +5268,12 @@ def main() -> int:
                                      procnet_loop["launches"][name],
                                  "procnet_pipeline":
                                      procnet_pipeline["launches"][name],
-                                 "crash_sweep": sweep_launches[name]},
+                                 "crash_sweep": sweep_launches[name],
+                                 "statesync_chain": ss_chain_launches[name],
+                                 "statesync_wide": ss_wide_launches[name],
+                                 "procnet_statesync":
+                                     procnet_ss["launches"][name],
+                                 "recovery_sweep": recovery_launches[name]},
             "max_abs_err": kernels[name]["max_abs_err"],
             "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"],
             "bound_ms": kernels[name]["bound_ms"],

@@ -56,6 +56,15 @@ consensus, the switch with the reactors, the trust store and PEX, the tx
 indexer, the RPC server over HTTP and WebSocket); `procnet.ProcNet`
 runs config 1 as OS processes from a `cli testnet` tree.
 
+Slice 14 is the recovery plane: interval snapshots, retention and
+pruning behind a safe floor, and state sync, by which a fresh node
+joins by a verified snapshot and fast-syncs only the tail.
+
+  statesync/reactor.StateSyncReactor (channel 0x60: offers, manifests,
+  chunks) -> apply_restore -> storage/snapshot.light_verify_payload
+    -> ValidatorSet.verify_commit -> BatchVerifier -> the verify kernels
+    -> the kvstore app's restore_items, BlockStore / StateStore bootstrap
+
   ops/      field, curve, ladder, ed25519, merkle (host and device
             halves), sha256, kernel build
   csrc/     fe25519.cuh (arithmetic), ladder.cu (kernels), cpu_shim.cpp,
@@ -66,7 +75,9 @@ runs config 1 as OS processes from a `cli testnet` tree.
             events
   models/   verifier
   lite/     certifiers, providers, SignedHeader / FullCommit
-  storage/  MemDB / SQLiteDB, BlockStore, StateStore, the consensus WAL
+  storage/  MemDB / SQLiteDB, BlockStore, StateStore, the consensus WAL,
+            snapshots (SnapshotStore, SnapshotManager)
+  statesync/  StateSyncReactor, apply_restore, resume_pending_restore
   state/    State, validation, BlockExecutor (and its event firing),
             the tx indexer
   abci/     results, BaseApplication, LocalClient, SocketClient,

@@ -51,7 +51,9 @@ class ChainBuilder:
         # seeds in the validator set's order (sorted by address)
         self.seeds = [seed_of[v.address]
                       for v in self.state.validators.validators]
-        self.conns = AppConns(local_client_creator(KVStoreApp()))
+        #: the kvstore app the blocks are applied to (at self.height)
+        self.app = KVStoreApp()
+        self.conns = AppConns(local_client_creator(self.app))
         self.conns.consensus.init_chain(
             [ValidatorUpdate(v.pubkey, v.voting_power)
              for v in self.state.validators.validators], self.gen.chain_id)

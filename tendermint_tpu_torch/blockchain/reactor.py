@@ -61,12 +61,16 @@ VERIFY_WINDOW = 256               # blocks batched per device dispatch
 class BlockchainReactor(Reactor):
     def __init__(self, state, block_exec, block_store, fast_sync: bool,
                  consensus_reactor=None, verify_window: int = VERIFY_WINDOW,
-                 expect_peers: bool = False, redial=None):
-        """`expect_peers`/`redial`: the bounded-redial discipline — a node
+                 gate=None, expect_peers: bool = False, redial=None,
+                 after_apply=None):
+        """`gate`: an optional threading.Event the sync loop waits on
+        before requesting anything — the state-sync restore holds it
+        until the stores are bootstrapped (or the restore fell back).
+        `expect_peers`/`redial`: the bounded-redial discipline — a node
         with configured peers does NOT conclude "caught up" in a
         no-peer window; it redials (bounded) and keeps waiting through
-        NO_PEER_GRACE_S. The JAX reactor's state-sync `gate` and
-        recovery-plane `after_apply` hook wait with state sync."""
+        NO_PEER_GRACE_S. `after_apply(state)`: recovery-plane hook run
+        after each applied block (snapshot manager)."""
         super().__init__("blockchain")
         self.state = state
         self.block_exec = block_exec
@@ -74,8 +78,10 @@ class BlockchainReactor(Reactor):
         self.fast_sync = fast_sync
         self.consensus_reactor = consensus_reactor
         self.verify_window = verify_window
+        self.gate = gate
         self.expect_peers = expect_peers
         self.redial = redial
+        self.after_apply = after_apply
         self.pool = BlockPool(
             start_height=block_store.height() + 1,
             send_request=self._send_block_request,
@@ -212,6 +218,13 @@ class BlockchainReactor(Reactor):
         store/apply divergence still stops LOUDLY, and a node expecting
         peers rides out no-peer windows with bounded redials instead of
         prematurely declaring itself caught up."""
+        if self.gate is not None:
+            # state sync holds the gate until the stores are
+            # bootstrapped (or the restore falls back to block sync)
+            while not self._stopped and not self.gate.wait(timeout=0.2):
+                pass
+            if self._stopped:
+                return
         last_status = 0.0
         last_switch_check = 0.0
         retries = 0
@@ -379,6 +392,11 @@ class BlockchainReactor(Reactor):
                 self.state, block_id, block, trust_last_commit=True)
             self.pool.pop_request()
             applied += 1
+            if self.after_apply is not None:
+                # recovery plane: interval snapshots and pruning fire on
+                # the sync path too (the app sits at exactly this height
+                # until the next iteration applies)
+                self.after_apply(self.state)
         return applied
 
     def _sync_window(self) -> bool:

@@ -18,7 +18,12 @@ verifier's and coalescer's counts, the RPC front door's tx batcher and
 the process's threads by name prefix, with the event loop's busy share,
 the pipeline's counts (`pipeline.stats()`) and the native host cores'
 routes (part sets built natively or in Python, canonical-JSON calls and
-their fallbacks, kvstore blocks on the kv core and on the per-tx route).
+their fallbacks, kvstore blocks on the kv core and on the per-tx route)
+and the recovery plane's counts (`Node.recovery_counts`: the state-sync
+restore, snapshots published, heights pruned, the base of both stores).
+`node --state-sync` turns `base.state_sync` on: a node at height 0 with
+fast sync joins by a snapshot restore over p2p (after `unsafe_reset_all`,
+say); the JAX CLI exports TM_TPU_STATE_SYNC for the same.
 
 The JAX CLI's `lite`, `replica` and `shardset` commands and its
 TM_NODE_PROFILE sampler wait for later slices.
@@ -102,7 +107,8 @@ def _kernel_line(node, threads=None) -> str:
         "pipeline": pipeline.stats(),
         "native": {"partsets": part_set.build_stats(),
                    "codec": encoding.stats(),
-                   "kvstore": kvstore.route_stats()}})
+                   "kvstore": kvstore.route_stats()},
+        "recovery": node.recovery_counts()})
 
 
 def cmd_node(args) -> int:
@@ -118,7 +124,8 @@ def cmd_node(args) -> int:
     try:
         node = default_node(args.home, app=app, with_p2p=args.p2p,
                             fast_sync=(args.fast_sync if args.p2p else False),
-                            device=args.device or None)
+                            device=args.device or None,
+                            state_sync=args.state_sync)
     except RuntimeError as e:
         # no card and no --device cpu: the node never moves to the CPU
         print(f"cannot start the node: {e}", file=sys.stderr, flush=True)
@@ -148,11 +155,13 @@ def cmd_node(args) -> int:
             time.sleep(0.2)
             fatal = node.consensus.fatal_error or getattr(
                 getattr(node, "blockchain_reactor", None), "sync_error",
-                None)
+                None) or getattr(node.statesync_reactor, "restore_error",
+                                 None)
             if fatal is not None:
-                # consensus OR fast-sync halted unrecoverably (the
-                # reference panics; a failed kernel launch lands here
-                # too): die loudly rather than sit at a frozen height
+                # consensus, fast sync or a state-sync restore halted
+                # unrecoverably (the reference panics; a failed kernel
+                # launch lands here too): die loudly rather than sit at
+                # a frozen height
                 print(f"CONSENSUS FAILURE: {fatal!r}", flush=True)
                 census = thread_census()
                 node.stop()
@@ -380,6 +389,9 @@ def main(argv=None) -> int:
                     help="serve RPC on this address")
     sp.add_argument("--persistent-peers", default="",
                     help="comma-separated id@host:port")
+    sp.add_argument("--state-sync", action="store_true",
+                    help="join via p2p snapshot restore (fresh nodes); "
+                    "sets base.state_sync")
     sp.add_argument("--device", default="", help=device_help)
     sp.set_defaults(fn=cmd_node)
 

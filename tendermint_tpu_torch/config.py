@@ -14,18 +14,20 @@ the compact consensus gossip (`compact`, `vote_agg`), the socket plane
 verifier's dispatch coalescing (`base.verifier_coalesce`: auto|on|off,
 `verifier_coalesce_wait_ms`, `verifier_coalesce_max_batch`) and the
 pipelined block hot path (`base.pipeline`: auto|on|off, auto being on;
-pipeline.py). The port reads no environment knob for them. `validate()` refuses a value outside
+pipeline.py) and the recovery plane (`base.snapshot_interval`,
+`snapshot_keep`, `snapshot_chunk_kb`, `retain_heights`, `state_sync`).
+The port reads no environment knob for them. `validate()` refuses a value outside
 those sets when the config is loaded.
 
 `config/config.json` is one file for both packages. default_config()
 reads a JAX-written file: the JAX package keeps the bursts and the
 compact gossip under `base` (`p2p_burst`, `p2p_burst_max`, `compact`,
 `vote_agg`, each auto|on|off), and the loader maps those keys onto the
-port's fields. `reactor`, `pipeline` and the `verifier_coalesce*` keys
-have the same names and meanings in both packages. Keys of planes the
-port does not have (telemetry, chaos, trace, SLO, snapshots, ...) are
-ignored, as the JAX
-loader ignores any key its dataclasses lack. save_config() writes those
+port's fields. `reactor`, `pipeline`, the `verifier_coalesce*` keys
+and the five recovery keys have the same names and meanings in both
+packages. Keys of planes the port does not have (telemetry, chaos,
+trace, SLO, the state tree, ...) are ignored, as the JAX loader ignores
+any key its dataclasses lack. save_config() writes those
 four settings only as the JAX keys, so the file holds one key for each
 and the JAX package reads a port-written file the same way. A file that
 names the port's field itself (`p2p.burst`, say) is read as written: the
@@ -64,6 +66,19 @@ class BaseConfig:
     # streaming proposal gossip, the precomputed next proposal and
     # group-commit persistence. auto|on|off; "off" is the serial path
     pipeline: str = "auto"
+    # recovery plane (storage/snapshot.py, statesync/): a chunked state
+    # snapshot every `snapshot_interval` heights (0: off), the newest
+    # `snapshot_keep` kept, `snapshot_chunk_kb` KiB chunks;
+    # `retain_heights` > 0 prunes the block and state stores behind a
+    # floor that never passes the latest snapshot, the evidence horizon
+    # or a peer's catch-up frontier; `state_sync` lets a fresh node join
+    # by fetching a snapshot over p2p instead of replaying every block.
+    # All at 0 / off: no snapshot, no pruning, no channel 0x60.
+    snapshot_interval: int = 0
+    snapshot_keep: int = 2
+    snapshot_chunk_kb: int = 256
+    retain_heights: int = 0
+    state_sync: bool = False
 
 
 # No code of the port reads grpc_laddr yet (gRPC waits for a later

@@ -15,10 +15,11 @@ Two independent mechanisms, exactly as in the reference:
     all), app one behind (replay last block), app caught up but state
     behind (ApplyBlock from store), app ahead (fatal).
 
-The JAX package's local-snapshot seam (a Handshaker given a snapshot
-store and the app, for a pruned or bootstrapped block store) waits with
-pruning and bootstrap: the port's Handshaker takes neither, and its block
-store always starts at height 1.
+The local-snapshot seam of the recovery plane: a Handshaker given the
+node's snapshot store and app rebuilds an app that sits below a pruned
+or state-sync-bootstrapped block store's base from the newest pinned
+local snapshot (storage/snapshot.restore_app_locally), then replays only
+the blocks above it.
 """
 
 from __future__ import annotations
@@ -117,14 +118,21 @@ def catchup_replay(cs, wal) -> int:
 
 
 class Handshaker:
-    def __init__(self, state_store, block_store, gen_doc, verifier=None):
+    def __init__(self, state_store, block_store, gen_doc, verifier=None,
+                 snapshot_store=None, app=None):
         """`verifier` is the BatchVerifier the replayed final block's
         apply_block checks its commit on (None: the port's default
-        verifier, which needs a card)."""
+        verifier, which needs a card). `snapshot_store` / `app`: the
+        local-snapshot seam. A pruned store (or one bootstrapped by state
+        sync) no longer holds every block an in-memory app needs for
+        replay; the handshake then rebuilds the app from the newest
+        pinned local snapshot and replays only the blocks above it."""
         self.state_store = state_store
         self.block_store = block_store
         self.gen_doc = gen_doc
         self.verifier = verifier
+        self.snapshot_store = snapshot_store
+        self.app = app
         self.n_blocks = 0
 
     def handshake(self, app_conns) -> State:
@@ -163,6 +171,29 @@ class Handshaker:
 
         if store_height == 0:
             return state
+
+        # recovery plane: blocks below the store's base were pruned (or
+        # never stored — a state-sync bootstrap). An app behind the
+        # base cannot be replayed forward from blocks; rebuild it from
+        # the newest pinned local snapshot, then replay only the tail.
+        base = self.block_store.base() \
+            if hasattr(self.block_store, "base") else 1
+        if app_height + 1 < base:
+            restored = None
+            if self.snapshot_store is not None:
+                from tendermint_tpu_torch.storage.snapshot import (
+                    restore_app_locally)
+                restored = restore_app_locally(
+                    self.snapshot_store, self.state_store, self.app,
+                    store_height)
+            if restored is None or restored[0] + 1 < base:
+                raise HandshakeError(
+                    f"app at {app_height} needs blocks from "
+                    f"{app_height + 1} but the store was pruned to base "
+                    f"{base} and no usable local snapshot covers the "
+                    "gap")
+            app_height, app_hash = restored
+            self.n_blocks += 1  # the snapshot restore counts as one step
 
         if store_height == state_height:
             # consensus committed + applied the block but the app may have

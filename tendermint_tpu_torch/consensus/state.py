@@ -94,6 +94,11 @@ class ConsensusState:
 
         self.broadcast_hooks: List[Callable[[dict], None]] = []
         self.decided_hook: Optional[Callable[[Block], None]] = None
+        # recovery plane: called with the post-apply State after each
+        # finalized height, while the app sits at exactly that height,
+        # and after the height's group flush (node.py wires the snapshot
+        # manager here). A hook's failure is logged, never raised.
+        self.post_commit_hooks: List[Callable[[State], None]] = []
 
         self._lock = threading.RLock()
         self._queue: deque = deque()
@@ -785,9 +790,21 @@ class ConsensusState:
 
         if self.decided_hook is not None:
             self.decided_hook(block)
+        self._run_post_commit_hooks(new_state)
 
         self._update_to_state(new_state)
         self._schedule_round0()
+
+    def _run_post_commit_hooks(self, new_state) -> None:
+        for hook in self.post_commit_hooks:
+            try:
+                hook(new_state)
+            except Exception as e:
+                # a simulated crash at a snapshot fail point is a
+                # BaseException and passes through
+                self.logger.error("post-commit hook failed",
+                                  height=new_state.last_block_height,
+                                  err=repr(e))
 
     def _finalize_commit_pipelined(self, height: int, block, parts,
                                    pc) -> None:
@@ -834,6 +851,7 @@ class ConsensusState:
 
         if self.decided_hook is not None:
             self.decided_hook(block)
+        self._run_post_commit_hooks(new_state)
         if not self.replay_mode:
             pipeline.observe_overlap(self._overlap_s,
                                      self._overlap_s + self._serial_s)

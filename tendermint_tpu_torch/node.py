@@ -29,9 +29,19 @@ The pipelined block hot path follows `config.base.pipeline` ("auto", on,
 by default, as in the JAX node): the node configures `pipeline` before
 it builds its ConsensusState.
 
+The recovery plane follows `base.snapshot_interval`, `snapshot_keep`,
+`snapshot_chunk_kb`, `retain_heights` and `state_sync` (all off by
+default; an in-memory node has no home for snapshot files and keeps it
+off): a SnapshotStore under `<db_dir>/snapshots`, a torn state-sync
+restore under `<db_dir>/statesync` resumed before the handshake, the
+handshake's local-snapshot seam, a SnapshotManager on the commit path's
+post-commit hooks and on the fast-sync apply path, and with p2p the
+StateSyncReactor on channel 0x60 (advertised only with the plane on),
+whose restore holds the fast-sync gate on a node at height 0.
+
 Left out, with the planes they read: telemetry, chaos, causal tracing
 and its stall detector, the profiler and queue observatory, the SLO
-plane, the env knob plane, snapshots and state sync, and gRPC.
+plane, the env knob plane, the authenticated state tree and gRPC.
 """
 
 from __future__ import annotations
@@ -42,12 +52,13 @@ from typing import Optional
 
 from tendermint_tpu_torch import pipeline
 from tendermint_tpu_torch.abci.proxy import AppConns, local_client_creator
-from tendermint_tpu_torch.config import Config, resolve_reactor
+from tendermint_tpu_torch.config import Config, _mode_on, resolve_reactor
 from tendermint_tpu_torch.consensus.replay import Handshaker, catchup_replay
 from tendermint_tpu_torch.consensus.state import ConsensusState
 from tendermint_tpu_torch.consensus.ticker import TimeoutTicker
 from tendermint_tpu_torch.state.execution import BlockExecutor
-from tendermint_tpu_torch.storage import WAL, BlockStore, StateStore, open_db
+from tendermint_tpu_torch.storage import (WAL, BlockStore, SnapshotManager,
+                                          SnapshotStore, StateStore, open_db)
 from tendermint_tpu_torch.types.events import EventBus
 from tendermint_tpu_torch.types.genesis import GenesisDoc
 from tendermint_tpu_torch.types.priv_validator import PrivValidatorFile
@@ -116,6 +127,26 @@ class Node:
         self.block_store = BlockStore(open_db(db_path("blockstore")))
         self.state_store = StateStore(open_db(db_path("state")))
 
+        # the recovery plane's settings; in-memory nodes have no home to
+        # keep snapshot files in, so the plane stays off there
+        base = config.base
+        self._snap_interval = int(base.snapshot_interval)
+        self._snap_keep = int(base.snapshot_keep)
+        self._snap_chunk_kb = int(base.snapshot_chunk_kb)
+        self._retain_heights = int(base.retain_heights)
+        self._state_sync = _mode_on(base.state_sync)
+        self.snapshot_store = None
+        self._statesync_dir = ""
+        if not in_memory:
+            data_dir = config.path(base.db_dir)
+            self.snapshot_store = SnapshotStore(
+                os.path.join(data_dir, "snapshots"))
+            self._statesync_dir = os.path.join(data_dir, "statesync")
+        else:
+            self._snap_interval = 0
+            self._retain_heights = 0
+            self._state_sync = False
+
         if client_creator is None:
             if app is None:
                 from tendermint_tpu_torch.abci.apps import KVStoreApp
@@ -129,6 +160,19 @@ class Node:
         self.verifier, self._owns_verifier = build_verifier(
             config.base, device)
 
+        # a state-sync restore a crash tore mid-apply is repaired here,
+        # before the handshake reads the stores (the apply is
+        # idempotent; incomplete downloads are left for the reactor)
+        #: the State a torn restore's resume installed, else None
+        self.resumed_restore = None
+        if self._statesync_dir and os.path.isdir(self._statesync_dir) \
+                and self.app is not None:
+            from tendermint_tpu_torch.statesync import resume_pending_restore
+            self.resumed_restore = resume_pending_restore(
+                self._statesync_dir, self.block_store, self.state_store,
+                self.snapshot_store, self.app, gen_doc.chain_id,
+                verifier=self.verifier, logger=self.logger)
+
         # ABCI handshake: sync app with stores (consensus/replay.go:211)
         stored = self.state_store.load()
         #: the block store's and the state's heights the handshake found
@@ -137,7 +181,9 @@ class Node:
             stored.last_block_height if stored is not None else 0)
         t0 = time.perf_counter()
         handshaker = Handshaker(self.state_store, self.block_store, gen_doc,
-                                verifier=self.verifier)
+                                verifier=self.verifier,
+                                snapshot_store=self.snapshot_store,
+                                app=self.app)
         state = handshaker.handshake(self.app_conns)
         #: the handshake's wall and the blocks it replayed into the app
         self.handshake_s = time.perf_counter() - t0
@@ -153,11 +199,12 @@ class Node:
                          else config.path(config.mempool.wal_dir)))
             # the tx WAL just replayed may hold the last stored block's
             # txs (a crash between its save and the mempool's update); a
-            # restarted proposer would commit them twice
+            # restarted proposer would commit them twice. A store a
+            # state-sync restore bootstrapped holds no block at its top.
             top = self.block_store.height()
-            if top > 0:
-                mempool.drop_committed(
-                    self.block_store.load_block(top).data.txs)
+            last = self.block_store.load_block(top) if top > 0 else None
+            if last is not None:
+                mempool.drop_committed(last.data.txs)
         self.mempool = mempool
 
         if evidence_pool is None:
@@ -191,8 +238,24 @@ class Node:
             mempool.txs_available_hook = lambda: self.consensus.submit(
                 {"type": "txs_available"})
 
+        # recovery plane: interval snapshots, retention and pruning on
+        # the commit path (and, below, on the fast-sync apply path)
+        self.snapshots = None
+        if self.snapshot_store is not None and \
+                (self._snap_interval > 0 or self._retain_heights > 0):
+            self.snapshots = SnapshotManager(
+                self.snapshot_store, self.state_store, self.block_store,
+                self.app, interval=self._snap_interval,
+                keep=self._snap_keep,
+                chunk_size=self._snap_chunk_kb * 1024,
+                retain_heights=self._retain_heights)
+            self.consensus.post_commit_hooks.append(
+                self.snapshots.maybe_snapshot)
+
         # ------------------------------------------------ p2p reactor stack
         self.switch = None
+        self.statesync_reactor = None
+        self._statesync_gate = None
         self.fast_sync = fast_sync
         if with_p2p:
             self._build_p2p(state, fast_sync, in_memory)
@@ -256,20 +319,50 @@ class Node:
         self.consensus_reactor = ConsensusReactor(
             self.consensus, fast_sync=fast_sync,
             gossip_sleep_s=self.config.consensus.peer_gossip_sleep_ms / 1e3)
+        # state sync only engages on a node with nothing below it: a
+        # genesis-fresh store joining an established chain
+        restore = bool(self._state_sync and fast_sync and
+                       self.snapshot_store is not None and
+                       self.app is not None and
+                       state.last_block_height == 0)
+        if restore:
+            import threading
+            self._statesync_gate = threading.Event()
         expect_peers = bool(self.config.p2p.persistent_peers or
                             self.config.p2p.seeds)
         self.blockchain_reactor = BlockchainReactor(
             state, self.block_exec, self.block_store, fast_sync=fast_sync,
             consensus_reactor=self.consensus_reactor,
-            expect_peers=expect_peers, redial=self._dial_configured_peers)
+            gate=self._statesync_gate, expect_peers=expect_peers,
+            redial=self._dial_configured_peers,
+            after_apply=(self.snapshots.maybe_snapshot
+                         if self.snapshots is not None else None))
+        if self.snapshots is not None:
+            self.snapshots.peer_floor = self._peer_floor
         self.mempool_reactor = MempoolReactor(
             self.mempool, broadcast=self.config.mempool.broadcast)
         self.evidence_reactor = EvidenceReactor(self.evidence_pool)
+
+        if self.snapshot_store is not None and \
+                (restore or self._snap_interval > 0):
+            # the channel is only advertised when the recovery plane is
+            # on: peers without it never see 0x60 traffic (try_send
+            # checks the remote's advertised channels)
+            from tendermint_tpu_torch.statesync import StateSyncReactor
+            self.statesync_reactor = StateSyncReactor(
+                self.snapshot_store, self.gen_doc.chain_id,
+                restore=restore, statesync_dir=self._statesync_dir,
+                block_store=self.block_store,
+                state_store=self.state_store, app=self.app,
+                verifier=self.verifier,
+                on_restored=self._on_state_sync_done)
 
         self.switch.add_reactor("mempool", self.mempool_reactor)
         self.switch.add_reactor("blockchain", self.blockchain_reactor)
         self.switch.add_reactor("consensus", self.consensus_reactor)
         self.switch.add_reactor("evidence", self.evidence_reactor)
+        if self.statesync_reactor is not None:
+            self.switch.add_reactor("statesync", self.statesync_reactor)
 
         from tendermint_tpu_torch.p2p.trust import TrustMetricStore
         self.trust_store = TrustMetricStore(
@@ -334,6 +427,69 @@ class Node:
             host, port = _parse_laddr(self.config.rpc.laddr)
             self.rpc_address = self.rpc_server.serve(host, port)
 
+    def _on_state_sync_done(self, state) -> None:
+        """The state-sync restore concluded. On success every store is
+        bootstrapped at the snapshot height: adopt the state across the
+        node's live components; either way release the fast-sync gate,
+        so that block sync proceeds (from the snapshot, or from genesis
+        after a fall-back)."""
+        if state is not None:
+            self.consensus.state = state
+            self.blockchain_reactor.adopt_restored(state)
+            self.evidence_pool.state = state
+            self.mempool.update(state.last_block_height, [])
+            self.logger.info("state sync complete; fast-syncing tail",
+                             height=state.last_block_height)
+        if self._statesync_gate is not None:
+            self._statesync_gate.set()
+
+    def _peer_floor(self) -> int:
+        """The pruner's peer frontier: the first height a connected peer
+        may still need from this node. The JAX node takes the blockchain
+        reactor's min_peer_height() + 1, the heights peers reported in
+        status responses; those stop once a node leaves fast sync, so on
+        a net whose peers connected at genesis the frontier stays at
+        their connect-time heights and nothing is ever pruned. The port
+        also reads each peer's consensus height (its round state's
+        height - 1 is committed): a peer's need is one above the larger
+        of the two. A peer that is fast-syncing sends no round state and
+        keeps the frontier at its reported height."""
+        bc, cons = self.blockchain_reactor, self.consensus_reactor
+        with bc._ph_lock:
+            reported = dict(bc._peer_heights)
+        states = dict(cons.peer_states)
+        need = []
+        for pid in set(reported) | set(states):
+            h = reported.get(pid, 0)
+            ps = states.get(pid)
+            if ps is not None:
+                with ps.lock:
+                    h = max(h, ps.height - 1)
+            need.append(h + 1)
+        # no peer: no bound (the JAX reading's min_peer_height() + 1)
+        return min(need) if need else (1 << 62) + 1
+
+    def recovery_counts(self) -> dict:
+        """The recovery plane's plain counts: the restore (height, chunks
+        fetched, bad and timed out, bans, stage seconds), the snapshot
+        manager's (published, pruned heights, floor, seconds), the
+        snapshots on disk and the base of both stores."""
+        ss = self.statesync_reactor
+        status = ss.status() if ss is not None else None
+        return {
+            "statesync": status,
+            "snapshots": (dict(self.snapshots.counts)
+                          if self.snapshots is not None else None),
+            "snapshot_heights": (self.snapshot_store.list_heights()
+                                 if self.snapshot_store is not None
+                                 else []),
+            "latest_pin": self.state_store.latest_snapshot_height(),
+            "block_base": self.block_store.base(),
+            "state_floor": self.state_store.prune_floor(),
+            "resumed_restore": (
+                None if self.resumed_restore is None
+                else self.resumed_restore.last_block_height)}
+
     def _dial_configured_peers(self) -> None:
         from tendermint_tpu_torch.p2p import NetAddress
         persistent = [a for a in
@@ -377,10 +533,14 @@ class Node:
 
 def default_node(home: str, app=None, in_memory=False, with_p2p=False,
                  fast_sync: Optional[bool] = None, device=None,
-                 loop=None) -> Node:
-    """DefaultNewNode (node/node.go:79): load config tree from `home`."""
+                 loop=None, state_sync: bool = False) -> Node:
+    """DefaultNewNode (node/node.go:79): load config tree from `home`.
+    `state_sync` turns `base.state_sync` on over the file's value (the
+    CLI's --state-sync)."""
     from tendermint_tpu_torch.config import default_config
     config = default_config(home)
+    if state_sync:
+        config.base.state_sync = True
     gen_doc = GenesisDoc.load(os.path.join(home, "config", "genesis.json"))
     pv = PrivValidatorFile.load_or_generate(
         os.path.join(home, "config", "priv_validator.json"))

@@ -9,6 +9,8 @@ CLI, each node its own interpreter.
     net.wait_height(2, timeout_s=60)
     ... feed over net.ws(i) / net.rpc(i) ...
     net.kill(3); net.start(3)             # SIGKILL by pid, restart
+    net.kill(3); net.reset(3)             # SIGKILL, cli unsafe_reset_all
+    net.start(3, extra=["--state-sync"])  # rejoin by a snapshot restore
     codes = net.stop_all()                # SIGINT; exit codes
     net.kernel_lines(i)                   # counts of node i's processes
 
@@ -171,6 +173,18 @@ class ProcNet:
             cmd, stdout=log, stderr=subprocess.STDOUT, env=env,
             cwd=self.root)
 
+    def reset(self, i: int) -> None:
+        """Wipe node i's data with its CLI's `unsafe_reset_all` (the
+        stores, WALs and snapshots go; genesis, keys and config stay,
+        and the priv validator's sign state is reset)."""
+        if i in self.procs and self.procs[i].poll() is None:
+            raise RuntimeError(f"node {i} is running")
+        subprocess.run(
+            [sys.executable, "-m", self.cli_of(i), "--home", self.home(i),
+             "unsafe_reset_all"],
+            check=True, capture_output=True, text=True, timeout=120,
+            env=self._env(self.env_of(i)), cwd=self.root)
+
     def start_all(self, extra: Optional[List[str]] = None) -> None:
         for i in range(self.n):
             self.start(i, extra)
@@ -273,6 +287,21 @@ class ProcNet:
                 out[m["header"]["height"]] = m
             hi -= 20
         return [out[h] for h in range(1, top + 1)]
+
+    def held_metas(self, i: int, lo: int, hi: int) -> Dict[int, dict]:
+        """Node i's block metas of heights lo..hi that its store still
+        holds (a pruned or state-synced store lacks those below its
+        base): height -> meta."""
+        out: Dict[int, dict] = {}
+        c = self.rpc(i)
+        top = hi
+        while top >= lo:
+            res = c.call("blockchain", min_height=max(lo, top - 19),
+                         max_height=top)
+            for m in res["block_metas"]:
+                out[m["header"]["height"]] = m
+            top -= 20
+        return out
 
     def disagreements(self, top: int) -> List[str]:
         """Heights 1..top at which two nodes hold different block hashes

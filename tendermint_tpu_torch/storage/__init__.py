@@ -7,13 +7,15 @@
                   responses
   wal.py          the consensus write-ahead log (CRC frames, ENDHEIGHT
                   markers, torn-tail repair, rotation)
-
-Snapshots wait for a later slice.
+  snapshot.py     chunked state snapshots, retention and the pruning
+                  floor (the recovery plane)
 """
 
 from tendermint_tpu_torch.storage.db import (KVStore, MemDB, SQLiteDB,
                                              StagedDB, open_db)
 from tendermint_tpu_torch.storage.block_store import BlockMeta, BlockStore
 from tendermint_tpu_torch.storage.state_store import StateStore
+from tendermint_tpu_torch.storage.snapshot import (SnapshotManager,
+                                                   SnapshotStore)
 from tendermint_tpu_torch.storage.wal import (WAL, NilWAL, WALCorruptionError,
                                           WALMessage)

@@ -4,8 +4,10 @@ port's copy of `tendermint_tpu/storage/block_store.py`.
 Behavior parity with the reference block store (blockchain/store.go:33-268):
 per height it saves a BlockMeta, every Part, the block's LastCommit (under
 H-1) and the SeenCommit; LoadBlock reassembles the block from its parts.
-Keys mirror the reference's `H:`/`P:h:i`/`C:`/`SC:` scheme. Pruning, the
-state-sync bootstrap and the fail points wait with state sync.
+Keys mirror the reference's `H:`/`P:h:i`/`C:`/`SC:` scheme. `bootstrap`
+(a state-sync restore's frontier without blocks below it) and `prune`
+(windowed deletes behind a retain height, with the `prune.mid_range`
+fail point) are the recovery plane's (storage/snapshot.py).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from tendermint_tpu_torch.storage.db import KVStore
 from tendermint_tpu_torch.types import encoding
 from tendermint_tpu_torch.types.block import Block, BlockID, Commit, Header
 from tendermint_tpu_torch.types.part_set import Part, PartSet
+from tendermint_tpu_torch.utils import fail
 
 _HEIGHT_KEY = b"BS:height"
 _BASE_KEY = b"BS:base"       # first retained height (pruning floor + 0)
@@ -112,6 +115,55 @@ class BlockStore:
         if healed != b:
             self.db.set(_BASE_KEY, b"%d" % healed)
         return healed
+
+    def bootstrap(self, height: int, seen_commit: Commit) -> None:
+        """State-sync bootstrap: adopt `height` as the store frontier
+        WITHOUT any blocks below it. Stores the snapshot height's seen
+        commit (consensus `_reconstruct_last_commit` needs it at the
+        fast-sync handoff) and sets base = height + 1 — the first block
+        this store will ever hold is the snapshot's successor. One
+        atomic batch; idempotent, so a torn state-sync apply can simply
+        re-run it."""
+        if self.height() > height:
+            raise ValueError(
+                f"bootstrap at {height} behind existing store height "
+                f"{self.height()}")
+        self.db.set_batch([
+            (_seen_commit_key(height), seen_commit.to_bytes()),
+            (_commit_key(height), seen_commit.to_bytes()),
+            (_BASE_KEY, b"%d" % (height + 1)),
+            (_HEIGHT_KEY, b"%d" % height),
+        ])
+
+    def prune(self, retain_height: int, window: int = 256) -> int:
+        """Delete blocks below `retain_height` (meta, parts, commits,
+        seen commits), one delete_batch per `window` heights — group
+        commit for the delete path. The base row advances AFTER each
+        window's deletes commit, so a crash mid-range leaves only
+        already-deleted rows below base: the next prune re-issues
+        idempotent deletes. Returns the number of heights pruned.
+        Callers enforce the floor policy (snapshot / evidence / peer
+        frontiers) — this is the mechanism only."""
+        base = self.base()
+        retain_height = min(retain_height, self.height())
+        if retain_height <= base:
+            return 0
+        pruned = 0
+        for lo in range(base, retain_height, window):
+            hi = min(lo + window, retain_height)
+            keys = []
+            for h in range(lo, hi):
+                meta = self.load_block_meta(h)
+                n_parts = meta.block_id.parts.total if meta else 0
+                keys.append(_meta_key(h))
+                keys.extend(_part_key(h, i) for i in range(n_parts))
+                keys.append(_commit_key(h))
+                keys.append(_seen_commit_key(h))
+            self.db.delete_batch(keys)
+            fail.fail_point("prune.mid_range")
+            self.db.set(_BASE_KEY, b"%d" % hi)
+            pruned += hi - lo
+        return pruned
 
     def save_block(self, block: Block, part_set: PartSet,
                    seen_commit: Commit) -> None:

@@ -21,11 +21,13 @@ Two test hooks replace the hard exit:
 Every commit-critical call site uses a stable dotted name from
 COMMIT_POINTS (in the order one commit passes them). Call sites in the
 port: consensus/state.py (the consensus.* points, ten sites over the
-serial and the pipelined finalize) and state/execution.py (the four
-execution.* points). The statetree.* points and RECOVERY_POINTS have no
-call site yet: the state tree, snapshots, state sync and pruning (and
-with it the block store's prune.mid_range) are not ported, so a sweep of
-this port never counts them.
+serial and the pipelined finalize), state/execution.py (the four
+execution.* points), and the RECOVERY_POINTS: storage/snapshot.py
+(snapshot.after_chunk, snapshot.before_publish), statesync/reactor.py
+(statesync.before_apply, statesync.after_restore) and
+storage/block_store.py (prune.mid_range). The statetree.* points have no
+call site: the state tree is not ported, so a sweep of this port never
+counts them.
 """
 
 from __future__ import annotations

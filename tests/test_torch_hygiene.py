@@ -5,7 +5,8 @@
   with its conn/, pex/ and socknet, consensus/ with its reactor,
   mempool/ and evidence/ with theirs, rpc/ with the async front door,
   the event loop, the coalescer, UPnP, node, cli, __main__, procnet,
-  the pipeline and the fail points included), and chip_smoke.py
+  the pipeline, the fail points, snapshots and state sync included), and
+  chip_smoke.py
   as a module, in a fresh interpreter loads neither jax nor any
   tendermint_tpu module.
 - No source of the port (nor chip_smoke.py) imports them (AST check).
@@ -13,8 +14,9 @@
   (system headers aside).
 - The modules of the node's default plane (config, the event loop, the
   coalescer and verifier, the async front door and RPC core, UPnP, the
-  node, the pipeline) read no environment variable: their settings are config fields
-  and constructor arguments.
+  node, the pipeline, the snapshot store and manager, state sync) read
+  no environment variable: their settings are config fields and
+  constructor arguments.
 - An entry point given no device raises when no CUDA device is present:
   the port never moves to the CPU quietly. `python -m
   tendermint_tpu_torch.cli node` without a card and without `--device
@@ -44,7 +46,7 @@ def test_walk_covers_every_subpackage():
     for pkg in ("ops", "types", "models", "utils", "lite", "storage",
                 "state", "abci", "abci.apps", "blockchain", "p2p",
                 "p2p.conn", "consensus", "mempool", "evidence", "rpc",
-                "p2p.pex", "node", "cli"):
+                "p2p.pex", "node", "cli", "statesync"):
         assert f"tendermint_tpu_torch.{pkg}" in mods, pkg
     assert "tendermint_tpu_torch.lite.certifier" in mods
     assert "tendermint_tpu_torch.native" in mods
@@ -70,7 +72,8 @@ def test_walk_covers_every_subpackage():
                 "state.txindex", "p2p.pex.addrbook", "p2p.pex.pex_reactor",
                 "rpc.server", "rpc.core", "rpc.client", "__main__",
                 "procnet", "models.coalescer", "p2p.conn.loop",
-                "p2p.upnp", "rpc.aserver", "pipeline", "utils.fail"):
+                "p2p.upnp", "rpc.aserver", "pipeline", "utils.fail",
+                "storage.snapshot", "statesync.reactor"):
         assert f"tendermint_tpu_torch.{mod}" in mods, mod
 
 
@@ -139,7 +142,8 @@ def test_port_source_imports_no_jax(path):
 PLANE_SOURCES = [PORT / m for m in (
     "config.py", "p2p/conn/loop.py", "models/coalescer.py",
     "models/verifier.py", "rpc/aserver.py", "rpc/core.py", "p2p/upnp.py",
-    "p2p/switch.py", "p2p/peer.py", "node.py", "cli.py", "pipeline.py")]
+    "p2p/switch.py", "p2p/peer.py", "node.py", "cli.py", "pipeline.py",
+    "storage/snapshot.py", "statesync/__init__.py", "statesync/reactor.py")]
 
 
 @pytest.mark.parametrize("path", PLANE_SOURCES,

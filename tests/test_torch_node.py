@@ -510,7 +510,9 @@ def test_two_node_net_runs_the_configured_plane(reactor, coalesce):
     import threading
     from tendermint_tpu_torch.p2p.conn.loop import LoopMConnection
     from tendermint_tpu_torch.p2p.conn.mconn import MConnection
-    before = {t.ident for t in threading.enumerate()}
+    # the Thread objects, not their idents: the OS reuses the ident of a
+    # thread that ended, and a new loop thread could take one of them
+    before = set(threading.enumerate())
     nodes = _plane_net(reactor, coalesce)
     try:
         for n in nodes:
@@ -521,7 +523,7 @@ def test_two_node_net_runs_the_configured_plane(reactor, coalesce):
             assert time.monotonic() - t0 < 60, [n.height for n in nodes]
             time.sleep(0.02)
         new = [t.name for t in threading.enumerate()
-               if t.ident not in before]
+               if t not in before]
         per_peer = [x for x in new
                     if x.startswith(("mconn-", "gossip-", "mempool-bcast-"))]
         loops = [x for x in new if x.startswith("tm-reactor-loop")]
