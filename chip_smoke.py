@@ -323,7 +323,31 @@ Phases, each printing its own lines:
    inside a Node's start) on a single-validator node verifying on the
    card, each recovering to the uncrashed run's app hash and blocks.
    Launch counts zeroed at the start of each arm, read at its end.
-15. the kernel table as one JSON line, the card again, then the last line
+15. the observability plane (`procnet_telemetry`): phase 13's net, on
+   the JAX node's defaults with every plane on (base.trace, slo, prof
+   and queue_watch on, TM_CUDA_DIVERGENCE=on, TM_CUDA_TRACE_STALL_S=3),
+   with a WebSocket subscriber of Tx events on each fed node. At node 0's
+   height 20 nodes 2 and 3 are SIGSTOPped for 6 s: /healthz on nodes 0
+   and 1 must say stalled during the stop and ok after it, each must
+   write one flight-recorder file of the episode, and the chain must
+   resume. Before the nodes stop: GET /metrics on each node parses as
+   Prometheus text, with the consensus height gauge at the node's
+   height; the four causal timelines (dump_height_timeline) merge
+   (clock offsets, the stage attribution of heights 5-40 with its
+   coverage, verify.dispatch spans a height) and their transition
+   digests agree at every height; /slo on each fed node has no
+   out-of-order stamp and every sampled tx completed or counted dropped;
+   /healthz is ok with its queue table; debug_profile dump has stacks.
+   Each process's stop line must hold verifier families equal to its
+   plain counts, one dispatch observation a call, B1 launched. B1 at
+   the consensus shape (8 lanes) is timed alone with the launch timer
+   for the dispatch-vs-kernel split. The divergence replay of seed 7
+   runs in two children under PYTHONHASHSEED 1 and 2 on the card, and in
+   this process on the card and on the CPU: three equal streams. A
+   second run of the same net with telemetry and every plane off gives
+   the overhead (blocks/s beside the first run's and phase 13's; not a
+   check), and its stop lines' families must stay at zero.
+16. the kernel table as one JSON line, the card again, then the last line
    {"ok": true, "device": {...}}.
 
 Any mismatch or exception ends the run with a non-zero code before the
@@ -2165,6 +2189,35 @@ def phase_sync(card: str, device) -> dict:
     return launches
 
 
+def phase_sync_registry_ab(card: str, device) -> dict:
+    """Not part of main(): phase 8's chain built once, then synced by a
+    fresh node four times with the metric registry off, on, on, off (the
+    registry's cost on the in-process fast-sync path, one call)."""
+    from tendermint_tpu_torch import telemetry
+    timer: list = []
+    inner = _time_launches(timer)
+    b, blocks, wire, recv, state_forge, state_final = _build_sync_chain(
+        device, timer, card)
+    verifier = tverifier.BatchVerifier("auto", device=device)
+    out = []
+    try:
+        for on in (False, True, True, False):
+            telemetry.set_enabled(on)
+            calls = _sync_step(b.gen, recv, blocks, state_final, verifier,
+                               timer, card)
+            wall_s = sum(c["wall_ms"] for c in calls) / 1e3
+            out.append({"registry": on, "blocks_per_s": SYNC_BLOCKS / wall_s,
+                        "apply_ms_per_block": sum(c["apply_ms"]
+                                                  for c in calls)
+                        / SYNC_BLOCKS})
+    finally:
+        telemetry.set_enabled(True)
+        ladder._launch = inner
+    emit({"phase": "sync_registry_ab", "runs": out, "note": "a record, "
+          "not a check: the windows' wall summed", "card": card})
+    return {"runs": out}
+
+
 # ---------------------------------------------------------------------------
 # Phase 9: consensus, BASELINE.json config 1
 # ---------------------------------------------------------------------------
@@ -3073,10 +3126,11 @@ class _WSFeeder:
     """run_socket's spammer (bench_testnet.py :554-585) on the port's
     WSClient: casts of PROC_FEED_BATCH fresh txs to node `tid`, a
     num_unconfirmed_txs call after every four, backing off while it
-    exceeds PROC_BACKLOG; a broken socket is reopened."""
+    exceeds `backlog`; a broken socket is reopened."""
 
-    def __init__(self, net, tid: int):
+    def __init__(self, net, tid: int, backlog: int = PROC_BACKLOG):
         self.net, self.tid, self.sent, self.errors = net, tid, 0, 0
+        self.backlog = backlog
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name=f"smoke-ws-feeder-{tid}")
@@ -3094,7 +3148,7 @@ class _WSFeeder:
                     self.sent += PROC_FEED_BATCH
                 while not self._stop.is_set() and ws.call(
                         "num_unconfirmed_txs", timeout=30.0)["n_txs"] \
-                        > PROC_BACKLOG:
+                        > self.backlog:
                     time.sleep(0.05)
             except Exception:
                 self.errors += 1
@@ -3235,6 +3289,28 @@ def _proc_txs(net, top: int) -> tuple:
     return Counter(txs), txs
 
 
+def _node_libs() -> None:
+    """Build the libraries the node processes load (the same digests,
+    so that no node pays a build inside its first call)."""
+    _build.ladder_lib()
+    native.module()
+    native.aead_lib()
+    native.hostops_lib()
+    native.codec()
+    native.kv()
+
+
+def _agreed_txs(net, tag: str, top: int) -> tuple:
+    """Every node holds the same blocks 1..top and no tx is committed
+    twice; returns node 0's committed txs (Counter, list)."""
+    bad = net.disagreements(top)
+    require(not bad, f"{tag}: the nodes disagree: {bad[:5]}")
+    counts, txs = _proc_txs(net, top)
+    twice = [tx for tx, c in counts.items() if c > 1]
+    require(not twice, f"{tag}: {len(twice)} txs committed twice")
+    return counts, txs
+
+
 def _procnet_net(tag: str, settings: dict, device: str, extra=None) -> dict:
     """BASELINE config 1 as four OS processes (procnet.ProcNet), the run
     phases 11 and 12 share: `cli testnet` with `settings`, four `cli node
@@ -3250,13 +3326,7 @@ def _procnet_net(tag: str, settings: dict, device: str, extra=None) -> dict:
     once every node is at the last height (`finish(left)`). Returns the
     run's readings."""
     from tendermint_tpu_torch.procnet import ProcNet, free_block
-    # the node processes load the libraries phase 1 built (same digests)
-    _build.ladder_lib()
-    native.module()
-    native.aead_lib()
-    native.hostops_lib()
-    native.codec()
-    native.kv()
+    _node_libs()
     root = tempfile.mkdtemp(prefix=f"{tag}-")
     net = ProcNet(root, base_port=free_block(8))
     net.write_tree(f"chip-smoke-{tag}")
@@ -3303,11 +3373,7 @@ def _procnet_net(tag: str, settings: dict, device: str, extra=None) -> dict:
             extra.finish(left)
         wall_s = time.perf_counter() - t_start
         top = min(net.heights())
-        bad = net.disagreements(top)
-        require(not bad, f"{tag}: the nodes disagree: {bad[:5]}")
-        counts, txs = _proc_txs(net, top)
-        twice = [tx for tx, c in counts.items() if c > 1]
-        require(not twice, f"{tag}: {len(twice)} txs committed twice")
+        counts, txs = _agreed_txs(net, tag, top)
         keys = random.Random(SEED).sample(txs, min(PROC_SAMPLE_KEYS,
                                                    len(txs)))
         for tx in keys:
@@ -3552,8 +3618,9 @@ class _Subscribers:
     the node's loop): each event's block height is the first "height" of
     its frame. `heights[i]` lists what subscriber i received, in order."""
 
-    def __init__(self, tid: int = 1):
-        self.tid = tid
+    def __init__(self, tid: int = 1, n: int = LOOP_SUBSCRIBERS,
+                 query: str = "tm.event = 'NewBlock'"):
+        self.tid, self.n, self.query = tid, n, query
         self.drain = False
         self.heights: list = []
         self.closed = self.replies = 0
@@ -3570,12 +3637,19 @@ class _Subscribers:
                      left("node 1's RPC"), "node 1's RPC")
         port = net.rpc_port(self.tid)
         self._sel = selectors.DefaultSelector()
-        for i in range(LOOP_SUBSCRIBERS):
+        # every upgrade request goes out before the first answer is read:
+        # the node answers them together, so that the subscriptions are
+        # in place within a round trip or two of its RPC coming up (one
+        # round trip each, in turn, let a fast chain pass height 5 first)
+        socks = []
+        for i in range(self.n):
             s = socket.create_connection(("127.0.0.1", port), timeout=30)
             s.sendall(b"GET /websocket HTTP/1.1\r\nHost: x\r\n"
                       b"Upgrade: websocket\r\nConnection: Upgrade\r\n"
                       b"Sec-WebSocket-Key: c21va2Utc3Vic2NyaWJlcg==\r\n"
                       b"Sec-WebSocket-Version: 13\r\n\r\n")
+            socks.append(s)
+        for i, s in enumerate(socks):
             head = b""
             while b"\r\n\r\n" not in head:
                 chunk = s.recv(4096)
@@ -3585,7 +3659,7 @@ class _Subscribers:
                     f"loop: subscriber upgrade {head[:60]!r}")
             body = json.dumps({"jsonrpc": "2.0", "id": i,
                                "method": "subscribe", "params": {
-                                   "query": "tm.event = 'NewBlock'"}}
+                                   "query": self.query}}
                               ).encode()
             s.sendall(bytes([0x81, 0x80 | 126]) + struct.pack(">H",
                                                                len(body))
@@ -3598,7 +3672,7 @@ class _Subscribers:
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="smoke-subscribers")
         self._thread.start()
-        net.wait_for(lambda: self.replies == LOOP_SUBSCRIBERS,
+        net.wait_for(lambda: self.replies == self.n,
                      left("the subscriptions"), "the subscriptions' replies")
         self.subscribed_at = net.height(self.tid)
 
@@ -4837,12 +4911,7 @@ def phase_procnet_statesync(card: str, device: str = "cuda") -> dict:
     from tendermint_tpu_torch.procnet import (ProcNet, bench_settings,
                                               free_block)
     on_card = device.startswith("cuda")
-    _build.ladder_lib()
-    native.module()
-    native.aead_lib()
-    native.hostops_lib()
-    native.codec()
-    native.kv()
+    _node_libs()
     tag = "procnet_statesync"
     root = tempfile.mkdtemp(prefix=f"{tag}-")
     net = ProcNet(root, base_port=free_block(8))
@@ -5210,6 +5279,587 @@ def phase_recovery_sweep(card: str, device: str = "cuda") -> dict:
 
 
 
+# ------------------------------- phase 15: the observability plane
+
+TEL_STALL_AT = 20         # node 0's height when nodes 2 and 3 are stopped
+TEL_STALL_S = 3           # TM_CUDA_TRACE_STALL_S of the planes-on run
+TEL_STOP_S = 6.0          # the SIGSTOP: twice the stall window, far below
+#                           the links' 35 s idle timeout (the ban hazard)
+TEL_RESUME = 3            # heights node 0 commits after the SIGCONT
+TEL_B1_REPS = 50          # launches of the consensus shape timed alone
+TEL_SLO_WAIT_S = 30.0     # the trackers' wait for their last deliveries
+TEL_WALL_S = 300.0        # a run's wall limit from the nodes' start
+TEL_BACKLOG = 1000        # the feeders' back-off: with each feeder's bursts
+#                           and the other's gossip in flight a mempool stays
+#                           below its 4,000, so CheckTx refuses no fed tx
+#                           and every tx the SLO plane samples is committed
+TEL_PLANES = {"telemetry": True, "trace": "on", "slo": "on", "prof": "on",
+              "queue_watch": "on"}
+TEL_OFF = {"telemetry": False, "trace": "off", "slo": "off", "prof": "off",
+           "queue_watch": "off"}
+
+
+def _prom(text: str) -> dict:
+    """Prometheus text 0.0.4 -> {(name, ((label, value), ...)): value};
+    a line that is neither a comment nor a sample fails the run."""
+    out, kinds = {}, {}
+    for ln in text.splitlines():
+        if not ln or ln.startswith("# HELP "):
+            continue
+        if ln.startswith("# TYPE "):
+            _, _, name, kind = ln.split(" ", 3)
+            kinds[name] = kind
+            continue
+        m = re.match(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$', ln)
+        require(m is not None, f"telemetry: not Prometheus text: {ln[:80]!r}")
+        labels = tuple(re.findall(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|'
+                                  r'\\.)*)"', m.group(2) or ""))
+        out[(m.group(1), labels)] = float(m.group(3))
+    require(kinds, "telemetry: /metrics has no TYPE line")
+    return out
+
+
+def _http_get(net, i: int, path: str, timeout: float = 30.0) -> bytes:
+    import urllib.request
+    url = f"http://127.0.0.1:{net.rpc_port(i)}{path}"
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        require(r.status == 200, f"telemetry: GET {path} on node {i}: "
+                f"{r.status}")
+        return r.read()
+
+
+def _healthz(net, i: int) -> dict:
+    return json.loads(_http_get(net, i, "/healthz", 10.0))
+
+
+def _b1_consensus_shape(device) -> dict:
+    """B1's device ms a launch at the consensus path's shape (4
+    signatures padded to 8 lanes), timed alone by the launch timer
+    (csrc/launch_timer.cpp) around TEL_B1_REPS launches."""
+    keys = [PrivKey.generate(s) for s in _seeds(4, SEED + 15)]
+    items = [(k.pubkey.ed25519, b"vote %d" % i, k.sign(b"vote %d" % i))
+             for i, k in enumerate(keys)]
+    pk, rb, sb, hb, _ = ted.prep_items(items)
+    log: list = []
+    saved = _patched(_in_run_timer_patches(log))
+    try:
+        ted.verify_prepared_async(pk, rb, sb, hb, device=device)
+        torch.cuda.synchronize()
+        log.clear()
+        ref = torch.cuda.Event(enable_timing=True)
+        ref.record()
+        t0 = time.perf_counter()
+        for _ in range(TEL_B1_REPS):
+            ted.verify_prepared_async(pk, rb, sb, hb, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        _restore(saved)
+    row = _in_run_device_time(log, ref, wall)["by_kernel"]["verify"]
+    require(list(row["by_lanes"]) == ["8"],
+            f"telemetry: the consensus shape is not 8 lanes: {row}")
+    return {"lanes": 8, "launches": row["launches"],
+            "ms_per_launch": row["by_lanes"]["8"]["ms_per_launch"]}
+
+
+def _tel_stall(net, left) -> dict:
+    """SIGSTOP nodes 2 and 3 for TEL_STOP_S (nodes 0 and 1 lose their
+    quorum), read /healthz on nodes 0 and 1 during the stop, SIGCONT,
+    then wait for the chain and the two verdicts to recover."""
+    import signal as _signal
+    h_stop = net.height(0)
+    pids = [net.procs[i].pid for i in (2, 3)]
+    for pid in pids:
+        os.kill(pid, _signal.SIGSTOP)
+    t0 = time.perf_counter()
+    seen = {}
+    try:
+        while time.perf_counter() - t0 < TEL_STOP_S:
+            for i in (0, 1):
+                if i not in seen:
+                    h = _healthz(net, i)
+                    if h["stall"]["stalled"] and not h["ok"]:
+                        seen[i] = round(time.perf_counter() - t0, 3)
+            time.sleep(0.2)
+    finally:
+        for pid in pids:
+            os.kill(pid, _signal.SIGCONT)
+    stopped_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    net.wait_for(lambda: net.height(0) >= h_stop + TEL_RESUME,
+                 left("the resumption"), "the chain's resumption")
+    resumed_s = time.perf_counter() - t1
+    net.wait_for(lambda: all(_healthz(net, i)["ok"] and not
+                             _healthz(net, i)["stall"]["stalled"]
+                             for i in (0, 1)),
+                 left("the verdicts' recovery"), "/healthz ok again",
+                 poll_s=0.25)
+    require(set(seen) == {0, 1},
+            f"telemetry: /healthz did not say stalled during the stop: "
+            f"{seen}")
+    return {"height_at_stop": h_stop, "stopped_s": round(stopped_s, 3),
+            "stalled_seen_after_s": seen,
+            "resumed_after_s": round(resumed_s, 3)}
+
+
+def _flight_records(net, i: int) -> list:
+    import glob
+    out = []
+    for path in sorted(glob.glob(os.path.join(net.home(i), "data",
+                                              "tm_stall_h*.json"))):
+        with open(path) as f:
+            doc = json.load(f)
+        out.append({"height": doc["height"],
+                    "stalled_s": doc["stalled_s"],
+                    "sections": sorted(k for k in doc if k in (
+                        "timeline", "profile", "queues", "consensus")),
+                    "timeline_spans": len(doc["timeline"]["spans"])})
+    return out
+
+
+def _tel_readings(net, left, heights, fed_committed: dict) -> dict:
+    """Every plane's reading off the running net (planes on).
+    `fed_committed[i]` counts the committed txs fed to node i's front
+    door, every tx its SLO tracker sampled."""
+    from tendermint_tpu_torch.telemetry import merge as tmerge
+    lo, hi = heights
+    out = {"metrics": {}, "slo": {}, "healthz": {}, "profile": {}}
+    for i in range(net.n):
+        h0 = net.height(i)
+        fam = _prom(_http_get(net, i, "/metrics").decode())
+        h1 = net.height(i)
+        ns = "tmcuda_"
+        cons_h = fam[(ns + "consensus_height", ())]
+        require(h0 <= cons_h <= h1 + 1,
+                f"telemetry: node {i}'s consensus height gauge {cons_h} "
+                f"outside {h0}..{h1 + 1}")
+        cuda = (("backend", "cuda"),)
+        out["metrics"][i] = {
+            "families": len({k[0] for k in fam}),
+            "consensus_height": cons_h,
+            "verifier_calls_cuda": fam.get(
+                (ns + "verifier_calls_total", cuda), 0.0),
+            "verifier_sigs_cuda": fam.get(
+                (ns + "verifier_sigs_total", cuda), 0.0),
+            "dispatch_count_cuda": fam.get(
+                (ns + "verifier_dispatch_seconds_count", cuda), 0.0),
+            "dispatch_sum_s_cuda": fam.get(
+                (ns + "verifier_dispatch_seconds_sum", cuda), 0.0),
+            "trace_events_dropped": fam.get(
+                (ns + "trace_events_dropped_total", ()), 0.0),
+            "event_dropped": fam.get((ns + "event_dropped_total", ()), 0.0)}
+    dumps = [net.rpc(i, 60.0).call("dump_height_timeline")
+             for i in range(net.n)]
+    offsets = tmerge.estimate_offsets(dumps)
+    window = [dict(d, spans=[e for e in d["spans"]
+                             if e["n"] in ("p2p.recv", "mempool.recv")
+                             or lo <= e["h"] <= hi]) for d in dumps]
+    att = tmerge.attribution(window, offsets)
+    digests = defaultdict(dict)
+    for d in dumps:
+        for e in d["spans"]:
+            if e["n"] == "transition.digest":
+                digests[e["h"]][d["node"]] = e["a"]["digest"]
+    missing = [h for h in range(lo, hi + 1) if len(digests[h]) < net.n]
+    split = [h for h in range(lo, hi + 1) if len(set(digests[h].values()))
+             > 1]
+    require(not split, f"telemetry: transition digests disagree at "
+            f"heights {split[:5]}")
+    require(not missing, f"telemetry: transition digests missing at "
+            f"heights {missing[:5]} ({[len(digests[h]) for h in missing[:5]]})")
+    per_node = {}
+    for d in dumps:
+        commits = {e["h"]: e["t"] for e in d["spans"] if e["n"] == "commit"}
+        t_lo, t_hi = commits.get(lo), commits.get(hi)
+        vd = [e for e in d["spans"] if e["n"] == "verify.dispatch"
+              and t_lo is not None and t_hi is not None
+              and t_lo <= e["t"] <= t_hi]
+        per_node[d["node"]] = {
+            "events": d["events"], "capacity": d["capacity"],
+            "verify_dispatch_per_height": len(vd) / max(1, hi - lo),
+            "verify_dispatch_ms_mean": (sum(e["d"] for e in vd) / 1e6
+                                        / max(1, len(vd))),
+            "verify_dispatch_ms_per_height": (sum(e["d"] for e in vd)
+                                              / 1e6 / max(1, hi - lo)),
+            "height_wall_ms": ((t_hi - t_lo) / 1e6 / max(1, hi - lo)
+                               if t_lo and t_hi else None)}
+    out["timeline"] = {
+        "offsets_ms": {n: round(o / 1e6, 3) for n, o in offsets.items()},
+        "rtt_floor_s": tmerge.pair_rtt_floor_s(dumps),
+        "heights": att["heights"], "heights_skipped":
+            att["heights_skipped"], "coverage_mean": att["coverage_mean"],
+        "stages_ms_p50_p95": att["stages_ms_p50_p95"],
+        "digest_heights": hi - lo + 1, "per_node": per_node}
+    for i in (0, 1):
+        # every tx node i's feeder sent is sampled there, committed and
+        # delivered to node i's Tx subscriber: once the last delivery is
+        # read nothing is left in flight
+        deadline = time.monotonic() + min(TEL_SLO_WAIT_S,
+                                          left("the SLO deliveries"))
+        while True:
+            s = net.rpc(i, 30.0).call("slo")
+            if s["in_flight"] == 0 or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+        dropped = sum(s["dropped"].values())
+        require(s["monotonic_violations"] == 0,
+                f"telemetry: node {i}'s SLO stamps out of order: "
+                f"{s['monotonic_violations']}")
+        acct = {k: s[k] for k in ("sampled_total", "completed_total",
+                                  "in_flight", "dropped")}
+        require(s["sampled_total"] > 0 and s["in_flight"] == 0 and
+                s["sampled_total"] == s["completed_total"] + dropped and
+                s["completed_total"] == fed_committed[i],
+                f"telemetry: node {i}'s sampled txs unaccounted: {acct}, "
+                f"{fed_committed[i]} of its fed txs committed")
+        st = s["stages"]
+        out["slo"][i] = {
+            "sampled": s["sampled_total"], "completed": s["completed_total"],
+            "dropped": s["dropped"], "in_flight": s["in_flight"],
+            "fed_committed": fed_committed[i], "monotonic_violations": 0,
+            **{f"{name}_{q}": st[name][q] for name in ("e2e_commit",
+                                                        "e2e_delivery")
+               for q in ("p50_ms", "p99_ms")},
+            "legs_p50_ms": {name: st[name]["p50_ms"] for name in st}}
+    for i in range(net.n):
+        h = _healthz(net, i)
+        require(h["ok"] and h["queues"]["table"],
+                f"telemetry: node {i}'s /healthz at the end: {h}")
+        out["healthz"][i] = {"ok": h["ok"], "queues": {
+            k: {f: v[f] for f in ("high_water", "capacity", "events")}
+            for k, v in h["queues"]["table"].items()},
+            "stall_episodes": h["stall"]["episodes"]}
+        p = net.rpc(i, 30.0).call("debug_profile", action="dump")
+        require(p["collapsed"].strip() and p["samples"] > 0,
+                f"telemetry: node {i}'s profiler has no stacks")
+        out["profile"][i] = {"samples": p["samples"],
+                             "wait_samples": p["wait_samples"],
+                             "stacks": p["stacks"], "shares": p["shares"]}
+    return out
+
+
+def _telemetry_net(tag: str, planes: dict, env: dict, device: str,
+                   stall: bool) -> dict:
+    """Phase 13's net (config 1, four `cli node --p2p` processes on the
+    JAX node's defaults, two WebSocket feeders) with `planes` in every
+    node's base config and `env` in its environment, and one WebSocket
+    subscriber of `tm.event = 'Tx'` on each fed node (the SLO plane's
+    deliver stage). With `stall` the run stops nodes 2 and 3 at
+    TEL_STALL_AT and reads every plane before the nodes stop."""
+    from tendermint_tpu_torch.procnet import ProcNet, bench_settings, \
+        free_block
+    on_card = device.startswith("cuda")
+    _node_libs()
+    settings = bench_settings("cuda" if on_card else "auto", reactor="auto",
+                              verifier_coalesce="auto", pipeline="auto")
+    settings["base"].update(planes)
+    root = tempfile.mkdtemp(prefix=f"{tag}-")
+    net = ProcNet(root, base_port=free_block(8), env_of=lambda i: env)
+    net.write_tree(f"chip-smoke-{tag}")
+    net.configure(settings)
+    sampler = _GpuSampler()
+    feeders = [_WSFeeder(net, tid, TEL_BACKLOG) for tid in (0, 1)]
+    subs = [_Subscribers(tid, n=1, query="tm.event = 'Tx'")
+            for tid in (0, 1)]
+    t_start = time.perf_counter()
+
+    def left(what: str) -> float:
+        rem = TEL_WALL_S - (time.perf_counter() - t_start)
+        require(rem > 0, f"{tag}: out of wall time at {what}")
+        return rem
+    ok, stall_out, readings = False, None, None
+    try:
+        net.start_all(extra=["--no-fast-sync", "--device", device])
+        sampler.start()
+        for s in subs:
+            s.start(net, left)
+        net.wait_for(lambda: min(net.heights()) >= 2,
+                     min(PROC_BOOT_S, left("boot")), "boot")
+        boot_s = time.perf_counter() - t_start
+        for f in feeders:
+            f.start()
+        t_feed = time.perf_counter()
+        if stall:
+            net.wait_for(lambda: net.height(0) >= TEL_STALL_AT,
+                         left("the stall height"), "the stall height")
+            stall_out = _tel_stall(net, left)
+        net.wait_for(lambda: net.height(0) >= PROC_HEIGHTS,
+                     left("the last fed height"), "node 0 at the last height")
+        t_fed = time.perf_counter()
+        for f in feeders:
+            f.stop()
+        net.wait_for(lambda: all(
+            net.rpc(i).call("num_unconfirmed_txs")["n_txs"] == 0
+            for i in range(net.n)), left("the mempools' drain"),
+            "the mempools' drain", poll_s=0.25)
+        net.wait_for(lambda: min(net.heights()) >= PROC_HEIGHTS,
+                     left("every node at the last height"),
+                     "every node at the last height")
+        top = min(net.heights())
+        counts, txs = _agreed_txs(net, tag, top)
+        rate = _proc_rate(net, top)
+        rate["before_stall"] = _rate_over(net, top, PROC_MEASURE[0],
+                                          TEL_STALL_AT - 1)
+        if stall:
+            fed = {tid: sum(1 for tx in txs if tx.startswith(b"pn%d/" % tid))
+                   for tid in (0, 1)}
+            readings = _tel_readings(net, left, PROC_MEASURE, fed)
+        early = net.early_exits()
+        require(not early, f"{tag}: node processes exited early {early}")
+        busy, n_samples = sampler.share(t_feed, t_fed)
+        wall_s = time.perf_counter() - t_start
+        ok = True
+    finally:
+        for f in feeders:
+            f.stop()
+        for s in subs:
+            s.stop()
+        codes = net.stop_all()
+        sampler.stop()
+        if not ok:
+            for i in range(net.n):
+                tail = net.log(i).splitlines()[-40:] \
+                    if os.path.exists(net.log_path(i)) else []
+                print(f"{tag} node {i} log tail:", *tail, sep="\n",
+                      file=sys.stderr)
+    lines = {i: net.kernel_lines(i) for i in range(net.n)}
+    require(all(codes[i] == 0 for i in range(net.n)),
+            f"{tag}: node exit codes {codes}")
+    require([len(lines[i]) for i in range(net.n)] == [1] * net.n,
+            f"{tag}: kernel lines a process {lines}")
+    records = {i: _flight_records(net, i) for i in range(net.n)}
+    launches = {k: sum(lines[i][0]["launches"][k] for i in lines)
+                for k in ladder.launches}
+    shutil.rmtree(root, ignore_errors=True)
+    return {"lines": {i: lines[i][0] for i in lines}, "rate": rate,
+            "launches": launches, "busy": busy, "n_samples": n_samples,
+            "boot_s": boot_s, "wall_s": wall_s, "top": top,
+            "txs": len(txs), "stall": stall_out, "readings": readings,
+            "records": records, "tx_events": [len(s.heights[0])
+                                              for s in subs],
+            "sent": sum(f.sent for f in feeders),
+            "errors": sum(f.errors for f in feeders)}
+
+
+def _rate_over(net, top: int, lo: int, hi: int) -> dict:
+    """Blocks/s and txs/s over heights lo..hi from node 0's metas."""
+    metas = net.metas(0, top)
+    span = (metas[hi - 1]["header"]["time_ns"]
+            - metas[lo - 1]["header"]["time_ns"]) / 1e9
+    txs = sum(m["header"]["num_txs"] for m in metas[lo:hi])
+    return {"heights": [lo, hi], "blocks_per_s": (hi - lo) / span,
+            "txs_per_s": txs / span}
+
+
+def _tel_kernel_line_check(tag: str, lines: dict, on: bool,
+                           on_card: bool) -> dict:
+    """Each process's stop line: its verifier's families (read beside
+    its plain counts) equal those counts, one dispatch observation a
+    call; with the planes off every family stays at zero."""
+    out = {}
+    for i, line in lines.items():
+        t, v = line["telemetry"], line["verifier"]
+        calls = t["calls"]["cuda"] + t["calls"]["python"] \
+            + v["empty_calls"]
+        sigs = t["sigs"]["cuda"] + t["sigs"]["python"]
+        n_disp = t["dispatch"]["cuda"]["count"] + \
+            t["dispatch"]["python"]["count"]
+        if on:
+            require(t["enabled"] and t["namespace"] == "tmcuda",
+                    f"{tag}: node {i}'s registry is off: {t}")
+            require(calls == v["calls"] and sigs == v["sigs"]
+                    and n_disp == calls - v["empty_calls"],
+                    f"{tag}: node {i}'s verifier families {t} disagree "
+                    f"with its counts {v}")
+            require(not on_card or (t["calls"]["cuda"] + v["empty_calls"]
+                                    == v["calls"] > 0
+                                    and line["launches"]["verify"] > 0),
+                    f"{tag}: node {i} verified off the card: {line}")
+        else:
+            require(not t["enabled"] and calls - v["empty_calls"] == sigs
+                    == n_disp == 0,
+                    f"{tag}: node {i}'s families moved with telemetry "
+                    f"off: {t}")
+        out[i] = {"calls": v["calls"], "empty_calls": v["empty_calls"],
+                  "sigs": v["sigs"],
+                  "family_calls_cuda": t["calls"]["cuda"],
+                  "family_sigs_cuda": t["sigs"]["cuda"],
+                  "dispatch_s_cuda": t["dispatch"]["cuda"]["sum"],
+                  "plain_dispatch_s": v["dispatch_s"],
+                  "plain_wait_s": v["wait_s"],
+                  "launches": line["launches"]}
+    return out
+
+
+def _divergence_on_card(device) -> dict:
+    """The dual-PYTHONHASHSEED replay with its children on the card, the
+    same trajectory in this process on the card (B1 counted) and on the
+    CPU: three equal streams."""
+    from tendermint_tpu_torch.analysis import divergence
+    t0 = time.perf_counter()
+    dual = divergence.run_dual_seed_replay(seed=7, device=str(device))
+    t1 = time.perf_counter()
+    _zero_launches()
+    here = divergence.replay_digests(7, device=device)
+    launched = dict(ladder.launches)
+    cpu = divergence.replay_digests(7, device="cpu")
+    require(dual["identical"], f"divergence: the streams differ under "
+            f"PYTHONHASHSEED {dual['hash_seeds']}: {dual['streams']}")
+    require(dual["streams"][0].splitlines() == here == cpu,
+            f"divergence: the card's stream {here} is not the CPU's {cpu}")
+    require(launched["verify"] > 0, f"divergence: no B1 launch {launched}")
+    return {"seed": 7, "heights": dual["heights"], "identical": True,
+            "equal_to_cpu": True, "dual_s": round(t1 - t0, 3),
+            "in_process_launches": launched, "last": here[-1]}
+
+
+def phase_procnet_telemetry(card: str, device: str = "cuda",
+                            pipeline_run: dict = None) -> dict:
+    """BASELINE config 1 as four OS processes on the JAX node's defaults
+    with every observability plane on (trace, SLO, profiler, queue
+    watch, TM_CUDA_DIVERGENCE, a 3 s stall window): the metrics, merged
+    timelines, digests, SLO tables, health verdicts and profiles off the
+    running net, a stall of nodes 2 and 3, the divergence replay on the
+    card, and a second run with telemetry and every plane off for the
+    overhead. `pipeline_run` is phase 13's run, printed beside. A CPU
+    rehearsal passes device="cpu" (no launch required)."""
+    on_card = device.startswith("cuda")
+    b1 = _b1_consensus_shape(torch.device(device)) if on_card else None
+    env = {"TM_CUDA_DIVERGENCE": "on",
+           "TM_CUDA_TRACE_STALL_S": str(TEL_STALL_S)}
+    run = _telemetry_net("procnet_telemetry", TEL_PLANES, env, device,
+                         stall=True)
+    kl = _tel_kernel_line_check("procnet_telemetry", run["lines"], True,
+                                on_card)
+    rd = run["readings"]
+    for i in range(4):
+        m = rd["metrics"][i]
+        require(0 < m["verifier_calls_cuda"] <= kl[i]["family_calls_cuda"]
+                or not on_card,
+                f"procnet_telemetry: node {i}'s /metrics calls "
+                f"{m['verifier_calls_cuda']} against its stop line "
+                f"{kl[i]['family_calls_cuda']}")
+        # a dispatch counts at its launch, its seconds at its verdicts:
+        # a scrape may fall between the two for the calls in flight
+        require(0 <= m["verifier_calls_cuda"] - m["dispatch_count_cuda"]
+                <= 4, f"procnet_telemetry: node {i}'s dispatch count "
+                f"{m['dispatch_count_cuda']} against its calls "
+                f"{m['verifier_calls_cuda']}")
+    recs = run["records"]
+    h_stop = run["stall"]["height_at_stop"]
+    episode = {i: [r for r in recs[i] if r["height"] >= h_stop - 1]
+               for i in recs}
+    for i in (0, 1):
+        require(len(episode[i]) == 1 and len(episode[i][0]["sections"])
+                == 4, f"procnet_telemetry: node {i}'s flight records "
+                f"of the stall: {recs[i]}")
+    emit({"phase": "procnet_telemetry", "validators": 4, "processes": 4,
+          "planes": TEL_PLANES, "env": env, "heights": run["top"],
+          "measured_heights": list(PROC_MEASURE),
+          "blocks_per_s": run["rate"]["blocks_per_s"],
+          "txs_per_s": run["rate"]["txs_per_s"], "txs_committed": run["txs"],
+          "txs_sent": run["sent"], "feeder_errors": run["errors"],
+          "tx_events_read": run["tx_events"], "boot_s": run["boot_s"],
+          "wall_s": run["wall_s"], "card": card})
+    emit({"phase": "procnet_telemetry_metrics", "by_node": rd["metrics"],
+          "stop_lines": kl, "card": card})
+    tl = rd["timeline"]
+    dispatch_ms = {n: r["verify_dispatch_ms_per_height"]
+                   for n, r in tl["per_node"].items()}
+    emit({"phase": "procnet_telemetry_timeline", **tl,
+          "b1_alone": b1, "kernel_ms_per_height": (
+              {n: r["verify_dispatch_per_height"] * b1["ms_per_launch"]
+               for n, r in tl["per_node"].items()} if b1 else None),
+          "dispatch_ms_per_height": dispatch_ms,
+          "note": "dispatch spans run from a verify's dispatch to its "
+          "verdicts on the host; kernel ms = dispatches a height x B1's "
+          "launch-timer ms at 8 lanes, timed alone in this call",
+          "card": card})
+    emit({"phase": "procnet_telemetry_slo", "by_node": rd["slo"],
+          "card": card})
+    emit({"phase": "procnet_telemetry_health", "healthz": rd["healthz"],
+          "profile": rd["profile"], "note": "profiler shares count "
+          "samples of Python frames; a thread blocked in a CUDA wait "
+          "sits in C and is charged to its caller's subsystem as busy",
+          "card": card})
+    emit({"phase": "procnet_telemetry_stall", **run["stall"],
+          "flight_records": recs, "card": card})
+    div = _divergence_on_card(torch.device(device)) if on_card else \
+        _divergence_cpu()
+    emit({"phase": "procnet_telemetry_divergence", **div, "card": card})
+    off = _telemetry_net("procnet_telemetry_off", TEL_OFF, {}, device,
+                         stall=False)
+    _tel_kernel_line_check("procnet_telemetry_off", off["lines"], False,
+                           on_card)
+    emit({"phase": "procnet_telemetry_overhead",
+          "planes_on": {"blocks_per_s": run["rate"]["blocks_per_s"],
+                        "txs_per_s": run["rate"]["txs_per_s"],
+                        "before_stall": run["rate"]["before_stall"]},
+          "planes_off": {"blocks_per_s": off["rate"]["blocks_per_s"],
+                         "txs_per_s": off["rate"]["txs_per_s"],
+                         "before_stall": off["rate"]["before_stall"]},
+          "phase13": (None if pipeline_run is None else
+                      {"blocks_per_s": pipeline_run["rate"]["blocks_per_s"],
+                       "txs_per_s": pipeline_run["rate"]["txs_per_s"]}),
+          "note": "a record, not a check: over heights "
+          f"{PROC_MEASURE[0]}-{PROC_MEASURE[1]} the planes-on run includes "
+          f"the {TEL_STOP_S} s stall; before_stall is heights "
+          f"{PROC_MEASURE[0]}-{TEL_STALL_AT - 1} of both runs",
+          "card": card})
+    if on_card:
+        for tag, r in (("procnet_telemetry", run),
+                       ("procnet_telemetry_off", off)):
+            _require_b1_everywhere(tag, {i: [ln] for i, ln in
+                                         r["lines"].items()}, on_card)
+    return {"launches": run["launches"], "off_launches": off["launches"],
+            "rate": run["rate"], "off_rate": off["rate"]}
+
+
+#: phase_telemetry_planes' arms: each plane alone on the node's defaults
+#: (registry and queue watch on), then every plane off and all on
+TEL_ARMS = (
+    ("defaults", {}, {}),
+    ("trace", {"trace": "on"}, {}),
+    ("slo", {"slo": "on"}, {}),
+    ("prof", {"prof": "on"}, {}),
+    ("divergence", {}, {"TM_CUDA_DIVERGENCE": "on"}),
+    ("all_on", TEL_PLANES, {"TM_CUDA_DIVERGENCE": "on",
+                            "TM_CUDA_TRACE_STALL_S": str(TEL_STALL_S)}),
+    ("all_off", TEL_OFF, {}),
+)
+
+
+def phase_telemetry_planes(card: str, device: str = "cuda") -> dict:
+    """Not part of main(): phase 15's net without the stall, once for
+    each arm of TEL_ARMS in one call, for the cost of each plane alone
+    (blocks/s and txs/s over heights 5-40, B1 launched)."""
+    on_card = device.startswith("cuda")
+    out = {}
+    for name, planes, env in TEL_ARMS:
+        base = dict(TEL_OFF, telemetry=True, queue_watch="on")
+        base.update(planes)
+        run = _telemetry_net(f"planes_{name}", base, env, device,
+                             stall=False)
+        if on_card:
+            _require_b1_everywhere(f"planes_{name}", {
+                i: [ln] for i, ln in run["lines"].items()}, on_card)
+        out[name] = {"blocks_per_s": run["rate"]["blocks_per_s"],
+                     "txs_per_s": run["rate"]["txs_per_s"],
+                     "heights_5_19": run["rate"]["before_stall"],
+                     "planes": base, "env": env}
+        emit({"phase": "telemetry_planes", "arm": name, **out[name],
+              "card": card})
+    return out
+
+
+def _divergence_cpu() -> dict:
+    """The CPU rehearsal's divergence arm: the dual replay on the CPU."""
+    from tendermint_tpu_torch.analysis import divergence
+    dual = divergence.run_dual_seed_replay(seed=7, device="cpu")
+    require(dual["identical"], f"divergence: {dual['streams']}")
+    return {"seed": 7, "heights": dual["heights"], "identical": True}
+
+
 @contextlib.contextmanager
 def _serial_commit_path():
     """Phases 9 and 10 on the serial commit path (pipeline "off"), the
@@ -5249,6 +5899,8 @@ def main() -> int:
     ss_wide_launches = phase_statesync_wide(card, commit_path, device)
     procnet_ss = phase_procnet_statesync(card)
     recovery_launches = phase_recovery_sweep(card)
+    procnet_tel = phase_procnet_telemetry(card,
+                                          pipeline_run=procnet_pipeline)
     table = []
     for name, info in KERNELS.items():
         table.append({
@@ -5273,7 +5925,11 @@ def main() -> int:
                                  "statesync_wide": ss_wide_launches[name],
                                  "procnet_statesync":
                                      procnet_ss["launches"][name],
-                                 "recovery_sweep": recovery_launches[name]},
+                                 "recovery_sweep": recovery_launches[name],
+                                 "procnet_telemetry":
+                                     procnet_tel["launches"][name],
+                                 "procnet_telemetry_off":
+                                     procnet_tel["off_launches"][name]},
             "max_abs_err": kernels[name]["max_abs_err"],
             "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"],
             "bound_ms": kernels[name]["bound_ms"],

@@ -12,8 +12,9 @@ deterministic jitter (clocked via utils/clock.now_s, so chaos
 skew/replay reproduce the exact schedule); requests route away from
 struck peers toward responsive ones, and only MAX_STRIKES consecutive
 failures evict — never the last remaining peer, which is throttled
-instead (a slow sync beats a dead one). The JAX package's telemetry
-gauges and queue probe are not ported."""
+instead (a slow sync beats a dead one). The JAX package's `fastsync_*`
+families and its queue probe (`fastsync.requests`) are fed where the
+JAX pool feeds them."""
 
 from __future__ import annotations
 
@@ -23,7 +24,9 @@ import time
 import zlib
 from typing import Callable, Dict, List, Optional
 
+from tendermint_tpu_torch import telemetry
 from tendermint_tpu_torch.p2p.conn.flowrate import FlowMonitor
+from tendermint_tpu_torch.telemetry import queues as queue_obs
 from tendermint_tpu_torch.utils import clock
 
 logger = logging.getLogger(__name__)
@@ -36,6 +39,22 @@ MIN_RATE_GRACE_S = 2.0
 MAX_STRIKES = 3                   # consecutive failures before eviction
 BACKOFF_BASE_S = 1.0
 BACKOFF_CAP_S = 30.0
+
+# Fast-sync window health: how many completed blocks sit buffered ahead
+# of the apply height (the blocks/sec number starves when this gauge
+# hits 0 — the verifier is outrunning the network).
+_m_window_fill = telemetry.gauge(
+    "fastsync_window_fill",
+    "Completed blocks buffered ahead of the apply height")
+_m_blocks = telemetry.counter(
+    "fastsync_blocks_received_total", "Blocks accepted from peers")
+_m_requests = telemetry.counter(
+    "fastsync_requests_total", "Block requests sent to peers")
+_m_height = telemetry.gauge(
+    "fastsync_height", "Next height the fast-sync pool will apply")
+_m_strikes = telemetry.counter(
+    "fastsync_peer_strikes_total",
+    "Request timeouts / slow windows charged to peers")
 
 
 def _jitter(peer_id: str, n: int) -> float:
@@ -84,6 +103,7 @@ class BpPeer:
                    BACKOFF_BASE_S * (2 ** (self.strikes - 1)))
         self.backoff_until = now + base * (1.0 + 0.5 * _jitter(
             self.id, self.strikes))
+        _m_strikes.inc()
 
     def in_backoff(self, now: float) -> bool:
         return now < self.backoff_until
@@ -125,6 +145,13 @@ class BlockPool:
         self.requests: Dict[int, _Request] = {}
         self._started_at = time.monotonic()
         self._n_filled = 0  # requests holding a completed block
+        # queue observatory: the in-flight request window — saturated
+        # means the apply side is the fast-sync bottleneck, empty
+        # means the network is
+        self._queue_probe = queue_obs.register(
+            "fastsync.requests", self,
+            depth=lambda p: len(p.requests),
+            capacity=MAX_PENDING_REQUESTS)
 
     # ----------------------------------------------------------------- peers
 
@@ -166,6 +193,8 @@ class BlockPool:
                     p = self.peers.get(req.peer_id)
                     if p is not None and req.block is None:
                         p.on_request_failed()
+            _m_height.set(self.height)
+            _m_window_fill.set(self._n_filled)
 
     def make_next_requests(self) -> None:
         """Assign un-requested heights to capable peers (the reference's
@@ -196,6 +225,8 @@ class BlockPool:
                 self.requests[next_h] = req
                 peer.on_request()
                 to_send.append((peer.id, next_h))
+        if to_send:
+            _m_requests.inc(len(to_send))
         for peer_id, h in to_send:
             if not self.send_request(peer_id, h):
                 with self._lock:
@@ -268,6 +299,8 @@ class BlockPool:
             if p is not None:
                 p.on_block(size)
             self._n_filled += 1
+            _m_blocks.inc()
+            _m_window_fill.set(self._n_filled)
             return True
 
     def peek_two_blocks(self) -> tuple:
@@ -304,6 +337,8 @@ class BlockPool:
             self.height += 1
             if req is not None and req.block is not None:
                 self._n_filled = max(0, self._n_filled - 1)
+            _m_window_fill.set(self._n_filled)
+            _m_height.set(self.height)
 
     def redo_request(self, height: int) -> List[str]:
         """Bad block: reassign this height (and its successor — the lying
@@ -322,6 +357,7 @@ class BlockPool:
                     fresh = _Request(h, "")
                     fresh.peer_id = ""
                     self.requests[h] = fresh
+            _m_window_fill.set(self._n_filled)
         return bad
 
     def is_caught_up(self) -> bool:

@@ -20,13 +20,18 @@ the pipeline's counts (`pipeline.stats()`) and the native host cores'
 routes (part sets built natively or in Python, canonical-JSON calls and
 their fallbacks, kvstore blocks on the kv core and on the per-tx route)
 and the recovery plane's counts (`Node.recovery_counts`: the state-sync
-restore, snapshots published, heights pruned, the base of both stores).
+restore, snapshots published, heights pruned, the base of both stores),
+and the verifier's metric families read at the same moment.
 `node --state-sync` turns `base.state_sync` on: a node at height 0 with
 fast sync joins by a snapshot restore over p2p (after `unsafe_reset_all`,
 say); the JAX CLI exports TM_TPU_STATE_SYNC for the same.
 
-The JAX CLI's `lite`, `replica` and `shardset` commands and its
-TM_NODE_PROFILE sampler wait for later slices.
+`node` with TM_CUDA_NODE_PROFILE=<path> samples every thread's frame
+with SIGPROF and writes the top frames there on exit (the JAX CLI's
+TM_NODE_PROFILE).
+
+The JAX CLI's `lite`, `replica` and `shardset` commands wait for later
+slices.
 """
 
 from __future__ import annotations
@@ -108,7 +113,69 @@ def _kernel_line(node, threads=None) -> str:
         "native": {"partsets": part_set.build_stats(),
                    "codec": encoding.stats(),
                    "kvstore": kvstore.route_stats()},
-        "recovery": node.recovery_counts()})
+        "recovery": node.recovery_counts(),
+        "telemetry": _telemetry_reading()})
+
+
+def _telemetry_reading() -> dict:
+    """The verifier's families as the registry holds them now (read
+    beside the plain counts above, so that a stopped node's line holds
+    both at one moment), by backend."""
+    from tendermint_tpu_torch import telemetry
+    out = {"enabled": telemetry.enabled(),
+           "namespace": telemetry.namespace()}
+    for key, name in (("calls", "verifier_calls_total"),
+                      ("sigs", "verifier_sigs_total"),
+                      ("dispatch", "verifier_dispatch_seconds")):
+        out[key] = {}
+        for backend in ("cuda", "python"):
+            v = telemetry.value(name, {"backend": backend})
+            if key == "dispatch":
+                v = v or {"count": 0, "sum": 0.0}
+                out[key][backend] = {"count": v["count"], "sum": v["sum"]}
+            else:
+                out[key][backend] = v or 0
+    return out
+
+
+def _maybe_node_profile() -> None:
+    """TM_CUDA_NODE_PROFILE=<path>: a sampling profiler over EVERY
+    thread (SIGPROF at ~97 Hz of CPU time, sys._current_frames) — the
+    profiling story for multi-process nets, where each node samples
+    itself and writes its top frames on exit. Parked threads surface as
+    wait/accept/select rows (thread residency); the remaining rows are
+    the CPU story. A thread blocked in a CUDA wait sits in C and is
+    charged to its caller's frame."""
+    from tendermint_tpu_torch.utils import knobs
+    prof_path = knobs.knob_spec("TM_CUDA_NODE_PROFILE")
+    if not prof_path:
+        return
+    import atexit
+    import collections
+    import signal as _signal
+    samples = collections.Counter()
+
+    def _sample(signum, frame):
+        for fr in sys._current_frames().values():
+            # leaf frame + its caller: enough to attribute cost
+            co = fr.f_code
+            caller = fr.f_back.f_code if fr.f_back else None
+            samples[(co.co_filename, co.co_name,
+                     caller.co_name if caller else "")] += 1
+
+    _signal.signal(_signal.SIGPROF, _sample)
+    _signal.setitimer(_signal.ITIMER_PROF, 0.0103, 0.0103)
+
+    def _dump():
+        _signal.setitimer(_signal.ITIMER_PROF, 0)
+        total = sum(samples.values()) or 1
+        with open(prof_path, "w") as f:
+            f.write(f"# {total} samples (CPU time, all threads)\n")
+            for (fn, name, caller), c in samples.most_common(60):
+                f.write(f"{100*c/total:6.2f}% {name} <- {caller} "
+                        f"({fn})\n")
+
+    atexit.register(_dump)
 
 
 def cmd_node(args) -> int:
@@ -121,6 +188,7 @@ def cmd_node(args) -> int:
     from tendermint_tpu_torch.utils.log import setup_logging
     setup_logging(default_config(args.home).base.log_level)
     app = {"kvstore": KVStoreApp, "counter": CounterApp}[args.app]()
+    _maybe_node_profile()
     try:
         node = default_node(args.home, app=app, with_p2p=args.p2p,
                             fast_sync=(args.fast_sync if args.p2p else False),

@@ -17,16 +17,20 @@ pipelined block hot path (`base.pipeline`: auto|on|off, auto being on;
 pipeline.py) and the recovery plane (`base.snapshot_interval`,
 `snapshot_keep`, `snapshot_chunk_kb`, `retain_heights`, `state_sync`).
 The port reads no environment knob for them. `validate()` refuses a value outside
-those sets when the config is loaded.
+those sets when the config is loaded. The observability planes' keys
+(`base.telemetry`, `telemetry_namespace`, `trace`, `prof`, `prof_hz`,
+`queue_watch`, `slo`, `slo_sample`) carry the JAX package's names and
+defaults, except the namespace (`tmcuda`); their `TM_CUDA_*` knobs
+(utils/knobs.py) win over them, as the JAX package's knobs do.
 
 `config/config.json` is one file for both packages. default_config()
 reads a JAX-written file: the JAX package keeps the bursts and the
 compact gossip under `base` (`p2p_burst`, `p2p_burst_max`, `compact`,
 `vote_agg`, each auto|on|off), and the loader maps those keys onto the
-port's fields. `reactor`, `pipeline`, the `verifier_coalesce*` keys
-and the five recovery keys have the same names and meanings in both
-packages. Keys of planes the port does not have (telemetry, chaos,
-trace, SLO, the state tree, ...) are ignored, as the JAX loader ignores
+port's fields. `reactor`, `pipeline`, the `verifier_coalesce*` keys,
+the five recovery keys and the eight observability keys have the same
+names and meanings in both packages. Keys of planes the port does not
+have (chaos, the state tree, ...) are ignored, as the JAX loader ignores
 any key its dataclasses lack. save_config() writes those
 four settings only as the JAX keys, so the file holds one key for each
 and the JAX package reads a port-written file the same way. A file that
@@ -79,6 +83,32 @@ class BaseConfig:
     snapshot_chunk_kb: int = 256
     retain_heights: int = 0
     state_sync: bool = False
+    # telemetry plane (telemetry/): metrics + tracing on by default; the
+    # exposition namespace prefixes every family (`tmcuda_...`; "tm"
+    # gives the JAX package's names). TM_CUDA_TELEMETRY=off overrides
+    # `telemetry` unconditionally.
+    telemetry: bool = True
+    telemetry_namespace: str = "tmcuda"
+    # causal tracing plane (telemetry/causal.py): per-height consensus
+    # spans, trace-stamped p2p envelopes, the dump_height_timeline RPC
+    # and GET /debug/timeline. "off" keeps the wire format byte-for-byte
+    # untraced. TM_CUDA_TRACE wins.
+    trace: str = "off"
+    # runtime introspection plane (telemetry/profile.py + queues.py):
+    # `prof` on starts the sampling profiler at `prof_hz` sweeps/sec
+    # (prof_* families, GET /debug/pprof, the debug_profile RPC);
+    # `queue_watch` (off | on | <poll seconds>) runs the bounded-queue
+    # observatory (queue_* families, the /healthz verdict)
+    prof: str = "off"
+    prof_hz: float = 0.0  # 0 = profile.DEFAULT_HZ (13)
+    queue_watch: str = "on"
+    # tx-lifecycle SLO plane (telemetry/slo.py): `slo` on stamps sampled
+    # txs at each stage boundary (admit -> checktx -> propose -> commit
+    # -> publish -> deliver) into per-stage quantile sketches served at
+    # /slo and folded into /healthz; `slo_sample` is the deterministic
+    # hash-based sampling rate.
+    slo: str = "off"
+    slo_sample: float = 1.0
 
 
 # No code of the port reads grpc_laddr yet (gRPC waits for a later

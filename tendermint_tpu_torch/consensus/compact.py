@@ -26,8 +26,8 @@ backoff: while a peer is in backoff its compact offers are refused (nack
 — the sender falls back to parts) and our own compact sends to it are
 skipped.
 
-`CompactStats` counts what the JAX package exports as metrics (offers,
-reconstructions by outcome, fetches, aggregates), per reactor.
+`CompactStats` counts, per reactor, what the JAX package exports as metrics (offers,
+reconstructions by outcome, fetches, aggregates), and feeds those families.
 """
 
 from __future__ import annotations
@@ -36,6 +36,8 @@ import hashlib
 import threading
 from collections import Counter
 from typing import Dict, List
+
+from tendermint_tpu_torch import telemetry
 
 #: capability strings advertised in NodeInfo.other — version-suffixed
 #: so an incompatible future wire shape can bump without ambiguity
@@ -69,6 +71,40 @@ BENIGN_NACKS = frozenset(("stale", "backoff", "busy"))
 
 BACKOFF_BASE_S = 1.0
 BACKOFF_CAP_S = 30.0
+
+_m_compact_sent = telemetry.counter(
+    "compact_blocks_sent_total",
+    "Compact proposals sent to capable peers")
+_m_compact_recv = telemetry.counter(
+    "compact_blocks_received_total",
+    "Compact proposals received, by what happened next",
+    ("outcome",))  # accepted | stale | backoff | dup
+_m_reconstruct = telemetry.counter(
+    "compact_reconstruct_total",
+    "Block reconstruction attempts by outcome", ("outcome",))
+# outcome: hit (all txs from mempool) | fetched (completed after a
+# tx_fetch round trip) | fallback (nacked/timed out -> part gossip)
+_m_fetch_req = telemetry.counter(
+    "compact_fetch_requests_total",
+    "tx_fetch messages sent for missing txs")
+_m_fetch_miss_txs = telemetry.histogram(
+    "compact_fetch_missing_txs",
+    "Missing txs per reconstruction that needed a fetch",
+    buckets=telemetry.POW2_BUCKETS)
+_m_fetch_served = telemetry.counter(
+    "compact_fetch_txs_served_total",
+    "Txs served to peers from tx_fetch requests")
+_m_strikes = telemetry.counter(
+    "compact_peer_strikes_total",
+    "Strikes issued against peers on the compact plane", ("reason",))
+_m_agg_sent = telemetry.counter(
+    "voteagg_msgs_sent_total", "Aggregated vote messages sent")
+_m_agg_votes_sent = telemetry.counter(
+    "voteagg_votes_sent_total", "Votes carried inside aggregates")
+_m_agg_batch = telemetry.histogram(
+    "voteagg_batch_votes",
+    "Votes per aggregate applied through the bulk VoteSet path",
+    buckets=telemetry.POW2_BUCKETS)
 
 
 def wire_capabilities(compact: bool = True,
@@ -136,6 +172,8 @@ class StrikeLedger:
             self._until[peer_id] = now + min(
                 self.cap_s, self.base_s * (2 ** (n - 1)))
             self.reasons[reason] += 1
+        if telemetry.enabled():
+            _m_strikes.labels(reason).inc()
 
     def in_backoff(self, peer_id: str, now: float) -> bool:
         with self._lock:
@@ -169,27 +207,41 @@ class CompactStats:
         self.agg_votes_sent = 0
 
     def compact_sent(self) -> None:
+        if telemetry.enabled():
+            _m_compact_sent.inc()
         with self._lock:
             self.sent += 1
 
     def compact_received(self, outcome: str) -> None:
+        if telemetry.enabled():
+            _m_compact_recv.labels(outcome).inc()
         with self._lock:
             self.received[outcome] += 1
 
     def reconstructed(self, outcome: str) -> None:
+        if telemetry.enabled():
+            _m_reconstruct.labels(outcome).inc()
         with self._lock:
             self.reconstruct[outcome] += 1
 
     def fetch_request(self, missing: int) -> None:
+        if telemetry.enabled():
+            _m_fetch_req.inc()
+            _m_fetch_miss_txs.observe(missing)
         with self._lock:
             self.fetch_requests += 1
             self.fetch_missing_txs += missing
 
     def fetch_served_txs(self, n: int) -> None:
+        if telemetry.enabled() and n:
+            _m_fetch_served.inc(n)
         with self._lock:
             self.fetch_served += n
 
     def agg(self, n_votes: int) -> None:
+        if telemetry.enabled():
+            _m_agg_sent.inc()
+            _m_agg_votes_sent.inc(n_votes)
         with self._lock:
             self.agg_sent += 1
             self.agg_votes_sent += n_votes
@@ -203,3 +255,8 @@ class CompactStats:
                     "fetch_served": self.fetch_served,
                     "agg_sent": self.agg_sent,
                     "agg_votes_sent": self.agg_votes_sent}
+
+
+def note_agg_applied(n_votes: int) -> None:
+    if telemetry.enabled():
+        _m_agg_batch.observe(n_votes)

@@ -17,7 +17,10 @@ pure I/O around it: peer messages feed cs.submit(), and the gossip
 threads read RoundState snapshots under the state machine's lock.
 
 Compact block relay and vote aggregation follow the ConsensusState's
-config (`compact`, `vote_agg`). Not ported: the causal trace stamps.
+config (`compact`, `vote_agg`). With the causal plane on, outgoing
+state, data and vote envelopes carry the trace stamp (`causal.stamp`)
+and `receive` takes it off first (`causal.take`), as in the JAX reactor;
+off, the envelopes are untouched.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from tendermint_tpu_torch.consensus.replay import catchup_replay
 from tendermint_tpu_torch.models.verifier import default_verifier
 from tendermint_tpu_torch.p2p.base_reactor import Reactor
 from tendermint_tpu_torch.p2p.conn import ChannelDescriptor
+from tendermint_tpu_torch.telemetry import causal
 from tendermint_tpu_torch.types import encoding
 from tendermint_tpu_torch.types.block import Block, BlockID
 from tendermint_tpu_torch.types.part_set import PartSet
@@ -336,6 +340,11 @@ class ConsensusReactor(Reactor):
     def receive(self, ch_id: int, peer, msg_bytes: bytes) -> None:
         msg = encoding.cloads(msg_bytes)
         t = msg.get("type")
+        # strip the causal trace stamp FIRST: the state machine (and its
+        # WAL) must see exactly the untraced message shape, and the
+        # receive-side link span it records is the clock-alignment
+        # sample the timeline merge aligns node clocks with
+        causal.take(msg, t or "")
         ps: Optional[PeerRoundState] = self.peer_states.get(peer.id)
         if ps is None:
             return
@@ -526,15 +535,16 @@ class ConsensusReactor(Reactor):
             return
         t = msg.get("type")
         if t == "new_round_step":
-            self.switch.broadcast_obj(STATE_CHANNEL, {
+            self.switch.broadcast_obj(STATE_CHANNEL, causal.stamp({
                 "type": "new_round_step", "height": msg["height"],
                 "round": msg["round"], "step": msg["step"],
-                "last_commit_round": msg.get("last_commit_round", -1)})
+                "last_commit_round": msg.get("last_commit_round", -1)},
+                msg["height"], msg["round"]))
         elif t == "has_vote":
-            self.switch.broadcast_obj(STATE_CHANNEL, {
+            self.switch.broadcast_obj(STATE_CHANNEL, causal.stamp({
                 "type": "has_vote", "height": msg["height"],
                 "round": msg["round"], "vote_type": msg["vote_type"],
-                "index": msg["index"]})
+                "index": msg["index"]}, msg["height"], msg["round"]))
         elif t == "heartbeat":
             # proposal heartbeat while waiting for txs
             # (consensus/reactor.go ProposalHeartbeatMessage)
@@ -613,6 +623,8 @@ class ConsensusReactor(Reactor):
             elif 0 < p_height < rs.height:
                 catchup_height = p_height
         if compact_msg is not None:
+            causal.stamp(compact_msg, compact_msg["height"],
+                         compact_msg["round"])
             if peer.send(DATA_CHANNEL, encoding.cdumps(compact_msg)):
                 self.compact_stats.compact_sent()
                 return True
@@ -641,12 +653,16 @@ class ConsensusReactor(Reactor):
                             "part": part.to_obj()}
                         break
         if proposal_msg is not None:
+            p = proposal_msg["proposal"]
+            causal.stamp(proposal_msg, p["height"], p["round"])
             if peer.send(DATA_CHANNEL, encoding.cdumps(proposal_msg)):
                 ps.set_has_proposal(
                     proposal_msg["proposal"]["block_parts_header"]
                     ["total"])
                 sent = True
         elif part_msg is not None:
+            causal.stamp(part_msg, part_msg["height"],
+                         part_msg["round"])
             if peer.send(DATA_CHANNEL, encoding.cdumps(part_msg)):
                 ps.set_has_part(part_msg["part"]["index"])
                 sent = True
@@ -859,11 +875,14 @@ class ConsensusReactor(Reactor):
             self._compact_fail_rx(rx, strike_peer=rx["peer"],
                                   reason="mismatch")
             return
-        for i in range(parts.total):
-            self.cs.submit({"type": "block_part", "height": height,
-                            "round": round_,
-                            "part": parts.get_part(i).to_obj()},
-                           rx["peer"])
+        with causal.span("block.reconstruct", height, round_,
+                         parts=parts.total, txs=len(txs),
+                         fetched=int(rx["fetched"])):
+            for i in range(parts.total):
+                self.cs.submit({"type": "block_part", "height": height,
+                                "round": round_,
+                                "part": parts.get_part(i).to_obj()},
+                               rx["peer"])
         self.compact_stats.reconstructed("fetched" if rx["fetched"] else "hit")
         with self.cs._lock:
             rs = self.cs.rs
@@ -1121,6 +1140,7 @@ class ConsensusReactor(Reactor):
             else:
                 vote_msg = {"type": "vote_agg", "votes": votes}
                 self.compact_stats.agg(len(votes))
+            causal.stamp(vote_msg, v0["height"], v0["round"])
             if peer.send(VOTE_CHANNEL, encoding.cdumps(vote_msg)):
                 for v in votes:
                     ps.set_has_vote(v["height"], v["round"], v["type"],

@@ -29,8 +29,11 @@ fresh reap, commit and evidence exactly), and finalizes with group
 commit (`_finalize_commit_pipelined`). "off" is the serial path. The
 commit-critical fail points (utils/fail.py) sit on both paths.
 
-Not ported: the telemetry families, causal spans, SLO stamps, the
-divergence digest and post-commit hooks.
+The observability planes sit where the JAX state machine has them: the
+`consensus_*` families and the Chrome-trace step events, the causal
+points and spans (`_cpoint`, `_cspan`; never during replay), the SLO
+plane's `propose` stamps, and the `transition.digest` point when the
+executor carries a divergence recorder (`_point_transition_digest`).
 """
 
 from __future__ import annotations
@@ -40,9 +43,10 @@ import time
 from collections import deque
 from typing import Callable, List, Optional
 
-from tendermint_tpu_torch import pipeline
+from tendermint_tpu_torch import pipeline, telemetry
 from tendermint_tpu_torch.config import ConsensusConfig
 from tendermint_tpu_torch.models.verifier import VerifierError
+from tendermint_tpu_torch.consensus import compact
 from tendermint_tpu_torch.consensus.rstate import (HeightVoteSet, RoundState,
                                                    Step)
 from tendermint_tpu_torch.consensus.ticker import TimeoutInfo, TimeoutTicker
@@ -61,8 +65,28 @@ from tendermint_tpu_torch.types.part_set import Part, PartSet
 from tendermint_tpu_torch.types.proposal import Heartbeat, Proposal
 from tendermint_tpu_torch.types.vote import Vote, VoteType
 from tendermint_tpu_torch.types.vote_set import ConflictingVoteError, VoteSet
+from tendermint_tpu_torch.telemetry import causal
+from tendermint_tpu_torch.telemetry import slo as slo_plane
 from tendermint_tpu_torch.utils import clock, fail
 from tendermint_tpu_torch.utils.log import get_logger
+
+# The consensus timeline the block-rate numbers decompose into: where
+# heights/rounds sit now, how long rounds take end to end, and how often
+# each step fires.
+_m_height = telemetry.gauge(
+    "consensus_height", "Current consensus height")
+_m_round = telemetry.gauge(
+    "consensus_round", "Current consensus round within the height")
+_m_steps = telemetry.counter(
+    "consensus_steps_total", "Step transitions by step name", ("step",))
+_m_round_dur = telemetry.histogram(
+    "consensus_round_duration_seconds",
+    "enterNewRound -> enterCommit wall time per committed round")
+_m_commits = telemetry.counter(
+    "consensus_commits_total", "Blocks finalized by this node")
+_m_block_txs = telemetry.histogram(
+    "consensus_block_txs", "Transactions per finalized block",
+    buckets=telemetry.POW2_BUCKETS)
 
 
 class ConsensusFailure(Exception):
@@ -108,6 +132,11 @@ class ConsensusState:
         # the pipelined hot path, resolved once so that a state machine
         # never switches modes mid-height; off = the serial path
         self._pipeline = pipeline.resolve()
+        # the causal and SLO planes, resolved once the same way: off =
+        # no per-height span recording, untouched broadcast envelopes,
+        # and no per-block stamp calls
+        self._trace = causal.enabled()
+        self._slo = slo_plane.enabled()
         self._pre_lock = threading.Lock()
         # next-proposal precompute handoff (worker -> propose step)
         self._precomputed = None  #: guarded_by _pre_lock
@@ -115,6 +144,11 @@ class ConsensusState:
         # thread only: reset a height, read at finalize)
         self._overlap_s = 0.0
         self._serial_s = 0.0
+        # telemetry timeline anchors (perf_counter stamps): when the
+        # current round began, and the still-open step interval the next
+        # _new_step closes as one Chrome-trace complete event
+        self._round_t0 = 0.0
+        self._step_open = None  # (step_name, height, round, t0)
 
         self.ticker = ticker_factory(self._on_timeout_fire)
 
@@ -222,6 +256,43 @@ class ConsensusState:
         self.logger.error(s, height=self.rs.height, round=self.rs.round,
                           step=self.rs.step.name)
 
+    def _cpoint(self, name: str, height: int, round_: int = -1,
+                **args) -> None:
+        """One causal timeline point — never during replay (a replayed
+        step is not new cluster progress; the live run already recorded
+        it, and a catchup replay would re-stamp old heights with NOW)."""
+        if self._trace and not self.replay_mode:
+            causal.point(name, height, round_, **args)
+
+    def _cspan(self, name: str, height: int, round_: int = -1, **args):
+        if self._trace and not self.replay_mode:
+            return causal.span(name, height, round_, **args)
+        return causal.null_span()
+
+    def _point_transition_digest(self, height: int, round_: int) -> None:
+        """Stamp the height's transition digest on the causal timeline
+        when the divergence recorder is on — a cross-node trace diff
+        then localizes a fork to its first divergent height."""
+        rec = getattr(self.block_exec, "divergence", None)
+        if rec is not None:
+            digest = rec.digest_at(height)
+            if digest is not None:
+                self._cpoint("transition.digest", height, round_,
+                             digest=digest[:16])
+
+    def _note_commit(self, height: int, block) -> None:
+        """The commit's families, trace instant and causal points."""
+        rs = self.rs
+        if telemetry.enabled() and not self.replay_mode:
+            _m_commits.inc()
+            _m_block_txs.observe(len(block.data.txs))
+            telemetry.instant("cs:finalize_commit", height=height,
+                              round=rs.commit_round,
+                              txs=len(block.data.txs))
+        self._cpoint("commit", height, rs.commit_round,
+                     txs=len(block.data.txs))
+        self._point_transition_digest(height, rs.commit_round)
+
     def _publish(self, event: str, extra: Optional[dict] = None) -> None:
         if self.event_bus is not None and not self.replay_mode:
             obj = self.rs.round_state_event_obj()
@@ -295,6 +366,19 @@ class ConsensusState:
         self._new_step()
 
     def _new_step(self) -> None:
+        # replayed steps (WAL catchup/handshake) are not new consensus
+        # progress — they must not inflate counters or the timeline
+        if telemetry.enabled() and not self.replay_mode:
+            now = time.perf_counter()
+            if self._step_open is not None:
+                name, h, r, t0 = self._step_open
+                telemetry.TRACER.complete(
+                    f"cs:{name}", t0, now, height=h, round=r)
+            rs = self.rs
+            self._step_open = (rs.step.name, rs.height, rs.round, now)
+            _m_steps.labels(rs.step.name).inc()
+            _m_height.set(rs.height)
+            _m_round.set(rs.round)
         if not self.replay_mode:
             self.wal.save({"type": "round_state",
                            **self.rs.round_state_event_obj()})
@@ -350,6 +434,8 @@ class ConsensusState:
             validators.increment_accum(round_ - rs.round)
         rs.round = round_
         rs.step = Step.NEW_ROUND
+        self._round_t0 = time.perf_counter()
+        self._cpoint("height.begin", height, round_)
         rs.validators = validators
         if round_ != 0:
             rs.proposal = None
@@ -400,6 +486,11 @@ class ConsensusState:
         if rs.height != height or round_ < rs.round or \
                 (rs.round == round_ and rs.step >= Step.PROPOSE):
             return
+        if rs.step == Step.NEW_HEIGHT:
+            # txs_available shortcut: propose entered straight from the
+            # NewHeight wait, bypassing _enter_new_round — this IS the
+            # height's work starting
+            self._cpoint("height.begin", height, round_)
         try:
             self._schedule_timeout(self.config.propose_timeout_s(round_),
                                    height, round_, Step.PROPOSE)
@@ -409,7 +500,8 @@ class ConsensusState:
             if not rs.validators.has_address(addr):
                 return
             if rs.validators.proposer().address == addr:
-                self._decide_proposal(height, round_)
+                with self._cspan("propose", height, round_):
+                    self._decide_proposal(height, round_)
         finally:
             rs.round = round_
             rs.step = Step.PROPOSE
@@ -439,6 +531,10 @@ class ConsensusState:
             if not self.replay_mode:
                 self._log(f"error signing proposal: {e!r}")
             return
+        if self._slo and not self.replay_mode:
+            # SLO proposal-inclusion stamp (proposer side; receivers
+            # stamp when their part set completes — first wins)
+            slo_plane.mark_many(block.data.txs, "propose", height)
         # own proposal + parts ride the same queue as peer messages
         proposal_msg = {"type": "proposal", "proposal": proposal.to_obj()}
         self._enqueue_own(proposal_msg)
@@ -654,6 +750,8 @@ class ConsensusState:
             return
 
         self._publish("Polka")
+        if not maj.is_zero():
+            self._cpoint("quorum.prevote", height, round_)
 
         if maj.is_zero():
             # +2/3 prevoted nil: unlock and precommit nil
@@ -726,6 +824,7 @@ class ConsensusState:
         maj = pc.two_thirds_majority() if pc is not None else None
         if maj is None:
             raise ConsensusFailure("enterCommit expects +2/3 precommits")
+        self._cpoint("quorum.precommit", height, commit_round)
 
         if rs.locked_block is not None and rs.locked_block.hash() == maj.hash:
             rs.proposal_block = rs.locked_block
@@ -739,6 +838,8 @@ class ConsensusState:
         rs.step = Step.COMMIT
         rs.commit_round = commit_round
         rs.commit_time_ns = clock.now_ns()
+        if telemetry.enabled() and self._round_t0 and not self.replay_mode:
+            _m_round_dur.observe(time.perf_counter() - self._round_t0)
         self._new_step()
         self._try_finalize_commit(height)
 
@@ -775,12 +876,14 @@ class ConsensusState:
             return
         fail.fail_point("consensus.before_save_block")
         if self.block_store.height() < block.header.height:
-            self.block_store.save_block(block, parts, pc.make_commit())
+            with self._cspan("flush", height):
+                self.block_store.save_block(block, parts, pc.make_commit())
 
         fail.fail_point("consensus.before_wal_end_height")
         # ENDHEIGHT marks the WAL before ApplyBlock: if we crash between
         # the two, handshake replay redoes ApplyBlock (consensus/replay.go)
-        self.wal.save_end_height(height)
+        with self._cspan("wal.fsync", height):
+            self.wal.save_end_height(height)
         fail.fail_point("consensus.after_wal_end_height")
 
         block_id = BlockID(block.hash(), parts.header())
@@ -791,6 +894,7 @@ class ConsensusState:
         if self.decided_hook is not None:
             self.decided_hook(block)
         self._run_post_commit_hooks(new_state)
+        self._note_commit(height, block)
 
         self._update_to_state(new_state)
         self._schedule_round0()
@@ -841,10 +945,12 @@ class ConsensusState:
                 pre_validated=True)
         fail.fail_point("consensus.before_group_flush")
         with pipeline.stage_timer("persist") as t_persist:
-            group.flush()
+            with self._cspan("flush", height):
+                group.flush()
             fail.fail_point("consensus.after_group_flush")
             fail.fail_point("consensus.before_wal_end_height")
-            self.wal.save_end_height(height)  # the height's one fsync
+            with self._cspan("wal.fsync", height):
+                self.wal.save_end_height(height)  # the height's one fsync
         fail.fail_point("consensus.after_wal_end_height")
         fail.fail_point("consensus.after_apply_block")
         self._serial_s += t_apply.seconds + t_persist.seconds
@@ -855,6 +961,7 @@ class ConsensusState:
         if not self.replay_mode:
             pipeline.observe_overlap(self._overlap_s,
                                      self._overlap_s + self._serial_s)
+        self._note_commit(height, block)
 
         self._update_to_state(new_state)
         self._kick_precompute()
@@ -878,6 +985,7 @@ class ConsensusState:
                 proposer.pubkey, proposal.sign_bytes(self.state.chain_id),
                 proposal.signature):
             raise ValueError("invalid proposal signature")
+        self._cpoint("proposal.recv", proposal.height, proposal.round)
         rs.proposal = proposal
         if rs.proposal_block_parts is None or \
                 not rs.proposal_block_parts.has_header(
@@ -892,9 +1000,17 @@ class ConsensusState:
         if rs.proposal_block_parts is None:
             return
         added = rs.proposal_block_parts.add_part(part)
+        if added and self._trace:
+            if rs.proposal_block_parts.count == 1:
+                self._cpoint("part.first", height, rs.round)
+            if rs.proposal_block_parts.is_complete():
+                self._cpoint("block.full", height, rs.round,
+                             parts=rs.proposal_block_parts.total)
         if added and rs.proposal_block_parts.is_complete():
-            rs.proposal_block = Block.from_bytes(
-                rs.proposal_block_parts.get_data())
+            block = Block.from_bytes(rs.proposal_block_parts.get_data())
+            rs.proposal_block = block
+            if self._slo and not self.replay_mode:
+                slo_plane.mark_many(block.data.txs, "propose", height)
             if rs.step == Step.PROPOSE and self._is_proposal_complete():
                 self._enter_prevote(height, rs.round)
             elif rs.step == Step.COMMIT:
@@ -1054,12 +1170,15 @@ class ConsensusState:
                 for v in group:
                     self._try_add_vote(v, peer_id)
                 continue
-            try:
-                results, errors = self.rs.votes.add_votes(
-                    round_, type_, group, peer_id)
-            except ValueError as e:
-                self._log(f"bad vote batch from {peer_id!r}: {e}")
-                continue
+            with self._cspan("votes.agg", h0, round_,
+                             votes=len(group), vtype=int(type_)):
+                try:
+                    results, errors = self.rs.votes.add_votes(
+                        round_, type_, group, peer_id)
+                except ValueError as e:
+                    self._log(f"bad vote batch from {peer_id!r}: {e}")
+                    continue
+            compact.note_agg_applied(len(group))
             for pos, err in errors:
                 if isinstance(err, ConflictingVoteError):
                     self._file_duplicate_vote_evidence(group[pos], err)

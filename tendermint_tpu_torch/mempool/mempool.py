@@ -16,8 +16,9 @@ The txs-available notification fires OUTSIDE the proxy mutex: the hook
 calls into the consensus state machine, which itself takes the proxy
 mutex during commit (mempool/mempool.go:100-105).
 
-The JAX package's metric families, queue probe and SLO stamps are not
-ported; the reactor waits for the p2p slice.
+The JAX package's metric families (`mempool_*`), its queue probe
+(`mempool.txs`) and the SLO plane's `checktx` stamps are fed where the
+JAX mempool feeds them.
 """
 
 from __future__ import annotations
@@ -30,8 +31,22 @@ from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Callable, List, Optional
 
+from tendermint_tpu_torch import telemetry
 from tendermint_tpu_torch.abci.types import ResultCheckTx
 from tendermint_tpu_torch.mempool.clist import CList
+from tendermint_tpu_torch.telemetry import queues as queue_obs
+from tendermint_tpu_torch.telemetry import slo as slo_obs
+
+_m_size = telemetry.gauge(
+    "mempool_size", "Pending transactions in the mempool")
+_m_added = telemetry.counter(
+    "mempool_txs_added_total", "Transactions accepted by CheckTx")
+_m_rejected = telemetry.counter(
+    "mempool_txs_rejected_total",
+    "Transactions rejected at admission, by reason", ("reason",))
+_m_removed = telemetry.counter(
+    "mempool_txs_removed_total",
+    "Transactions removed after admission, by reason", ("reason",))
 
 
 @dataclass
@@ -101,6 +116,12 @@ class Mempool:
         self.proxy_mtx = threading.RLock()  # the reference's proxyMtx
         self.notified_txs_available = False
         self.txs_available_hook: Optional[Callable[[], None]] = None
+        # queue observatory: the pending-tx queue against its admission
+        # bound — the "mempool full" backpressure the RPC front door
+        # reports one rejection at a time becomes a saturation gauge
+        self._queue_probe = queue_obs.register(
+            "mempool.txs", self, depth=lambda m: len(m.txs),
+            capacity=self.max_size)
         self._wal_file = None
         self._wal_path = None
         if wal_dir:
@@ -127,6 +148,7 @@ class Mempool:
             self.txs.clear()
             self._tx_elements.clear()
             self._by_hash.clear()
+            _m_size.set(0)
 
     def close(self) -> None:
         if self._wal_file is not None:
@@ -185,13 +207,16 @@ class Mempool:
         notify = False
         with self.proxy_mtx:
             if self.size() >= self.max_size:
+                _m_rejected.labels("full").inc()
                 raise MempoolFull(self.size(), self.max_size)
             # a tx can still be pending after its cache entry was evicted;
             # re-admitting it would orphan the original CList element
             if tx in self._tx_elements:
                 self.cache.push(tx)
+                _m_rejected.labels("duplicate").inc()
                 raise TxAlreadyInCache(tx.hex())
             if not self.cache.push(tx):
+                _m_rejected.labels("duplicate").inc()
                 raise TxAlreadyInCache(tx.hex())
             if self._wal_file is not None and not _from_wal:
                 self._wal_file.write(_frame(tx))
@@ -199,12 +224,20 @@ class Mempool:
             res = self.app_conn.check_tx(tx)
             if res.ok:
                 self._admit(tx)
+                if telemetry.enabled():
+                    _m_added.inc()
+                    _m_size.set(len(self.txs))
                 notify = self._mark_txs_available()
             else:
                 # ineligible tx: forget it so a future (valid) resubmit works
                 self.cache.remove(tx)
+                _m_rejected.labels("invalid").inc()
         if notify:
             self.txs_available_hook()
+        if res.ok:
+            # SLO plane: CheckTx-accept stamp for sampled txs (outside
+            # proxy_mtx — the tracker has its own lock)
+            slo_obs.mark(tx, "checktx")
         return res
 
     def check_tx_batch(self, txs: List[bytes]) -> List[ResultCheckTx]:
@@ -219,15 +252,18 @@ class Mempool:
         with self.proxy_mtx:
             for tx in txs:
                 if self.size() >= self.max_size:
+                    _m_rejected.labels("full").inc()
                     out.append(ResultCheckTx(
                         code=1, log=f"mempool is full: {self.size()}"))
                     continue
                 if tx in self._tx_elements:
                     self.cache.push(tx)
+                    _m_rejected.labels("duplicate").inc()
                     out.append(ResultCheckTx(code=1,
                                              log="tx already in cache"))
                     continue
                 if not self.cache.push(tx):
+                    _m_rejected.labels("duplicate").inc()
                     out.append(ResultCheckTx(code=1,
                                              log="tx already in cache"))
                     continue
@@ -235,16 +271,21 @@ class Mempool:
                 if res.ok:
                     wal_buf.append(tx)
                     self._admit(tx)
+                    _m_added.inc()
                 else:
                     self.cache.remove(tx)
+                    _m_rejected.labels("invalid").inc()
                 out.append(res)
             if wal_buf:
                 if self._wal_file is not None:
                     self._wal_file.write(b"".join(map(_frame, wal_buf)))
                     self._wal_file.flush()
+                if telemetry.enabled():
+                    _m_size.set(len(self.txs))
                 notify = self._mark_txs_available()
         if notify:
             self.txs_available_hook()
+        slo_obs.mark_many(wal_buf, "checktx")
         return out
 
     def _mark_txs_available(self) -> bool:
@@ -311,7 +352,8 @@ class Mempool:
         self.height = height
         self.notified_txs_available = False
         for tx in txs:
-            self._drop(tx)
+            if self._drop(tx):
+                _m_removed.labels("committed").inc()
             # committed txs go into the cache, also those this node never
             # held (a block from a peer): re-submission, or gossip that
             # arrives after the commit, is a dup and cannot be committed
@@ -319,6 +361,8 @@ class Mempool:
             self.cache.push(tx)
         if self.recheck and len(self.txs) > 0:
             self._recheck_txs()
+        if telemetry.enabled():
+            _m_size.set(len(self.txs))
         self._rewrite_wal()
         if self._mark_txs_available():
             self.txs_available_hook()
@@ -331,3 +375,4 @@ class Mempool:
             if not self.app_conn.check_tx(tx).ok:
                 self._drop(tx)
                 self.cache.remove(tx)
+                _m_removed.labels("recheck").inc()

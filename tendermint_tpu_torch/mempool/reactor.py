@@ -7,7 +7,9 @@ funnel into Mempool.check_tx (:82-87). Peers lagging more than one height
 behind a tx's admission height are skipped until they catch up. On the
 thread plane the routine is a thread; on a ReactorLoop it is a task whose
 `_broadcast_pass` makes the same walk and returns its next delay instead
-of blocking in the clist's waits."""
+of blocking in the clist's waits. With the causal plane on, a gossip
+message carries the trace stamp of its batch head's admission height,
+and `receive` takes it off before validation."""
 
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from tendermint_tpu_torch.mempool.mempool import (Mempool, MempoolFull,
                                                   TxAlreadyInCache)
 from tendermint_tpu_torch.p2p.base_reactor import Reactor
 from tendermint_tpu_torch.p2p.conn import ChannelDescriptor
+from tendermint_tpu_torch.telemetry import causal
 from tendermint_tpu_torch.types import encoding
 
 MEMPOOL_CHANNEL = 0x30
@@ -69,6 +72,7 @@ class MempoolReactor(Reactor):
     def receive(self, ch_id: int, peer, msg_bytes: bytes) -> None:
         msg = encoding.cloads(msg_bytes)
         t = msg.get("type")
+        causal.take(msg, t or "")  # trace stamp off before validation
         if t == "tx":
             txs = [msg["tx"]]
         elif t == "txs":
@@ -139,6 +143,10 @@ class MempoolReactor(Reactor):
             if batch:
                 msg = ({"type": "tx", "tx": batch[0]} if len(batch) == 1
                        else {"type": "txs", "txs": batch})
+                # trace context: the admission height of the batch head
+                # places tx gossip on the cluster timeline (and its
+                # send/recv pair is one more clock-alignment sample)
+                causal.stamp(msg, el.value.height)
                 if not peer.send(MEMPOOL_CHANNEL, encoding.cdumps(msg)):
                     time.sleep(PEER_CATCHUP_SLEEP_S)
                     continue
@@ -199,6 +207,7 @@ class MempoolReactor(Reactor):
         if batch:
             msg = ({"type": "tx", "tx": batch[0]} if len(batch) == 1
                    else {"type": "txs", "txs": batch})
+            causal.stamp(msg, el.value.height)
             if not peer.send(MEMPOOL_CHANNEL, encoding.cdumps(msg)):
                 # channel queue full (backpressure) or conn stopping:
                 # retry after the catchup interval

@@ -26,12 +26,14 @@ same path (same device, same kernel), so one caller's malformed items
 surface as that caller's exception, and a device failure (VerifierError)
 reaches every caller of the merge. Nothing falls back to the host.
 
-The JAX package's telemetry families are counts of `stats` here:
-submissions, merged dispatches, the calls they merged (sum and maximum)
-and their items (maximum), fallbacks and the calls they re-dispatched,
-and the queue depth at a drain (maximum). Every submission is in exactly
-one merge, so `merged_calls` equals `submissions` once the queue is
-drained, and the direct path runs `dispatches + isolated_calls` times.
+The JAX package's telemetry families (`verifier_coalesce_*`) are fed at
+the same points as the plain counts of `stats`: submissions, merged
+dispatches, the calls they merged (sum and maximum) and their items
+(maximum), fallbacks and the calls they re-dispatched, and the queue
+depth at a drain (maximum). Every submission is in exactly one merge, so
+`merged_calls` equals `submissions` once the queue is drained, and the
+direct path runs `dispatches + isolated_calls` times. The queue is
+registered with the queue observatory as `verifier.coalesce`.
 """
 
 from __future__ import annotations
@@ -41,6 +43,33 @@ import time
 from typing import Callable, Sequence
 
 import numpy as np
+
+from tendermint_tpu_torch import telemetry
+from tendermint_tpu_torch.telemetry import queues as queue_obs
+
+# The coalesce factor is coalesce_calls_total / dispatches_total, or the
+# mean of the batch_calls histogram over a scrape window.
+_m_calls = telemetry.counter(
+    "verifier_coalesce_calls_total",
+    "verify calls routed through the dispatch coalescer")
+_m_dispatches = telemetry.counter(
+    "verifier_coalesce_dispatches_total",
+    "Merged dispatches formed by the coalescer")
+_m_factor = telemetry.histogram(
+    "verifier_coalesce_batch_calls",
+    "verify() calls merged into one coalesced dispatch",
+    buckets=telemetry.POW2_BUCKETS)
+_m_queue = telemetry.histogram(
+    "verifier_coalesce_queue_depth",
+    "Calls pending in the coalescer queue at first drain",
+    buckets=telemetry.POW2_BUCKETS)
+_m_wait = telemetry.histogram(
+    "verifier_coalesce_wait_seconds",
+    "Per-call wait from submit to merged dispatch",
+    buckets=(.0002, .0005, .001, .002, .004, .008, .016, .05, .1, .5))
+_m_fallback = telemetry.counter(
+    "verifier_coalesce_fallback_total",
+    "Merged dispatches re-run per-call for error isolation")
 
 
 class _Merged:
@@ -152,6 +181,13 @@ class DispatchCoalescer:
         self._thread = None                #: guarded_by _cond
         #: guarded_by _cond
         self.stats = dict.fromkeys(self.STATS, 0)
+        # queue observatory: items waiting for a merged dispatch vs the
+        # early-out bound (an unlocked sum over a short list — a torn
+        # read costs one slightly-stale gauge sample)
+        self._queue_probe = queue_obs.register(
+            "verifier.coalesce", self,
+            depth=lambda c: sum(call.n for call in c._queue),
+            capacity=max_batch)
 
     def snapshot(self) -> dict:
         with self._cond:
@@ -181,10 +217,12 @@ class DispatchCoalescer:
                     daemon=True)
                 self._thread.start()
             self._cond.notify()
+        _m_calls.inc()
         return call.resolve
 
     def close(self, timeout: float = 5.0) -> None:
         """Stop the dispatcher; queued calls are still dispatched."""
+        self._queue_probe.close()
         with self._cond:
             self._closed = True
             self._cond.notify_all()
@@ -220,6 +258,8 @@ class DispatchCoalescer:
                 n = sum(c.n for c in calls)
                 self.stats["queue_max"] = max(self.stats["queue_max"],
                                               len(calls))
+                if telemetry.enabled():
+                    _m_queue.observe(len(calls))
                 # linger for the rest of the burst: quiesce after ~4
                 # gaps without a new arrival, hard cap max_wait from
                 # the first drain, early out at max_batch
@@ -244,6 +284,7 @@ class DispatchCoalescer:
             self._dispatch_merged(calls)
 
     def _count_fallback(self, n_calls: int) -> None:
+        _m_fallback.inc()
         with self._cond:
             self.stats["fallbacks"] += 1
             self.stats["isolated_calls"] += n_calls
@@ -256,6 +297,12 @@ class DispatchCoalescer:
             items.extend(c.items)
         merged = _Merged(self._dispatch, calls, self._count_fallback)
         merged.dispatch(items)
+        if telemetry.enabled():
+            now = time.perf_counter()
+            _m_dispatches.inc()
+            _m_factor.observe(len(calls))
+            for c in calls:
+                _m_wait.observe(now - c.t_submit)
         for c in calls:
             c.merged = merged
             c.event.set()

@@ -32,9 +32,15 @@ coalesces, as the JAX verifier's does): concurrent small calls merge into
 one dispatch on the coalescer's thread, each caller getting back its own
 verdicts. That thread launches on the verifier's own device and stream.
 A merged dispatch that fails is re-run call by call on the same path; a
-VerifierError of the device reaches every caller of the merge. Telemetry
-and the multi-device mesh come in later slices (`mesh_devices` is
-always 0).
+VerifierError of the device reaches every caller of the merge. The
+multi-device mesh comes in a later slice (`mesh_devices` is always 0).
+
+Telemetry: the JAX verifier's families under the same names, with the
+port's backend labels (`cuda` for the batch path, `python` for the host
+loop). `verifier_dispatch_seconds` and the causal `verify.dispatch` span
+run from the dispatch to the verdicts on the host (after the readback
+and the host mask), not to the launch's return. The plain `stats` below
+are fed at the same points as the families.
 
 `stats` (under one lock):
   calls            direct dispatches: calls that bypassed the coalescer,
@@ -42,6 +48,8 @@ always 0).
   direct_calls     verify_async calls that bypassed the coalescer
   coalesced_calls  verify_async calls submitted to the coalescer
   sigs, cuda_sigs  items dispatched, and of those on the batch path
+  empty_calls      direct dispatches of no item (in `calls`; the
+                   families count none of them, as in the JAX package)
   dispatch_s       host time of the direct dispatches, on the thread
                    that ran each (the caller's, or the coalescer's for
                    a merged one)
@@ -67,13 +75,51 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from tendermint_tpu_torch import native
+from tendermint_tpu_torch import native, telemetry
 from tendermint_tpu_torch.config import parse_coalesce
 from tendermint_tpu_torch.models.coalescer import DispatchCoalescer
 from tendermint_tpu_torch.ops import _build
 from tendermint_tpu_torch.ops import ed25519
 from tendermint_tpu_torch.types import keys
+from tendermint_tpu_torch.telemetry import causal
+from tendermint_tpu_torch.utils import clock
 from tendermint_tpu_torch.utils import device as _device
+
+# The JAX verifier's families: batch sizes arriving at the boundary, the
+# backend the routing picked, how full the padded chunks run, and the
+# dispatch -> resolved-verdicts wall time.
+_m_batch_size = telemetry.histogram(
+    "verifier_batch_size", "Signatures per verify() call",
+    buckets=telemetry.POW2_BUCKETS)
+_m_calls = telemetry.counter(
+    "verifier_calls_total", "verify() calls by chosen backend",
+    ("backend",))
+_m_sigs = telemetry.counter(
+    "verifier_sigs_total", "Signatures verified by backend", ("backend",))
+_m_dispatch = telemetry.histogram(
+    "verifier_dispatch_seconds",
+    "Wall time from verify dispatch to resolved verdicts", ("backend",))
+_m_occupancy = telemetry.histogram(
+    "verifier_chunk_occupancy",
+    "Per-chunk fill ratio vs the padded power-of-two bucket",
+    buckets=telemetry.RATIO_BUCKETS)
+_m_mesh_devices = telemetry.gauge(
+    "verifier_mesh_devices",
+    "Devices in the verifier's active sharding mesh (0 = unsharded)")
+# the predecompression cache's outcomes (ops/ed25519._predecomp_note
+# feeds them): hit = batch served from cached rows, fill = seen keys
+# decompressed once and stored, full = unseen keys on the fused kernel
+_m_predecomp = telemetry.counter(
+    "verifier_predecomp_batches_total",
+    "Device batches through the ed25519 predecompressed-pubkey cache, "
+    "by outcome", ("outcome",))
+_m_predecomp_evictions = telemetry.counter(
+    "verifier_predecomp_evictions_total",
+    "Per-pubkey rows evicted from the ed25519 predecompression LRU "
+    "(valset churn beyond cache capacity)")
+_m_predecomp_keys = telemetry.gauge(
+    "verifier_predecomp_keys",
+    "Pubkey rows currently resident in the predecompression LRU")
 
 BATCH_CHUNK = 8192
 #: the name prefix of a node's event-loop thread (p2p/conn/loop.py)
@@ -82,6 +128,30 @@ LOOP_THREAD_PREFIX = "tm-reactor-loop"
 
 class VerifierError(RuntimeError):
     """A batch dispatch or its wait failed on the device."""
+
+
+def _observed(inner, backend: str, n: int, t0: float, t0_ns: int):
+    """The resolver `inner` timed once, on its first call: dispatch
+    seconds and the `verify.dispatch` span close when the verdicts are
+    on the host."""
+    done = []
+    lock = threading.Lock()
+
+    def resolve() -> np.ndarray:
+        out = inner()
+        with lock:
+            first = not done
+            done.append(True)
+        if first:
+            dt = time.perf_counter() - t0
+            if telemetry.enabled():
+                _m_dispatch.labels(backend).observe(dt)
+            if causal.enabled():
+                causal.record("verify.dispatch", -1, t0_ns=t0_ns,
+                              dur_ns=int(dt * 1e9), n=n, backend=backend)
+        return out
+
+    return resolve
 
 
 def _merge_counts(a: dict, b: dict) -> dict:
@@ -102,6 +172,8 @@ class BatchVerifier:
         self.auto_threshold = auto_threshold
         self.device = None if backend == "python" else _device.resolve(device)
         self.mesh_devices = 0
+        if telemetry.enabled():
+            _m_mesh_devices.set(self.mesh_devices)
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device is not None
                         and self.device.type == "cuda" else None)
@@ -118,7 +190,8 @@ class BatchVerifier:
         self._stats_lock = threading.Lock()
         #: guarded_by _stats_lock (see the module docstring)
         self.stats = {"calls": 0, "direct_calls": 0, "coalesced_calls": 0,
-                      "sigs": 0, "cuda_sigs": 0, "dispatch_s": 0.0,
+                      "sigs": 0, "cuda_sigs": 0, "empty_calls": 0,
+                      "dispatch_s": 0.0,
                       "wait_s": 0.0, "loop_waits": 0, "loop_wait_s": 0.0}
 
     def verify(self, items: Sequence[tuple]) -> np.ndarray:
@@ -205,15 +278,22 @@ class BatchVerifier:
             self.stats["calls"] += 1
             self.stats["sigs"] += n
         if n == 0:
+            with self._stats_lock:
+                self.stats["empty_calls"] += 1
             out0 = np.zeros(0, np.bool_)
             return lambda: out0
+        t0, t0_ns = time.perf_counter(), clock.wall_ns()
+        _m_batch_size.observe(n)
         if not (self.backend == "cuda" or (
                 self.backend == "auto" and n > self.auto_threshold)):
             out1 = np.array(keys.verify_many(items), np.bool_)
-            return lambda: out1
+            if telemetry.enabled():
+                _m_calls.labels("python").inc()
+                _m_sigs.labels("python").inc(n)
+            return _observed(lambda: out1, "python", n, t0, t0_ns)
         prep = ed25519.prep_items(items)
         if prep is not None:
-            return self._dispatch(n, *prep)
+            return _observed(self._dispatch(n, *prep), "cuda", n, t0, t0_ns)
         secp_idx = [i for i, it in enumerate(items)
                     if keys.is_secp256k1(it[0])]
         if secp_idx:
@@ -221,7 +301,8 @@ class BatchVerifier:
         pk, rb, sb, hb, pre = ed25519.prepare_batch_bytes(
             [it[0] for it in items], [it[1] for it in items],
             [it[2] for it in items])
-        return self._dispatch(n, pk, rb, sb, hb, pre)
+        return _observed(self._dispatch(n, pk, rb, sb, hb, pre), "cuda", n,
+                         t0, t0_ns)
 
     def _verify_mixed(self, items, secp_idx):
         """secp256k1 items on the host now, the rest through the batch
@@ -249,6 +330,9 @@ class BatchVerifier:
     def _dispatch(self, n, pk, rb, sb, hb, pre):
         with self._stats_lock:
             self.stats["cuda_sigs"] += n
+        if telemetry.enabled():
+            _m_calls.labels("cuda").inc()
+            _m_sigs.labels("cuda").inc(n)
         if self._stream is None:
             return self._dispatch_cpu(n, pk, rb, sb, hb, pre)
         try:
@@ -270,6 +354,8 @@ class BatchVerifier:
         out = []
         for lo in range(0, n, BATCH_CHUNK):
             hi = min(lo + BATCH_CHUNK, n)
+            if telemetry.enabled():
+                _m_occupancy.observe((hi - lo) / ed25519._bucket(hi - lo))
             out.append((lo, hi, ed25519.verify_prepared_async(
                 pk[lo:hi], rb[lo:hi], sb[lo:hi], hb[lo:hi],
                 device=self.device)))

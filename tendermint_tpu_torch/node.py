@@ -39,9 +39,20 @@ post-commit hooks and on the fast-sync apply path, and with p2p the
 StateSyncReactor on channel 0x60 (advertised only with the plane on),
 whose restore holds the fast-sync gate on a node at height 0.
 
-Left out, with the planes they read: telemetry, chaos, causal tracing
-and its stall detector, the profiler and queue observatory, the SLO
-plane, the env knob plane, the authenticated state tree and gRPC.
+The observability planes are wired as in the JAX node, before anything
+instrumented runs: the metric registry (`base.telemetry`, on, and
+`telemetry_namespace`), the causal plane (`base.trace`; the node id is
+the p2p identity once the switch exists, and the keepalive RTTs ride its
+dumps), the sampling profiler (`base.prof`, `prof_hz`), the queue
+observatory (`base.queue_watch`, on) and the SLO plane (`base.slo`,
+`slo_sample`); each `TM_CUDA_*` knob wins over its key. At start the
+stall detector runs when the trace plane is on and TM_CUDA_TRACE_STALL_S
+is above 0 (`_on_stall` writes the flight-recorder file), the profiler
+starts when it is on, and the queue watcher whenever the observatory is.
+The planes are process-global: in-process nets share them.
+
+Left out, with the planes they read: chaos, the authenticated state
+tree and gRPC.
 """
 
 from __future__ import annotations
@@ -50,7 +61,7 @@ import os
 import time
 from typing import Optional
 
-from tendermint_tpu_torch import pipeline
+from tendermint_tpu_torch import pipeline, telemetry
 from tendermint_tpu_torch.abci.proxy import AppConns, local_client_creator
 from tendermint_tpu_torch.config import Config, _mode_on, resolve_reactor
 from tendermint_tpu_torch.consensus.replay import Handshaker, catchup_replay
@@ -116,6 +127,33 @@ class Node:
         # the pipelined hot path ("off": the serial path)
         pipeline.configure(mode=config.base.pipeline)
         self._owns_loop = loop is None
+
+        # telemetry wiring BEFORE any instrumented subsystem runs (the
+        # handshake below already drives the verifier); the env knob
+        # TM_CUDA_TELEMETRY wins over the config key inside configure()
+        telemetry.configure(enabled=config.base.telemetry,
+                            namespace=config.base.telemetry_namespace)
+        # causal tracing plane (env TM_CUDA_TRACE wins inside enabled();
+        # off = untraced wire bytes + zero span recording). The node id
+        # is refined to the p2p identity in _build_p2p.
+        from tendermint_tpu_torch.telemetry import causal as _causal
+        _causal.configure(mode=config.base.trace)
+        if not _causal.node():
+            _causal.set_node(config.base.moniker or f"pid{os.getpid()}")
+        self._stall_detector = None
+        # runtime introspection plane (env wins inside each resolve):
+        # sampling profiler + queue observatory, both process-global —
+        # several in-process nodes share one sampler and one catalog
+        from tendermint_tpu_torch.telemetry import profile as _profile
+        from tendermint_tpu_torch.telemetry import queues as _queues
+        _profile.configure(mode=config.base.prof, hz=config.base.prof_hz)
+        _queues.configure(mode=config.base.queue_watch)
+        # tx-lifecycle SLO plane (env TM_CUDA_SLO / _SLO_SAMPLE win
+        # inside the resolvers; off = one cached flag check per entry
+        # point). Process-global like the profiler: stage stamps are
+        # first-wins idempotent across in-process nodes.
+        from tendermint_tpu_torch.telemetry import slo as _slo
+        _slo.configure(mode=config.base.slo, sample=config.base.slo_sample)
 
         def db_path(name):
             if in_memory:
@@ -313,6 +351,14 @@ class Node:
             other=compact.wire_capabilities(cc.compact, cc.vote_agg))
         self.switch = Switch(self.config.p2p, node_key, node_info,
                              loop=self._ensure_loop())
+        # causal plane: the node id stamped into envelopes and dumps is
+        # the p2p identity, and the keepalive-RTT provider the merger
+        # cross-checks its clock offsets against
+        from tendermint_tpu_torch.telemetry import causal as _causal
+        _causal.set_node(node_info.id[:12])
+        _causal.set_rtt_provider(
+            lambda: {p.id[:12]: p.rtt_s
+                     for p in self.switch.peers.list()})
         # the p2p identity on every tm.* log line of the process
         _log.bind(node=node_info.id[:8])
 
@@ -415,6 +461,26 @@ class Node:
 
         self.indexer_service.start()
 
+        # stall-detector flight recorder (trace plane on + a nonzero
+        # TM_CUDA_TRACE_STALL_S window): no height progress for the
+        # window dumps the causal timeline + consensus state for
+        # post-mortem, once per stall episode
+        from tendermint_tpu_torch.telemetry import causal as _causal
+        from tendermint_tpu_torch.telemetry import profile as _profile
+        from tendermint_tpu_torch.telemetry import queues as _queues
+        from tendermint_tpu_torch.utils import knobs as _knobs
+        stall_s = _knobs.knob_float("TM_CUDA_TRACE_STALL_S", default=0.0)
+        if _causal.enabled() and stall_s > 0:
+            self._stall_detector = _causal.StallDetector(
+                lambda: self.height, self._on_stall, stall_s)
+            self._stall_detector.start()
+        # runtime introspection: start the sampler when the profiler is
+        # on, and the queue-observatory watcher whenever the observatory
+        # is (both process-global daemons — in-process nets share them;
+        # node.stop() leaves them for peers)
+        _profile.maybe_start()
+        _queues.ensure_watch()
+
         if self.with_rpc:
             from tendermint_tpu_torch.rpc import RPCEnv, make_server
             # the loop plane serves RPC on the SAME loop as the p2p
@@ -490,6 +556,45 @@ class Node:
                 None if self.resumed_restore is None
                 else self.resumed_restore.last_block_height)}
 
+    def _on_stall(self, height: int, stalled_s: float) -> None:
+        """Flight-recorder dump: the causal timeline plus the same
+        consensus snapshot the dump_consensus_state RPC serves, written
+        where a post-mortem will look (the node's data dir when it has
+        one, else the system tempdir)."""
+        import json
+        import tempfile
+        from tendermint_tpu_torch.rpc import RPCCore, RPCEnv
+        from tendermint_tpu_torch.telemetry import causal as _causal
+        from tendermint_tpu_torch.telemetry import profile as _profile
+        from tendermint_tpu_torch.telemetry import queues as _queues
+        doc = {"height": height, "stalled_s": round(stalled_s, 3),
+               "timeline": _causal.dump(),
+               # WHERE the threads are (the profiler's table) and WHICH
+               # queue backed up first (the observatory's high-water
+               # table) ride along with the what-happened timeline
+               "profile": _profile.snapshot(),
+               "queues": _queues.table()}
+        try:
+            core = RPCCore(RPCEnv.from_node(self))
+            doc["consensus"] = core.dump_consensus_state()
+        except Exception as e:
+            doc["consensus_error"] = repr(e)
+        out_dir = tempfile.gettempdir()
+        if self.config.home:
+            d = self.config.path(self.config.base.db_dir)
+            if os.path.isdir(d):
+                out_dir = d
+        path = os.path.join(
+            out_dir, f"tm_stall_h{height}_{int(time.time())}.json")
+        try:
+            with open(path, "w") as f:
+                json.dump(doc, f)
+            self.logger.error("consensus stalled: flight recorder dumped",
+                              height=height,
+                              stalled_s=round(stalled_s, 1), path=path)
+        except OSError as e:
+            self.logger.error("stall dump failed", err=repr(e))
+
     def _dial_configured_peers(self) -> None:
         from tendermint_tpu_torch.p2p import NetAddress
         persistent = [a for a in
@@ -504,6 +609,8 @@ class Node:
                 [NetAddress.from_string(a) for a in seeds])
 
     def stop(self) -> None:
+        if self._stall_detector is not None:
+            self._stall_detector.stop()
         if self.rpc_server is not None:
             self.rpc_server.stop()
         self.indexer_service.stop()

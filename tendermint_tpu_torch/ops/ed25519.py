@@ -185,6 +185,20 @@ _predecomp_stats = {"hit": 0, "fill": 0, "full": 0, "evict": 0}
 _predecomp_lock = threading.Lock()
 
 
+def _predecomp_note(outcome: str, n: int = 1) -> None:
+    """Count a cache outcome in the plain counters and mirror it into
+    the verifier_predecomp_* families (registered by models/verifier;
+    lazy import, models.verifier is loaded in any process that
+    dispatches batches here). Called under _predecomp_lock."""
+    _predecomp_stats[outcome] += n
+    from tendermint_tpu_torch.models import verifier
+    if outcome == "evict":
+        verifier._m_predecomp_evictions.inc(n)
+    else:
+        verifier._m_predecomp.labels(outcome).inc(n)
+    verifier._m_predecomp_keys.set(len(_predecomp))
+
+
 def predecomp_stats() -> dict:
     """Snapshot of the cache counters: hit/fill/full batch outcomes, row
     evictions, resident keys, and the batch hit rate."""
@@ -205,7 +219,7 @@ def install_predecomp_rows(rows: dict) -> None:
                                     np.asarray(y, np.uint8).copy(), bool(ok))
         while len(_predecomp) > _PREDECOMP_MAX_KEYS:
             _predecomp.popitem(last=False)
-            _predecomp_stats["evict"] += 1
+            _predecomp_note("evict")
 
 
 def _decompress_to_bytes(pk_u8):
@@ -230,7 +244,7 @@ def _predecomp_rows(pk_np, device):
         if not miss:
             for k in keys:
                 _predecomp.move_to_end(k)
-            _predecomp_stats["hit"] += 1
+            _predecomp_note("hit")
         else:
             fresh = miss - _predecomp_seen.keys()
             for k in fresh:
@@ -238,9 +252,9 @@ def _predecomp_rows(pk_np, device):
             while len(_predecomp_seen) > 4 * _PREDECOMP_MAX_KEYS:
                 _predecomp_seen.popitem(last=False)
             if fresh:
-                _predecomp_stats["full"] += 1
+                _predecomp_note("full")
                 return None
-            _predecomp_stats["fill"] += 1
+            _predecomp_note("fill")
     if not miss:
         return (np.stack([r[0] for r in rows]), np.stack([r[1] for r in rows]),
                 np.array([r[2] for r in rows], np.bool_))
@@ -256,7 +270,7 @@ def _predecomp_rows(pk_np, device):
                                  bool(ok_h[i]))
         while len(_predecomp) > _PREDECOMP_MAX_KEYS:
             _predecomp.popitem(last=False)
-            _predecomp_stats["evict"] += 1
+            _predecomp_note("evict")
     return xnb_h, yb_h, ok_h
 
 

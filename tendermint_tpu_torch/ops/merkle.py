@@ -27,11 +27,23 @@ import struct
 import numpy as np
 import torch
 
-from tendermint_tpu_torch import native
+from tendermint_tpu_torch import native, telemetry
 from tendermint_tpu_torch.ops import sha256
 from tendermint_tpu_torch.utils import device as _device
 
 EMPTY_DIGEST = b"\x00" * 32
+
+# Each public root/proof entry point counts once; `impl` says which
+# route served it (the native tree builder on the host half).
+_m_roots = telemetry.counter(
+    "merkle_roots_total", "Merkle roots computed on host", ("impl",))
+_m_leaves = telemetry.histogram(
+    "merkle_leaves", "Leaves per host-side Merkle root",
+    buckets=telemetry.POW2_BUCKETS)
+_m_proofs = telemetry.counter(
+    "merkle_proofs_total", "Merkle proofs computed on host")
+_m_sha_batches = telemetry.counter(
+    "merkle_sha_batches_total", "Batched SHA-256 dispatches", ("impl",))
 
 
 def leaf_hash(item: bytes) -> bytes:
@@ -59,18 +71,28 @@ def _padded_size(n: int) -> int:
 
 def root_host(items: list) -> bytes:
     """Merkle root of raw items, in one C call."""
-    return native.merkle_root(items)
+    out = native.merkle_root(items)
+    if telemetry.enabled():
+        _m_roots.labels("native").inc()
+        _m_leaves.observe(len(items))
+    return out
 
 
 def root_from_digests_host(digests) -> bytes:
     """Root over leaf digests (a list of 32-byte hashes or one flat
     bytes-like blob, length a multiple of 32), in one C call."""
+    n = (len(digests) // 32 if isinstance(
+        digests, (bytes, bytearray, memoryview)) else len(digests))
+    if n and telemetry.enabled():
+        _m_leaves.observe(n)
+        _m_roots.labels("native").inc()
     return native.merkle_root_from_digests(digests)
 
 
 def proof_host(items: list, index: int):
     """(root, aunts): the aunts leaf-up, 32 bytes each."""
     assert 0 <= index < len(items)
+    _m_proofs.inc()
     return native.merkle_proof(items, index)
 
 
@@ -174,6 +196,10 @@ def tree_proofs_plain(items: list):
 
 def sha256_many_host(payloads: list) -> list:
     """One SHA-256 digest per payload."""
+    if not payloads:
+        return []
+    if telemetry.enabled():
+        _m_sha_batches.labels("host").inc()
     sha = hashlib.sha256
     return [sha(p).digest() for p in payloads]
 

@@ -22,8 +22,11 @@ with one selector loop a node:
 The plane is chosen by `config.base.reactor` (`config.resolve_reactor`):
 auto and loop give the event loop, threads the thread plane. Only a Node
 consults it; a directly built MConnection or Switch runs on threads
-unless handed a loop. The JAX module's telemetry families and profiler owner tags are
-left out; `ReactorLoop.stats` counts ticks, callbacks and busy time.
+unless handed a loop. The JAX module's `loop_*` families are fed beside
+`ReactorLoop.stats` (ticks, callbacks and busy time); callbacks run
+through `_invoke`, whose ``__owner__`` tag lets the sampling profiler
+charge loop time to the subsystem that scheduled it; each conn's send
+queues are registered with the queue observatory.
 """
 
 from __future__ import annotations
@@ -37,15 +40,32 @@ import time
 from collections import deque
 from typing import Callable, Dict, List, Optional
 
+from tendermint_tpu_torch import telemetry
 from tendermint_tpu_torch.p2p.conn.burst import Burst
 from tendermint_tpu_torch.p2p.conn.flowrate import FlowMonitor
 from tendermint_tpu_torch.p2p.conn.mconn import (
+    _m_frames_per_burst,
+    _m_keepalive_rtt,
     PACKET_MSG,
     PACKET_PING,
     PACKET_PONG,
     _Channel,
 )
+from tendermint_tpu_torch.telemetry import queues as queue_obs
 from tendermint_tpu_torch.utils.log import get_logger
+
+_m_tick = telemetry.histogram(
+    "loop_tick_seconds",
+    "Busy time per reactor-loop tick (select wake to idle)",
+    buckets=(1e-5, 1e-4, 5e-4, 1e-3, 5e-3, 2.5e-2, 1e-1, 1.0))
+_m_dispatch = telemetry.counter(
+    "loop_dispatch_total",
+    "Callbacks dispatched by the reactor loop, by kind",
+    ("kind",))
+_m_fds = telemetry.gauge(
+    "loop_fds", "File descriptors registered on the reactor loop")
+_m_tasks = telemetry.gauge(
+    "loop_tasks", "Cooperative tasks alive on the reactor loop")
 
 # Bounded wire buffer a connection: past this the loop stops sealing new
 # packets for the conn, channel queues fill, and senders stall.
@@ -286,6 +306,7 @@ class ReactorLoop:
         else:
             ent[0], ent[1], ent[2], ent[3] = fileobj, reader, writer, owner
             self._apply_interest(ent)
+        _m_fds.set(len(self._fds))
 
     @staticmethod
     def _events(ent) -> int:
@@ -320,16 +341,19 @@ class ReactorLoop:
             self._sel.unregister(ent[0])
         except (KeyError, ValueError, OSError):
             pass
+        _m_fds.set(len(self._fds))
 
     def spawn(self, fn: Callable[[], object], owner: str = "loop",
               name: str = "") -> Task:
         task = Task(self, fn, owner, name)
         self._tasks.add(task)
+        _m_tasks.set(len(self._tasks))
         task.wake()
         return task
 
     def _task_done(self, task: Task) -> None:
         self._tasks.discard(task)
+        _m_tasks.set(len(self._tasks))
 
     @property
     def n_fds(self) -> int:
@@ -343,6 +367,7 @@ class ReactorLoop:
 
     def _run(self) -> None:
         st = self.stats
+        tele = telemetry.enabled()
         while not self._stopped:
             timeout = self._next_timeout()
             try:
@@ -362,9 +387,11 @@ class ReactorLoop:
                     continue
                 if mask & selectors.EVENT_READ and ent[1] is not None:
                     st["read"] += 1
+                    _m_dispatch.labels("read").inc()
                     self._safe(ent[1], ent[3])
                 if mask & selectors.EVENT_WRITE and ent[2] is not None:
                     st["write"] += 1
+                    _m_dispatch.labels("write").inc()
                     self._safe(ent[2], ent[3])
             self._fire_timers()
             self._drain_ready()
@@ -373,11 +400,20 @@ class ReactorLoop:
             st["busy_s"] += dt
             if dt > st["max_tick_s"]:
                 st["max_tick_s"] = dt
+            if tele:
+                _m_tick.observe(dt)
+
+    @staticmethod
+    def _invoke(cb: Callable, __owner__: str) -> None:
+        """Every callback runs through here; the sampling profiler reads
+        ``__owner__`` off this frame to attribute loop time to the
+        owning subsystem (telemetry/profile.py)."""
+        cb()
 
     @staticmethod
     def _safe(cb: Callable, owner: str) -> None:
         try:
-            cb()
+            ReactorLoop._invoke(cb, owner)
         except Exception as e:
             get_logger(__name__).error("loop callback failed", owner=owner,
                                        err=repr(e))
@@ -408,6 +444,7 @@ class ReactorLoop:
             if t.cancelled:
                 continue
             self.stats["timer"] += 1
+            _m_dispatch.labels("timer").inc()
             self._safe(t.fn, t.owner)
 
     def _drain_ready(self) -> None:
@@ -418,6 +455,7 @@ class ReactorLoop:
             self._ready.clear()
         for fn, owner in batch:
             self.stats["soon"] += 1
+            _m_dispatch.labels("soon").inc()
             self._safe(fn, owner)
 
 
@@ -494,6 +532,12 @@ class LoopMConnection:
         self._flush_linger_s = FLUSH_LINGER_MS / 1e3
         self._last_flush = 0.0  # written on the loop; racy reads benign
         self.drain_listeners: List[Callable[[], None]] = []
+        self._queue_probes = [
+            queue_obs.register(
+                f"mconn.send.{d.id:#04x}", self,
+                depth=lambda c, _id=d.id: len(c.channels[_id].queue),
+                capacity=d.send_queue_capacity)
+            for d in channel_descs]
 
     # ------------------------------------------------------------ control
 
@@ -533,6 +577,8 @@ class LoopMConnection:
             self._stopped = True
             self._cond.notify_all()
         if not already:
+            for probe in self._queue_probes:
+                probe.close()
             if self.loop.running and not self.loop.in_loop():
                 self.loop.call_soon(self._teardown, owner="p2p")
             else:
@@ -698,6 +744,8 @@ class LoopMConnection:
             except Exception as e:
                 self._error(e)
                 return
+            if len(chunks) > 1 and telemetry.enabled():
+                _m_frames_per_burst.labels("send").observe(len(chunks))
             self.send_monitor.update(payload_bytes + pongs)
             self._outbuf += wire
             self._write_some()
@@ -774,6 +822,8 @@ class LoopMConnection:
             return
         if frames:
             self.recv_monitor.update(sum(len(f) for f in frames))
+            if len(frames) > 1 and telemetry.enabled():
+                _m_frames_per_burst.labels("recv").observe(len(frames))
         for f in frames:
             try:
                 self._handle_frame(f)
@@ -812,6 +862,8 @@ class LoopMConnection:
                 self._ping_sent = 0.0
                 with self._cond:
                     self._last_rtt = rtt
+                if rtt and telemetry.enabled():
+                    _m_keepalive_rtt.observe(rtt)
         elif ptype == PACKET_MSG:
             ch_id, eof = frame[1], frame[2]
             ch = self.channels.get(ch_id)

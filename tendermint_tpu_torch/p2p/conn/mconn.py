@@ -10,6 +10,10 @@ and flow-rate throttling (:394, 500KB/s default per direction).
 The link below is anything with `write(bytes)/read()->frame/close` — a
 SecretConnection or the PlainFramedConn test adapter. One frame = one
 packet here, so AEAD frame boundaries and packet boundaries coincide.
+
+Telemetry as in the JAX module: frames per coalesced burst, the
+keepalive RTT histogram, and one queue-observatory probe per channel
+send queue (`mconn.send.<channel>`).
 """
 
 from __future__ import annotations
@@ -22,8 +26,19 @@ from collections import deque
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
+from tendermint_tpu_torch import telemetry
 from tendermint_tpu_torch.p2p.conn.burst import Burst
 from tendermint_tpu_torch.p2p.conn.flowrate import FlowMonitor
+from tendermint_tpu_torch.telemetry import queues as queue_obs
+
+_m_frames_per_burst = telemetry.histogram(
+    "p2p_frames_per_burst",
+    "Frames per coalesced link burst, by direction",
+    ("direction",), buckets=telemetry.POW2_BUCKETS)
+_m_keepalive_rtt = telemetry.histogram(
+    "p2p_keepalive_rtt_seconds",
+    "Ping->pong round trip per connection (the trace merger's "
+    "clock-alignment cross-check)")
 
 PACKET_PING = 0x01
 PACKET_PONG = 0x02
@@ -110,6 +125,17 @@ class MConnection:
         self._burst_on, self._burst_max = burst.resolve()
         self._burst_write = self._burst_on and hasattr(link, "write_many")
         self._burst_read = self._burst_on and hasattr(link, "read_burst")
+        # queue observatory: one probe per channel send queue, keyed by
+        # channel id so the saturation verdict names WHICH plane backs
+        # up (0x20 consensus-state vs 0x21 votes vs 0x40 blocks...).
+        # Probes weak-ref this connection; a dead conn drops off the
+        # catalog at the next sweep, stop() removes them promptly.
+        self._queue_probes = [
+            queue_obs.register(
+                f"mconn.send.{d.id:#04x}", self,
+                depth=lambda c, _id=d.id: len(c.channels[_id].queue),
+                capacity=d.send_queue_capacity)
+            for d in channel_descs]
 
     # ---------------------------------------------------------------- control
 
@@ -131,6 +157,8 @@ class MConnection:
             already = self._stopped
             self._stopped = True
             self._cond.notify_all()
+        for probe in self._queue_probes:
+            probe.close()
         if not already:
             try:
                 self.link.close()
@@ -281,6 +309,8 @@ class MConnection:
                     self.link.write_many(packets)
                     self.send_monitor.update(
                         sum(len(p) for p in packets))
+                    _m_frames_per_burst.labels("send").observe(
+                        len(packets))
                 else:
                     for packet in packets:
                         self.link.write(packet)
@@ -309,6 +339,9 @@ class MConnection:
                         raise ConnectionError("connection closed by peer")
                     self.recv_monitor.update(
                         sum(len(f) for f in frames))
+                    if len(frames) > 1:
+                        _m_frames_per_burst.labels("recv").observe(
+                            len(frames))
                 else:
                     frame = self.link.read()
                     if frame == b"":
@@ -331,11 +364,17 @@ class MConnection:
         elif ptype == PACKET_PONG:
             # keepalive RTT sample: at most one ping is in flight
             # (interval >> RTT), so pairing pong to the last ping is
-            # exact; RPC net_info reports it per peer
+            # exact; RPC net_info reports it per peer, and the sample
+            # feeds the keepalive RTT histogram (the trace merger's
+            # clock-offset sanity check)
+            rtt = 0.0
             with self._cond:
                 if self._ping_sent:
-                    self._last_rtt = time.monotonic() - self._ping_sent
+                    rtt = time.monotonic() - self._ping_sent
                     self._ping_sent = 0.0
+                    self._last_rtt = rtt
+            if rtt and telemetry.enabled():
+                _m_keepalive_rtt.observe(rtt)
         elif ptype == PACKET_MSG:
             ch_id, eof = frame[1], frame[2]
             ch = self.channels.get(ch_id)

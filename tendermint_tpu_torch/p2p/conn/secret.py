@@ -19,7 +19,9 @@ AEAD (`native.aead_*_burst`), a whole write or a whole receive buffer in
 one call; a failed build of it raises. With bursts off each frame takes
 the per-frame AEAD: `cryptography` (OpenSSL) when it imports, else
 `purecrypto`. X25519 and HKDF take the same two routes. `frame_stats`
-counts the frames of each route in the process.
+counts the frames of each route in the process; the JAX module's
+`p2p_seal_seconds` / `p2p_open_seconds` and frame counters are fed at
+the same points.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ try:
 except ImportError:
     HAVE_CRYPTOGRAPHY = False
 
-from tendermint_tpu_torch import native
+from tendermint_tpu_torch import native, telemetry
 from tendermint_tpu_torch.p2p.conn import purecrypto
 from tendermint_tpu_torch.types import encoding
 from tendermint_tpu_torch.types.keys import PubKey
@@ -50,6 +52,21 @@ from tendermint_tpu_torch.types.keys import PubKey
 DATA_MAX_SIZE = native.FRAME_MAX  # plaintext bytes a frame (:22)
 _TAG = 16             # poly1305 tag
 _RECV_CHUNK = 65536   # burst-mode socket read size
+
+# AEAD cost per seal/open CALL (one frame on the per-frame path, a whole
+# burst on the native path), so per-frame cost = _sum / frames. Buckets
+# are µs-scaled.
+_AEAD_BUCKETS = (1e-5, 5e-5, 1e-4, 5e-4, 1e-3, 5e-3, 2.5e-2, 1e-1, 1.0)
+_m_seal = telemetry.histogram(
+    "p2p_seal_seconds", "AEAD seal wall time per call (burst = 1 call)",
+    buckets=_AEAD_BUCKETS)
+_m_open = telemetry.histogram(
+    "p2p_open_seconds", "AEAD open wall time per call (burst = 1 call)",
+    buckets=_AEAD_BUCKETS)
+_m_sealed = telemetry.counter(
+    "p2p_frames_sealed_total", "Frames sealed (all paths)")
+_m_opened = telemetry.counter(
+    "p2p_frames_opened_total", "Frames opened (all paths)")
 
 
 class FrameStats:
@@ -217,8 +234,13 @@ class SecretConnection:
         if self._burst:
             self.conn.sendall(self._seal_wire_locked(chunks))
             return
+        tele = telemetry.enabled()
         for chunk in chunks:
+            t0 = time.perf_counter() if tele else 0.0
             sealed = self._send.seal(struct.pack(">H", len(chunk)) + chunk)
+            if tele:
+                _m_seal.observe(time.perf_counter() - t0)
+                _m_sealed.inc()
             self.conn.sendall(struct.pack(">I", len(sealed)) + sealed)
         frame_stats.add(sealed_frame=len(chunks))
 
@@ -229,8 +251,11 @@ class SecretConnection:
         wire = native.aead_seal_burst(self._send.key, self._send.nonce,
                                       chunks)
         self._send.nonce += len(chunks)
-        frame_stats.add(sealed_burst=len(chunks), seal_calls=1,
-                        seal_s=time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        frame_stats.add(sealed_burst=len(chunks), seal_calls=1, seal_s=dt)
+        if telemetry.enabled():
+            _m_seal.observe(dt)
+            _m_sealed.inc(len(chunks))
         return wire
 
     def seal_frames(self, chunks: List[bytes]) -> bytes:
@@ -242,11 +267,15 @@ class SecretConnection:
         with self._send_lock:
             if self._burst:
                 return self._seal_wire_locked(list(chunks))
+            t0 = time.perf_counter() if telemetry.enabled() else 0.0
             parts = []
             for chunk in chunks:
                 sealed = self._send.seal(
                     struct.pack(">H", len(chunk)) + chunk)
                 parts += [struct.pack(">I", len(sealed)), sealed]
+            if t0:
+                _m_seal.observe(time.perf_counter() - t0)
+                _m_sealed.inc(len(chunks))
             frame_stats.add(sealed_frame=len(chunks))
             return b"".join(parts)
 
@@ -279,7 +308,11 @@ class SecretConnection:
         if clen > DATA_MAX_SIZE + 2 + _TAG:
             raise ValueError(f"oversized secret frame: {clen}")
         sealed = _read_exact(self.conn, clen)
+        t0 = time.perf_counter() if telemetry.enabled() else 0.0
         plain = self._recv.open(sealed)
+        if t0:
+            _m_open.observe(time.perf_counter() - t0)
+            _m_opened.inc()
         frame_stats.add(opened_frame=1)
         return _strip_frame(plain)
 
@@ -329,8 +362,11 @@ class SecretConnection:
         plains = native.aead_open_burst(self._recv.key, self._recv.nonce,
                                         sealed)
         self._recv.nonce += len(sealed)
-        frame_stats.add(opened_burst=len(sealed), open_calls=1,
-                        open_s=time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        frame_stats.add(opened_burst=len(sealed), open_calls=1, open_s=dt)
+        if telemetry.enabled():
+            _m_open.observe(dt)
+            _m_opened.inc(len(sealed))
         return [_strip_frame(p) for p in plains]
 
     def feed_wire(self, data: bytes) -> List[bytes]:
@@ -345,7 +381,12 @@ class SecretConnection:
             sealed = self._take_sealed_locked(False)
             if self._burst:
                 return self._open_sealed_locked(sealed)
+            t0 = time.perf_counter() if telemetry.enabled() and sealed \
+                else 0.0
             plains = [_strip_frame(self._recv.open(f)) for f in sealed]
+            if t0:
+                _m_open.observe(time.perf_counter() - t0)
+                _m_opened.inc(len(sealed))
             frame_stats.add(opened_frame=len(sealed))
             return plains
 

@@ -16,8 +16,9 @@ per-peer routines as the loop's tasks; accepts, handshakes and dials keep
 their threads, as in the JAX package. The ban plane's settings and the
 frame bursts come from the P2PConfig (`ban_score`, `ban_base_s`,
 `fd_headroom`, `burst`, `burst_max`). A wildcard listener asks a UPnP
-gateway for its external address when `skip_upnp` is false. Not ported:
-the telemetry families and the chaos link wrapper.
+gateway for its external address when `skip_upnp` is false. The JAX
+switch's `p2p_*` families are fed at the same points. Not ported: the
+chaos link wrapper.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import time
 import zlib
 from typing import Callable, Dict, List, Optional
 
+from tendermint_tpu_torch import telemetry
 from tendermint_tpu_torch.config import P2PConfig
 from tendermint_tpu_torch.p2p.conn import ChannelDescriptor, SecretConnection
 from tendermint_tpu_torch.p2p.conn.burst import Burst
@@ -46,6 +48,32 @@ from tendermint_tpu_torch.p2p.peer import (
 from tendermint_tpu_torch.types import encoding
 from tendermint_tpu_torch.utils import clock
 from tendermint_tpu_torch.utils.log import get_logger
+
+_m_peers = telemetry.gauge(
+    "p2p_peers", "Connected peers")
+_m_sent = telemetry.counter(
+    "p2p_msgs_sent_total", "Messages enqueued to peers, by channel",
+    ("channel",))
+_m_recv = telemetry.counter(
+    "p2p_msgs_recv_total", "Messages received from peers, by channel",
+    ("channel",))
+_m_bans = telemetry.counter(
+    "p2p_bans_total", "Peers banned for falling below the trust "
+    "score threshold")
+_m_unbans = telemetry.counter(
+    "p2p_unbans_total", "Ban expiries observed (peer re-admittable)")
+_m_banned = telemetry.gauge(
+    "p2p_banned_peers", "Peer ids currently under a ban")
+_m_shed = telemetry.counter(
+    "p2p_accept_shed_total", "Inbound conns shed at the accept path, "
+    "by reason", ("reason",))
+_m_peer_errors = telemetry.counter(
+    "p2p_peer_errors_total", "Peers stopped for an error, by class "
+    "(protocol = invalid frames/messages, network = transport)",
+    ("kind",))
+_m_hs_fail = telemetry.counter(
+    "p2p_handshake_failures_total", "Handshakes aborted, by reason",
+    ("reason",))
 
 RECONNECT_ATTEMPTS = 20
 RECONNECT_BASE_S = 1.0          # exponential backoff base (switch.go:26-33)
@@ -223,6 +251,10 @@ class Switch:
             self.banned[peer_id] = {"until": now + duration,
                                     "strikes": strikes, "last": now,
                                     "active": True}
+            n_banned = sum(1 for r in self.banned.values()
+                           if r["active"])
+        _m_bans.inc()
+        _m_banned.set(n_banned)
         self.logger.error("peer banned", peer=peer_id[:16],
                           strikes=strikes, seconds=round(duration, 1),
                           reason=reason)
@@ -240,6 +272,10 @@ class Switch:
             if now < rec["until"]:
                 return True
             rec["active"] = False
+            n_banned = sum(1 for r in self.banned.values()
+                           if r["active"])
+        _m_unbans.inc()
+        _m_banned.set(n_banned)
         self.logger.info("peer ban expired", peer=peer_id[:16])
         return False
 
@@ -357,12 +393,14 @@ class Switch:
                 time.sleep(0.1)
                 continue
             if self.peers.size() >= self.config.max_num_peers:
+                _m_shed.labels("peers").inc()
                 sock.close()
                 continue
             if not self._fd_headroom_ok():
                 # admission shedding: accepting would spend fds the
                 # node needs for its own stores/peers — refuse loudly
                 # at the door instead of failing opaquely mid-run
+                _m_shed.labels("fd").inc()
                 sock.close()
                 continue
             threading.Thread(
@@ -452,6 +490,7 @@ class Switch:
                 # AUTHENTICATED — before we spend NodeInfo parsing (or
                 # reactor wiring) on a known-hostile peer
                 if self.is_banned(remote_id):
+                    _m_hs_fail.labels("banned").inc()
                     raise SwitchError(f"peer {remote_id} is banned")
             else:
                 link = PlainFramedConn(dsock)
@@ -476,14 +515,17 @@ class Switch:
             if remote_id is None and self.is_banned(their_info.id):
                 # plaintext links authenticate nothing; the claimed id
                 # is still enforced so a banned peer cannot reconnect
+                _m_hs_fail.labels("banned").inc()
                 raise SwitchError(f"peer {their_info.id} is banned")
             for f in self.id_filters:
                 f(their_info.id)
             self.node_info.compatible_with(their_info)
-        except Exception:
+        except Exception as e:
             # every handshake failure (the deadline's socket.timeout
             # included) must release the socket — the dial path retries
             # with backoff and would otherwise leak one FD per attempt
+            _m_hs_fail.labels("deadline" if isinstance(e, socket.timeout)
+                              else "error").inc()
             if link is not None:
                 link.close()
             else:
@@ -529,6 +571,7 @@ class Switch:
             if not replaced:
                 link.close()
                 raise SwitchError(f"duplicate peer {peer.id}")
+        _m_peers.set(self.peers.size())
         with self._lock:
             # registry for join-on-stop: a recv thread that removes its
             # own peer from the PeerSet (stop_peer_for_error race) must
@@ -576,6 +619,7 @@ class Switch:
             self.stop_peer_for_error(
                 peer, ValueError(f"msg on unknown channel {ch_id:#x}"))
             return
+        _m_recv.labels(f"{ch_id:#04x}").inc()
         if self.trust_store is not None and \
                 peer.note_clean_msg(CLEAN_MSGS_PER_GOOD):
             # steady-state good scoring: a long-lived honest peer must
@@ -599,6 +643,8 @@ class Switch:
             self.logger.error("stopping peer for error", peer=peer.id,
                               err=reason)
             protocol = _protocol_error(reason)
+            _m_peer_errors.labels(
+                "protocol" if protocol else "network").inc()
             if self.trust_store is not None:
                 # invalid frames/messages score much harder than
                 # transport flakes — and the score is ENFORCED: under
@@ -626,6 +672,7 @@ class Switch:
             peer.stop()
             if registered is peer:
                 self.peers.remove(peer)
+                _m_peers.set(self.peers.size())
                 for name, reactor in self.reactors.items():
                     try:
                         reactor.remove_peer(peer, reason)
@@ -693,7 +740,10 @@ class Switch:
 
     def broadcast(self, ch_id: int, msg: bytes) -> None:
         """Best-effort fan-out (switch.go:210-227)."""
-        for peer in self.peers.list():
+        peers = self.peers.list()
+        if peers and telemetry.enabled():
+            _m_sent.labels(f"{ch_id:#04x}").inc(len(peers))
+        for peer in peers:
             peer.try_send(ch_id, msg)
 
     def broadcast_obj(self, ch_id: int, obj: dict) -> None:

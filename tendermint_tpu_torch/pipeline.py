@@ -19,8 +19,9 @@ serial code byte for byte.
   seconds against its serial ones (the overlap ratio: overlapped over
   overlapped plus serial, as the JAX package defines it), and
   `note_flush` counts group flushes. `stats()` reads them all, as
-  `coalescer_stats()` reads the coalescer's; the JAX package's metric
-  families wait for the port's telemetry.
+  `coalescer_stats()` reads the coalescer's. The JAX package's families
+  (`pipeline_stage_seconds`, `pipeline_overlap_ratio`,
+  `pipeline_precompute_total`) are fed at the same points.
 - `GroupCommit`: every store write of a height (save_block,
   save_abci_responses, save_state) staged into one `StagedDB` a db and
   flushed as one batch each, in registration order (the block store
@@ -36,7 +37,20 @@ import threading
 import time
 from typing import Callable, List
 
+from tendermint_tpu_torch import telemetry
 from tendermint_tpu_torch.storage.db import KVStore, StagedDB
+
+_m_stage = telemetry.histogram(
+    "pipeline_stage_seconds",
+    "Per-height hot-path stage wall time (serialize | partset | gossip "
+    "| apply | persist | precompute)", ("stage",))
+_m_overlap = telemetry.histogram(
+    "pipeline_overlap_ratio",
+    "Per commit: fraction of stage time overlapped off the critical "
+    "path (0 = fully serial)")
+_m_precompute = telemetry.counter(
+    "pipeline_precompute_total",
+    "Next-proposal precompute outcomes", ("outcome",))
 
 STAGES = ("serialize", "partset", "gossip", "apply", "persist",
           "precompute")
@@ -65,6 +79,8 @@ def resolve() -> bool:
 
 
 def observe_stage(stage: str, seconds: float) -> None:
+    if telemetry.enabled():
+        _m_stage.labels(stage).observe(seconds)
     with _lock:
         _stats["stage_s"][stage] += seconds
         _stats["stage_n"][stage] += 1
@@ -73,6 +89,8 @@ def observe_stage(stage: str, seconds: float) -> None:
 def observe_overlap(overlapped_s: float, total_s: float) -> None:
     """One commit's stage seconds off the critical path (`overlapped_s`)
     out of all its stage seconds (`total_s`)."""
+    if telemetry.enabled() and total_s > 0:
+        _m_overlap.observe(min(1.0, max(0.0, overlapped_s / total_s)))
     if total_s > 0:
         with _lock:
             _stats["overlapped_s"] += overlapped_s
@@ -81,6 +99,8 @@ def observe_overlap(overlapped_s: float, total_s: float) -> None:
 
 def note_precompute(outcome: str) -> None:
     """outcome: used | discarded | failed."""
+    if telemetry.enabled():
+        _m_precompute.labels(outcome).inc()
     with _lock:
         _stats["precompute"][outcome] += 1
 

@@ -23,9 +23,12 @@ connection on the SAME event loop that owns the p2p sockets:
 
 The route table, parameter coercion and error envelope are the threaded
 server's (RPCFunc/_coerce/_rpc_response), so both transports serve
-byte-identical JSON-RPC. The JAX server's telemetry families, SLO stamps,
-shard chain labels and its /metrics and /debug/timeline providers are
-left out; `stats` counts connections, requests, refusals and events.
+byte-identical JSON-RPC. The JAX server's `rpc_*` families are fed at
+the same points as `stats` (connections, requests, refusals and events),
+the loop fan-out stamps the SLO plane's `deliver` stage, and GET
+/metrics and /debug/timeline are served from `metrics_provider` and
+`timeline_provider` beside `raw_routes`. Not ported: the shard front
+door's chain labels (the `chain` label is always "").
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, Optional
 from urllib.parse import parse_qsl, urlparse
 
+from tendermint_tpu_torch import telemetry
 from tendermint_tpu_torch.rpc.server import (
     MAX_BODY_BYTES,
     _WS_MAGIC,
@@ -49,6 +53,35 @@ from tendermint_tpu_torch.rpc.server import (
     RPCFunc,
     _rpc_response,
 )
+from tendermint_tpu_torch.telemetry import slo as _slo
+
+_m_conns = telemetry.gauge(
+    "rpc_conns", "Open RPC connections on the async front door, by kind",
+    ("kind",))
+_m_requests = telemetry.counter(
+    "rpc_requests_total", "JSON-RPC calls admitted, by transport",
+    ("transport",))
+_m_rate_limited = telemetry.counter(
+    "rpc_rate_limited_total",
+    "Calls refused by the per-client-IP token bucket")
+_m_rejected = telemetry.counter(
+    "rpc_rejected_total",
+    "Connections/calls refused by admission control, by reason",
+    ("reason",))
+_m_subscribers = telemetry.gauge(
+    "rpc_ws_subscribers", "Live WebSocket event subscriptions")
+_m_events_sent = telemetry.counter(
+    "rpc_events_sent_total", "Events pushed to WebSocket subscribers")
+# labelled by route so the SLO plane's tail attribution can separate
+# broadcast_tx_* admission cost from query traffic; unregistered
+# method names collapse into one "unknown" label (clients control the
+# method string — it must not mint unbounded label values)
+_m_call_seconds = telemetry.histogram(
+    "rpc_call_seconds",
+    "Handler wall time per JSON-RPC call, by route and (sharded "
+    "front doors) chain",
+    ("route", "chain"), buckets=(1e-4, 1e-3, 5e-3, 2.5e-2, 1e-1, 1.0,
+                                 10.0))
 
 DEFAULT_MAX_CONNS = 4096
 WORKERS = 6
@@ -90,6 +123,8 @@ class AsyncRPCServer:
                  rate_per_ip: float = 0.0, workers: int = WORKERS):
         self.loop = loop
         self.funcs: Dict[str, RPCFunc] = {}
+        self.metrics_provider: Optional[Callable[[], str]] = None
+        self.timeline_provider: Optional[Callable[[], dict]] = None
         self.raw_routes: Dict[str, tuple] = {}
         self.max_conns = int(max_conns) or DEFAULT_MAX_CONNS
         self.rate_per_ip = float(rate_per_ip)
@@ -207,6 +242,7 @@ class AsyncRPCServer:
                 return
             if self._stopped or len(self._conns) >= self.max_conns:
                 self.stats["rejected_conn_cap"] += 1
+                _m_rejected.labels("conn_cap").inc()
                 try:
                     sock.setblocking(False)
                     sock.send(
@@ -227,6 +263,7 @@ class AsyncRPCServer:
             conn = _Conn(self, sock, addr[0])
             self._conns.add(conn)
             self.stats["conns_http"] += 1
+            _m_conns.labels("http").inc()
             self.loop.add_reader(sock, conn.on_readable, owner="rpc")
 
     # ------------------------------------------------------ admission
@@ -241,10 +278,12 @@ class AsyncRPCServer:
                 b = self._buckets[ip] = _Bucket(2.0 * self.rate_per_ip)
             if not b.take(self.rate_per_ip):
                 self.stats["rate_limited"] += 1
+                _m_rate_limited.inc()
                 return RPCError(-32005,
                                 "rate limit exceeded for this client")
         if self._inflight >= MAX_INFLIGHT:
             self.stats["rejected_overload"] += 1
+            _m_rejected.labels("overload").inc()
             return RPCError(-32000, "server overloaded; retry")
         return None
 
@@ -259,14 +298,22 @@ class AsyncRPCServer:
             send(_rpc_response(id_, error=err))
             return
         self.stats["requests_" + transport] += 1
+        _m_requests.labels(transport).inc()
         self._inflight += 1
+        tele = telemetry.enabled()
+        route = method if isinstance(method, str) and \
+            method in self.funcs else "unknown"
 
         def work():
+            t0 = time.perf_counter() if tele else 0.0
             try:
                 result = self.call(method, params, ws=ws)
                 resp = _rpc_response(id_, result)
             except RPCError as e:
                 resp = _rpc_response(id_, error=e)
+            if tele:
+                _m_call_seconds.labels(route, "").observe(
+                    time.perf_counter() - t0)
             self.loop.call_soon(lambda: self._complete(send, resp),
                                 owner="rpc")
 
@@ -283,6 +330,7 @@ class AsyncRPCServer:
         if conn in self._conns:
             self._conns.discard(conn)
             self.stats["conns_ws" if conn.is_ws else "conns_http"] -= 1
+            _m_conns.labels("ws" if conn.is_ws else "http").dec()
 
 
 class _AsyncWS:
@@ -323,6 +371,7 @@ class _AsyncWS:
         loop = conn.server.loop
         self._subs.append(sub)
         conn.server.stats["subscribers"] += 1
+        _m_subscribers.inc()
         pending = [False]
 
         def drain():
@@ -333,9 +382,13 @@ class _AsyncWS:
                 item = sub.get_nowait()
                 if item is None:
                     return
-                conn.send_ws_text(
-                    conn.server.render_event(item, render))
+                frame = conn.server.render_event(item, render)
+                # counted before the write: a client that has read the
+                # event always finds it counted
                 conn.server.stats["events_sent"] += 1
+                _m_events_sent.inc()
+                conn.send_ws_text(frame)
+                _slo.deliver_item(item)
             # outbuf high: resume when the socket drains
             conn.on_drain = schedule
 
@@ -353,6 +406,7 @@ class _AsyncWS:
             return
         self.open = False
         self._conn.server.stats["subscribers"] -= len(self._subs)
+        _m_subscribers.dec(len(self._subs))
         for cb in self.on_close:
             try:
                 cb(self)
@@ -529,7 +583,13 @@ class _Conn:
         srv = self.server
         provider = None
         ctype = "application/json"
-        if url.path in srv.raw_routes:
+        if url.path == "/metrics" and srv.metrics_provider is not None:
+            provider = srv.metrics_provider
+            ctype = "text/plain; version=0.0.4; charset=utf-8"
+        elif url.path == "/debug/timeline" and \
+                srv.timeline_provider is not None:
+            provider = srv.timeline_provider
+        elif url.path in srv.raw_routes:
             ctype, provider = srv.raw_routes[url.path]
         if provider is not None:
             self.in_flight = True
@@ -618,6 +678,8 @@ class _Conn:
         self.is_ws = True
         self.server.stats["conns_http"] -= 1
         self.server.stats["conns_ws"] += 1
+        _m_conns.labels("http").dec()
+        _m_conns.labels("ws").inc()
         self.ws = _AsyncWS(self)
         if self.rbuf:
             self._parse_ws()

@@ -9,13 +9,15 @@ broadcast_tx variants, abci_query/info, tx, tx_search, subscribe /
 unsubscribe / unsubscribe_all (websocket), plus the unsafe routes gated
 on config (dial_peers, flush_mempool).
 
-Routes of the JAX table that read planes the port does not have yet are
-left out, all named in LEFT_OUT: the telemetry plane's `metrics`,
-`dump_height_timeline`, `debug_profile`, `healthz`, `slo` and the
-unsafe `unsafe_dump_trace` (with the raw GET /metrics, /debug/timeline,
-/healthz, /slo and /debug/pprof paths), and the broadcast routes' SLO
-stamps wait with the SLO plane. `net_info` also lists the switch's
-active bans, which the JAX route does not.
+The observability routes are those of the JAX table: `metrics`,
+`dump_height_timeline`, `debug_profile`, `healthz` (with the snapshot
+and state-sync block), `slo` and the unsafe `unsafe_dump_trace`, and
+`make_server` installs the raw GET /metrics, /debug/timeline, /healthz,
+/slo and /debug/pprof paths on either server. The broadcast routes stamp
+the SLO plane's `admit` stage and both WebSocket fan-outs its `deliver`
+stage. LEFT_OUT is empty: every route of the JAX table is served.
+`net_info` also lists the switch's active bans, which the JAX route does
+not.
 
 `make_server(env)` builds the threaded server; `make_server(env, loop=)`
 the async front door on the node's ReactorLoop (rpc/aserver.py), with
@@ -29,12 +31,20 @@ import threading
 import time
 from typing import Any, Dict, Optional
 
+from tendermint_tpu_torch import telemetry
 from tendermint_tpu_torch.rpc.server import RPCError
+from tendermint_tpu_torch.telemetry import slo as slo_obs
 from tendermint_tpu_torch.types.events import Query, TagTxHash
 
-#: routes of the JAX package's table that wait for later planes
-LEFT_OUT = ("metrics", "dump_height_timeline", "debug_profile", "healthz",
-            "slo", "unsafe_dump_trace")
+#: routes of the JAX package's table the port does not serve (none)
+LEFT_OUT: tuple = ()
+
+_m_tx_batched = telemetry.counter(
+    "rpc_tx_batched_total",
+    "broadcast_tx admissions served through the front-door batcher")
+_m_tx_batch_flushes = telemetry.counter(
+    "rpc_tx_batch_flushes_total",
+    "check_tx_batch flushes issued by the front-door batcher")
 
 
 def jsonify(x: Any) -> Any:
@@ -57,7 +67,8 @@ class RPCEnv:
                  mempool=None, evidence_pool=None, switch=None,
                  event_bus=None, tx_indexer=None, gen_doc=None,
                  app_conns=None, pubkey: bytes = b"", unsafe: bool = False,
-                 blockchain_reactor=None):
+                 blockchain_reactor=None, statesync_reactor=None,
+                 snapshot_store=None, stall_detector=None):
         self.consensus = consensus
         self.block_store = block_store
         self.state_store = state_store
@@ -71,6 +82,9 @@ class RPCEnv:
         self.pubkey = pubkey
         self.unsafe = unsafe
         self.blockchain_reactor = blockchain_reactor
+        self.statesync_reactor = statesync_reactor
+        self.snapshot_store = snapshot_store
+        self.stall_detector = stall_detector
 
     @classmethod
     def from_node(cls, node) -> "RPCEnv":
@@ -84,7 +98,10 @@ class RPCEnv:
             pubkey=(node.consensus.priv_validator.pubkey.ed25519
                     if node.consensus.priv_validator else b""),
             unsafe=node.config.rpc.unsafe,
-            blockchain_reactor=getattr(node, "blockchain_reactor", None))
+            blockchain_reactor=getattr(node, "blockchain_reactor", None),
+            statesync_reactor=getattr(node, "statesync_reactor", None),
+            snapshot_store=getattr(node, "snapshot_store", None),
+            stall_detector=getattr(node, "_stall_detector", None))
 
 
 class TxBatcher:
@@ -155,6 +172,8 @@ class TxBatcher:
                 results = self.mempool.check_tx_batch(txs)
             except Exception as e:
                 results = [e] * len(batch)
+            _m_tx_batched.inc(len(batch))
+            _m_tx_batch_flushes.inc()
             with self._cond:
                 self.stats["txs"] += len(batch)
                 self.stats["flushes"] += 1
@@ -168,6 +187,8 @@ class TxBatcher:
 class RPCCore:
     def __init__(self, env: RPCEnv):
         self.env = env
+        # the SLO plane's shard label: the chain this core serves
+        self._chain = env.gen_doc.chain_id if env.gen_doc else ""
         self.tx_batcher: Optional[TxBatcher] = None
         self._profiler = None
         self._profiler_lock = threading.Lock()
@@ -201,6 +222,11 @@ class RPCCore:
             "abci_info": self.abci_info,
             "tx": self.tx,
             "tx_search": self.tx_search,
+            "metrics": self.metrics,
+            "dump_height_timeline": self.dump_height_timeline,
+            "debug_profile": self.debug_profile,
+            "healthz": self.healthz,
+            "slo": self.slo,
         }
         if self.env.unsafe:
             r.update({
@@ -210,6 +236,7 @@ class RPCCore:
                 "unsafe_start_cpu_profiler": self.unsafe_start_cpu_profiler,
                 "unsafe_stop_cpu_profiler": self.unsafe_stop_cpu_profiler,
                 "unsafe_write_heap_profile": self.unsafe_write_heap_profile,
+                "unsafe_dump_trace": self.unsafe_dump_trace,
             })
         return r
 
@@ -431,6 +458,7 @@ class RPCCore:
         batcher the tx rides its next merged check_tx_batch; the thread
         plane runs the check on a one-off thread."""
         import hashlib
+        slo_obs.admit(tx, chain=self._chain)
         if self.tx_batcher is not None:
             self.tx_batcher.submit(tx, wait=False)
         else:
@@ -447,6 +475,7 @@ class RPCCore:
     def broadcast_tx_sync(self, tx: bytes) -> dict:
         """Wait for CheckTx result (rpc/core/mempool.go:91)."""
         import hashlib
+        slo_obs.admit(tx, chain=self._chain)
         res = self._check_tx(tx)
         return jsonify({"code": res.code, "data": res.data,
                         "log": res.log,
@@ -466,6 +495,7 @@ class RPCCore:
                    for t in txs]
         except (ValueError, AttributeError) as e:
             raise RPCError(-32602, f"bad tx hex: {e}") from e
+        slo_obs.admit_many(raw, chain=self._chain)
         mp = self.env.mempool
         if hasattr(mp, "check_tx_batch"):
             results = mp.check_tx_batch(raw)
@@ -490,6 +520,7 @@ class RPCCore:
         (rpc/core/mempool.go:109): subscribe to EventTx for this hash
         BEFORE submitting, then block on delivery."""
         import hashlib
+        slo_obs.admit(tx, chain=self._chain)
         bus = self.env.event_bus
         tx_hash = hashlib.sha256(tx).hexdigest().upper()
         subscriber = f"bcast-{tx_hash[:16]}-{time.monotonic_ns()}"
@@ -553,6 +584,129 @@ class RPCCore:
         prof.disable()
         prof.dump_stats(filename)
         return {"written": filename}
+
+    # --------------------------------------------------------- observability
+
+    def metrics(self) -> dict:
+        """JSON-RPC view of the telemetry state. Prometheus scrapers use
+        the raw GET /metrics path on the same listener instead (served
+        as text/plain by the server, not this handler)."""
+        return {"enabled": telemetry.enabled(),
+                "namespace": telemetry.namespace(),
+                "exposition": telemetry.expose()}
+
+    def dump_height_timeline(self, min_height: int = 0,
+                             max_height: int = 0) -> dict:
+        """The node's causal span ring (telemetry/causal.py) + merge
+        metadata: wall-clock anchor, keepalive RTT per peer, drop
+        accounting. A merger fetches this route from every node and
+        aligns the buffers into one cluster timeline
+        (telemetry/merge.py). Empty (enabled=false) unless the trace
+        plane is on."""
+        from tendermint_tpu_torch.telemetry import causal
+        d = causal.dump(min_height, max_height)
+        cs = self.env.consensus
+        if cs is not None:
+            d["height"] = cs.state.last_block_height
+        return jsonify(d)
+
+    def debug_profile(self, action: str = "status",
+                      hz: float = 0.0) -> dict:
+        """The sampling profiler (telemetry/profile.py) over RPC:
+        status | start [hz] | stop | dump. `dump` returns the
+        collapsed-stack text plus per-subsystem busy/lock-wait sample
+        counts. Raw consumers use GET /debug/pprof instead (collapsed
+        text, no JSON envelope)."""
+        from tendermint_tpu_torch.telemetry import causal, profile
+        action = (action or "status").strip().lower()
+        if action == "start":
+            p = profile.start(hz=hz or None)
+            return {"running": True, "hz": p.hz}
+        if action == "stop":
+            p = profile.stop()
+            return {"running": False,
+                    "samples": 0 if p is None else p.snapshot()["samples"]}
+        if action == "dump":
+            doc = profile.snapshot()
+            doc["node"] = causal.node()
+            return doc
+        if action != "status":
+            raise RPCError(-32602, f"unknown action {action!r} "
+                           f"(status|start|stop|dump)")
+        doc = profile.snapshot()
+        doc.pop("collapsed", None)  # status is the cheap probe
+        doc["node"] = causal.node()
+        return doc
+
+    def slo(self, sketches: bool = False) -> dict:
+        """The tx-lifecycle SLO table (telemetry/slo.py): per-stage
+        p50/p95/p99/p999 over the cumulative sketches and the
+        1s/10s/60s rolling windows, in-flight and drop/timeout
+        accounting, tail attribution, and the health verdict.
+        `sketches=true` adds the mergeable weighted samples a
+        cross-node report concatenates. Also served raw at GET /slo."""
+        return jsonify(slo_obs.snapshot(sketches=bool(sketches)))
+
+    def healthz(self) -> dict:
+        """One JSON verdict for load balancers and operators: height
+        progress, queue saturation (telemetry/queues.py catalog), the
+        stall detector's episode state, the profiler's top-5 busy
+        subsystems, and sync/snapshot status. `ok` is false while any
+        queue sits saturated or the chain is stalled."""
+        from tendermint_tpu_torch.telemetry import profile, queues
+        cs = self.env.consensus
+        sd = self.env.stall_detector
+        saturated = queues.saturated()
+        stalled = bool(sd is not None and sd.stalled)
+        prof = profile.get()
+        syncing = (self.env.blockchain_reactor is not None and
+                   not self.env.blockchain_reactor.synced)
+        # SLO verdict fold-in: sampled txs failing to complete (drops
+        # beyond 5% of the 60s window's completions, or a saturated
+        # tracker) flip the health bit — always {"ok": True} while
+        # the plane is off
+        slo_verdict = slo_obs.verdict()
+        doc = {
+            "ok": (not saturated and not stalled and
+                   slo_verdict["ok"]),
+            "slo": {"enabled": slo_obs.enabled(), **slo_verdict},
+            "height": cs.state.last_block_height
+            if cs is not None else 0,
+            "syncing": syncing,
+            "queues": {"saturated": saturated,
+                       "table": queues.table()},
+            "stall": {"stalled": stalled,
+                      "episodes": 0 if sd is None else sd.fired,
+                      "window_s": None if sd is None else sd.window_s},
+            "profile": {
+                "enabled": profile.enabled(),
+                "running": bool(prof is not None and prof.running),
+                "top": prof.top(5) if prof is not None else [],
+            },
+        }
+        ss = self.env.snapshot_store
+        if ss is not None:
+            try:
+                heights = ss.list_heights()
+                doc["snapshot"] = {
+                    "latest_height": max(heights) if heights else 0,
+                    "count": len(heights)}
+            except Exception as e:
+                doc["snapshot"] = {"error": repr(e)}
+        sr = self.env.statesync_reactor
+        if sr is not None and hasattr(sr, "status"):
+            try:
+                doc["statesync"] = sr.status()
+            except Exception as e:
+                doc["statesync"] = {"error": repr(e)}
+        return jsonify(doc)
+
+    def unsafe_dump_trace(self, filename: str = "") -> dict:
+        """Write the in-memory consensus/verifier timeline as
+        Chrome-trace JSON (chrome://tracing, ui.perfetto.dev)."""
+        filename = filename or "consensus_trace.json"
+        n = len(telemetry.TRACER.events())
+        return {"written": telemetry.dump_trace(filename), "events": n}
 
     def unsafe_write_heap_profile(self, filename: str = "") -> dict:
         """First call arms tracemalloc and returns started=true (there is
@@ -677,6 +831,7 @@ class RPCCore:
                                   "result": {"query": item.query,
                                              "data": jsonify(item.data),
                                              "tags": jsonify(item.tags)}})
+                    slo_obs.deliver_item(item)
                 except ConnectionError:
                     return
 
@@ -711,4 +866,25 @@ def make_server(env: RPCEnv, loop=None):
     server.register_all(core.routes())
     for name, fn in core.ws_routes().items():
         server.register(name, fn, ws_only=True)
+    # raw Prometheus scrape path; serves the (possibly empty) registry
+    # even when telemetry is disabled so scrapers never see a 404 flap
+    server.metrics_provider = telemetry.expose
+    # raw GET /debug/timeline: the causal span ring as JSON (curl-able
+    # without a JSON-RPC envelope; same payload as dump_height_timeline)
+    server.timeline_provider = core.dump_height_timeline
+    # raw GET /healthz (JSON verdict for load balancers) and GET
+    # /debug/pprof (flamegraph collapsed-stack text, the Go-pprof
+    # convention path) — plain-HTTP consumers, no JSON-RPC envelope
+    from tendermint_tpu_torch.telemetry import profile
+
+    def _pprof_text() -> str:
+        p = profile.get()
+        return "" if p is None else p.collapsed()
+
+    server.raw_routes["/healthz"] = ("application/json", core.healthz)
+    # raw GET /slo: the tx-lifecycle SLO table (per-stage quantiles,
+    # windows, tail attribution) — same payload as the `slo` route
+    server.raw_routes["/slo"] = ("application/json", core.slo)
+    server.raw_routes["/debug/pprof"] = (
+        "text/plain; charset=utf-8", _pprof_text)
     return server, core

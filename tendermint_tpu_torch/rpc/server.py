@@ -17,9 +17,11 @@ The WebSocket endpoint implements RFC 6455 server-side framing directly —
 enough for JSON-RPC calls plus event subscriptions feeding from the
 EventBus.
 
-The JAX server's telemetry paths (the Prometheus GET /metrics and the
-causal timeline's GET /debug/timeline) wait with the telemetry plane;
-`raw_routes` serves any other raw GET path."""
+Raw GET paths as in the JAX server: `metrics_provider` serves GET
+/metrics (Prometheus text 0.0.4), `timeline_provider` GET
+/debug/timeline (the causal span ring as JSON), and `raw_routes` any
+other raw path (/healthz, /slo, /debug/pprof; rpc/core.make_server
+installs them)."""
 
 from __future__ import annotations
 
@@ -294,6 +296,13 @@ class RPCServer:
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._ws_conns: list = []
         self.max_http_conns = max_http_conns
+        # when set, GET /metrics serves this callable's text verbatim as
+        # Prometheus exposition (text/plain) instead of JSON-RPC routing
+        # — scrapers speak raw HTTP, not JSON-RPC envelopes
+        self.metrics_provider: Optional[Callable[[], str]] = None
+        # when set, GET /debug/timeline serves this callable's dict as
+        # JSON — the causal span ring for merge/curl consumers
+        self.timeline_provider: Optional[Callable[[], dict]] = None
         # raw GET paths: path -> (content_type, provider). A str/bytes
         # result is served verbatim with that content type; a dict
         # result is served as JSON (plain-HTTP consumers, no JSON-RPC
@@ -374,6 +383,31 @@ class RPCServer:
                     self._upgrade_websocket()
                     return
                 url = urlparse(self.path)
+                if url.path == "/metrics" and \
+                        server.metrics_provider is not None:
+                    try:
+                        body = server.metrics_provider().encode()
+                    except Exception as e:
+                        self._reply(_rpc_response(None, error=RPCError(
+                            -32603, f"metrics provider failed: {e}")), 500)
+                        return
+                    self.send_response(200)
+                    self.send_header(
+                        "Content-Type",
+                        "text/plain; version=0.0.4; charset=utf-8")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                    return
+                if url.path == "/debug/timeline" and \
+                        server.timeline_provider is not None:
+                    try:
+                        self._reply(server.timeline_provider())
+                    except Exception as e:
+                        self._reply(_rpc_response(None, error=RPCError(
+                            -32603, f"timeline provider failed: {e}")),
+                            500)
+                    return
                 if url.path in server.raw_routes:
                     ctype, provider = server.raw_routes[url.path]
                     try:

@@ -14,7 +14,10 @@ writes are staged into it and the events wait for its flush. The four
 `execution.*` fail points (utils/fail.py) sit where the JAX package has
 them.
 
-Not ported yet: the divergence recorder and the causal span.
+`apply_block` runs inside the causal `apply` span; with TM_CUDA_DIVERGENCE
+on, the executor carries a `DigestRecorder` (analysis/divergence.py) that
+folds each applied height into the transition-digest stream, and
+`fire_events` stamps the SLO plane's `commit` stage.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ from tendermint_tpu_torch.storage.state_store import StateStore
 from tendermint_tpu_torch.types import encoding
 from tendermint_tpu_torch.types.block import Block, BlockID
 from tendermint_tpu_torch.types.validator_set import Validator
+from tendermint_tpu_torch.telemetry import causal
+from tendermint_tpu_torch.telemetry import slo
 from tendermint_tpu_torch.utils import fail
 
 
@@ -152,6 +157,10 @@ class BlockExecutor:
         self.event_bus = event_bus
         self.verifier = verifier if verifier is not None \
             else default_verifier()
+        # transition-digest stream behind TM_CUDA_DIVERGENCE
+        # (analysis/divergence.py); None keeps the hot path untouched
+        from tendermint_tpu_torch.analysis import divergence
+        self.divergence = divergence.maybe_recorder()
 
     def validate_block(self, state: State, block: Block,
                        trust_last_commit: bool = False) -> None:
@@ -175,6 +184,14 @@ class BlockExecutor:
 
         `pre_validated=True` skips validation for a caller that just ran
         validate_block on the same (state, block) pair."""
+        with causal.span("apply", block.header.height,
+                         txs=len(block.data.txs)):
+            return self._apply_block(state, block_id, block,
+                                     trust_last_commit, group,
+                                     pre_validated)
+
+    def _apply_block(self, state, block_id, block, trust_last_commit,
+                     group, pre_validated) -> State:
         if not pre_validated:
             self.validate_block(state, block,
                                 trust_last_commit=trust_last_commit)
@@ -202,6 +219,8 @@ class BlockExecutor:
 
         fail.fail_point("execution.after_app_commit")
         new_state.app_hash = app_hash
+        if self.divergence is not None:
+            self.divergence.record(block, responses, new_state)
         if state_store is not None:
             state_store.save(new_state)
         fail.fail_point("execution.after_save_state")
@@ -277,6 +296,12 @@ def fire_events(event_bus, block: Block, block_id: BlockID,
                 responses: ABCIResponses) -> None:
     """state/execution.go:343: NewBlock + NewBlockHeader + one EventTx per
     tx with its DeliverTx result."""
+    # SLO commit stamp at the moment the COMMITTED block's events fan
+    # out: after the group flush in pipelined mode, after store writes
+    # in serial — and strictly before the publish/deliver stamps the
+    # per-tx events below produce, so every sampled tx's stage stamps
+    # stay monotonic (mark_many short-circuits when nothing is tracked)
+    slo.mark_many(block.data.txs, "commit", block.header.height)
     event_bus.publish_new_block(block, block_id)
     event_bus.publish_new_block_header(block.header)
     for i, tx in enumerate(block.data.txs):

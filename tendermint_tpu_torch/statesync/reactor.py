@@ -31,9 +31,10 @@ restore and its verify run on this reactor's own `tm-statesync` thread.
 A verifier that fails on its device (VerifierError) is no verdict on a
 snapshot: the restore ends with `restore_error` set and the fast-sync
 gate held, and the node stops, where any other failure falls back to
-block sync as in the JAX package. The JAX module's metric families,
-spans and queue probe are left out with those planes; `status()`
-carries plain counts.
+block sync as in the JAX package. The JAX module's metric families
+(`sync_*`), its `snapshot.restore` span and `sync.chunk` points and its
+queue probe (`sync.chunks`) are fed at the same points as the plain
+counts that `status()` carries.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ import time
 import zlib
 from typing import Dict, Optional, Set, Tuple
 
+from tendermint_tpu_torch import telemetry
 from tendermint_tpu_torch.models.verifier import VerifierError
 from tendermint_tpu_torch.p2p.base_reactor import Reactor
 from tendermint_tpu_torch.p2p.conn import ChannelDescriptor
@@ -54,11 +56,23 @@ from tendermint_tpu_torch.storage.snapshot import (
     chunk_name,
     light_verify_payload,
     manifest_root,
+    observe_restore_seconds,
     payload_app_items,
 )
+from tendermint_tpu_torch.telemetry import causal
+from tendermint_tpu_torch.telemetry import queues as queue_obs
 from tendermint_tpu_torch.types import encoding
 from tendermint_tpu_torch.utils import clock, fail
 from tendermint_tpu_torch.utils.log import get_logger
+
+_m_chunks = telemetry.counter(
+    "sync_chunks_total", "State-sync chunks by outcome", ("result",))
+_m_offers = telemetry.counter(
+    "sync_offers_total", "Snapshot offers received from peers")
+_m_restores = telemetry.counter(
+    "sync_restores_total", "State-sync restore outcomes", ("outcome",))
+_m_pending = telemetry.gauge(
+    "sync_chunks_pending", "Chunks not yet fetched in the active restore")
 
 STATESYNC_CHANNEL = 0x60
 
@@ -127,6 +141,19 @@ def apply_restore(restore_store: SnapshotStore, manifest: dict,
     commit), app (the app's install), stores (bootstraps, pin,
     adoption)."""
     height = manifest["height"]
+    t0 = time.perf_counter()
+    with causal.span("snapshot.restore", height,
+                     chunks=len(manifest["chunks"])):
+        state = _apply_restore(restore_store, manifest, block_store,
+                               state_store, snapshot_store, app, chain_id,
+                               verifier, timings)
+    observe_restore_seconds(time.perf_counter() - t0)
+    return state
+
+
+def _apply_restore(restore_store, manifest, block_store, state_store,
+                   snapshot_store, app, chain_id, verifier, timings):
+    height = manifest["height"]
     t = [time.perf_counter()]
 
     def stage(name):
@@ -191,6 +218,8 @@ def resume_pending_restore(statesync_dir: str, block_store, state_store,
                 logger.info("pending state-sync restore not resumable",
                             height=height, err=str(e))
             continue
+        if telemetry.enabled():
+            _m_restores.labels("resumed").inc()
         if logger is not None:
             logger.info("resumed torn state-sync restore", height=height)
         return state
@@ -233,6 +262,14 @@ class StateSyncReactor(Reactor):
         self._manifest_waiting: Optional[Tuple[int, str]] = None
         self._pending: Set[int] = set()             # chunk indexes left
         self._inflight: Dict[int, Tuple[str, float]] = {}
+        # queue observatory: chunks still owed against the manifest's
+        # total — a restore that sits saturated is fetch-starved (few
+        # advertisers, banned peers, or backoff)
+        self._queue_probe = queue_obs.register(
+            "sync.chunks", self,
+            depth=lambda r: len(r._pending) + len(r._inflight),
+            capacity=lambda r: len((r._manifest or {}).get(
+                "chunks", ())) or 1)
         #: a restore the verifier's device failed (VerifierError): the
         #: gate stays held and the node stops loudly, never falling back
         self.restore_error: Optional[BaseException] = None
@@ -284,6 +321,7 @@ class StateSyncReactor(Reactor):
 
     def stop(self) -> None:
         self._stopped = True
+        self._queue_probe.close()
         with self._cond:
             self._cond.notify_all()
         t = self._thread
@@ -403,6 +441,8 @@ class StateSyncReactor(Reactor):
                     continue
                 self._offers.setdefault(key, set()).add(peer.id)
                 self.counts["offers"] += 1
+                if telemetry.enabled():
+                    _m_offers.inc()
             self._cond.notify_all()
 
     def _on_manifest(self, peer, msg) -> None:
@@ -448,6 +488,8 @@ class StateSyncReactor(Reactor):
         if hashlib.sha256(data).hexdigest() != expected:
             with self._lock:
                 self.counts["chunks_bad"] += 1
+            if telemetry.enabled():
+                _m_chunks.labels("bad").inc()
             self._ban(peer, f"chunk {idx} digest mismatch")
             return
         dir_ = SnapshotStore(self.statesync_dir).dir_for(
@@ -457,6 +499,10 @@ class StateSyncReactor(Reactor):
         with open(tmp, "wb") as f:
             f.write(data)
         os.replace(tmp, path)
+        causal.record("sync.chunk", manifest["height"], index=idx,
+                      origin=peer.id[:12], bytes=len(data))
+        if telemetry.enabled():
+            _m_chunks.labels("ok").inc()
         with self._cond:
             self.counts["chunks_ok"] += 1
             self._pending.discard(idx)
@@ -465,6 +511,7 @@ class StateSyncReactor(Reactor):
             if ps is not None:
                 ps.inflight = max(0, ps.inflight - 1)
                 ps.reward()
+            _m_pending.set(len(self._pending))
             self._cond.notify_all()
 
     def _on_refusal(self, peer, msg) -> None:
@@ -504,6 +551,9 @@ class StateSyncReactor(Reactor):
             self.logger.error("state-sync restore failed", err=repr(e))
             state = None
         self.restored_state = state
+        if telemetry.enabled():
+            _m_restores.labels("ok" if state is not None
+                               else "fallback").inc()
         with self._lock:
             self.counts["restored" if state is not None
                         else "fallback"] += 1
@@ -650,6 +700,7 @@ class StateSyncReactor(Reactor):
             self._manifest = manifest
             self._pending = pending
             self._inflight = {}
+            _m_pending.set(len(pending))
         self.logger.info("state sync: fetching snapshot", height=height,
                          chunks=len(manifest["chunks"]),
                          resumed=len(manifest["chunks"]) - len(pending))
@@ -672,6 +723,8 @@ class StateSyncReactor(Reactor):
                             if ps.strikes >= MAX_STRIKES:
                                 self._banned.add(pid)
                         self.counts["chunks_timeout"] += 1
+                        if telemetry.enabled():
+                            _m_chunks.labels("timeout").inc()
                 # assign waiting chunks to available peers, spreading
                 # load: fewest-inflight, fewest-strikes first
                 waiting = sorted(self._pending - set(self._inflight))

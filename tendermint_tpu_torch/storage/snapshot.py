@@ -23,8 +23,8 @@ and pruning of the block and state stores behind a floor that never
 passes the latest snapshot, the evidence `max_age` horizon or a peer's
 catch-up frontier (`prune.mid_range` fires inside the range sweep).
 Everything is off by default (interval 0, retain 0). The JAX module's
-telemetry families are left out with the telemetry plane: the manager
-keeps plain counts (`SnapshotManager.counts`).
+telemetry families (`snapshot_*`, `prune_*`) are fed at the same points
+as the manager's plain counts (`SnapshotManager.counts`).
 """
 
 from __future__ import annotations
@@ -35,9 +35,24 @@ import shutil
 import time
 from typing import Callable, Iterable, List, Optional
 
+from tendermint_tpu_torch import telemetry
 from tendermint_tpu_torch.ops import merkle
 from tendermint_tpu_torch.types import encoding
 from tendermint_tpu_torch.utils import fail
+
+_m_taken = telemetry.counter(
+    "snapshot_taken_total", "Snapshots published")
+_m_height = telemetry.gauge(
+    "snapshot_height", "Height of the most recent published snapshot")
+_m_write_s = telemetry.histogram(
+    "snapshot_write_seconds", "Wall time to build + publish one snapshot")
+_m_restore_s = telemetry.histogram(
+    "snapshot_restore_seconds",
+    "Wall time to assemble + verify + apply one snapshot restore")
+_m_pruned = telemetry.counter(
+    "prune_heights_total", "Heights pruned from a store", ("store",))
+_m_floor = telemetry.gauge(
+    "prune_floor", "Most recent prune floor (first retained height)")
 
 FORMAT = 1
 MANIFEST_NAME = "manifest.json"
@@ -358,7 +373,12 @@ class SnapshotManager:
             self.state_store.unpin_snapshot(dropped)
         self.counts["published"] += 1
         self.counts["latest"] = h
-        self.counts["take_s"] += time.perf_counter() - t0
+        take_s = time.perf_counter() - t0
+        self.counts["take_s"] += take_s
+        if telemetry.enabled():
+            _m_taken.inc()
+            _m_height.set(h)
+            _m_write_s.observe(take_s)
         self.logger.info("snapshot published", height=h,
                          chunks=len(manifest["chunks"]),
                          bytes=manifest["size"])
@@ -402,6 +422,14 @@ class SnapshotManager:
             self.counts["pruned_state"] += n_state
             self.counts["floor"] = floor
             self.counts["prunes"] += 1
+            if telemetry.enabled():
+                _m_pruned.labels("block").inc(n_blocks)
+                _m_pruned.labels("state").inc(n_state)
+                _m_floor.set(floor)
             self.logger.info("pruned stores", floor=floor,
                              blocks=n_blocks, state_heights=n_state)
 
+
+def observe_restore_seconds(seconds: float) -> None:
+    if telemetry.enabled():
+        _m_restore_s.observe(seconds)

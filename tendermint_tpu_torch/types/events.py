@@ -10,8 +10,10 @@ flows through here; subscribers attach with query strings like:
     tm.event = 'Tx' AND account.number > 3
 
 Synchronous fan-out: subscribers get events on the publisher's thread
-into bounded buffers they drain. The JAX package's metric counter, queue
-probes and SLO stamps are not ported; drops are counted on the bus.
+into bounded buffers they drain. Drops are counted on the bus and in
+`event_dropped_total`; each subscriber buffer is registered with the
+queue observatory (`event.subscriber`), and `publish_tx` stamps the SLO
+plane's `publish` stage before the fan-out.
 """
 
 from __future__ import annotations
@@ -23,6 +25,14 @@ import threading
 from collections import deque
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
+
+from tendermint_tpu_torch import telemetry
+from tendermint_tpu_torch.telemetry import queues as queue_obs
+from tendermint_tpu_torch.telemetry import slo as slo_obs
+
+_m_dropped = telemetry.counter(
+    "event_dropped_total",
+    "Events dropped from full per-subscriber buffers (oldest-first)")
 
 # reserved event types (types/events.go:12-32)
 EventNewBlock = "NewBlock"
@@ -140,6 +150,13 @@ class Subscription:
         self.on_put: Optional[Callable[[], None]] = None
         self._items: "deque[EventItem]" = deque()
         self._cond = threading.Condition()
+        # queue observatory: a saturated subscriber buffer means a slow
+        # consumer is about to lose history (drop-oldest); the probe
+        # weak-refs this subscription, so abandoned subscribers prune
+        # themselves — unsubscribe closes promptly below
+        self._queue_probe = queue_obs.register(
+            "event.subscriber", self, depth=lambda s: len(s._items),
+            capacity=self.capacity)
 
     def put(self, item: EventItem) -> bool:
         """Buffer an event; True when an older one was evicted."""
@@ -197,11 +214,14 @@ class EventBus:
             sub = self._subs.pop((subscriber, Query(query_str).source), None)
             if sub:
                 sub.cancelled = True
+                sub._queue_probe.close()
 
     def unsubscribe_all(self, subscriber: str) -> None:
         with self._lock:
             for key in [k for k in self._subs if k[0] == subscriber]:
-                self._subs.pop(key).cancelled = True
+                sub = self._subs.pop(key)
+                sub.cancelled = True
+                sub._queue_probe.close()
 
     def publish(self, event_type: str, data: Any,
                 tags: Optional[Dict[str, Any]] = None) -> None:
@@ -212,6 +232,7 @@ class EventBus:
         for sub in subs:
             if sub.query.matches(tags):
                 if sub.put(EventItem(sub.query.source, tags, data)):
+                    _m_dropped.inc()
                     with self._lock:
                         self._dropped_total += 1
 
@@ -241,6 +262,10 @@ class EventBus:
         tags = dict(extra_tags or {})
         tags[TagTxHash] = hashlib.sha256(tx).hexdigest().upper()
         tags[TagTxHeight] = height
+        # SLO publish stamp BEFORE the fan-out: the deliver stamp (a
+        # subscriber socket write, possibly on the loop thread an
+        # instant later) must never precede it
+        slo_obs.mark_hex(tags[TagTxHash], "publish", height)
         self.publish(EventTx, {
             "height": height, "index": index, "tx": tx, "result": result},
             tags)

@@ -6,19 +6,26 @@ default) the skeleton (root and every proof) is one native call,
 `tm_partset_build` (split, leaf hashing, tree and proofs); off, the
 Python split feeds one host tree build (`merkle.tree_proofs_host`), as
 in the JAX package. Both give the same bytes. `build_stats()` counts the
-builds of each route. `from_data_streaming` yields the parts one at a
+builds of each route; the `partset_build_seconds` family times them.
+`from_data_streaming` yields the parts one at a
 time, so that a proposer gossips early parts while later ones are made.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from dataclasses import dataclass
 from typing import Iterator, List, Optional, Tuple
 
-from tendermint_tpu_torch import native
+from tendermint_tpu_torch import native, telemetry
 from tendermint_tpu_torch.ops import merkle
 from tendermint_tpu_torch.types.block import PartSetHeader
+
+_m_build = telemetry.histogram(
+    "partset_build_seconds",
+    "Full part-set construction (split + leaf hash + tree + proofs) "
+    "by implementation", ("impl",))
 
 
 @dataclass
@@ -55,6 +62,7 @@ def _build_skeleton(data: bytes, part_size: int):
     # imported here: pipeline imports storage, whose block store imports
     # this module
     from tendermint_tpu_torch import pipeline
+    t0 = time.perf_counter()
     n = max(1, -(-len(data) // part_size))
     if pipeline.resolve():
         root, proofs = native.partset_build(data, part_size)
@@ -64,6 +72,8 @@ def _build_skeleton(data: bytes, part_size: int):
                   for i in range(0, len(data), part_size)] or [b""]
         root, proofs = merkle.tree_proofs_host(chunks)
         impl = "python"
+    if telemetry.enabled():
+        _m_build.labels(impl).observe(time.perf_counter() - t0)
     with _builds_lock:
         _builds[impl] += 1
     return n, root, proofs, impl

@@ -34,3 +34,34 @@ def set_source(source: Optional[Callable[[], int]]) -> None:
     clock). Chaos clock-skew and deterministic replay hook in here."""
     global _source
     _source = source
+
+
+# The observability planes' clocks, each with its own seam so tests pin
+# them without sleeping and without touching the protocol clock: the
+# causal plane stamps wall nanoseconds, the SLO plane monotonic ones.
+_wall_source: Optional[Callable[[], int]] = None
+_mono_source: Optional[Callable[[], int]] = None
+
+
+def wall_ns() -> int:
+    """Wall-clock nanoseconds of the causal span plane."""
+    if _wall_source is not None:
+        return _wall_source()
+    return time.time_ns()
+
+
+def monotonic_ns() -> int:
+    """Monotonic nanoseconds of the SLO plane's stage stamps."""
+    if _mono_source is not None:
+        return _mono_source()
+    return time.monotonic_ns()
+
+
+def set_wall_source(source: Optional[Callable[[], int]]) -> None:
+    global _wall_source
+    _wall_source = source
+
+
+def set_monotonic_source(source: Optional[Callable[[], int]]) -> None:
+    global _mono_source
+    _mono_source = source

@@ -5,7 +5,8 @@
   with its conn/, pex/ and socknet, consensus/ with its reactor,
   mempool/ and evidence/ with theirs, rpc/ with the async front door,
   the event loop, the coalescer, UPnP, node, cli, __main__, procnet,
-  the pipeline, the fail points, snapshots and state sync included), and
+  the pipeline, the fail points, snapshots, state sync, the telemetry
+  planes, the knob catalog and the divergence plane included), and
   chip_smoke.py
   as a module, in a fresh interpreter loads neither jax nor any
   tendermint_tpu module.
@@ -14,9 +15,11 @@
   (system headers aside).
 - The modules of the node's default plane (config, the event loop, the
   coalescer and verifier, the async front door and RPC core, UPnP, the
-  node, the pipeline, the snapshot store and manager, state sync) read
-  no environment variable: their settings are config fields and
-  constructor arguments.
+  node, the pipeline, the snapshot store and manager, state sync, the
+  telemetry planes) read no environment variable themselves: their
+  settings are config fields and constructor arguments, and the
+  observability planes' TM_CUDA_* knobs are read through the catalog
+  (utils/knobs.py).
 - An entry point given no device raises when no CUDA device is present:
   the port never moves to the CPU quietly. `python -m
   tendermint_tpu_torch.cli node` without a card and without `--device
@@ -46,7 +49,8 @@ def test_walk_covers_every_subpackage():
     for pkg in ("ops", "types", "models", "utils", "lite", "storage",
                 "state", "abci", "abci.apps", "blockchain", "p2p",
                 "p2p.conn", "consensus", "mempool", "evidence", "rpc",
-                "p2p.pex", "node", "cli", "statesync"):
+                "p2p.pex", "node", "cli", "statesync", "telemetry",
+                "analysis"):
         assert f"tendermint_tpu_torch.{pkg}" in mods, pkg
     assert "tendermint_tpu_torch.lite.certifier" in mods
     assert "tendermint_tpu_torch.native" in mods
@@ -73,7 +77,10 @@ def test_walk_covers_every_subpackage():
                 "rpc.server", "rpc.core", "rpc.client", "__main__",
                 "procnet", "models.coalescer", "p2p.conn.loop",
                 "p2p.upnp", "rpc.aserver", "pipeline", "utils.fail",
-                "storage.snapshot", "statesync.reactor"):
+                "storage.snapshot", "statesync.reactor", "utils.knobs",
+                "telemetry.registry", "telemetry.trace", "telemetry.causal",
+                "telemetry.merge", "telemetry.profile", "telemetry.queues",
+                "telemetry.slo", "analysis.divergence"):
         assert f"tendermint_tpu_torch.{mod}" in mods, mod
 
 
@@ -143,7 +150,10 @@ PLANE_SOURCES = [PORT / m for m in (
     "config.py", "p2p/conn/loop.py", "models/coalescer.py",
     "models/verifier.py", "rpc/aserver.py", "rpc/core.py", "p2p/upnp.py",
     "p2p/switch.py", "p2p/peer.py", "node.py", "cli.py", "pipeline.py",
-    "storage/snapshot.py", "statesync/__init__.py", "statesync/reactor.py")]
+    "storage/snapshot.py", "statesync/__init__.py", "statesync/reactor.py",
+    "telemetry/__init__.py", "telemetry/registry.py", "telemetry/trace.py",
+    "telemetry/causal.py", "telemetry/merge.py", "telemetry/profile.py",
+    "telemetry/queues.py", "telemetry/slo.py")]
 
 
 @pytest.mark.parametrize("path", PLANE_SOURCES,
