@@ -347,7 +347,36 @@ Phases, each printing its own lines:
    second run of the same net with telemetry and every plane off gives
    the overhead (blocks/s beside the first run's and phase 13's; not a
    check), and its stop lines' families must stay at zero.
-16. the kernel table as one JSON line, the card again, then the last line
+16. the authenticated state tree fed over gRPC and read through `cli lite`
+   (`procnet_statetree`): phase 13's net on the JAX node's defaults with
+   TM_CUDA_STATE_TREE=on in every node (the kvstore's critbit tree, its
+   dirty waves hashed through merkle.sha256_many_host on the node's card)
+   and rpc.grpc_laddr on node 2. A burst of 1,200 txs over JSON-RPC to
+   node 0 makes a block of 1,000 new keys (the largest wave, on the device
+   route); then 8 BroadcastAPIClients send 12 unique txs each to node 2,
+   every response committed with CheckTx and DeliverTx codes 0, a height
+   and sha256(tx) as its hash. A `cli lite` process on the card reads
+   node 0, trusting height 1 from a fresh home: commit, validators and
+   block of every height and 8 fed txs with their Merkle proofs, each
+   certified (B1 in that process). Every node must agree on block and app
+   hash at every height, every fed tx be committed once, and a replay of
+   the committed txs through a fresh StateTree on the CPU hashing every
+   wave with hashlib must give every header's app hash. A SecureClient
+   over a stub of node 0's RPC serving a header with a flipped byte, and
+   a commit with a forged signature, must raise CertificationError. Node
+   1's abci_query(prove=True) for 16 fed keys and one absent key is
+   decoded with statetree.proof_from_bytes and verified against the app
+   hash of the lite-certified header above its version; a flipped value
+   must fail. Then in this process, with the tree on: a single-validator
+   node on the card whose app sits behind ABCIGrpcServer, reached through
+   grpc_client_creator, commits the app hashes of the same txs on the
+   local client; and a node crashed at each statetree.* fail point
+   recovers to the uncrashed run's app hash and still proves. Prints
+   blocks/s (on the pure-Python kvstore, not comparable with phase 13's),
+   StateTree.commit ms a height and merkle_sha_batches_total by route from
+   each node's stop line, the largest wave timed on the device route, the
+   native batch and hashlib with equal digests, and B1 launches a process.
+17. the kernel table as one JSON line, the card again, then the last line
    {"ok": true, "device": {...}}.
 
 Any mismatch or exception ends the run with a non-zero code before the
@@ -360,11 +389,13 @@ import contextlib
 import copy
 import ctypes
 import dataclasses
+import hashlib
 import json
 import os
 import random
 import re
 import shutil
+import signal
 import socket
 import struct
 import subprocess
@@ -1729,8 +1760,8 @@ def _step_merkle(block, device, card) -> None:
     sha_busy_ms = _profiled_device_ms(lambda: sha256.hash_fixed(rows_dev))
     t8 = _ms()
     flat = rows.tobytes()
-    want = merkle.sha256_many_host(
-        [flat[64 * i:64 * (i + 1)] for i in range(SHA_ROWS)])
+    want = [hashlib.sha256(flat[64 * i:64 * (i + 1)]).digest()
+            for i in range(SHA_ROWS)]
     t9 = _ms()
     sha_equal = got.cpu().numpy().tobytes() == b"".join(want)
     t10 = _ms()
@@ -4111,10 +4142,11 @@ class _Crash(BaseException):
     sweep may swallow it."""
 
 
-def _sweep_node(home: str, gen, key, device: str, recovery=None):
+def _sweep_node(home: str, gen, key, device: str, recovery=None, app=None):
     """A single-validator port Node on the pipelined path (MockTicker,
-    the kvstore app, files under `home`), verifying on `device`, with
-    the `base` settings `recovery` (the recovery plane's keys)."""
+    `app` or the kvstore app, files under `home`), verifying on
+    `device`, with the `base` settings `recovery` (the recovery plane's
+    keys)."""
     from tendermint_tpu_torch.config import test_config
     from tendermint_tpu_torch.consensus.ticker import MockTicker
     from tendermint_tpu_torch.node import Node
@@ -4132,7 +4164,8 @@ def _sweep_node(home: str, gen, key, device: str, recovery=None):
     cfg.base.pipeline = "auto"
     for k, v in (recovery or {}).items():
         setattr(cfg.base, k, v)
-    node = Node(cfg, gen, priv_validator=pv, app=KVStoreApp(),
+    node = Node(cfg, gen, priv_validator=pv,
+                app=KVStoreApp() if app is None else app,
                 device=device if device.startswith("cuda") else None)
     node.consensus.ticker.stop()
     node.consensus.ticker = MockTicker(node.consensus._on_timeout_fire)
@@ -5860,6 +5893,619 @@ def _divergence_cpu() -> dict:
     return {"seed": 7, "heights": dual["heights"], "identical": True}
 
 
+# ----------------------- phase 16: the state tree fed over gRPC, read lite
+
+ST_BURST = 1200           # one broadcast_tx_batch to node 0 at the start: a
+#                           block of max_block_size_txs (1000) new keys, the
+#                           phase's largest wave (device route on the card)
+ST_GRPC_CLIENTS = 8       # BroadcastAPIClients on node 2 (its 8 workers)
+ST_GRPC_TXS = 12          # txs each client sends, one BroadcastTx at a time
+ST_LITE_TXS = 8           # fed txs read through the lite proxy's `tx`
+ST_PROOF_KEYS = 16        # fed keys proven by node 1 (and one absent key)
+ST_WALL_S = 150.0         # the net's wall limit from the nodes' start
+ST_ABCI_HEIGHTS = 4       # the gRPC ABCI node's heights
+ST_WAVE_REPS = 5          # timed runs of the largest wave on each route
+ST_TREE_ENV = {"TM_CUDA_STATE_TREE": "on"}
+ST_SWEEP_WAVES = ([b"st/a%d=v%d" % (i, i) for i in range(1, 4)],
+                  [b"st/b%d=w%d" % (i, i) for i in range(1, 4)])
+ST_SWEEP_TARGET = 3
+
+
+@contextlib.contextmanager
+def _env(values: dict):
+    """os.environ with `values` set, restored after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class _GrpcFeeder:
+    """ST_GRPC_CLIENTS threads, each its own BroadcastAPIClient to node
+    2's gRPC listener, sending ST_GRPC_TXS unique `k=v` txs one at a
+    time; BroadcastTx returns after the commit, so the clients set the
+    rate. Every response is checked: CheckTx and DeliverTx codes 0,
+    height >= 1, hash = sha256(tx)."""
+
+    def __init__(self, addr: str):
+        self.addr = addr
+        self.committed: list = []   # (tx, height)
+        self.bad: list = []
+        self.errors: list = []
+        self._lock = threading.Lock()
+        self._threads = [threading.Thread(
+            target=self._run, args=(c,), daemon=True,
+            name=f"smoke-grpc-feeder-{c}") for c in range(ST_GRPC_CLIENTS)]
+
+    def _run(self, c: int) -> None:
+        from tendermint_tpu_torch.rpc.grpc_service import BroadcastAPIClient
+        client = BroadcastAPIClient(self.addr, timeout=60.0)
+        try:
+            client.ping()
+            for i in range(ST_GRPC_TXS):
+                tx = b"st/g%d/k%d=v%06d" % (c, i, i)
+                res = client.broadcast_tx(tx)
+                ok = (res.check_tx.code == 0 and res.deliver_tx.code == 0
+                      and res.height >= 1
+                      and res.hash == hashlib.sha256(tx).digest())
+                with self._lock:
+                    (self.committed if ok else self.bad).append(
+                        (tx, int(res.height)))
+        except Exception as e:  # reported and required empty below
+            with self._lock:
+                self.errors.append(repr(e))
+        finally:
+            client.close()
+
+    def run(self, timeout: float) -> float:
+        t0 = time.perf_counter()
+        for t in self._threads:
+            t.start()
+        for t in self._threads:
+            t.join(max(1.0, timeout - (time.perf_counter() - t0)))
+        require(not any(t.is_alive() for t in self._threads),
+                "statetree: a gRPC client did not finish")
+        return time.perf_counter() - t0
+
+
+def _lite_process(net, root: str, node_port: int, port: int, device: str):
+    """`cli lite` as its own process on `device`, reading node 0, trusting
+    height 1, with a fresh home; its output in lite.log."""
+    log = open(os.path.join(root, "lite.log"), "ab")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tendermint_tpu_torch.cli", "--home",
+         os.path.join(root, "lite_home"), "lite", "--node-addr",
+         f"http://127.0.0.1:{node_port}", "--laddr",
+         f"tcp://127.0.0.1:{port}", "--trust-height", "1", "--device",
+         device], stdout=log, stderr=subprocess.STDOUT, env=net._env(),
+        cwd=root)
+    return proc, log
+
+
+def _lite_line(root: str) -> dict:
+    with open(os.path.join(root, "lite.log"), "rb") as f:
+        found = re.findall(rb"^lite kernels (\{.*\})$", f.read(), re.M)
+    require(len(found) == 1, f"statetree: lite kernels lines {found}")
+    return json.loads(found[0])
+
+
+def _replay_app_hashes(block_txs: list) -> list:
+    """The app hash of every version 1..len(block_txs) of a fresh
+    StateTree on the CPU that hashes every wave with hashlib (no native
+    batch, no device batch): the kvstore's tree backend, block by block."""
+    from tendermint_tpu_torch.statetree import StateTree
+    tree = StateTree(device="cpu", native_lib=False)
+    out = []
+    saved = _patched([(merkle, "_SHA_DEVICE_MIN", 1 << 62)])
+    try:
+        for h, txs in enumerate(block_txs, start=1):
+            for tx in txs:
+                k, _, v = tx.partition(b"=") if b"=" in tx else (tx, b"", tx)
+                tree.set(k, v)
+            out.append(tree.commit(h))
+    finally:
+        _restore(saved)
+    return out
+
+
+def _wave_timing(block_txs: list, device) -> dict:
+    """The phase's largest wave (the leaf payloads of its largest block)
+    on the device route, the native batch and hashlib: ms (median of
+    ST_WAVE_REPS) and equal digests."""
+    txs = max(block_txs, key=len)
+    sha = hashlib.sha256
+    payloads = []
+    for tx in txs:
+        k, _, v = tx.partition(b"=")
+        payloads.append(b"\x00" + sha(k).digest() + sha(v).digest())
+    n = len(payloads)
+
+    def timed(fn):
+        ms, out = [], None
+        for _ in range(ST_WAVE_REPS):
+            t0 = time.perf_counter()
+            out = fn()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        return sorted(ms)[len(ms) // 2], out
+
+    dev_ms, dev = timed(lambda: merkle._sha256_many_device(
+        payloads, n, len(payloads[0]), device))
+    nat_ms, nat = timed(lambda: native.sha256_batch(payloads))
+    hl_ms, hl = timed(lambda: [sha(p).digest() for p in payloads])
+    require(dev == nat == hl, "statetree: a wave's digests differ by route")
+    return {"payloads": n, "payload_bytes": len(payloads[0]),
+            "device_ms": dev_ms, "native_ms": nat_ms, "hashlib_ms": hl_ms,
+            "digests_equal": True, "device": str(device)}
+
+
+def _lite_reads(proxy, top: int, fed: list) -> tuple:
+    """commit, validators and block of every height 1..top through the
+    lite proxy, each certified; `tx` for a sample of fed txs. Returns
+    the certified app hash of each height and the reads' seconds."""
+    certified = {}
+    t0 = time.perf_counter()
+    for h in range(1, top + 1):
+        cm = proxy.call("commit", height=h)
+        vals = proxy.call("validators", height=h)
+        blk = proxy.call("block", height=h)
+        require(cm["certified"] and vals["certified"]
+                and blk["block"]["header"]["height"] == h,
+                f"statetree: lite read of height {h}")
+        certified[h] = bytes.fromhex(cm["header"]["app_hash"])
+    t_heights = time.perf_counter() - t0
+    sample = random.Random(SEED + 16).sample(fed, min(ST_LITE_TXS, len(fed)))
+    for tx, _ in sample:
+        res = proxy.call("tx", hash=hashlib.sha256(tx).digest())
+        require(bytes.fromhex(res["tx"]) == tx,
+                f"statetree: lite tx read of {tx!r}")
+    return certified, {"heights": top, "reads": 3 * top,
+                       "heights_s": t_heights, "txs": len(sample),
+                       "txs_s": time.perf_counter() - t0 - t_heights}
+
+
+def _refusals(net, chain_id: str, device) -> dict:
+    """A SecureClient over a stub of node 0's RPC that serves height 3's
+    header with a flipped byte, and one whose commit carries a forged
+    signature: both must raise CertificationError."""
+    from tendermint_tpu_torch.lite import (HTTPProvider, InquiringCertifier,
+                                           MemProvider, SecureClient)
+
+    class Stub:
+        def __init__(self, forge):
+            self.rpc, self.forge = net.rpc(0), forge
+
+        def call(self, method, **params):
+            res = copy.deepcopy(self.rpc.call(method, **params))
+            if method == "commit" and params.get("height") == 3:
+                self.forge(res)
+            return res
+
+    def flip(obj, field, i=0):
+        raw = bytearray(bytes.fromhex(obj[field]))
+        raw[i] ^= 1
+        obj[field] = raw.hex()
+
+    out = {}
+    v = tverifier.BatchVerifier("cuda", device=device)
+    try:
+        for name, forge in (
+                ("flipped_header_byte",
+                 lambda r: flip(r["header"], "app_hash")),
+                ("forged_signature",
+                 lambda r: flip(next(pc for pc in r["commit"]["precommits"]
+                                     if pc is not None), "signature", 5))):
+            stub = Stub(forge)
+            trusted = HTTPProvider(stub).get_by_height(1)
+            sc = SecureClient(stub, InquiringCertifier(
+                chain_id, trusted, MemProvider(), verifier=v))
+            try:
+                sc.commit(3)
+                out[name] = None
+            except CertificationError as e:
+                out[name] = str(e)
+            require(out[name] is not None,
+                    f"statetree: the {name} commit was certified")
+    finally:
+        v.close()
+    return out
+
+
+def _state_proofs(net, proxy, keys: list) -> dict:
+    """abci_query(prove=True) on node 1 for `keys` (values known) and one
+    absent key at a version v it retains (its height - 1, re-pinned on
+    each try), each proof decoded with statetree.proof_from_bytes and
+    verified against the app hash of the lite-certified header v + 1;
+    a flipped value must fail."""
+    from tendermint_tpu_torch.statetree import (ProofError, proof_from_bytes,
+                                                verify)
+    c = net.rpc(1)
+    rows = {"present": 0, "absent": 0, "versions": set()}
+    items = [(k, v) for k, v in keys] + [(b"st/absent/key", None)]
+    tampered = None
+    for k, want in items:
+        for _ in range(20):
+            h = int(c.call("status")["latest_block_height"])
+            res = c.call("abci_query", data=k.hex(), height=h - 1,
+                         prove=True)["response"]
+            if res.get("code", 0) == 0 and res.get("proof"):
+                break
+            time.sleep(0.2)
+        require(res.get("code", 0) == 0 and res.get("proof"),
+                f"statetree: node 1 gave no proof for {k!r}: {res}")
+        version = int(res["height"])
+        value = bytes.fromhex(res.get("value") or "")
+        require(value == (want or b""),
+                f"statetree: node 1 answers {k!r} with {value!r}")
+        proof = proof_from_bytes(bytes.fromhex(res["proof"]))
+        app_hash = bytes.fromhex(proxy.call(
+            "commit", height=version + 1)["header"]["app_hash"])
+        verify(proof, k, want, app_hash)
+        rows["present" if want is not None else "absent"] += 1
+        rows["versions"].add(version)
+        if tampered is None and want is not None:
+            try:
+                verify(proof, k, want + b"!", app_hash)
+                tampered = "verified"
+            except ProofError as e:
+                tampered = str(e)
+    require(tampered not in (None, "verified"),
+            f"statetree: a tampered proof verified ({tampered})")
+    rows["versions"] = sorted(rows["versions"])
+    rows["tampered"] = tampered
+    return rows
+
+
+def _grpc_abci_run(device: str, over_grpc: bool) -> list:
+    """A single-validator port Node (MockTicker, in memory) whose state-
+    tree kvstore sits behind ABCIGrpcServer and is reached through
+    grpc_client_creator, or on the local client: the app hashes of its
+    blocks 1..ST_ABCI_HEIGHTS over the same txs."""
+    from tendermint_tpu_torch.abci.grpc_app import (ABCIGrpcServer,
+                                                    grpc_client_creator)
+    from tendermint_tpu_torch.config import test_config
+    from tendermint_tpu_torch.consensus.ticker import MockTicker
+    from tendermint_tpu_torch.node import Node
+    from tendermint_tpu_torch.types.genesis import (GenesisDoc,
+                                                    GenesisValidator)
+    from tendermint_tpu_torch.types.priv_validator import LocalSigner
+    on_card = device.startswith("cuda")
+    key = PrivKey.generate(b"\x0b" * 32)
+    gen = GenesisDoc(chain_id="grpc-abci", genesis_time_ns=1,
+                     validators=[GenesisValidator(key.pubkey.ed25519, 10)])
+    cfg = test_config("")
+    cfg.base.verifier_backend = "cuda" if on_card else "python"
+    cfg.consensus.max_block_size_txs = 3
+    app = KVStoreApp(device=device)
+    server = None
+    if over_grpc:
+        server = ABCIGrpcServer(app, "127.0.0.1:0")
+        server.start()
+        creator = grpc_client_creator(f"127.0.0.1:{server.port}")
+    else:
+        creator = local_client_creator(app)
+    try:
+        node = Node(cfg, gen, priv_validator=PrivValidator(LocalSigner(key)),
+                    client_creator=creator, app=None if over_grpc else app,
+                    in_memory=True, device=device if on_card else None)
+        node.consensus.ticker.stop()
+        node.consensus.ticker = MockTicker(node.consensus._on_timeout_fire)
+        node.start()
+        try:
+            _sweep_inject(node, [b"ga/%02d=v%d" % (i, i) for i in range(9)])
+            _sweep_commit_to(node, ST_ABCI_HEIGHTS)
+            return [node.block_store.load_block_meta(h).header.app_hash
+                    for h in range(1, ST_ABCI_HEIGHTS + 1)]
+        finally:
+            node.stop()
+    finally:
+        if server is not None:
+            server.stop()
+
+
+def _statetree_crash_points(device: str) -> list:
+    """A single-validator node with the state tree on, crashed at each
+    statetree.* fail point of a commit (tfail.arm raising), rebuilt from
+    its files, must reach the uncrashed run's app hash and still prove."""
+    from tendermint_tpu_torch.statetree import proof_from_bytes, verify
+    from tendermint_tpu_torch.types.genesis import (GenesisDoc,
+                                                    GenesisValidator)
+    root = tempfile.mkdtemp(prefix="statetree-sweep-")
+    key = PrivKey.generate(b"\x0e" * 32)
+    gen = GenesisDoc(chain_id="st-sweep", genesis_time_ns=1,
+                     validators=[GenesisValidator(key.pubkey.ed25519, 10)])
+    app_of = lambda: KVStoreApp(device=device)   # noqa: E731
+    wave_a, wave_b = ST_SWEEP_WAVES
+    rows = []
+    tclock.set_source(lambda: T0)
+    try:
+        control = _sweep_node(os.path.join(root, "control"), gen, key,
+                              device, app=app_of())
+        control.start()
+        _sweep_inject(control, wave_a)
+        _sweep_commit_to(control, 1)
+        _sweep_inject(control, wave_b)
+        _sweep_commit_to(control, ST_SWEEP_TARGET)
+        want = control.consensus.state.app_hash
+        control.stop()
+        for point in ("statetree.before_root_flush",
+                      "statetree.after_node_write"):
+            home = os.path.join(root, point.replace(".", "_"))
+            node = _sweep_node(home, gen, key, device, app=app_of())
+            node.start()
+            _sweep_inject(node, wave_a)
+            _sweep_commit_to(node, 1)
+            hit = []
+
+            def crash(name):
+                hit.append(name)
+                raise _Crash(name)
+
+            tfail.arm(point, crash)
+            try:
+                _sweep_inject(node, wave_b)
+                _sweep_commit_to(node, ST_SWEEP_TARGET)
+            except _Crash:
+                pass
+            finally:
+                tfail.disarm_all()
+            require(hit == [point], f"statetree sweep: {point} did not fire")
+            crashed_at = node.height
+            node.consensus._stopped = True
+            try:
+                node.stop()
+            except Exception:
+                pass
+            node2 = _sweep_node(home, gen, key, device, app=app_of())
+            node2.start()
+            recovered_at = node2.height
+            _sweep_inject(node2, wave_b)
+            _sweep_commit_to(node2, ST_SWEEP_TARGET)
+            res = node2.app.query("", b"st/a1", 0, True)
+            verify(proof_from_bytes(res.proof), b"st/a1", res.value,
+                   node2.app.app_hash)
+            rows.append({"point": point, "crashed_at_height": crashed_at,
+                         "recovered_at_height": recovered_at,
+                         "handshake_blocks": node2.handshake_blocks,
+                         "app_hash_equal":
+                             node2.consensus.state.app_hash == want,
+                         "proof_verified": True})
+            node2.stop()
+            require(recovered_at >= crashed_at and rows[-1]["app_hash_equal"],
+                    f"statetree sweep: {point} did not recover: {rows[-1]}")
+    finally:
+        tclock.set_source(None)
+        shutil.rmtree(root, ignore_errors=True)
+    return rows
+
+
+def _statetree_reading(line: dict) -> dict:
+    st = line["statetree"]
+    c = st["commits"]
+    return {"height": line["height"], "sha_batches": st["sha_batches"],
+            "commits": c["count"],
+            "commit_ms_per_height": 1e3 * c["sum"] / max(1, c["count"]),
+            "dirty_leaves": st["dirty_leaves"]["sum"],
+            "b1_launches": line["launches"]["verify"],
+            "device": line["device"]}
+
+
+def phase_procnet_statetree(card: str, device: str = "cuda") -> dict:
+    """Phase 13's four `cli node --p2p` processes on the JAX defaults with
+    TM_CUDA_STATE_TREE=on (the kvstore's authenticated state tree, its
+    waves hashed on the node's device) and rpc.grpc_laddr on node 2; a
+    burst of ST_BURST txs over JSON-RPC to node 0, then ST_GRPC_CLIENTS
+    BroadcastAPIClients feeding node 2; a `cli lite` process on `device`
+    reading node 0. Checks: every gRPC response committed with codes 0
+    and its hash; agreement of block and app hash at every height; a
+    host replay (hashlib) gives every app hash; every height's commit,
+    validators and block certified through the lite proxy (B1 launched
+    there), a sample of fed txs with their proofs; forged headers and
+    signatures refused; node 1's state proofs verified against lite-
+    certified app hashes, a tampered one refused. Then, in this process:
+    a node over gRPC ABCI commits the local client's app hashes, and a
+    crash at each statetree.* point recovers. A CPU rehearsal passes
+    device="cpu" (no launch required)."""
+    from tendermint_tpu_torch.procnet import ProcNet, bench_settings, \
+        free_block
+    from tendermint_tpu_torch.rpc.client import JSONRPCClient
+    on_card = device.startswith("cuda")
+    dev = torch.device("cuda", 0) if on_card else torch.device("cpu")
+    _node_libs()
+    tag = "procnet_statetree"
+    root = tempfile.mkdtemp(prefix=f"{tag}-")
+    base = free_block(10)
+    grpc_port, lite_port = base + 8, base + 9
+    net = ProcNet(root, base_port=base, env_of=lambda i: ST_TREE_ENV)
+    chain_id = f"chip-smoke-{tag}"
+    net.write_tree(chain_id)
+    net.configure(bench_settings("cuda" if on_card else "auto",
+                                 reactor="auto", verifier_coalesce="auto",
+                                 pipeline="auto"))
+    net.configure({"rpc": {"grpc_laddr": f"tcp://127.0.0.1:{grpc_port}"}},
+                  nodes=[2])
+    feeder = _GrpcFeeder(f"127.0.0.1:{grpc_port}")
+    lite = lite_log = None
+    t_start = time.perf_counter()
+
+    def left(what: str) -> float:
+        rem = ST_WALL_S - (time.perf_counter() - t_start)
+        require(rem > 0, f"{tag}: out of wall time at {what}")
+        return rem
+    ok = False
+    _zero_launches()
+    try:
+        net.start_all(extra=["--no-fast-sync", "--device", device])
+        net.wait_for(lambda: min(net.heights()) >= 2,
+                     min(PROC_BOOT_S, left("boot")), "boot")
+        boot_s = time.perf_counter() - t_start
+        lite, lite_log = _lite_process(net, root, net.rpc_port(0),
+                                       lite_port, device)
+        proxy = JSONRPCClient(f"http://127.0.0.1:{lite_port}", timeout=60)
+
+        def lite_up():
+            require(lite.poll() is None, f"{tag}: the lite proxy exited")
+            try:
+                proxy.call("status")
+                return True
+            except Exception:
+                return False
+        net.wait_for(lite_up, left("the lite proxy"), "the lite proxy")
+        h_burst = net.height(0)
+        burst = [b"st/burst/k%05d=v%06d" % (i, i) for i in range(ST_BURST)]
+        admitted = net.rpc(0, 60.0).call(
+            "broadcast_tx_batch", txs=[tx.hex() for tx in burst])
+        require(all(r["code"] == 0 for r in admitted["results"]),
+                f"{tag}: the burst was refused: {admitted['results'][:3]}")
+        feed_s = feeder.run(left("the gRPC feed"))
+        require(not feeder.errors and not feeder.bad and
+                len(feeder.committed) == ST_GRPC_CLIENTS * ST_GRPC_TXS,
+                f"{tag}: gRPC feed: errors {feeder.errors[:3]}, bad "
+                f"{feeder.bad[:3]}, {len(feeder.committed)} committed")
+        last_fed = max(h for _, h in feeder.committed)
+        net.wait_for(lambda: all(
+            net.rpc(i).call("num_unconfirmed_txs")["n_txs"] == 0
+            for i in range(net.n)), left("the mempools' drain"),
+            "the mempools' drain", poll_s=0.25)
+        target = max(last_fed, net.height(0)) + 2
+        net.wait_for(lambda: min(net.heights()) >= target,
+                     left("every node past the feed"),
+                     "every node past the feed")
+        top = min(net.heights())
+        bad = net.disagreements(top)
+        require(not bad, f"{tag}: the nodes disagree: {bad[:5]}")
+        metas = net.metas(0, top)
+        block_txs = net.block_txs(0, top)
+        committed = Counter(tx for b in block_txs for tx in b)
+        missing = [tx for tx in burst + [t for t, _ in feeder.committed]
+                   if committed[tx] != 1]
+        require(not missing, f"{tag}: {len(missing)} fed txs not committed "
+                "exactly once")
+        t0 = time.perf_counter()
+        replay = _replay_app_hashes(block_txs[:top - 1])
+        replay_s = time.perf_counter() - t0
+        headers = [bytes.fromhex(m["header"]["app_hash"]) for m in metas]
+        require(replay == headers[1:top],
+                f"{tag}: the host replay's app hashes differ from the "
+                "headers'")
+        certified, lite_reads = _lite_reads(proxy, top, feeder.committed)
+        require([certified[h] for h in range(1, top + 1)] == headers,
+                f"{tag}: lite-certified app hashes differ from node 0's")
+        refused = _refusals(net, chain_id, dev)
+        keys = random.Random(SEED + 17).sample(
+            [tuple(tx.split(b"=", 1)) for tx, _ in feeder.committed]
+            + [tuple(tx.split(b"=", 1)) for tx in burst], ST_PROOF_KEYS)
+        proofs = _state_proofs(net, proxy, keys)
+        wave = _wave_timing(block_txs, dev)
+        burst_height = next(h for h, b in enumerate(block_txs, 1)
+                            if any(tx.startswith(b"st/burst/") for tx in b))
+        lo = max(h_burst, 2)
+        span = (metas[top - 1]["header"]["time_ns"]
+                - metas[lo - 1]["header"]["time_ns"]) / 1e9
+        rate = {"heights": [lo, top], "blocks_per_s": (top - lo) / span,
+                "txs": sum(len(b) for b in block_txs[lo:top]),
+                "span_s": span, "burst_height": burst_height,
+                "largest_block_txs": max(len(b) for b in block_txs)}
+        early = net.early_exits()
+        require(not early, f"{tag}: node processes exited early {early}")
+        wall_s = time.perf_counter() - t_start
+        ok = True
+    finally:
+        if lite is not None and lite.poll() is None:
+            lite.send_signal(signal.SIGINT)
+            try:
+                lite_code = lite.wait(30)
+            except subprocess.TimeoutExpired:
+                lite.kill()
+                lite_code = lite.wait(10)
+        else:
+            lite_code = None if lite is None else lite.returncode
+        if lite_log is not None:
+            lite_log.close()
+        codes = net.stop_all()
+        if not ok:
+            for name in [f"node{i}.log" for i in range(net.n)] + ["lite.log"]:
+                path = os.path.join(root, name)
+                tail = open(path, errors="replace").read().splitlines()[-40:] \
+                    if os.path.exists(path) else []
+                print(f"{tag} {name} tail:", *tail, sep="\n",
+                      file=sys.stderr)
+    lines = {i: net.kernel_lines(i) for i in range(net.n)}
+    lite_line = _lite_line(root)
+    shutil.rmtree(root, ignore_errors=True)
+    require(all(codes[i] == 0 for i in range(net.n)) and lite_code == 0,
+            f"{tag}: exit codes {codes}, lite {lite_code}")
+    require([len(lines[i]) for i in range(net.n)] == [1] * net.n,
+            f"{tag}: kernel lines a process {lines}")
+    per_node = {i: lines[i][0] for i in lines}
+    launches = {k: sum(per_node[i]["launches"][k] for i in per_node)
+                + lite_line["launches"][k] for k in ladder.launches}
+    readings = {i: _statetree_reading(per_node[i]) for i in per_node}
+    sha_total = {k: sum(r["sha_batches"][k] for r in readings.values())
+                 for k in ("device", "native", "host")}
+    emit({"phase": tag, "validators": 4, "processes": 5,
+          "plane": {"reactor": "auto", "verifier_coalesce": "auto",
+                    "pipeline": "auto", "state_tree": "on"},
+          "heights": top, "blocks_per_s": rate["blocks_per_s"],
+          "rate": rate, "burst_txs": ST_BURST,
+          "grpc_clients": ST_GRPC_CLIENTS,
+          "grpc_txs_committed": len(feeder.committed),
+          "grpc_feed_s": feed_s, "boot_s": boot_s, "wall_s": wall_s,
+          "replay": {"heights": top - 1, "equal": True, "s": replay_s},
+          "note": "blocks/s on the pure-Python kvstore (the tree turns the "
+          "kv core off): not comparable with phase 13's", "card": card})
+    emit({"phase": f"{tag}_commit", "by_node": readings,
+          "sha_batches_total": sha_total,
+          "commit_ms_per_height_mean": sum(
+              r["commit_ms_per_height"] for r in readings.values()) / 4,
+          "largest_wave": wave, "card": card})
+    emit({"phase": f"{tag}_lite", "reads": lite_reads,
+          "lite_kernels": lite_line, "refused": refused,
+          "state_proofs": proofs, "card": card})
+    emit({"phase": f"{tag}_kernels", "b1_by_process": {
+        **{f"node{i}": per_node[i]["launches"]["verify"] for i in per_node},
+        "lite": lite_line["launches"]["verify"]},
+        "launches": launches, "card": card})
+    if on_card:
+        _require_b1_everywhere(tag, {i: [per_node[i]] for i in per_node},
+                               on_card)
+        require(lite_line["launches"]["verify"] > 0,
+                f"{tag}: the lite proxy did not launch B1: {lite_line}")
+        require(sha_total["device"] > 0,
+                f"{tag}: no wave took the device route: {sha_total}")
+    require(lite_line["certify"]["certified"] >= 3 * top
+            and lite_line["certify"]["refused"] == 0,
+            f"{tag}: lite certifications {lite_line['certify']}")
+    for i, r in readings.items():
+        require(r["commits"] >= r["height"],
+                f"{tag}: node {i} committed {r['commits']} trees to "
+                f"height {r['height']}")
+
+    # in this process: gRPC ABCI and the crash points, on `device`
+    sweep_t0 = time.perf_counter()
+    _zero_launches()
+    with _env(ST_TREE_ENV):
+        over = _grpc_abci_run(device, over_grpc=True)
+        local = _grpc_abci_run(device, over_grpc=False)
+        require(over == local and len(set(local[1:])) > 1,
+                f"{tag}: gRPC ABCI app hashes {over} != local {local}")
+        crash_rows = _statetree_crash_points(device)
+    sweep_launches = dict(ladder.launches)
+    emit({"phase": f"{tag}_abci_grpc", "heights": ST_ABCI_HEIGHTS,
+          "app_hashes_equal": True, "crash_points": crash_rows,
+          "launches": sweep_launches,
+          "wall_s": time.perf_counter() - sweep_t0, "card": card})
+    require(not on_card or sweep_launches["verify"] >= 1,
+            f"{tag}: the in-process arms did not launch B1: "
+            f"{sweep_launches}")
+    return {"launches": launches, "sweep_launches": sweep_launches}
+
+
 @contextlib.contextmanager
 def _serial_commit_path():
     """Phases 9 and 10 on the serial commit path (pipeline "off"), the
@@ -5901,6 +6547,7 @@ def main() -> int:
     recovery_launches = phase_recovery_sweep(card)
     procnet_tel = phase_procnet_telemetry(card,
                                           pipeline_run=procnet_pipeline)
+    procnet_st = phase_procnet_statetree(card)
     table = []
     for name, info in KERNELS.items():
         table.append({
@@ -5929,7 +6576,11 @@ def main() -> int:
                                  "procnet_telemetry":
                                      procnet_tel["launches"][name],
                                  "procnet_telemetry_off":
-                                     procnet_tel["off_launches"][name]},
+                                     procnet_tel["off_launches"][name],
+                                 "procnet_statetree":
+                                     procnet_st["launches"][name],
+                                 "statetree_sweep":
+                                     procnet_st["sweep_launches"][name]},
             "max_abs_err": kernels[name]["max_abs_err"],
             "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"],
             "bound_ms": kernels[name]["bound_ms"],

@@ -15,14 +15,22 @@ that holds a `val:` tx or an empty tx takes the per-tx Python route
 rule. `route_stats()` counts the blocks of each route. `use_native=False`
 is the pure Python route, byte for byte; both give the same app hash.
 
+TM_CUDA_STATE_TREE=on (the JAX package's TM_TPU_STATE_TREE) swaps the
+commit backend for the authenticated state tree (statetree/): app_hash
+becomes a critbit Merkle root, `query(prove=True)` returns per-key
+inclusion or absence proofs bound to it, and snapshot items stream from
+the committed version's nodes. The tree is the store, so the native kv
+core is off; its commit hashes its dirty waves on the app's `device`
+(None: the card; the node passes its own). The two backends give
+different app hashes by design: every validator of a chain must agree
+on the knob.
+
 Validator-change txs: `val:<pubkey_hex>/<power>` queues a validator
 update returned from EndBlock; power 0 removes the validator. The app
 tracks the active set (seeded from InitChain, advanced by its own
 accepted updates) and rejects, at DeliverTx, the removal of an unknown
 validator and a removal that would empty the set, so an invalid update
 never reaches EndBlock. The guard is always on in the port.
-
-Not ported yet: the authenticated state tree (`_TreeStoreView`).
 """
 
 from __future__ import annotations
@@ -99,14 +107,84 @@ class _NativeStoreView:
         return iter(self.keys())
 
 
+class _TreeStoreView:
+    """Mapping facade over a StateTree, so that every caller of
+    `app.store` (deliver_tx writes, query and info reads, tests reading
+    dict(app.store)) sees the dict-like surface of the other two cores.
+    Reads hit the working tree (the pre-commit state, as the dict path);
+    versioned and proven reads go through the tree itself."""
+
+    def __init__(self, tree):
+        self._tree = tree
+
+    def get(self, k, default=None):
+        v = self._tree.get(k)
+        return default if v is None else v
+
+    def __getitem__(self, k):
+        v = self._tree.get(k)
+        if v is None:
+            raise KeyError(k)
+        return v
+
+    def __setitem__(self, k, v):
+        self._tree.set(k, v)
+
+    def __delitem__(self, k):
+        if not self._tree.delete(k):
+            raise KeyError(k)
+
+    def __contains__(self, k):
+        return self._tree.get(k) is not None
+
+    def __len__(self):
+        return len(self._tree)
+
+    def __bool__(self):
+        return len(self._tree) > 0
+
+    def items(self):
+        # live iteration: walk the working root under the tree lock
+        with self._tree._lock:
+            stack = [self._tree._root] if self._tree._root is not None \
+                else []
+            out = []
+            while stack:
+                node = stack.pop()
+                if hasattr(node, "key"):
+                    out.append((node.key, node.value))
+                else:
+                    stack.append(node.right)
+                    stack.append(node.left)
+            return out
+
+    def keys(self):
+        return [k for k, _ in self.items()]
+
+    def __iter__(self):
+        return iter(self.keys())
+
+
 class KVStoreApp(BaseApplication):
-    def __init__(self, use_native: bool = True):
+    def __init__(self, use_native: bool = True, device=None):
+        # the commit backend: TM_CUDA_STATE_TREE=on swaps the bucketed
+        # accumulator for the authenticated state tree, hashing on
+        # `device`; the tree is the store, so no C++ kv core
+        from tendermint_tpu_torch.utils import knobs
+        self._tree = None
+        if knobs.knob_bool("TM_CUDA_STATE_TREE"):
+            from tendermint_tpu_torch.statetree import StateTree
+            self._tree = StateTree(device=device)
+            use_native = False
         # the C++ core holds the store, the accumulators and the commit;
         # the Python fields below serve the pure route
         self._kvmod = native.kv() if use_native else None
         if self._kvmod is not None:
             self._core = self._kvmod.kv_new()
             self.store = _NativeStoreView(self._kvmod, self._core)
+        elif self._tree is not None:
+            self._core = None
+            self.store = _TreeStoreView(self._tree)
         else:
             self._core = None
             self.store: dict[bytes, bytes] = {}
@@ -158,7 +236,8 @@ class KVStoreApp(BaseApplication):
             self._kvmod.set_one(self._core, k, v)
         else:
             self.store[k] = v
-            self._dirty.add(k)
+            if self._tree is None:
+                self._dirty.add(k)
         self.tx_count += 1
         return ResultDeliverTx(tags={"app.key": k.decode("utf-8", "replace")})
 
@@ -211,6 +290,12 @@ class KVStoreApp(BaseApplication):
         # digest commits to its additive accumulator (sum of pair digests
         # mod 2^256) and key count. O(changed keys) per commit.
         self.height += 1
+        if self._tree is not None:
+            # rehash the dirty subtree and register version `height`,
+            # the app_hash a header at height + 1 carries (provers
+            # serve reads against the retained versions)
+            self.app_hash = self._tree.commit(self.height)
+            return self.app_hash
         if self._core is not None:
             self.app_hash = self._kvmod.commit(self._core)
             return self.app_hash
@@ -262,8 +347,13 @@ class KVStoreApp(BaseApplication):
     # -- state-sync snapshot surface ------------------------------------------
 
     def snapshot_items(self):
-        """The complete kv state sorted by key, so two nodes at the same
-        height publish byte-identical snapshot payloads."""
+        """The complete kv state in a deterministic order, so two nodes
+        at the same height publish byte-identical snapshot payloads. The
+        bucket cores sort by key (a copy); the tree streams from the
+        committed version's nodes in key-hash order, and copy-on-write
+        keeps the stream consistent while later blocks commit."""
+        if self._tree is not None:
+            return self._tree.items_at(self.height)
         return sorted(self.store.items())
 
     def restore_items(self, items, height: int, validators=None) -> bytes:
@@ -271,6 +361,17 @@ class KVStoreApp(BaseApplication):
         replay the pairs through the normal set path, and compute the app
         hash with commit() (the height lands on exactly `height`). The
         caller checks the hash against the snapshot state's app_hash."""
+        if self._tree is not None:
+            # a fresh tree on the same device; commit() registers version
+            # `height`, so proofs work at once after a state-sync join. A
+            # bucket-mode snapshot recomputes to another app_hash here,
+            # and the caller's check refuses it
+            from tendermint_tpu_torch.statetree import StateTree
+            self._tree = StateTree(device=self._tree.device)
+            self.store = _TreeStoreView(self._tree)
+            for k, v in items:
+                self.store[bytes(k)] = bytes(v)
+            return self._restored(height, validators)
         if self._core is not None:
             self._core = self._kvmod.kv_new()
             self.store = _NativeStoreView(self._kvmod, self._core)
@@ -299,6 +400,28 @@ class KVStoreApp(BaseApplication):
 
     def query(self, path: str, data: bytes, height: int,
               prove: bool) -> ResultQuery:
+        if self._tree is not None and (prove or height):
+            # a versioned (and optionally proven) read of a committed
+            # version, height 0 the latest. The proof binds (key, value or
+            # absence) to that version's app_hash, which the header at
+            # height + 1 carries and a lite client can certify
+            version = int(height) if height else self.height
+            try:
+                if prove:
+                    value, pf = self._tree.prove(data, version)
+                else:
+                    value, pf = self._tree.get(data, version), None
+            except KeyError as e:
+                return ResultQuery(code=1, key=data, height=version,
+                                   log=str(e))
+            proof_bytes = b""
+            if pf is not None:
+                from tendermint_tpu_torch.statetree import proof_to_bytes
+                proof_bytes = proof_to_bytes(pf)
+            return ResultQuery(
+                key=data, value=value or b"", proof=proof_bytes,
+                height=version,
+                log="exists" if value is not None else "does not exist")
         value = self.store.get(data, b"")
         return ResultQuery(key=data, value=value, height=self.height,
                            log="exists" if value else "does not exist")

@@ -5,12 +5,15 @@
     python -m tendermint_tpu_torch.cli --home <h> node --p2p \\
         --rpc-laddr tcp://127.0.0.1:<port>
 
-Commands: init, node, testnet, show_validator, show_node_id,
+Commands: init, node, testnet, lite, show_validator, show_node_id,
 gen_validator, unsafe_reset_all, unsafe_reset_priv_validator, version,
-replay, replay_console and probe_upnp. `node` and the replays take
-`--device` (cuda, cuda:N or cpu), the device of the node's BatchVerifier:
-without it the node runs on the card and, with no card, exits non-zero
-unless the config's `verifier_backend` is "python". `node` runs the
+replay, replay_console and probe_upnp. `node`, `lite` and the replays
+take `--device` (cuda, cuda:N or cpu), the device of the BatchVerifier
+(and of the kvstore's state tree, with TM_CUDA_STATE_TREE on): without
+it the node runs on the card and, with no card, exits non-zero unless
+the config's `verifier_backend` is "python" (and the tree is off). A
+node serves the gRPC BroadcastAPI when config.json's `rpc.grpc_laddr`
+is set. `node` runs the
 socket plane of `base.reactor` (the event loop by default, "threads" for
 the thread plane). At each committed height and when it stops it prints
 `node kernels {...}`: its kernel launches (ops/ladder.launches), its
@@ -21,7 +24,9 @@ routes (part sets built natively or in Python, canonical-JSON calls and
 their fallbacks, kvstore blocks on the kv core and on the per-tx route)
 and the recovery plane's counts (`Node.recovery_counts`: the state-sync
 restore, snapshots published, heights pruned, the base of both stores),
-and the verifier's metric families read at the same moment.
+the verifier's metric families read at the same moment, and the state
+tree's commits (`statetree`: SHA-256 batches by route, commits and
+their seconds, dirty leaves).
 `node --state-sync` turns `base.state_sync` on: a node at height 0 with
 fast sync joins by a snapshot restore over p2p (after `unsafe_reset_all`,
 say); the JAX CLI exports TM_TPU_STATE_SYNC for the same.
@@ -30,8 +35,15 @@ say); the JAX CLI exports TM_TPU_STATE_SYNC for the same.
 with SIGPROF and writes the top frames there on exit (the JAX CLI's
 TM_NODE_PROFILE).
 
-The JAX CLI's `lite`, `replica` and `shardset` commands wait for later
-slices.
+`lite` is the light-client proxy (cmd lite.go): it trusts the node's
+commit at `--trust-height` (or its latest), certifies every block,
+commit, validator set and tx it serves on `--laddr` through an
+InquiringCertifier over CacheProvider(MemProvider, FileProvider(<home>/lite),
+HTTPProvider) on a BatchVerifier("cuda") of `--device`, proxies the six
+routes it cannot verify, and before it exits prints `lite kernels {...}`:
+its kernel launches, its verifier's counts and its certifications.
+
+The JAX CLI's `replica` and `shardset` commands wait for later slices.
 """
 
 from __future__ import annotations
@@ -114,7 +126,22 @@ def _kernel_line(node, threads=None) -> str:
                    "codec": encoding.stats(),
                    "kvstore": kvstore.route_stats()},
         "recovery": node.recovery_counts(),
-        "telemetry": _telemetry_reading()})
+        "telemetry": _telemetry_reading(),
+        "statetree": _statetree_reading()})
+
+
+def _statetree_reading() -> dict:
+    """The state tree's families: the SHA-256 batches of its commits by
+    route, its commits (the root refresh) and their dirty leaves."""
+    from tendermint_tpu_torch import telemetry
+    out = {"sha_batches": {
+        impl: telemetry.value("merkle_sha_batches_total", {"impl": impl})
+        or 0 for impl in ("device", "native", "host")}}
+    for key, name in (("commits", "statetree_root_refresh_seconds"),
+                      ("dirty_leaves", "statetree_dirty_leaves_per_commit")):
+        v = telemetry.value(name) or {"count": 0, "sum": 0.0}
+        out[key] = {"count": v["count"], "sum": v["sum"]}
+    return out
 
 
 def _telemetry_reading() -> dict:
@@ -187,9 +214,10 @@ def cmd_node(args) -> int:
     from tendermint_tpu_torch.node import default_node
     from tendermint_tpu_torch.utils.log import setup_logging
     setup_logging(default_config(args.home).base.log_level)
-    app = {"kvstore": KVStoreApp, "counter": CounterApp}[args.app]()
     _maybe_node_profile()
     try:
+        app = (KVStoreApp(device=args.device or None)
+               if args.app == "kvstore" else CounterApp())
         node = default_node(args.home, app=app, with_p2p=args.p2p,
                             fast_sync=(args.fast_sync if args.p2p else False),
                             device=args.device or None,
@@ -299,6 +327,80 @@ def cmd_unsafe_reset_priv_validator(args) -> int:
         pv._persist()
         print(f"reset priv validator sign state at {pv_path}")
     return 0
+
+
+def cmd_lite(args) -> int:
+    """Light-client proxy daemon (cmd lite.go): serve a local RPC whose
+    results are certified against the chain before they are returned."""
+    from tendermint_tpu_torch.lite import (CacheProvider, FileProvider,
+                                           HTTPProvider, InquiringCertifier,
+                                           MemProvider, SecureClient)
+    from tendermint_tpu_torch.models.verifier import BatchVerifier
+    from tendermint_tpu_torch.node import _parse_laddr, prebuild
+    from tendermint_tpu_torch.ops import ladder
+    from tendermint_tpu_torch.rpc import JSONRPCClient, RPCServer
+
+    try:
+        verifier = BatchVerifier("cuda", device=args.device or None)
+    except RuntimeError as e:
+        # no card and no --device cpu: the proxy never moves to the CPU
+        print(f"cannot start the lite proxy: {e}", file=sys.stderr,
+              flush=True)
+        return 1
+    try:
+        prebuild(verifier)
+        rpc = JSONRPCClient(args.node_addr)
+        source = HTTPProvider(rpc)
+        trusted = source.get_by_height(args.trust_height) \
+            if args.trust_height else source.latest_commit()
+        if trusted is None:
+            print("cannot fetch a trusted commit from the node")
+            return 1
+        # the node itself is the outermost provider: bisection must be
+        # able to fetch intermediate commits, not only read the cache
+        store = CacheProvider(
+            MemProvider(), FileProvider(os.path.join(args.home, "lite")),
+            source)
+        chain_id = args.chain_id or \
+            rpc.call("genesis")["genesis"]["chain_id"]
+        cert = InquiringCertifier(chain_id, trusted, store,
+                                  verifier=verifier)
+        sc = SecureClient(rpc, cert)
+
+        server = RPCServer()
+        server.register("block", lambda height=0: sc.block(int(height)))
+        server.register("commit", lambda height=0: sc.commit(int(height)))
+        server.register("validators",
+                        lambda height=0: sc.validators(int(height)))
+        server.register("status", sc.status)
+        server.register("tx", lambda hash=b"", prove=True: sc.tx(hash))
+        # the unverifiable routes, proxied straight through
+        for route in ("broadcast_tx_sync", "broadcast_tx_async",
+                      "broadcast_tx_commit", "abci_info", "net_info",
+                      "genesis"):
+            server.register(
+                route, (lambda r: lambda **kw: rpc.call(r, **kw))(route))
+        host, port = server.serve(*_parse_laddr(args.laddr))
+        print(f"lite proxy serving on {host}:{port} "
+              f"(trusting height {cert.last_height})", flush=True)
+        deadline = time.time() + args.max_seconds if args.max_seconds \
+            else None
+        try:
+            while deadline is None or time.time() < deadline:
+                time.sleep(0.5)
+        except KeyboardInterrupt:
+            pass
+        server.stop()
+        with verifier._stats_lock:
+            vstats = dict(verifier.stats)
+        print("lite kernels " + json.dumps({
+            "launches": dict(ladder.launches), "verifier": vstats,
+            "certify": dict(sc.stats), "trusted_height": trusted.height,
+            "last_height": cert.last_height,
+            "device": str(verifier.device)}), flush=True)
+        return 0
+    finally:
+        verifier.close()
 
 
 def cmd_version(args) -> int:
@@ -479,6 +581,17 @@ def main(argv=None) -> int:
                         help="interactively replay the consensus WAL")
     sp.add_argument("--device", default="", help=device_help)
     sp.set_defaults(fn=lambda a: cmd_replay(a, console=True))
+
+    sp = sub.add_parser("lite", help="light-client RPC proxy")
+    sp.add_argument("--node-addr", default="http://127.0.0.1:46657")
+    sp.add_argument("--laddr", default="tcp://127.0.0.1:8888")
+    sp.add_argument("--chain-id", default="")
+    sp.add_argument("--trust-height", type=int, default=0)
+    sp.add_argument("--max-seconds", type=float, default=0)
+    sp.add_argument("--device", default="",
+                    help="the certifier's verifier device: cuda, cuda:N or "
+                    "cpu (default: the current CUDA device)")
+    sp.set_defaults(fn=cmd_lite)
 
     sub.add_parser("version").set_defaults(fn=cmd_version)
 

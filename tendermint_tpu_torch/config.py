@@ -111,9 +111,10 @@ class BaseConfig:
     slo_sample: float = 1.0
 
 
-# No code of the port reads grpc_laddr yet (gRPC waits for a later
-# slice), nor flush_throttle_ms and max_msg_packet_payload_size (no link
-# of either package reads them); they are kept so that config.json
+# grpc_laddr, when set, serves the gRPC BroadcastAPI
+# (rpc/grpc_service.py) beside or instead of the JSON-RPC listener. No
+# link of either package reads flush_throttle_ms and
+# max_msg_packet_payload_size; they are kept so that config.json
 # round-trips between the packages. skip_upnp false makes a wildcard
 # listener ask a UPnP gateway for its external address (p2p/upnp.py).
 @dataclass

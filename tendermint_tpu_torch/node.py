@@ -51,8 +51,12 @@ is above 0 (`_on_stall` writes the flight-recorder file), the profiler
 starts when it is on, and the queue watcher whenever the observatory is.
 The planes are process-global: in-process nets share them.
 
-Left out, with the planes they read: chaos, the authenticated state
-tree and gRPC.
+With `config.rpc.grpc_laddr` set the node serves the gRPC BroadcastAPI
+(rpc/grpc_service.py) on the RPC core, whether or not it serves JSON-RPC.
+A kvstore app the node builds itself hashes its state tree (with
+TM_CUDA_STATE_TREE on) on the node's `device`.
+
+Left out, with the plane it reads: chaos.
 """
 
 from __future__ import annotations
@@ -101,12 +105,18 @@ def build_verifier(base, device=None):
             coalesce=base.verifier_coalesce,
             coalesce_wait_ms=float(base.verifier_coalesce_wait_ms),
             coalesce_max_batch=int(base.verifier_coalesce_max_batch)), True
-    if v.device is not None and v.device.type == "cuda":
+    prebuild(v)
+    return v, owned
+
+
+def prebuild(verifier) -> None:
+    """On a card, build the kernels and the host prep of `verifier` now,
+    so that no verify call pays a build."""
+    if verifier.device is not None and verifier.device.type == "cuda":
         from tendermint_tpu_torch import native
         from tendermint_tpu_torch.ops import _build
         native.module()
         _build.ladder_lib()
-    return v, owned
 
 
 class Node:
@@ -188,7 +198,7 @@ class Node:
         if client_creator is None:
             if app is None:
                 from tendermint_tpu_torch.abci.apps import KVStoreApp
-                app = KVStoreApp()
+                app = KVStoreApp(device=device)
             client_creator = local_client_creator(app)
         self.app = app
         self.app_conns = AppConns(client_creator)
@@ -302,6 +312,8 @@ class Node:
         self.rpc_core = None
         self.rpc_address = None
         self.with_rpc = with_rpc
+        #: the gRPC BroadcastAPI server, when config.rpc.grpc_laddr is set
+        self.grpc_server = None
 
         # tx indexer + service (node/node.go:294-320)
         from tendermint_tpu_torch.state.txindex import (
@@ -481,17 +493,29 @@ class Node:
         _profile.maybe_start()
         _queues.ensure_watch()
 
-        if self.with_rpc:
+        # the HTTP and gRPC listeners are independent: asking for one
+        # binds only that one (a gRPC-only operator gets no JSON-RPC
+        # surface on the config's default 0.0.0.0 address)
+        if self.with_rpc or self.config.rpc.grpc_laddr:
             from tendermint_tpu_torch.rpc import RPCEnv, make_server
             # the loop plane serves RPC on the SAME loop as the p2p
             # sockets (rpc/aserver.py); threads keep the threaded server
-            rpc_loop = self._ensure_loop()
+            rpc_loop = self._ensure_loop() if self.with_rpc else None
             if rpc_loop is not None and not rpc_loop.running:
                 rpc_loop.start()
             self.rpc_server, self.rpc_core = make_server(
                 RPCEnv.from_node(self), loop=rpc_loop)
-            host, port = _parse_laddr(self.config.rpc.laddr)
-            self.rpc_address = self.rpc_server.serve(host, port)
+            if self.with_rpc:
+                host, port = _parse_laddr(self.config.rpc.laddr)
+                self.rpc_address = self.rpc_server.serve(host, port)
+            if self.config.rpc.grpc_laddr:
+                from tendermint_tpu_torch.rpc.grpc_service import (
+                    BroadcastAPIServer)
+                self.grpc_server = BroadcastAPIServer(
+                    self.rpc_core, self.config.rpc.grpc_laddr)
+                self.grpc_server.start()
+                self.logger.info("grpc broadcast api listening",
+                                 port=self.grpc_server.port)
 
     def _on_state_sync_done(self, state) -> None:
         """The state-sync restore concluded. On success every store is
@@ -611,6 +635,8 @@ class Node:
     def stop(self) -> None:
         if self._stall_detector is not None:
             self._stall_detector.stop()
+        if self.grpc_server is not None:
+            self.grpc_server.stop()
         if self.rpc_server is not None:
             self.rpc_server.stop()
         self.indexer_service.stop()

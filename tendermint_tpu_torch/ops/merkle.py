@@ -13,8 +13,10 @@ through `native.py`), as the JAX package's does: `root_host`,
 `root_from_digests_host`, `proof_host` and `tree_proofs_host` are one C
 call a tree. Their hashlib versions stay, as `*_plain`, for the tests.
 Headers, commits, validator sets, block data, results and part sets hash
-with it. `sha256_many_host` is the hashlib loop (its JAX caller is the
-state tree, not ported yet). The device half runs each tree level as one
+with it. `sha256_many_host` is the state tree's batched rehash, routed
+as the JAX function routes it: a device batch of `ops/sha256.hash_fixed`
+for a wave of >= 512 payloads of one length, else the native batch, else
+(`native_lib=False`) hashlib. The device half runs each tree level as one
 batched `ops/sha256.hash_fixed` over [m, 65] rows; `root` hashes the
 leaves on the host and the tree on the card.
 """
@@ -194,14 +196,46 @@ def tree_proofs_plain(items: list):
     return root, proofs
 
 
-def sha256_many_host(payloads: list) -> list:
-    """One SHA-256 digest per payload."""
-    if not payloads:
+_SHA_DEVICE_MIN = 512  # payloads below this never pay a device dispatch
+
+
+def sha256_many_host(payloads: list, device=None, native_lib: bool = True
+                     ) -> list:
+    """One SHA-256 digest per payload, batched: the state tree's dirty
+    waves. The JAX function's routes, thresholds and labels: a device
+    batch through `ops/sha256.hash_fixed` when there are at least
+    _SHA_DEVICE_MIN payloads of one length (`device` resolved as the
+    other entry points resolve it: None is the card, and raises without
+    one); else the native batch; else, with `native_lib=False`, hashlib.
+    A failing device batch raises (the JAX function falls to the host)."""
+    n = len(payloads)
+    if n == 0:
         return []
+    if n >= _SHA_DEVICE_MIN:
+        length = len(payloads[0])
+        if all(len(p) == length for p in payloads):
+            out = _sha256_many_device(payloads, n, length,
+                                      _device.resolve(device))
+            if telemetry.enabled():
+                _m_sha_batches.labels("device").inc()
+            return out
+    if native_lib:
+        out = native.sha256_batch([bytes(p) for p in payloads])
+        if telemetry.enabled():
+            _m_sha_batches.labels("native").inc()
+        return out
     if telemetry.enabled():
         _m_sha_batches.labels("host").inc()
     sha = hashlib.sha256
     return [sha(p).digest() for p in payloads]
+
+
+def _sha256_many_device(payloads, n: int, length: int, dev) -> list:
+    """uint8[n, L] rows through ops.sha256.hash_fixed on `dev`."""
+    rows = np.frombuffer(b"".join(payloads), np.uint8).reshape(n, length)
+    out = sha256.hash_fixed(torch.from_numpy(rows.copy()).to(dev))
+    raw = out.cpu().numpy().tobytes()
+    return [raw[32 * i:32 * (i + 1)] for i in range(n)]
 
 
 def verify_proof_host(root: bytes, total: int, index: int, item: bytes,

@@ -7,8 +7,9 @@
              make_server
   client.py  JSONRPCClient, URIClient, WSClient, ReconnectingWSClient,
              LocalClient, MockClient
-
-The async front door (rpc/aserver.py) and gRPC wait for later slices.
+  aserver.py the async front door on the node's event loop
+  grpc_service.py, grpc_util.py, proto/
+             the gRPC BroadcastAPI (ABCI over gRPC: abci/grpc_app.py)
 """
 
 from tendermint_tpu_torch.rpc.client import (

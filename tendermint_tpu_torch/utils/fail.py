@@ -25,9 +25,10 @@ serial and the pipelined finalize), state/execution.py (the four
 execution.* points), and the RECOVERY_POINTS: storage/snapshot.py
 (snapshot.after_chunk, snapshot.before_publish), statesync/reactor.py
 (statesync.before_apply, statesync.after_restore) and
-storage/block_store.py (prune.mid_range). The statetree.* points have no
-call site: the state tree is not ported, so a sweep of this port never
-counts them.
+storage/block_store.py (prune.mid_range), and statetree/tree.py
+(statetree.before_root_flush, statetree.after_node_write, inside
+StateTree.commit: they fire only with the state tree on, so a
+bucket-mode sweep never counts them).
 """
 
 from __future__ import annotations
@@ -54,8 +55,8 @@ COMMIT_POINTS = (
     "execution.after_save_abci_responses",
     # the two statetree points live INSIDE the app Commit call (between
     # after_save_abci_responses and after_app_commit) and only fire
-    # with the state tree on (not ported yet): bucket-mode sweeps never
-    # count them
+    # with the state tree on (TM_CUDA_STATE_TREE): bucket-mode sweeps
+    # never count them
     "statetree.before_root_flush",
     "statetree.after_node_write",
     "execution.after_app_commit",

@@ -11,9 +11,10 @@ config > default. FALSY is the single vocabulary for "off".
 Import-light by design (stdlib `os` only): telemetry reads knobs at
 import time, so this module imports nothing of the package back.
 
-The catalog holds the knobs of the observability planes. The planes
-ported before them (reactor, pipeline, coalescer, compact relay, p2p,
-recovery) take their settings from config fields only.
+The catalog holds the knobs of the observability planes and the
+kvstore's commit backend (TM_CUDA_STATE_TREE). The planes ported before
+them (reactor, pipeline, coalescer, compact relay, p2p, recovery) take
+their settings from config fields only.
 """
 
 from __future__ import annotations
@@ -90,6 +91,15 @@ CATALOG: tuple[Knob, ...] = (
          "Path: `cli node` samples every thread's frame with SIGPROF at "
          "~97 Hz of CPU time and writes the top frames there on exit.",
          "cli.py"),
+    # -- app -------------------------------------------------------------
+    Knob("TM_CUDA_STATE_TREE", "bool", "off", "",
+         "KVStore commit backend: on = authenticated state tree "
+         "(statetree/, docs/state.md) — app_hash is a critbit Merkle "
+         "root, per-key inclusion/absence proofs bind values to "
+         "certified headers; off = bucketed accumulator (no proofs). "
+         "Chain-level: every validator must agree, the two backends "
+         "hash differently by design.",
+         "abci/apps/kvstore.py"),
     # -- analysis ----------------------------------------------------------
     Knob("TM_CUDA_DIVERGENCE", "bool", "off", "",
          "on records a canonical per-height transition digest (block "

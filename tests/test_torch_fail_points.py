@@ -5,8 +5,8 @@ JAX package's (tests/test_fail_points.py), on the CPU.
 - One commit of a single-validator node passes the points in catalog
   order on both paths, in both packages: COMMIT_POINTS with the
   pipeline on (the default) and SERIAL_COMMIT_POINTS with it off, each
-  without the state-tree points (the state tree is not ported, and the
-  JAX package fires them only with it on).
+  without the state-tree points (both packages fire them only with the
+  state tree on; tests/test_torch_statetree.py crashes at them).
 - set_target / set_callback and arm keep the JAX module's semantics.
 - The crash sweep: for each of the ten pipelined points that fire
   without the state tree, a port node crashed at that point of its

@@ -6,8 +6,9 @@
   mempool/ and evidence/ with theirs, rpc/ with the async front door,
   the event loop, the coalescer, UPnP, node, cli, __main__, procnet,
   the pipeline, the fail points, snapshots, state sync, the telemetry
-  planes, the knob catalog and the divergence plane included), and
-  chip_smoke.py
+  planes, the knob catalog, the divergence plane, the state tree, the
+  gRPC surfaces with their proto module and the lite proxy included),
+  and chip_smoke.py
   as a module, in a fresh interpreter loads neither jax nor any
   tendermint_tpu module.
 - No source of the port (nor chip_smoke.py) imports them (AST check).
@@ -16,14 +17,16 @@
 - The modules of the node's default plane (config, the event loop, the
   coalescer and verifier, the async front door and RPC core, UPnP, the
   node, the pipeline, the snapshot store and manager, state sync, the
-  telemetry planes) read no environment variable themselves: their
+  telemetry planes, the state tree, the gRPC surfaces, the lite proxy)
+  read no environment variable themselves: their
   settings are config fields and constructor arguments, and the
   observability planes' TM_CUDA_* knobs are read through the catalog
   (utils/knobs.py).
 - An entry point given no device raises when no CUDA device is present:
   the port never moves to the CPU quietly. `python -m
   tendermint_tpu_torch.cli node` without a card and without `--device
-  cpu` exits non-zero with the device's message.
+  cpu` exits non-zero with the device's message; so do a StateTree and a
+  tree-backed kvstore given no device, and `cli lite` without `--device`.
 """
 
 import ast
@@ -50,7 +53,7 @@ def test_walk_covers_every_subpackage():
                 "state", "abci", "abci.apps", "blockchain", "p2p",
                 "p2p.conn", "consensus", "mempool", "evidence", "rpc",
                 "p2p.pex", "node", "cli", "statesync", "telemetry",
-                "analysis"):
+                "analysis", "statetree", "rpc.proto"):
         assert f"tendermint_tpu_torch.{pkg}" in mods, pkg
     assert "tendermint_tpu_torch.lite.certifier" in mods
     assert "tendermint_tpu_torch.native" in mods
@@ -80,7 +83,10 @@ def test_walk_covers_every_subpackage():
                 "storage.snapshot", "statesync.reactor", "utils.knobs",
                 "telemetry.registry", "telemetry.trace", "telemetry.causal",
                 "telemetry.merge", "telemetry.profile", "telemetry.queues",
-                "telemetry.slo", "analysis.divergence"):
+                "telemetry.slo", "analysis.divergence", "statetree.store",
+                "statetree.proof", "statetree.tree", "statetree.codec",
+                "rpc.proto.tmtpu_pb2", "rpc.grpc_service", "rpc.grpc_util",
+                "abci.grpc_app", "lite.proxy", "lite.provider"):
         assert f"tendermint_tpu_torch.{mod}" in mods, mod
 
 
@@ -153,7 +159,9 @@ PLANE_SOURCES = [PORT / m for m in (
     "storage/snapshot.py", "statesync/__init__.py", "statesync/reactor.py",
     "telemetry/__init__.py", "telemetry/registry.py", "telemetry/trace.py",
     "telemetry/causal.py", "telemetry/merge.py", "telemetry/profile.py",
-    "telemetry/queues.py", "telemetry/slo.py")]
+    "telemetry/queues.py", "telemetry/slo.py", "statetree/tree.py",
+    "rpc/grpc_util.py", "rpc/grpc_service.py", "abci/grpc_app.py",
+    "lite/proxy.py")]
 
 
 @pytest.mark.parametrize("path", PLANE_SOURCES,
@@ -266,6 +274,31 @@ def test_socket_net_without_device_raises(no_cuda):
     finally:
         net.close()
         verifier.set_default_verifier(saved)
+
+
+def test_state_tree_and_cli_lite_without_device_raise(no_cuda, tmp_path,
+                                                     monkeypatch, capsys):
+    from tendermint_tpu_torch import cli
+    from tendermint_tpu_torch.abci.apps import KVStoreApp
+    from tendermint_tpu_torch.ops import merkle
+    from tendermint_tpu_torch.statetree import StateTree
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StateTree()
+    monkeypatch.setenv("TM_CUDA_STATE_TREE", "on")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        KVStoreApp()
+    # the device route of a batch resolves its device; the host ones
+    # need none
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        merkle.sha256_many_host([b"\x00" * 65] * 512)
+    assert len(merkle.sha256_many_host([b"\x00" * 65] * 511)) == 511
+    assert StateTree(device="cpu").commit(1)
+    code = cli.main(["--home", str(tmp_path / "lite"), "lite",
+                     "--node-addr", "http://127.0.0.1:9",
+                     "--max-seconds", "1"])
+    err = capsys.readouterr().err
+    assert code == 1 and "no CUDA device is available" in err, err
 
 
 def test_cli_node_without_a_card_exits_with_the_device_error(tmp_path):

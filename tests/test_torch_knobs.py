@@ -8,7 +8,7 @@ the JAX package's (tendermint_tpu/utils/knobs.py), on the CPU.
   gates on a knob (telemetry, trace, trace cap, profiler and its rate,
   queue observatory, SLO and its rate, divergence) reads only its
   TM_CUDA_* name, and that name wins over the plane's config.
-- The catalog holds every knob the slice reads, each a TM_CUDA_* name
+- The catalog holds every knob the port reads, each a TM_CUDA_* name
   with a JAX counterpart of the same kind, default and config field
   (TM_CUDA_NODE_PROFILE's counterpart is the JAX CLI's TM_NODE_PROFILE,
   which the JAX catalog does not list); every TM_CUDA_* name in the
@@ -28,7 +28,8 @@ PORT = Path(__file__).resolve().parent.parent / "tendermint_tpu_torch"
 SLICE_KNOBS = ("TM_CUDA_TELEMETRY", "TM_CUDA_TRACE", "TM_CUDA_TRACE_CAP",
                "TM_CUDA_TRACE_STALL_S", "TM_CUDA_PROF", "TM_CUDA_PROF_HZ",
                "TM_CUDA_QUEUE_WATCH", "TM_CUDA_SLO", "TM_CUDA_SLO_SAMPLE",
-               "TM_CUDA_DIVERGENCE", "TM_CUDA_NODE_PROFILE")
+               "TM_CUDA_DIVERGENCE", "TM_CUDA_NODE_PROFILE",
+               "TM_CUDA_STATE_TREE")
 
 
 def _jax_name(name: str) -> str:

@@ -48,7 +48,7 @@ PAIRED_MODULES = (
     "rpc.core", "rpc.aserver", "storage.snapshot", "statesync.reactor",
     "analysis.divergence", "telemetry.causal", "telemetry.profile",
     "telemetry.queues", "telemetry.slo", "telemetry.merge",
-    "state.execution", "node",
+    "state.execution", "node", "statetree.store", "statetree.codec",
 )
 #: families of JAX modules the port does not have (parallel/mesh.py)
 UNPORTED = {"mesh_dispatch_total", "mesh_shard_occupancy"}
