@@ -376,7 +376,42 @@ Phases, each printing its own lines:
    StateTree.commit ms a height and merkle_sha_batches_total by route from
    each node's stop line, the largest wave timed on the device route, the
    native batch and hashlib with equal digests, and B1 launches a process.
-17. the kernel table as one JSON line, the card again, then the last line
+17. the chaos plane (`chaos_*`, `wire_chaos`), with its own wall limit
+   (CHAOS_WALL_S). A BatchVerifier("cuda") without coalescing is the
+   default verifier for 17a-c (bench.py's pinning of the device route for
+   its chaos arms), so every vote, commit and lite verify of the nets is a
+   B1 launch of 8-32 lanes. 17a: chaos.runner.scale_spec(4) (link faults,
+   the wan3 geo matrices, valset churn through val: txs, a crash at
+   consensus.after_wal_end_height) at seed 42, target 8, settle 20, twice:
+   each run must give the JAX package's fault_log_sha256, 9 heights and
+   335 steps, no violation and the lite certifier at the top height.
+   17b: ACCEPTANCE_SPEC (drop, delay, duplicate, reorder, a partition of
+   node 0, node 2 crashed at consensus.before_save_block, node 1
+   equivocating, node 3's clock at half rate) with TM_CUDA_LOCKCHECK=on:
+   the JAX digest, 14 heights, 237 steps, no violation, every
+   double-sign committed as evidence, node 2's crash at its point and its
+   recovery in the trace, no lock-order cycle. 17c: scale_spec(32), the
+   32-validator point of BENCH_chaos.json (target 4, settle 10): its
+   digest, 9 heights, 291 steps, the certifier at 9 across 3 valset
+   updates, a join, a leave and a stake change, no violation; prints the
+   wall and blocks/s, verify calls and B1 launches, B1's summed event time
+   (csrc/launch_timer.cpp) and its share of the wall, and the p50 of the
+   causal ring's verify.dispatch spans (TM_CUDA_TRACE=on for this run:
+   each Node sets the plane to its config's "off"). 17d: phase 13's four processes on
+   the JAX defaults (verifier_backend "cuda") with chaos.wire's TCP fault
+   proxy on every directed link under bench.py's WIRECHAOS_SPEC (25 ms
+   steps: a 4 s partition of node 3, a 2 s stall of the 0<->1 link, two
+   resets, frame drops, corruption and delays), PEX off, a handshake
+   deadline of 5 s and bans of 6 s; a feeder casts batches to node 0
+   (prefilled to 2,500 txs) and the proxy arms for a 30 s window, while
+   bench.py's four hostile scripts run against node 0's own listener.
+   The SocketInvariantMonitor must find no violation, every planned
+   episode recover within 30 s, the plan digest equal the JAX one,
+   handshake_stall and slow_handshake be closed by node 0,
+   garbage_after_auth be banned and then readmitted, and every process
+   launch B1. Prints blocks/s, recovery p50/max, the faults applied and
+   B1 launches summed over the processes.
+18. the kernel table as one JSON line, the card again, then the last line
    {"ok": true, "device": {...}}.
 
 Any mismatch or exception ends the run with a non-zero code before the
@@ -6506,6 +6541,416 @@ def phase_procnet_statetree(card: str, device: str = "cuda") -> dict:
     return {"launches": launches, "sweep_launches": sweep_launches}
 
 
+# ----------------------------------------------- phase 17: the chaos plane
+
+CHAOS_SEED = 42           # bench.py's seed for its chaos and wire arms
+#: 17a: scale_spec(4) as bench.py's 4-validator point (bench.py:444-455)
+CHAOS_SCALE4 = {"n": 4, "target": 8, "settle": 20, "max_steps": 600,
+                "digest": "8045e74f7859b6ceb630994bed069949df83c8ce08cc9e"
+                          "dc8e606072db4bd0e1",
+                "heights": 9, "steps": 335}
+#: 17b: ACCEPTANCE_SPEC at run_chaos's defaults (target 10, settle 60)
+CHAOS_CLASSIC = {"digest": "79b0311654b2ca8785c7439acaa8429b110d2f3c5db2a0"
+                           "d3226bef12c00ec50d",
+                 "heights": 14, "steps": 237, "crash_node": 2,
+                 "crash_point": "consensus.before_save_block"}
+#: 17c: the 32-validator point of BENCH_chaos.json
+CHAOS_SCALE32 = {"n": 32, "target": 4, "settle": 10, "max_steps": 400,
+                 "digest": "05008501c25f0b51992f21e58ed82ebd1389e89a846c12"
+                           "b56b9dc96838f73290",
+                 "heights": 9, "steps": 291, "valset_updates": 3}
+CHAOS_WALL_S = 360.0      # phase 17's wall limit, 17a to 17d
+#: bench.py's WIRECHAOS_SPEC and WIRECHAOS_HOSTILE (bench.py:649-661)
+WIRECHAOS_SPEC = {
+    "drop": 0.0008,
+    "corrupt": 0.0005,
+    "delay": 0.10, "delay_steps": [1, 3],
+    "partitions": [{"start": 160, "stop": 320,
+                    "groups": [[3], [0, 1, 2]]}],
+    "stalls": [{"start": 400, "stop": 480, "links": [[0, 1], [1, 0]]}],
+    "resets": [{"at": 560, "links": [[1, 2]]},
+               {"at": 680, "links": [[2, 3]]}],
+    "step_ms": 25,
+}
+WIRECHAOS_HOSTILE = ("garbage_after_auth", "handshake_stall",
+                     "slow_handshake", "flood")
+#: the plan digest of WIRECHAOS_SPEC at CHAOS_SEED on four nodes
+WIRECHAOS_PLAN_SHA256 = ("7187574ea7b6e0563c6c65af9d514d34b542b835fa0f726e"
+                         "e64075dd5e0489b9")
+WIRE_WINDOW_S = 30.0      # the armed window (bench.py's TM_BENCH_WIRECHAOS_S)
+WIRE_PREFILL = 2500       # node 0's backlog before the window
+WIRE_LIVENESS_S = 30.0    # an episode's recovery bound
+#: bench.py's shortened defenses (child_env and p2p_cfg), as p2p fields
+WIRE_P2P = {"pex": False, "handshake_timeout_s": 5.0, "ban_base_s": 6.0,
+            "ban_score": 30}
+
+
+@contextlib.contextmanager
+def _quiet_logs():
+    """The port's loggers at error for the in-process nets (32 nodes of
+    info lines), restored after."""
+    import logging
+    roots = [logging.getLogger(n) for n in ("tm", "tendermint_tpu_torch")]
+    saved = [r.level for r in roots]
+    for r in roots:
+        r.setLevel(logging.ERROR)
+    try:
+        yield
+    finally:
+        for r, lvl in zip(roots, saved):
+            r.setLevel(lvl)
+
+
+def _chaos_verifier(on_card: bool):
+    """bench.py's pinning of the device route (bench.py:431-441): one
+    BatchVerifier("cuda") without coalescing as the default verifier, so
+    that every verify of the nets is a B1 launch. Returns the verifier
+    it replaced, for _restore_verifier."""
+    saved = tverifier._default
+    if on_card:
+        v = tverifier.BatchVerifier("cuda", coalesce="off")
+        from tendermint_tpu_torch.node import prebuild
+        prebuild(v)
+        tverifier.set_default_verifier(v)
+    return saved
+
+
+def _chaos_check(tag: str, r: dict, want: dict) -> None:
+    got = (r["fault_log_sha256"], r["max_height"], r["steps"])
+    require(got == (want["digest"], want["heights"], want["steps"]),
+            f"{tag}: (digest, heights, steps) {got}, the JAX package's "
+            f"{(want['digest'], want['heights'], want['steps'])}")
+    require(r["violations"] == [], f"{tag}: violations {r['violations']}")
+    lite = r.get("lite") or {}
+    require(lite.get("active") and
+            lite.get("certified_height") == r["max_height"],
+            f"{tag}: the lite certifier {lite} at top {r['max_height']}")
+
+
+def _chaos_line(tag: str, r: dict, launches: dict, card: str, **extra):
+    emit({"phase": tag, "digest": r["fault_log_sha256"],
+          "heights": r["max_height"], "steps": r["steps"],
+          "wall_s": r["wall_seconds"], "blocks_per_s": r["blocks_per_sec"],
+          "checks_total": r["checks_total"],
+          "faults_injected_total": r["faults_injected_total"],
+          "lite": r.get("lite"), "churn": r.get("churn"),
+          "recovery_steps": r["recovery"]["latency_steps"],
+          "launches": launches, **extra, "card": card})
+
+
+def _chaos_scale4(card: str, dev, left) -> dict:
+    from tendermint_tpu_torch.chaos.runner import run_chaos, scale_spec
+    c = CHAOS_SCALE4
+    total = dict.fromkeys(ladder.launches, 0)
+    for k in range(2):
+        left(f"chaos_scale4 run {k + 1}")
+        _zero_launches()
+        r = run_chaos(spec=scale_spec(c["n"]), seed=CHAOS_SEED, n=c["n"],
+                      target_height=c["target"], max_steps=c["max_steps"],
+                      settle_steps=c["settle"], device=dev)
+        launches = dict(ladder.launches)
+        _chaos_check("chaos_scale4", r, c)
+        _chaos_line("chaos_scale4", r, launches, card, run=k + 1)
+        for name in total:
+            total[name] += launches[name]
+    return total
+
+
+def _chaos_classic(card: str, dev, left) -> dict:
+    from tendermint_tpu_torch.analysis import lockwatch
+    from tendermint_tpu_torch.chaos.runner import ACCEPTANCE_SPEC, run_chaos
+    c = CHAOS_CLASSIC
+    left("chaos_classic")
+    fd, trace = tempfile.mkstemp(prefix="chaos-classic-", suffix=".json")
+    os.close(fd)
+    _zero_launches()
+    lockwatch.clear()
+    try:
+        with _env({"TM_CUDA_LOCKCHECK": "on"}):
+            r = run_chaos(spec=ACCEPTANCE_SPEC, seed=CHAOS_SEED,
+                          trace_path=trace, device=dev)
+        launches = dict(ladder.launches)
+        with open(trace) as f:
+            log = json.load(f)["fault_log"]
+    finally:
+        lockwatch.uninstall()
+        lockwatch.clear()
+        os.unlink(trace)
+    _chaos_check("chaos_classic", r, c)
+    ev = r["evidence"]
+    require(ev["injected_double_signs"] > 0 and
+            ev["committed"] == ev["injected_double_signs"],
+            f"chaos_classic: double-signs committed as evidence {ev}")
+    crashes = [e for e in log if e["kind"] == "crash"]
+    restarts = [e for e in log if e["kind"] == "restart"]
+    require([(e["node"], e["point"]) for e in crashes] ==
+            [(c["crash_node"], c["crash_point"])] and
+            [e["node"] for e in restarts] == [c["crash_node"]],
+            f"chaos_classic: crashes {crashes}, restarts {restarts}")
+    healed = [e for e in r["recovery"]["episodes"] if e["kind"] == "crash"]
+    require(healed and healed[0]["recovery_steps"] is not None,
+            f"chaos_classic: node {c['crash_node']} did not recover "
+            f"{healed}")
+    lw = r["lockwatch"]
+    require(lw["cycles"] == [] and lw["locks_watched"] > 0,
+            f"chaos_classic: lock-order cycles {lw['cycles']} "
+            f"({lw['locks_watched']} locks watched)")
+    _chaos_line("chaos_classic", r, launches, card,
+                evidence=ev, crash=crashes[0], faults=r["faults_injected"],
+                lockwatch={"locks_watched": lw["locks_watched"],
+                           "edges": len(lw["edges"]), "cycles": lw["cycles"],
+                           "attr_violations": len(lw["attr_violations"])})
+    return launches
+
+
+def _chaos_scale32(card: str, dev, on_card: bool, left) -> dict:
+    from tendermint_tpu_torch.chaos.runner import run_chaos, scale_spec
+    from tendermint_tpu_torch.telemetry import causal
+    c = CHAOS_SCALE32
+    left("chaos_scale32")
+    v = tverifier.default_verifier() if on_card else None
+    stats0 = dict(v.stats) if v is not None else {}
+    timed, saved, ref = [], [], None
+    if on_card:
+        saved = _patched(_in_run_timer_patches(timed))
+        ref = torch.cuda.Event(enable_timing=True)
+        ref.record()
+    _zero_launches()
+    t0 = time.perf_counter()
+    try:
+        # each Node turns the causal plane to its config's "off", as the
+        # JAX node does, over run_chaos's "on": the env knob wins over
+        # both (the fault log is the same either way)
+        with _env({"TM_CUDA_TRACE": "on"}):
+            r = run_chaos(spec=scale_spec(c["n"]), seed=CHAOS_SEED,
+                          n=c["n"], target_height=c["target"],
+                          max_steps=c["max_steps"],
+                          settle_steps=c["settle"], device=dev)
+    finally:
+        _restore(saved)
+    wall = time.perf_counter() - t0
+    launches = dict(ladder.launches)
+    _chaos_check("chaos_scale32", r, c)
+    lite, churn = r["lite"], r["churn"]
+    require(lite["valset_updates"] == c["valset_updates"],
+            f"chaos_scale32: valset updates {lite}")
+    require(all(churn.get(k, 0) >= 1 for k in
+                ("churn_join", "churn_leave", "churn_stake")),
+            f"chaos_scale32: churn {churn}")
+    spans = sorted(e["d"] for e in causal.dump()["spans"]
+                   if e["n"] == "verify.dispatch")
+    require(spans or not on_card,
+            "chaos_scale32: no verify.dispatch span in the causal ring")
+    extra = {"n_validators": c["n"],
+             "n_genesis_validators": r["n_genesis_validators"],
+             "run_wall_s": wall,
+             "dispatch_spans": len(spans),
+             "dispatch_p50_ms": (spans[len(spans) // 2] / 1e6
+                                 if spans else None)}
+    if on_card:
+        extra["verify_calls"] = v.stats["calls"] - stats0["calls"]
+        extra["verify_sigs"] = v.stats["sigs"] - stats0["sigs"]
+        dev_t = _in_run_device_time(timed, ref, wall)
+        b1 = dev_t["by_kernel"].get("verify", {})
+        extra["b1_event_ms"] = b1.get("event_ms", 0.0)
+        extra["b1_share_of_wall"] = b1.get("event_ms", 0.0) / (wall * 1e3)
+        extra["device_busy"] = dev_t["device_busy"]
+        extra["b1_by_lanes"] = b1.get("by_lanes", {})
+    _chaos_line("chaos_scale32", r, launches, card, **extra)
+    return launches
+
+
+def _wire_net(tag: str, device: str, on_card: bool, left) -> dict:
+    """17d: phase 13's four processes behind chaos.wire's proxy (see the
+    module docstring). Returns the run's readings."""
+    from tendermint_tpu_torch.chaos import hostile as thostile
+    from tendermint_tpu_torch.chaos import wire as twire
+    from tendermint_tpu_torch.procnet import ProcNet, bench_settings, free_block
+    _node_libs()
+    root = tempfile.mkdtemp(prefix=f"{tag}-")
+    net = ProcNet(root, base_port=free_block(8))
+    net.write_tree(f"chip-smoke-{tag}")
+    net.configure(bench_settings("cuda" if on_card else "auto"))
+    net.configure({"p2p": WIRE_P2P})
+    proxy, sched = twire.proxy_for_testnet(
+        WIRECHAOS_SPEC, CHAOS_SEED, net.n, lambda j: net.base_port + 2 * j)
+    for i in range(net.n):
+        with open(net.config_path(i)) as f:
+            cfg = json.load(f)
+        peers = []
+        for entry in cfg["p2p"]["persistent_peers"].split(","):
+            if entry:
+                pid, hostport = entry.split("@", 1)
+                j = (int(hostport.rsplit(":", 1)[1]) - net.base_port) // 2
+                peers.append(f"{pid}@127.0.0.1:{proxy.ports[(i, j)]}")
+        cfg["p2p"]["persistent_peers"] = ",".join(peers)
+        with open(net.config_path(i), "w") as f:
+            json.dump(cfg, f, indent=1, sort_keys=True)
+    proxy.start()
+    monitor = None
+    feeder = _WSFeeder(net, 0)
+    hostile_threads, hostile_reports = [], []
+    ok = False
+    try:
+        net.start_all(extra=["--no-fast-sync", "--device", device])
+        net.wait_for(lambda: min(net.heights()) >= 2,
+                     min(PROC_BOOT_S, left("boot")), f"{tag}: boot")
+        feeder.start()
+        net.wait_for(lambda: net.rpc(0).call("num_unconfirmed_txs")[
+            "n_txs"] >= WIRE_PREFILL, left("prefill"), f"{tag}: prefill")
+        wire_t0 = proxy.arm()
+        monitor = twire.SocketInvariantMonitor(
+            [f"http://127.0.0.1:{net.rpc_port(i)}" for i in range(net.n)])
+        monitor.start()
+        kw_of = {"garbage_after_auth": {"rounds": 12, "retry_gap_s": 1.2,
+                                        "budget_s": WIRE_WINDOW_S + 10},
+                 "flood": {"count": 48, "hold_s": 2.0},
+                 "slow_handshake": {"byte_interval_s": 0.5,
+                                    "budget_s": min(20.0, WIRE_WINDOW_S)},
+                 "handshake_stall": {"budget_s": min(20.0, WIRE_WINDOW_S)}}
+        for script in WIRECHAOS_HOSTILE:
+            def run_script(s=script):
+                try:
+                    hostile_reports.append(thostile.run_hostile(
+                        s, "127.0.0.1", net.base_port,
+                        network=f"chip-smoke-{tag}", channels=[],
+                        **kw_of[s]))
+                except Exception as e:
+                    hostile_reports.append({"script": s, "error": repr(e)})
+            t = threading.Thread(target=run_script, daemon=True,
+                                 name=f"smoke-hostile-{script}")
+            t.start()
+            hostile_threads.append(t)
+        h0 = net.height(0)
+        t0 = time.perf_counter()
+        end_at = time.monotonic() + WIRE_WINDOW_S
+        while time.monotonic() < end_at:
+            early = net.early_exits()
+            require(not early, f"{tag}: node processes exited early {early}")
+            left("the window")
+            time.sleep(1.0)
+        h1 = net.height(0)
+        dt = time.perf_counter() - t0
+        feeder.stop()
+        for t in hostile_threads:
+            t.join(timeout=min(20.0, left("the hostile scripts")))
+        require(not any(t.is_alive() for t in hostile_threads),
+                f"{tag}: a hostile script outlived its budget")
+        time.sleep(3.0)   # the monitor sees post-heal progress
+        ends = [(ep["kind"], wire_t0 + ep["end"] * sched.step_ms / 1e3)
+                for ep in sched.episodes()]
+        monitor.stop()
+        report = monitor.finalize(
+            [e for e in ends if e[1] <= time.monotonic()],
+            liveness_bound_s=WIRE_LIVENESS_S)
+        top = min(net.heights())
+        disagree = net.disagreements(top)
+        applied = sched.applied_counts()
+        ok = True
+    finally:
+        feeder.stop()
+        if monitor is not None:
+            monitor.stop()
+        codes = net.stop_all()
+        proxy.stop()
+        if not ok:
+            for i in range(net.n):
+                tail = net.log(i).splitlines()[-40:] \
+                    if os.path.exists(net.log_path(i)) else []
+                print(f"{tag} node {i} log tail:", *tail, sep="\n",
+                      file=sys.stderr)
+    lines = {i: net.kernel_lines(i) for i in range(net.n)}
+    require(all(codes[i] == 0 for i in range(net.n)),
+            f"{tag}: node exit codes {codes}")
+    require([len(lines[i]) for i in range(net.n)] == [1] * net.n,
+            f"{tag}: kernel lines a process {lines}")
+    launches = {k: sum(ln["launches"][k] for i in lines for ln in lines[i])
+                for k in ladder.launches}
+    shutil.rmtree(root, ignore_errors=True)
+    return {"report": report, "hostile": hostile_reports, "ends": ends,
+            "blocks": h1 - h0, "window_s": dt, "applied": applied,
+            "plan_sha256": sched.plan_digest(), "disagree": disagree,
+            "launches": launches, "lines": lines, "top": top,
+            "sent": feeder.sent, "feeder_errors": feeder.errors}
+
+
+def _wire_chaos(card: str, device: str, on_card: bool, left) -> dict:
+    run = _wire_net("wire_chaos", device, on_card, left)
+    rep = run["report"]
+    require(run["plan_sha256"] == WIRECHAOS_PLAN_SHA256,
+            f"wire_chaos: plan digest {run['plan_sha256']}")
+    require(rep["violations"] == [] and not run["disagree"],
+            f"wire_chaos: violations {rep['violations']}, disagreements "
+            f"{run['disagree'][:3]}")
+    eps = rep["recovery"]["episodes"]
+    require(len(eps) == len(run["ends"]) == 4 and
+            all(e["recovery_s"] is not None for e in eps),
+            f"wire_chaos: episodes {eps} of {run['ends']}")
+    hostile = {h.get("script"): h for h in run["hostile"]}
+    for s in ("handshake_stall", "slow_handshake"):
+        require(hostile.get(s, {}).get("defense_fired"),
+                f"wire_chaos: {s} not closed by the victim {hostile.get(s)}")
+    garbage = hostile.get("garbage_after_auth", {})
+    require(garbage.get("saw_ban") and garbage.get("readmitted_after_ban"),
+            f"wire_chaos: garbage_after_auth's ban lifecycle {garbage}")
+    if on_card:
+        require(all(ln["launches"]["verify"] > 0
+                    for i in run["lines"] for ln in run["lines"][i]),
+                f"wire_chaos: a process never launched B1 "
+                f"{ {i: [ln['launches'] for ln in run['lines'][i]] for i in run['lines']} }")
+    lat = rep["recovery"]["latency_seconds"]
+    emit({"phase": "wire_chaos", "validators": 4, "processes": 4,
+          "window_s": run["window_s"], "blocks": run["blocks"],
+          "blocks_per_s": run["blocks"] / run["window_s"],
+          "heights": run["top"], "plan_sha256": run["plan_sha256"],
+          "faults_applied": run["applied"], "episodes": eps,
+          "recovery_p50_s": lat["p50"], "recovery_max_s": lat["max"],
+          "checks_total": rep["checks_total"],
+          "heights_audited_all_nodes": rep["heights_audited_all_nodes"],
+          "app_hash_chain_identical": rep["app_hash_chain_identical"],
+          "txs_sent": run["sent"], "feeder_errors": run["feeder_errors"],
+          "launches": run["launches"], "card": card})
+    emit({"phase": "wire_chaos_hostile", "scripts": {
+        s: {k: v for k, v in h.items() if k != "rounds"}
+        for s, h in hostile.items()},
+        "garbage_rounds": [o["outcome"] for o in garbage.get("rounds", [])],
+        "card": card})
+    return run
+
+
+def phase_chaos(card: str, device: str = "cuda") -> dict:
+    """Phase 17 (see the module docstring): the chaos plane's seeded runs
+    at 4 and 32 validators and the wire-faulted four-process net. A CPU
+    rehearsal passes device="cpu": the nets verify on the host and no
+    launch is required."""
+    on_card = device.startswith("cuda")
+    dev = None if on_card else device
+    t_phase = time.perf_counter()
+
+    def left(what: str) -> float:
+        rem = CHAOS_WALL_S - (time.perf_counter() - t_phase)
+        require(rem > 0, f"chaos: out of wall time at {what}")
+        return rem
+    saved = _chaos_verifier(on_card)
+    try:
+        with _quiet_logs():
+            scale4 = _chaos_scale4(card, dev, left)
+            classic = _chaos_classic(card, dev, left)
+            scale32 = _chaos_scale32(card, dev, on_card, left)
+    finally:
+        tverifier.set_default_verifier(saved)
+    if on_card:
+        for tag, launches in (("chaos_scale4", scale4),
+                              ("chaos_classic", classic),
+                              ("chaos_scale32", scale32)):
+            _require_launched(launches, ("verify",), tag)
+    wire = _wire_chaos(card, device, on_card, left)
+    emit({"phase": "chaos_summary", "wall_s": time.perf_counter() - t_phase,
+          "wall_limit_s": CHAOS_WALL_S, "card": card})
+    return {"chaos_scale4": scale4, "chaos_classic": classic,
+            "chaos_scale32": scale32, "wire_chaos": wire["launches"]}
+
+
 @contextlib.contextmanager
 def _serial_commit_path():
     """Phases 9 and 10 on the serial commit path (pipeline "off"), the
@@ -6548,6 +6993,7 @@ def main() -> int:
     procnet_tel = phase_procnet_telemetry(card,
                                           pipeline_run=procnet_pipeline)
     procnet_st = phase_procnet_statetree(card)
+    chaos = phase_chaos(card)
     table = []
     for name, info in KERNELS.items():
         table.append({
@@ -6580,7 +7026,14 @@ def main() -> int:
                                  "procnet_statetree":
                                      procnet_st["launches"][name],
                                  "statetree_sweep":
-                                     procnet_st["sweep_launches"][name]},
+                                     procnet_st["sweep_launches"][name],
+                                 "chaos_scale4":
+                                     chaos["chaos_scale4"][name],
+                                 "chaos_classic":
+                                     chaos["chaos_classic"][name],
+                                 "chaos_scale32":
+                                     chaos["chaos_scale32"][name],
+                                 "wire_chaos": chaos["wire_chaos"][name]},
             "max_abs_err": kernels[name]["max_abs_err"],
             "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"],
             "bound_ms": kernels[name]["bound_ms"],

@@ -29,9 +29,9 @@ compact gossip under `base` (`p2p_burst`, `p2p_burst_max`, `compact`,
 `vote_agg`, each auto|on|off), and the loader maps those keys onto the
 port's fields. `reactor`, `pipeline`, the `verifier_coalesce*` keys,
 the five recovery keys and the eight observability keys have the same
-names and meanings in both packages. Keys of planes the port does not
-have (chaos, the state tree, ...) are ignored, as the JAX loader ignores
-any key its dataclasses lack. save_config() writes those
+names and meanings in both packages, and so do `chaos` and
+`chaos_seed`. Keys the port does not have are ignored, as the JAX loader
+ignores any key its dataclasses lack. save_config() writes those
 four settings only as the JAX keys, so the file holds one key for each
 and the JAX package reads a port-written file the same way. A file that
 names the port's field itself (`p2p.burst`, say) is read as written: the
@@ -109,6 +109,13 @@ class BaseConfig:
     # hash-based sampling rate.
     slo: str = "off"
     slo_sample: float = 1.0
+    # chaos plane (chaos/): link fault injection. "off" (the default) is
+    # a no-op — p2p links stay on the existing code paths. Any other
+    # value is a link fault spec, e.g. "drop=0.05,delay=0.1,delay_ms=30";
+    # chaos_seed makes the injected fault pattern reproducible.
+    # TM_CUDA_CHAOS (which may carry its own seed=N) wins over both.
+    chaos: str = "off"
+    chaos_seed: int = 0
 
 
 # grpc_laddr, when set, serves the gRPC BroadcastAPI

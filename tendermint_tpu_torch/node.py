@@ -56,7 +56,9 @@ With `config.rpc.grpc_laddr` set the node serves the gRPC BroadcastAPI
 A kvstore app the node builds itself hashes its state tree (with
 TM_CUDA_STATE_TREE on) on the node's `device`.
 
-Left out, with the plane it reads: chaos.
+The chaos plane's link faults follow `base.chaos` and `chaos_seed`
+("off" by default; TM_CUDA_CHAOS wins): the node configures the plane
+before its switch wraps any link (p2p/switch.py).
 """
 
 from __future__ import annotations
@@ -134,6 +136,11 @@ class Node:
         # when the switch or the RPC listener first needs one
         self.reactor = resolve_reactor(config.base.reactor)
         self.loop = loop
+        # chaos plane knobs (env TM_CUDA_CHAOS wins inside resolve();
+        # "off" keeps every link on the existing code)
+        from tendermint_tpu_torch import chaos as _chaos
+        _chaos.configure(mode=config.base.chaos,
+                         seed=config.base.chaos_seed)
         # the pipelined hot path ("off": the serial path)
         pipeline.configure(mode=config.base.pipeline)
         self._owns_loop = loop is None

@@ -17,8 +17,9 @@ their threads, as in the JAX package. The ban plane's settings and the
 frame bursts come from the P2PConfig (`ban_score`, `ban_base_s`,
 `fd_headroom`, `burst`, `burst_max`). A wildcard listener asks a UPnP
 gateway for its external address when `skip_upnp` is false. The JAX
-switch's `p2p_*` families are fed at the same points. Not ported: the
-chaos link wrapper.
+switch's `p2p_*` families are fed at the same points. With the chaos
+plane on (chaos.resolve()), each link is wrapped in a schedule-driven
+FuzzedLink once its handshake is done; off, the link is used unchanged.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import zlib
 from typing import Callable, Dict, List, Optional
 
 from tendermint_tpu_torch import telemetry
+from tendermint_tpu_torch.chaos import maybe_wrap_link
 from tendermint_tpu_torch.config import P2PConfig
 from tendermint_tpu_torch.p2p.conn import ChannelDescriptor, SecretConnection
 from tendermint_tpu_torch.p2p.conn.burst import Burst
@@ -539,6 +541,9 @@ class Switch:
         # deadline wrapper polices setup only)
         link.conn = sock
         sock.settimeout(None)
+        # chaos plane: schedule-driven lossy-link wrapper, or — the
+        # default, chaos off — the link back unchanged
+        link = maybe_wrap_link(link, their_info.id or "")
         peer = Peer(
             link, their_info, self.channel_descs, outbound=outbound,
             persistent=persistent, dial_addr=dial_addr,

@@ -11,8 +11,9 @@ config > default. FALSY is the single vocabulary for "off".
 Import-light by design (stdlib `os` only): telemetry reads knobs at
 import time, so this module imports nothing of the package back.
 
-The catalog holds the knobs of the observability planes and the
-kvstore's commit backend (TM_CUDA_STATE_TREE). The planes ported before
+The catalog holds the knobs of the observability planes, the
+kvstore's commit backend (TM_CUDA_STATE_TREE), the chaos plane's link
+faults (TM_CUDA_CHAOS) and the lock-order watchdog (TM_CUDA_LOCKCHECK). The planes ported before
 them (reactor, pipeline, coalescer, compact relay, p2p, recovery) take
 their settings from config fields only.
 """
@@ -100,7 +101,15 @@ CATALOG: tuple[Knob, ...] = (
          "Chain-level: every validator must agree, the two backends "
          "hash differently by design.",
          "abci/apps/kvstore.py"),
-    # -- analysis ----------------------------------------------------------
+    # -- chaos -------------------------------------------------------------
+    Knob("TM_CUDA_CHAOS", "spec", "off", "base.chaos",
+         "Link fault spec, e.g. drop=0.05,delay=0.1,delay_ms=30,seed=7.",
+         "chaos/__init__.py"),
+    # -- analysis / sanitizers ---------------------------------------------
+    Knob("TM_CUDA_LOCKCHECK", "bool", "off", "",
+         "on wraps threading locks with the lock-order watchdog "
+         "(analysis/lockwatch.py); chaos runs report cycles.",
+         "analysis/lockwatch.py"),
     Knob("TM_CUDA_DIVERGENCE", "bool", "off", "",
          "on records a canonical per-height transition digest (block "
          "bytes, ABCI responses, validator updates, app_hash) for "

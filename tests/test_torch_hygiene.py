@@ -7,8 +7,9 @@
   the event loop, the coalescer, UPnP, node, cli, __main__, procnet,
   the pipeline, the fail points, snapshots, state sync, the telemetry
   planes, the knob catalog, the divergence plane, the state tree, the
-  gRPC surfaces with their proto module and the lite proxy included),
-  and chip_smoke.py
+  gRPC surfaces with their proto module, the lite proxy, the chaos
+  plane with its link fuzzer and the lock-order watchdog included), and
+  chip_smoke.py
   as a module, in a fresh interpreter loads neither jax nor any
   tendermint_tpu module.
 - No source of the port (nor chip_smoke.py) imports them (AST check).
@@ -17,7 +18,8 @@
 - The modules of the node's default plane (config, the event loop, the
   coalescer and verifier, the async front door and RPC core, UPnP, the
   node, the pipeline, the snapshot store and manager, state sync, the
-  telemetry planes, the state tree, the gRPC surfaces, the lite proxy)
+  telemetry planes, the state tree, the gRPC surfaces, the lite proxy,
+  the chaos plane, the link fuzzer, the lock-order watchdog)
   read no environment variable themselves: their
   settings are config fields and constructor arguments, and the
   observability planes' TM_CUDA_* knobs are read through the catalog
@@ -26,7 +28,8 @@
   the port never moves to the CPU quietly. `python -m
   tendermint_tpu_torch.cli node` without a card and without `--device
   cpu` exits non-zero with the device's message; so do a StateTree and a
-  tree-backed kvstore given no device, and `cli lite` without `--device`.
+  tree-backed kvstore given no device, and `cli lite` without `--device`;
+  and run_chaos without a device.
 """
 
 import ast
@@ -53,7 +56,7 @@ def test_walk_covers_every_subpackage():
                 "state", "abci", "abci.apps", "blockchain", "p2p",
                 "p2p.conn", "consensus", "mempool", "evidence", "rpc",
                 "p2p.pex", "node", "cli", "statesync", "telemetry",
-                "analysis", "statetree", "rpc.proto"):
+                "analysis", "statetree", "rpc.proto", "chaos"):
         assert f"tendermint_tpu_torch.{pkg}" in mods, pkg
     assert "tendermint_tpu_torch.lite.certifier" in mods
     assert "tendermint_tpu_torch.native" in mods
@@ -86,7 +89,10 @@ def test_walk_covers_every_subpackage():
                 "telemetry.slo", "analysis.divergence", "statetree.store",
                 "statetree.proof", "statetree.tree", "statetree.codec",
                 "rpc.proto.tmtpu_pb2", "rpc.grpc_service", "rpc.grpc_util",
-                "abci.grpc_app", "lite.proxy", "lite.provider"):
+                "abci.grpc_app", "lite.proxy", "lite.provider",
+                "chaos.schedule", "chaos.ticker", "chaos.byzantine",
+                "chaos.monitor", "chaos.runner", "chaos.wire",
+                "chaos.hostile", "p2p.fuzz", "analysis.lockwatch"):
         assert f"tendermint_tpu_torch.{mod}" in mods, mod
 
 
@@ -161,7 +167,10 @@ PLANE_SOURCES = [PORT / m for m in (
     "telemetry/causal.py", "telemetry/merge.py", "telemetry/profile.py",
     "telemetry/queues.py", "telemetry/slo.py", "statetree/tree.py",
     "rpc/grpc_util.py", "rpc/grpc_service.py", "abci/grpc_app.py",
-    "lite/proxy.py")]
+    "lite/proxy.py", "chaos/__init__.py", "chaos/schedule.py",
+    "chaos/ticker.py", "chaos/byzantine.py", "chaos/monitor.py",
+    "chaos/runner.py", "chaos/wire.py", "chaos/hostile.py", "p2p/fuzz.py",
+    "analysis/lockwatch.py")]
 
 
 @pytest.mark.parametrize("path", PLANE_SOURCES,
@@ -299,6 +308,22 @@ def test_state_tree_and_cli_lite_without_device_raise(no_cuda, tmp_path,
                      "--max-seconds", "1"])
     err = capsys.readouterr().err
     assert code == 1 and "no CUDA device is available" in err, err
+
+
+def test_chaos_run_without_device_raises(no_cuda, tmp_path):
+    from tendermint_tpu_torch.chaos.runner import SMOKE_SPEC, run_chaos
+    from tendermint_tpu_torch.models import verifier
+    from tendermint_tpu_torch.telemetry import causal
+
+    saved, trace = verifier._default, causal._configured
+    verifier.set_default_verifier(None)
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run_chaos(spec=SMOKE_SPEC, workdir=str(tmp_path / "w"))
+        assert causal._configured == trace
+        assert not (tmp_path / "w").exists()
+    finally:
+        verifier.set_default_verifier(saved)
 
 
 def test_cli_node_without_a_card_exits_with_the_device_error(tmp_path):

@@ -29,7 +29,7 @@ SLICE_KNOBS = ("TM_CUDA_TELEMETRY", "TM_CUDA_TRACE", "TM_CUDA_TRACE_CAP",
                "TM_CUDA_TRACE_STALL_S", "TM_CUDA_PROF", "TM_CUDA_PROF_HZ",
                "TM_CUDA_QUEUE_WATCH", "TM_CUDA_SLO", "TM_CUDA_SLO_SAMPLE",
                "TM_CUDA_DIVERGENCE", "TM_CUDA_NODE_PROFILE",
-               "TM_CUDA_STATE_TREE")
+               "TM_CUDA_STATE_TREE", "TM_CUDA_CHAOS", "TM_CUDA_LOCKCHECK")
 
 
 def _jax_name(name: str) -> str:

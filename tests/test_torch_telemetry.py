@@ -49,6 +49,7 @@ PAIRED_MODULES = (
     "analysis.divergence", "telemetry.causal", "telemetry.profile",
     "telemetry.queues", "telemetry.slo", "telemetry.merge",
     "state.execution", "node", "statetree.store", "statetree.codec",
+    "chaos", "chaos.wire",
 )
 #: families of JAX modules the port does not have (parallel/mesh.py)
 UNPORTED = {"mesh_dispatch_total", "mesh_shard_occupancy"}

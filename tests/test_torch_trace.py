@@ -168,7 +168,22 @@ def _ring_script(c):
     return out
 
 
-def test_ring_cap_drops_and_dump_as_jax(pinned):
+@pytest.fixture
+def registries_on():
+    """Both metric registries on, restored after: the drop counts are
+    read off the families, and tests/test_compact.py's `metrics`
+    fixture leaves the JAX registry off for the rest of its worker."""
+    from tendermint_tpu.telemetry import registry as jreg
+    from tendermint_tpu_torch.telemetry import registry as treg
+    saved = [m._state.enabled for m in (jreg, treg)]
+    for m in (jreg, treg):
+        m.set_enabled(True)
+    yield
+    for m, on in zip((jreg, treg), saved):
+        m._state.enabled = on
+
+
+def test_ring_cap_drops_and_dump_as_jax(pinned, registries_on):
     from tendermint_tpu import telemetry as jtel
     from tendermint_tpu_torch import telemetry as ttel
     jd0 = jtel.value("trace_events_dropped_total") or 0

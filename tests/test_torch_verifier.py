@@ -145,8 +145,11 @@ def _delta(after, before):
 
 @pytest.fixture(scope="module")
 def verifiers():
+    """Both without coalescing: a coalescer whose dispatcher runs late
+    (a loaded host) merges consecutive calls into one dispatch, which
+    changes the cache routes (test_a_late_coalescer_merges_windows)."""
     return (JVerifier("jax", mesh="off", coalesce="off"),
-            TVerifier("cuda", device="cpu"))
+            TVerifier("cuda", device="cpu", coalesce="off"))
 
 
 def _run_both(verifiers, sks, pks, tamper=None):
@@ -365,3 +368,27 @@ def test_certify_chain_routes_match_jax(verifiers):
         pkg[3].certify_chain(CHAIN, fcs, verifier=v, window=8)
         outs.append(_delta(stats(), before))
     assert outs[0] == outs[1] == {"hit": 1, "fill": 1, "full": 1}
+
+
+def test_a_late_coalescer_merges_windows_and_changes_the_routes():
+    """Why the verifiers above do not coalesce. certify_chain submits
+    window k+1 while window k resolves; a dispatcher that drains its
+    queue late (here a 500 ms linger stands in for a starved thread)
+    merges windows 2 and 3 into one 128-signature dispatch: full, fill
+    and no hit, where a verifier without coalescing walks full, fill,
+    hit. So the route test holds two verifiers that do not coalesce:
+    on a loaded host a coalescing one walks either way."""
+    sks, pks = _keys(109, 8)
+    outs = []
+    for v in (TVerifier("cuda", device="cpu", coalesce="auto",
+                        coalesce_wait_ms=500.0),
+              TVerifier("cuda", device="cpu", coalesce="off")):
+        fcs = _chain(PORT_LITE, sks, pks, 24)
+        before = ted.predecomp_stats()
+        tlite.certify_chain(CHAIN, fcs, verifier=v, window=8)
+        outs.append((_delta(ted.predecomp_stats(), before),
+                     v.coalescer_stats()["dispatches"]))
+        v.close()
+        sks, pks = _keys(110, 8)   # unseen keys for the second verifier
+    assert outs == [({"hit": 0, "fill": 1, "full": 1}, 2),
+                    ({"hit": 1, "fill": 1, "full": 1}, 0)]
