@@ -382,9 +382,10 @@ Phases, each printing its own lines:
    its chaos arms), so every vote, commit and lite verify of the nets is a
    B1 launch of 8-32 lanes. 17a: chaos.runner.scale_spec(4) (link faults,
    the wan3 geo matrices, valset churn through val: txs, a crash at
-   consensus.after_wal_end_height) at seed 42, target 8, settle 20, twice:
-   each run must give the JAX package's fault_log_sha256, 9 heights and
-   335 steps, no violation and the lite certifier at the top height.
+   consensus.after_wal_end_height) at seed 42, target 8, settle 20 (once;
+   twice before phase 18 needed the time): the run must give the JAX
+   package's fault_log_sha256, 9 heights and 335 steps, no violation and
+   the lite certifier at the top height.
    17b: ACCEPTANCE_SPEC (drop, delay, duplicate, reorder, a partition of
    node 0, node 2 crashed at consensus.before_save_block, node 1
    equivocating, node 3's clock at half rate) with TM_CUDA_LOCKCHECK=on:
@@ -411,7 +412,43 @@ Phases, each printing its own lines:
    garbage_after_auth be banned and then readmitted, and every process
    launch B1. Prints blocks/s, recovery p50/max, the faults applied and
    B1 launches summed over the processes.
-18. the kernel table as one JSON line, the card again, then the last line
+18. the shard plane and the edge serving plane (`shard_curve`,
+   `edge_replicas`, `load_knee`), with its own wall limit (SERVE_WALL_S).
+   18a: bench.py --shard-json's arms in this process: ShardSet(n) for n =
+   1, 8 and 32 single-validator chains behind one front door, with a
+   BatchVerifier("cuda") (coalescing "auto") as the process default that
+   every shard shares, so that each merged dispatch is a B1 launch; two
+   feeders cast 64-tx broadcast_tx_batch calls through the front door
+   every 0.1 s, and a 10 s window (bench.py: 20 s) is read: blocks/s in
+   all and a shard, coalescer submissions and merged dispatches (the
+   coalesce factor), the mean verify batch, B1 and B2 launches by lanes
+   and B1's summed event time (csrc/launch_timer.cpp) and share of the
+   window. Checks: B1 launched inside every arm's window, certified reads
+   of keys on two shards through CertifiedReader (every height from
+   genesis, on B1), a forged commit refused with ReadProofError, each
+   shard's app hashes replayed from its own blocks through a fresh
+   kvstore bit-identical at every height, and the coalesce factor at 32
+   shards above that at 1. 18b: a Deployment of 2 validators and 2
+   keyless replicas (`cli node`, `cli replica`, --device cuda,
+   verifier_backend "cuda", TM_CUDA_STATE_TREE=on, TM_CUDA_RPC_RATE=100
+   on each replica), 400 primed keys, both replicas certifying the
+   frontier; 250 certified reads/s (replica_read, its since_height
+   following the chain where bench.py pins it at the arm's start, and
+   proven abci_query) offered to one replica, then split across two, 8 s
+   an arm: verified reads from each replica's tmcuda_edge_reads_total,
+   p50/p95/p99, sheds, the seconds to serve an arm's backlog, and each
+   process's B1 launches from its kernel line. Checks: a sample of replica-served reads verifies
+   client-side from the genesis valset, a tampered value is refused, and
+   a SIGKILLed replica is restarted by the supervisor and certifies the
+   frontier again (its seconds printed). 18c: bench.py's knee sweep
+   against a `cli shardset` process (2 chains, tree on): 1,500
+   connections and 300 NewBlock subscribers of the open-loop fleet,
+   offered 150 to 4,800 ops/s at 4 s a rate (bench.py: 8 s); the knee by
+   find_knee(p99_slo_ms=1500), goodput and p99 a rate.
+   Check: 150 ops/s is within find_knee's service level (goodput at
+   least 0.85, p99 at most 1,500 ms), and every rate pushes events. The
+   phase fails if it ends past its wall limit.
+19. the kernel table as one JSON line, the card again, then the last line
    {"ok": true, "device": {...}}.
 
 Any mismatch or exception ends the run with a non-zero code before the
@@ -460,7 +497,8 @@ from tendermint_tpu_torch.consensus.replay import Handshaker
 from tendermint_tpu_torch.consensus.testnet import (FILE_NODE, MAX_BLOCK_TXS,
                                                     T0, Schedule, Testnet,
                                                     run_schedule, standby_key)
-from tendermint_tpu_torch.lite import (CertificationError, FullCommit,
+from tendermint_tpu_torch.lite import (CertificationError,
+                                       ContinuousCertifier, FullCommit,
                                        SignedHeader, ValidatorsChangedError,
                                        certify_chain, default_window)
 from tendermint_tpu_torch.mempool import Mempool
@@ -6641,19 +6679,15 @@ def _chaos_line(tag: str, r: dict, launches: dict, card: str, **extra):
 def _chaos_scale4(card: str, dev, left) -> dict:
     from tendermint_tpu_torch.chaos.runner import run_chaos, scale_spec
     c = CHAOS_SCALE4
-    total = dict.fromkeys(ladder.launches, 0)
-    for k in range(2):
-        left(f"chaos_scale4 run {k + 1}")
-        _zero_launches()
-        r = run_chaos(spec=scale_spec(c["n"]), seed=CHAOS_SEED, n=c["n"],
-                      target_height=c["target"], max_steps=c["max_steps"],
-                      settle_steps=c["settle"], device=dev)
-        launches = dict(ladder.launches)
-        _chaos_check("chaos_scale4", r, c)
-        _chaos_line("chaos_scale4", r, launches, card, run=k + 1)
-        for name in total:
-            total[name] += launches[name]
-    return total
+    left("chaos_scale4")
+    _zero_launches()
+    r = run_chaos(spec=scale_spec(c["n"]), seed=CHAOS_SEED, n=c["n"],
+                  target_height=c["target"], max_steps=c["max_steps"],
+                  settle_steps=c["settle"], device=dev)
+    launches = dict(ladder.launches)
+    _chaos_check("chaos_scale4", r, c)
+    _chaos_line("chaos_scale4", r, launches, card)
+    return launches
 
 
 def _chaos_classic(card: str, dev, left) -> dict:
@@ -6951,6 +6985,629 @@ def phase_chaos(card: str, device: str = "cuda") -> dict:
             "chaos_scale32": scale32, "wire_chaos": wire["launches"]}
 
 
+# ------------------------------------------------------------- phase 18
+SHARD_ARMS = (1, 8, 32)   # BENCH_shard.json's arms
+SHARD_WINDOW_S = 10.0     # an arm's measured window (bench.py: 20 s)
+SHARD_WARM_S = 1.0        # bench.py's lead before the window
+SHARD_BOOT_S = 60.0       # every shard at height 2 within
+SHARD_FEEDERS = 2         # bench.py's spammers: 64-tx broadcast_tx_batch
+SHARD_BATCH = 64          # calls through the front door, 0.1 s apart
+SHARD_PAUSE_S = 0.1
+EDGE_KEYS = 400           # bench.py's load keyspace (lk0..lk399)
+EDGE_RATE = 100.0         # TM_CUDA_RPC_RATE of each replica (bench.py)
+EDGE_OFFERED = 250.0      # certified reads/s offered (bench.py)
+EDGE_ARM_S = 8.0          # bench.py's duration an arm
+EDGE_CONNS = 50           # the fleet's connections to a replica
+EDGE_SAMPLE = 8           # replica reads verified client-side, a replica
+EDGE_DRAIN_S = 10.0       # an arm's backlog: the wait for it, at most
+KNEE_RATES = (150, 300, 600, 1200, 2400, 4800)
+KNEE_RATE_S = 4.0         # a rate's window (bench.py: 8 s)
+KNEE_CONNS = 1500
+KNEE_SUBS = 300
+KNEE_SLO_MS = 1500.0
+SERVE_WALL_S = 420.0      # phase 18's wall limit, 18a to 18c
+
+
+class _ShardFeeder:
+    """bench.py's spammers: SHARD_FEEDERS threads, each casting
+    SHARD_BATCH-tx broadcast_tx_batch calls of unique k/<t>/<i>=v<i>
+    through the front door every SHARD_PAUSE_S."""
+
+    def __init__(self, url: str):
+        self.url = url
+        self.sent = [0] * SHARD_FEEDERS
+        self.errors = [0] * SHARD_FEEDERS
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(
+            target=self._run, args=(t,), daemon=True,
+            name=f"smoke-shard-feeder-{t}") for t in range(SHARD_FEEDERS)]
+
+    def _run(self, tid: int) -> None:
+        from tendermint_tpu_torch.rpc.client import (JSONRPCClient,
+                                                     RPCClientError)
+        c = JSONRPCClient(self.url)
+        i = 0
+        while not self._stop.is_set():
+            try:
+                c.call("broadcast_tx_batch", txs=[
+                    (b"k/%d/%d=v%d" % (tid, i + j, i + j)).hex()
+                    for j in range(SHARD_BATCH)])
+                i += SHARD_BATCH
+                self.sent[tid] = i
+            except (OSError, RPCClientError):
+                self.errors[tid] += 1   # an overloaded front door
+            self._stop.wait(SHARD_PAUSE_S)
+
+    def start(self) -> None:
+        for t in self._threads:
+            t.start()
+
+    def halt(self) -> None:
+        self._stop.set()
+
+    def join(self) -> None:
+        for t in self._threads:
+            t.join(30)
+        require(not any(t.is_alive() for t in self._threads),
+                "shard_curve: a feeder did not stop")
+
+
+def _verifier_counts(v) -> tuple:
+    with v._stats_lock:
+        st = dict(v.stats)
+    return st, v.coalescer_stats()
+
+
+def _read_keys(s, url: str) -> list:
+    """Keys on two shards (one for n = 1), each written by
+    broadcast_tx_sync through the front door."""
+    from tendermint_tpu_torch.rpc.client import JSONRPCClient
+    c = JSONRPCClient(url, timeout=60.0)
+    picked, i = {}, 0
+    while len(picked) < min(2, len(s)):
+        k = b"xr/%d" % i
+        picked.setdefault(s.router.map.chain_of(k), k)
+        i += 1
+    for k in picked.values():
+        r = c.call("broadcast_tx_sync", tx=(k + b"=" + k).hex())
+        require(r["code"] == 0, f"shard_curve: {k!r} refused {r}")
+    return list(picked.values())
+
+
+def _shard_reads(s, v, keys: list) -> dict:
+    """Certified reads of `keys` (_read_keys) through CertifiedReader,
+    every height of their chains from genesis; then a forged commit
+    refused."""
+    from tendermint_tpu_torch.shard import CertifiedReader, ReadProofError
+    from tendermint_tpu_torch.shard import reads as sreads
+    reader = s.reader()
+    reads = []
+    for k in keys:
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + 30.0
+        r = reader.read(k)
+        while r["value"] != k and time.monotonic() < deadline:
+            time.sleep(0.1)
+            r = reader.read(k)
+        require(r["value"] == k and r["certified_height"] >= r["height"],
+                f"shard_curve: certified read of {k!r}: {r}")
+        reads.append({"key": k.decode(), "chain_id": r["chain_id"],
+                      "height": r["height"],
+                      "certified_height": r["certified_height"],
+                      "read_s": time.perf_counter() - t0})
+    # a forged commit: the newest precommit's signature flipped
+    k = keys[0]
+    node = s.node_for_key(k)
+    h = node.block_store.height()
+    doc = sreads.serve_read(node, k, max(0, h - 2))
+    for vote in doc["proof_commits"][-1]["signed_header"]["commit"][
+            "precommits"]:
+        if vote:
+            sig = bytearray(bytes.fromhex(vote["signature"]))
+            sig[0] ^= 0xFF
+            vote["signature"] = bytes(sig).hex()
+    cert = ContinuousCertifier(node.gen_doc.chain_id,
+                               node.state_store.load_validators(1),
+                               next_height=max(1, h - 1), verifier=v)
+    try:
+        CertifiedReader.verify(doc, cert)
+        refused = False
+    except ReadProofError:
+        refused = True
+    require(refused, "shard_curve: a forged commit proof was accepted")
+    return {"reads": reads, "forged_refused": refused}
+
+
+def _replay_shards(s, device) -> dict:
+    """Each shard's stored blocks through a fresh single-chain kvstore:
+    every header's app hash must be the replay's, bit for bit."""
+    out = {}
+    for nd in s.nodes:
+        app = KVStoreApp(device=device)
+        ah, top = b"", nd.block_store.height()
+        for h in range(1, top + 1):
+            blk = nd.block_store.load_block(h)
+            require(blk is not None, f"shard_curve: {nd.gen_doc.chain_id} "
+                    f"lacks block {h}")
+            if h > 1:
+                require(blk.header.app_hash == ah,
+                        f"shard_curve: {nd.gen_doc.chain_id} height {h}: "
+                        f"app hash differs from the single-chain replay")
+            for tx in blk.data.txs:
+                app.deliver_tx(tx)
+            ah = app.commit()
+        out[nd.gen_doc.chain_id] = top
+    return out
+
+
+def _shard_arm(n: int, card: str, device: str, on_card: bool,
+               left) -> dict:
+    """One arm of 18a (see the module docstring); returns its reading."""
+    from tendermint_tpu_torch.node import prebuild
+    from tendermint_tpu_torch.shard import ShardSet
+    left(f"shard_curve n={n}")
+    saved = tverifier._default
+    own = None
+    if on_card:
+        own = tverifier.BatchVerifier("cuda")
+        prebuild(own)
+        tverifier.set_default_verifier(own)
+    _zero_launches()
+    timed, patches, ref = [], [], None
+    s = feeder = None
+    try:
+        s = ShardSet(n, chain_prefix="bench",
+                     device=None if on_card else device)
+        v = s.verifier
+        t_boot = time.perf_counter()
+        s.start()
+        host, port = s.serve()
+        deadline = time.monotonic() + min(SHARD_BOOT_S, left("boot"))
+        while s.frontier() < 2 and time.monotonic() < deadline:
+            time.sleep(0.1)
+        require(s.frontier() >= 2, f"shard_curve n={n}: boot stalled "
+                f"{s.heights()}")
+        boot_s = time.perf_counter() - t_boot
+        feeder = _ShardFeeder(f"http://{host}:{port}")
+        feeder.start()
+        keys = _read_keys(s, f"http://{host}:{port}")
+        time.sleep(SHARD_WARM_S)
+        h0 = s.heights()
+        st0, co0 = _verifier_counts(v)
+        if on_card:
+            patches = _patched(_in_run_timer_patches(timed))
+            ref = torch.cuda.Event(enable_timing=True)
+            ref.record()
+        t0 = time.perf_counter()
+        time.sleep(SHARD_WINDOW_S)
+        dt = time.perf_counter() - t0
+        _restore(patches)
+        patches = []
+        h1 = s.heights()
+        st1, co1 = _verifier_counts(v)
+        # a batch call in flight returns (or fails, once the front door
+        # closes) by itself: the feeders are joined after the stop
+        feeder.halt()
+        reads = _shard_reads(s, v, keys)
+    finally:
+        _restore(patches)
+        if feeder is not None:
+            feeder.halt()
+        if s is not None:
+            s.stop()
+        if feeder is not None:
+            feeder.join()
+        tverifier.set_default_verifier(saved)
+        if own is not None:
+            own.close()
+    launches = dict(ladder.launches)
+    parity = _replay_shards(s, device)
+    blocks = sum(h1[c] - h0[c] for c in h1)
+    calls = co1["submissions"] - co0["submissions"]
+    disp = co1["dispatches"] - co0["dispatches"]
+    vcalls = st1["calls"] - st0["calls"]
+    row = {"phase": "shard_curve", "n_shards": n, "window_s": dt,
+           "boot_s": boot_s, "blocks": blocks,
+           "agg_blocks_per_s": blocks / dt,
+           "per_shard_blocks_per_s": blocks / dt / n,
+           "txs_sent": sum(feeder.sent), "feeder_errors": feeder.errors,
+           "coalesce_calls": calls, "coalesce_dispatches": disp,
+           "coalesce_factor": calls / disp if disp else None,
+           "calls_max": co1["calls_max"],
+           "verify_calls": vcalls,
+           "mean_verify_batch": ((st1["sigs"] - st0["sigs"]) / vcalls
+                                 if vcalls else None),
+           "verify_dispatch_s": st1["dispatch_s"] - st0["dispatch_s"],
+           "cross_shard": reads, "apphash_parity_heights": parity,
+           "launches": launches, "device": str(v.device), "card": card}
+    if on_card:
+        dev_t = _in_run_device_time(timed, ref, dt)
+        for name, key in (("verify", "b1"), ("verify_pre", "b2")):
+            k = dev_t["by_kernel"].get(name, {})
+            row[f"{key}_window_launches"] = k.get("launches", 0)
+            row[f"{key}_by_lanes"] = k.get("by_lanes", {})
+        b1_ms = dev_t["by_kernel"].get("verify", {}).get("event_ms", 0.0)
+        row["b1_event_ms"] = b1_ms
+        row["b1_share_of_window"] = b1_ms / (dt * 1e3)
+        row["device_busy"] = dev_t["device_busy"]
+        # the window's own launches: the certified reads and the forged
+        # commit, after it, launch B1 too
+        require(row["b1_window_launches"] > 0,
+                f"shard_curve n={n}: no merged dispatch launched B1 in "
+                f"the window {row['b1_by_lanes']}")
+    emit(row)
+    return row
+
+
+def _replica_line(spec):
+    """The last `replica kernels` line of a replica's current process
+    (printed at each certified height): its reads by result and its RPC
+    calls in flight, read from its log with no call to its busy RPC."""
+    lines = _proc_kernel_lines(os.path.join(spec.home, "node.log"),
+                               "replica")
+    return lines[-1] if lines else None
+
+
+def _edge_drain(specs) -> dict:
+    """Wait until each replica prints a line for a newer certified height
+    with no RPC call in flight (the arm's backlog served), at most
+    EDGE_DRAIN_S; -> name: (verified reads, seconds, drained)."""
+    t0 = time.perf_counter()
+    h0 = {s.name: _replica_line(s)["edge"]["certified_height"]
+          for s in specs}
+    out = {}
+    while len(out) < len(specs):
+        dt = time.perf_counter() - t0
+        for s in specs:
+            ln = _replica_line(s)
+            fresh = ln["edge"]["certified_height"] > h0[s.name]
+            if s.name not in out and ((fresh and ln["rpc"]["inflight"] == 0)
+                                      or dt > EDGE_DRAIN_S):
+                out[s.name] = (ln["edge"]["reads"]["verified"], dt,
+                               dt <= EDGE_DRAIN_S)
+        time.sleep(0.2)
+    return out
+
+
+def _prime_keys(client, n: int, prefix: str = "lk",
+                wait_s: float = 60.0) -> None:
+    """bench.py's _prime_keyspace: n writes through `client`, then the
+    last key committed."""
+    for i in range(n):
+        client.call("broadcast_tx_async",
+                    tx=f"{prefix}{i}=seed{i}".encode().hex())
+    last = f"{prefix}{n - 1}".encode().hex()
+    deadline = time.monotonic() + wait_s
+    while time.monotonic() < deadline:
+        try:
+            if client.call("abci_query", data=last)["response"].get("value"):
+                return
+        except OSError:
+            pass
+        time.sleep(0.3)
+    require(False, f"serving: {prefix}{n - 1} not committed in {wait_s} s")
+
+
+def _edge_arm(spec, val, rate: float, seed: int) -> dict:
+    """bench.py's _replica_arm: EDGE_CONNS connections offering `rate`
+    ops/s at one replica, half replica_read, half proven abci_query, for
+    EDGE_ARM_S. A read's since_height follows the chain: validator
+    `val`'s height - 3, refreshed every 0.5 s, as a client that reads on
+    and so keeps its certifier near the top. bench.py pins it at the
+    arm's start: then each queued read ships more commits as the chain
+    grows (~5-6 blocks/s here), and the replica's backlog grew without
+    bound on the card, and on a CPU host of 8 cores for the JAX
+    package's replica as for this one (ROADMAP Queue 3)."""
+    from tendermint_tpu_torch.serving.loadgen import (OpenLoopFleet,
+                                                      op_query_prove)
+    since = [max(0, val.call("status")["latest_block_height"] - 3)]
+    done = threading.Event()
+
+    def follow():
+        while not done.wait(0.5):
+            try:
+                since[0] = max(since[0], val.call("status")[
+                    "latest_block_height"] - 3)
+            except OSError:
+                pass    # keep the last height
+    follower = threading.Thread(target=follow, daemon=True,
+                                name="smoke-edge-since")
+    follower.start()
+    fleet = OpenLoopFleet("127.0.0.1", spec.rpc_port, seed=seed)
+    try:
+        fleet.connect(EDGE_CONNS)
+        mix = [("replica_read", 0.5,
+                lambda rng, i: ("replica_read", {
+                    "key": f"lk{rng.randrange(EDGE_KEYS)}".encode().hex(),
+                    "since_height": since[0]})),
+               ("query_prove", 0.5, op_query_prove(EDGE_KEYS))]
+        return fleet.run(EDGE_ARM_S, rate, mix, drain_s=5.0)
+    finally:
+        done.set()
+        follower.join(10)
+        fleet.close()
+
+
+def _point(p: dict) -> dict:
+    keys = ("offered_rate", "offered", "completed_ok", "achieved_rate",
+            "goodput_ratio", "errors", "unanswered", "p50_ms", "p95_ms",
+            "p99_ms", "shed_conns", "events")
+    return {k: p.get(k) for k in keys}
+
+
+def _proc_kernel_lines(path: str, tag: str) -> list:
+    """The last `<tag> kernels {...}` line of each process a Deployment
+    log holds (a restarted process appends to the same log; each start
+    prints its `... started`/`front door` line first)."""
+    with open(path) as f:
+        text = f.read()
+    text = text[:text.rfind("\n") + 1]   # a line still being written
+    starts = [m.start() for m in re.finditer(
+        r"^(node started:|replica started:|shardset front door)", text,
+        re.M)] + [len(text)]
+    out = []
+    for lo, hi in zip(starts, starts[1:]):
+        found = re.findall(rf"^{tag} kernels (\{{.*\}})$", text[lo:hi],
+                           re.M)
+        if found:
+            out.append(json.loads(found[-1]))
+    return out
+
+
+def _sum_launches(lines) -> dict:
+    total = dict.fromkeys(ladder.launches, 0)
+    for ln in lines:
+        for k in total:
+            total[k] += ln["launches"].get(k, 0)
+    return total
+
+
+def _client_verify(spec, v, n: int) -> dict:
+    """EDGE_SAMPLE replica reads verified client-side by one certifier
+    seeded from the genesis valset (each read ships the commits since
+    the certifier's height); then a tampered value refused."""
+    from tendermint_tpu_torch.rpc.client import JSONRPCClient
+    from tendermint_tpu_torch.shard import CertifiedReader, ReadProofError
+    from tendermint_tpu_torch.shard.reads import _genesis_valset
+    from tendermint_tpu_torch.types.genesis import GenesisDoc
+    gen = GenesisDoc.load(os.path.join(spec.home, "config", "genesis.json"))
+    c = JSONRPCClient(spec.rpc_address, timeout=60.0)
+    cert = ContinuousCertifier(gen.chain_id, _genesis_valset(gen),
+                               verifier=v)
+    rng = random.Random(n)
+    for _ in range(n):
+        k = f"lk{rng.randrange(EDGE_KEYS)}".encode()
+        doc = c.call("replica_read", key=k.hex(),
+                     since_height=cert.certified_height)
+        require(doc.get("value_proof") is not None,
+                f"edge_replicas: {spec.name} served {k!r} unproven")
+        CertifiedReader.verify(doc, cert)
+    doc = c.call("replica_read", key=b"lk0".hex())
+    doc["value"] = b"forged".hex()
+    try:
+        CertifiedReader.verify(doc, ContinuousCertifier(
+            gen.chain_id, _genesis_valset(gen), verifier=v))
+        refused = False
+    except ReadProofError:
+        refused = True
+    require(refused, f"edge_replicas: a tampered value from {spec.name} "
+            f"was accepted")
+    return {"verified": n, "certified_height": cert.certified_height,
+            "tampered_refused": refused}
+
+
+def _edge_replicas(card: str, device: str, on_card: bool, left) -> dict:
+    """18b (see the module docstring); returns its reading."""
+    from tendermint_tpu_torch.rpc.client import JSONRPCClient
+    from tendermint_tpu_torch.serving import Deployment, Topology
+    left("edge_replicas")
+    topo = Topology(kind="validators", n_validators=2, n_replicas=2,
+                    chain_id="chip-smoke-edge", max_seconds=SERVE_WALL_S,
+                    env={"TM_CUDA_STATE_TREE": "on"}, device=device)
+    out = tempfile.mkdtemp(prefix="edge_replicas-")
+    d = Deployment(topo, out, kind_env={"replica": {
+        "TM_CUDA_RPC_RATE": str(EDGE_RATE)}})
+    if on_card:
+        for spec in d.specs:    # every verify of every process on B1
+            path = os.path.join(spec.home, "config", "config.json")
+            with open(path) as f:
+                cfg = json.load(f)
+            cfg["base"]["verifier_backend"] = "cuda"
+            with open(path, "w") as f:
+                json.dump(cfg, f)
+    v = tverifier.BatchVerifier("cuda" if on_card else "python",
+                                device=None if on_card else device)
+    reps = [s for s in d.specs if s.kind == "replica"]
+    row = {"phase": "edge_replicas", "validators": 2, "replicas": 2,
+           "rate_per_replica": EDGE_RATE, "offered": EDGE_OFFERED,
+           "arm_s": EDGE_ARM_S}
+    _zero_launches()
+    t0 = time.perf_counter()
+    d.start()
+    try:
+        d.wait_height(3, timeout_s=min(120.0, left("edge boot")))
+        row["boot_s"] = time.perf_counter() - t0
+        val = d.clients(kind="validator")[0]
+        _prime_keys(val, EDGE_KEYS)
+        frontier = val.call("status")["latest_block_height"]
+        d.wait(lambda c: c.call("status")["edge"]["certified_height"]
+               >= frontier, min(90.0, left("edge certify")),
+               "replicas did not certify the primed frontier",
+               kind="replica")
+        row["primed_frontier"] = frontier
+        # client-side verification first, while the chains are short
+        row["client_verify"] = {s.name: _client_verify(s, v, EDGE_SAMPLE)
+                                for s in reps}
+        v0 = _replica_line(reps[0])["edge"]["reads"]["verified"]
+        one = _edge_arm(reps[0], val, EDGE_OFFERED, seed=23)
+        v1, drain, drained = _edge_drain(reps[:1])["replica0"]
+        row["one_replica"] = {**_point(one), "verified": v1 - v0,
+                              "drain_s": drain, "drained": drained}
+        before = [_replica_line(s)["edge"]["reads"]["verified"]
+                  for s in reps]
+        results = [None, None]
+
+        def arm(i):
+            results[i] = _edge_arm(reps[i], val, EDGE_OFFERED / 2,
+                                   seed=31 + i)
+        threads = [threading.Thread(target=arm, args=(i,)) for i in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        after = _edge_drain(reps)
+        row["two_replicas"] = [
+            {**_point(r), "verified": after[s.name][0] - b,
+             "drain_s": after[s.name][1], "drained": after[s.name][2]}
+            for r, s, b in zip(results, reps, before)]
+        agg1 = one["completed_ok"] / EDGE_ARM_S
+        agg2 = sum(r["completed_ok"] for r in results) / EDGE_ARM_S
+        row["agg_ok_per_s_1"], row["agg_ok_per_s_2"] = agg1, agg2
+        row["scaling_2x"] = agg2 / agg1 if agg1 else None
+        require(row["one_replica"]["verified"] > 0 and
+                all(r["verified"] > 0 for r in row["two_replicas"]),
+                f"edge_replicas: a replica verified no read {row}")
+        # SIGKILL replica0: the supervisor restarts it, and it certifies
+        # the frontier of the moment again
+        top = val.call("status")["latest_block_height"]
+        rep0 = JSONRPCClient(reps[0].rpc_address, timeout=5.0)
+        t_kill = time.perf_counter()
+        d.kill("replica0")
+
+        def recertified(c):
+            return (d.restarts.get("replica0", 0) >= 1 and
+                    c.call("status")["edge"]["certified_height"] >= top)
+        d.wait(lambda c: recertified(rep0),
+               min(120.0, left("edge restart")),
+               "replica0 did not certify again after its restart",
+               kind="replica")
+        row["restart_to_certified_s"] = time.perf_counter() - t_kill
+        require(not d.dead, f"edge_replicas: dead processes {d.dead}")
+    finally:
+        d.stop(cleanup=False)
+        v.close()
+    lines = {s.name: _proc_kernel_lines(
+        os.path.join(s.home, "node.log"),
+        "node" if s.kind == "validator" else "replica") for s in d.specs}
+    shutil.rmtree(out, ignore_errors=True)
+    launches = _sum_launches(ln for ls in lines.values() for ln in ls)
+    row["process_launches"] = {n: [ln["launches"] for ln in ls]
+                               for n, ls in lines.items()}
+    row["client_launches"] = dict(ladder.launches)
+    row["launches"] = launches
+    row["card"] = card
+    require(all(lines.values()), f"edge_replicas: a process printed no "
+            f"kernel line {[n for n, ls in lines.items() if not ls]}")
+    if on_card:
+        for n, ls in lines.items():
+            require(sum(ln["launches"]["verify"] for ln in ls) > 0,
+                    f"edge_replicas: {n} never launched B1")
+    emit(row)
+    return launches
+
+
+def _raise_nofile() -> None:
+    """bench.py's bench_load_json: the open-file limit up to 16384 (the
+    fleet's 1,500 sockets here and in the shard-set process)."""
+    import resource
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    want = max(soft, min(hard, 16384))
+    if soft < want:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (want, hard))
+
+
+def _load_knee(card: str, device: str, left) -> dict:
+    """18c (see the module docstring); returns its reading."""
+    from tendermint_tpu_torch.serving import Deployment, Topology
+    from tendermint_tpu_torch.serving.loadgen import (OpenLoopFleet,
+                                                      default_mix,
+                                                      find_knee, sweep)
+    left("load_knee")
+    _raise_nofile()
+    topo = Topology(kind="shardset", n_shards=2, max_seconds=SERVE_WALL_S,
+                    env={"TM_CUDA_STATE_TREE": "on"}, device=device)
+    out = tempfile.mkdtemp(prefix="load_knee-")
+    d = Deployment(topo, out, max_restarts=0)
+    fleet = None
+    row = {"phase": "load_knee", "shards": 2, "rate_s": KNEE_RATE_S}
+    _zero_launches()
+    d.start()
+    try:
+        d.wait(lambda c: bool(c.call("shards")["chains"]),
+               min(90.0, left("front door")), "front door did not come up")
+        _prime_keys(d.clients()[0], EDGE_KEYS)
+        fleet = OpenLoopFleet("127.0.0.1", d.specs[0].rpc_port, seed=17)
+        row["conns"] = fleet.connect(KNEE_CONNS)
+        row["subscribers"] = fleet.subscribe(KNEE_SUBS,
+                                             "tm.event = 'NewBlock'")
+        row["shed_conns_at_connect"] = fleet.shed_conns
+        left("load_knee sweep")
+        points = sweep(fleet, list(KNEE_RATES), KNEE_RATE_S,
+                       default_mix(EDGE_KEYS))
+        knee = find_knee(points, p99_slo_ms=KNEE_SLO_MS)
+        row["curve"] = [_point(p) for p in points]
+        row["knee_rate"] = knee["offered_rate"] if knee else None
+        row["knee"] = _point(knee) if knee else None
+        # a knee: the first rate within find_knee's service level
+        require(knee is not None,
+                f"load_knee: the front door missed the service level "
+                f"(goodput >= 0.85, p99 <= {KNEE_SLO_MS} ms) at "
+                f"{KNEE_RATES[0]}/s {row['curve']}")
+        require(all(p["events"] > 0 for p in points),
+                f"load_knee: a rate pushed no event {row['curve']}")
+        require(not d.dead, f"load_knee: the shard-set process died "
+                f"{d.dead}")
+    finally:
+        if fleet is not None:
+            fleet.close()
+        d.stop(cleanup=False)
+    lines = _proc_kernel_lines(os.path.join(d.specs[0].home, "node.log"),
+                               "shardset")
+    shutil.rmtree(out, ignore_errors=True)
+    require(lines, "load_knee: the shard-set process printed no kernel "
+            "line")
+    launches = _sum_launches(lines)
+    row["launches"] = launches
+    row["process"] = {k: lines[-1][k] for k in ("heights", "verifier",
+                                                "coalescer", "device")}
+    row["card"] = card
+    emit(row)
+    return launches
+
+
+def phase_serving(card: str, device: str = "cuda") -> dict:
+    """Phase 18 (see the module docstring): the shard curve in this
+    process, the edge replicas and the knee sweep as port processes. A
+    CPU rehearsal passes device="cpu": no launch is required."""
+    on_card = device.startswith("cuda")
+    t_phase = time.perf_counter()
+
+    def left(what: str) -> float:
+        rem = SERVE_WALL_S - (time.perf_counter() - t_phase)
+        require(rem > 0, f"serving: out of wall time at {what}")
+        return rem
+    _node_libs()
+    arms = []
+    with _quiet_logs():
+        for n in SHARD_ARMS:
+            arms.append(_shard_arm(n, card, device, on_card, left))
+    factors = [a["coalesce_factor"] or 0.0 for a in arms]
+    require(factors[-1] > factors[0],
+            f"shard_curve: the coalesce factor does not rise with the "
+            f"shards {factors}")
+    shard_launches = _sum_launches(arms)
+    edge = _edge_replicas(card, device, on_card, left)
+    knee = _load_knee(card, device, left)
+    left("the end of phase 18")
+    emit({"phase": "serving_summary",
+          "wall_s": time.perf_counter() - t_phase,
+          "wall_limit_s": SERVE_WALL_S,
+          "coalesce_factors": dict(zip(SHARD_ARMS, factors)),
+          "card": card})
+    return {"shard_curve": shard_launches, "edge_replicas": edge,
+            "load_knee": knee}
+
+
 @contextlib.contextmanager
 def _serial_commit_path():
     """Phases 9 and 10 on the serial commit path (pipeline "off"), the
@@ -6994,6 +7651,7 @@ def main() -> int:
                                           pipeline_run=procnet_pipeline)
     procnet_st = phase_procnet_statetree(card)
     chaos = phase_chaos(card)
+    serving = phase_serving(card)
     table = []
     for name, info in KERNELS.items():
         table.append({
@@ -7033,7 +7691,12 @@ def main() -> int:
                                      chaos["chaos_classic"][name],
                                  "chaos_scale32":
                                      chaos["chaos_scale32"][name],
-                                 "wire_chaos": chaos["wire_chaos"][name]},
+                                 "wire_chaos": chaos["wire_chaos"][name],
+                                 "shard_curve":
+                                     serving["shard_curve"][name],
+                                 "edge_replicas":
+                                     serving["edge_replicas"][name],
+                                 "load_knee": serving["load_knee"][name]},
             "max_abs_err": kernels[name]["max_abs_err"],
             "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"],
             "bound_ms": kernels[name]["bound_ms"],

@@ -5,9 +5,10 @@
     python -m tendermint_tpu_torch.cli --home <h> node --p2p \\
         --rpc-laddr tcp://127.0.0.1:<port>
 
-Commands: init, node, testnet, lite, show_validator, show_node_id,
-gen_validator, unsafe_reset_all, unsafe_reset_priv_validator, version,
-replay, replay_console and probe_upnp. `node`, `lite` and the replays
+Commands: init, node, testnet, lite, replica, shardset, show_validator,
+show_node_id, gen_validator, unsafe_reset_all,
+unsafe_reset_priv_validator, version, replay, replay_console and
+probe_upnp. `node`, `lite`, `replica`, `shardset` and the replays
 take `--device` (cuda, cuda:N or cpu), the device of the BatchVerifier
 (and of the kvstore's state tree, with TM_CUDA_STATE_TREE on): without
 it the node runs on the card and, with no card, exits non-zero unless
@@ -43,7 +44,16 @@ HTTPProvider) on a BatchVerifier("cuda") of `--device`, proxies the six
 routes it cannot verify, and before it exits prints `lite kernels {...}`:
 its kernel launches, its verifier's counts and its certifications.
 
-The JAX CLI's `replica` and `shardset` commands wait for later slices.
+`replica` runs an edge read replica (serving/edge.py): a node with NO
+validator key following the chain over p2p (`--state-sync` joins by a
+snapshot), serving reads only through its continuous certifier, on
+`--rpc-laddr`; it refuses a home that holds a priv_validator.json and
+prints `replica kernels {...}` (the node's kernel line with the
+follower's status) at each certified height and when it stops.
+`shardset` runs N chains behind one front door (serving/deploy.py
+run_shardset) on `--laddr` and prints `shardset kernels {...}`; without
+`--shards` it runs TM_CUDA_SHARDS > base.shards > 2 chains. Both take
+`--device`; without a card and without `--device cpu` they exit 1.
 """
 
 from __future__ import annotations
@@ -403,6 +413,19 @@ def cmd_lite(args) -> int:
         verifier.close()
 
 
+def cmd_replica(args) -> int:
+    """Run an edge read replica (serving/edge.py): a follower node with
+    NO validator key serving lite-certified reads."""
+    from tendermint_tpu_torch.serving.edge import run_replica
+    return run_replica(args)
+
+
+def cmd_shardset(args) -> int:
+    """Run one sharded front-door process (serving/deploy.py)."""
+    from tendermint_tpu_torch.serving.deploy import run_shardset
+    return run_shardset(args)
+
+
 def cmd_version(args) -> int:
     from tendermint_tpu_torch import __version__
     print(__version__)
@@ -581,6 +604,36 @@ def main(argv=None) -> int:
                         help="interactively replay the consensus WAL")
     sp.add_argument("--device", default="", help=device_help)
     sp.set_defaults(fn=lambda a: cmd_replay(a, console=True))
+
+    sp = sub.add_parser("replica",
+                        help="run an edge read replica (keyless "
+                             "follower + lite-certified reads)")
+    sp.add_argument("--app", default="kvstore",
+                    choices=["kvstore", "counter"])
+    sp.add_argument("--rpc-laddr", default="",
+                    help="serve the replica RPC surface here")
+    sp.add_argument("--persistent-peers", default="",
+                    help="validators to follow (id@host:port,...)")
+    sp.add_argument("--max-lag", type=int, default=0,
+                    help="healthz staleness threshold in heights "
+                         "(0 = TM_CUDA_EDGE_MAX_LAG / default)")
+    sp.add_argument("--max-seconds", type=float, default=0)
+    sp.add_argument("--state-sync", action="store_true",
+                    help="bootstrap from a peer snapshot before "
+                         "tailing via fast sync")
+    sp.add_argument("--device", default="", help=device_help)
+    sp.set_defaults(fn=cmd_replica)
+
+    sp = sub.add_parser("shardset",
+                        help="run N chains behind one sharded RPC "
+                             "front door in this process")
+    sp.add_argument("--shards", type=int, default=0,
+                    help="chains (0: TM_CUDA_SHARDS > base.shards > 2)")
+    sp.add_argument("--laddr", default="tcp://127.0.0.1:46657",
+                    help="front-door RPC listen address")
+    sp.add_argument("--max-seconds", type=float, default=0)
+    sp.add_argument("--device", default="", help=device_help)
+    sp.set_defaults(fn=cmd_shardset)
 
     sp = sub.add_parser("lite", help="light-client RPC proxy")
     sp.add_argument("--node-addr", default="http://127.0.0.1:46657")

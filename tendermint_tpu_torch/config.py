@@ -116,6 +116,12 @@ class BaseConfig:
     # TM_CUDA_CHAOS (which may carry its own seed=N) wins over both.
     chaos: str = "off"
     chaos_seed: int = 0
+    # shard plane (shard/): the chain count `cli shardset` assembles
+    # without --shards (serving/deploy.shard_count) — N independent
+    # chains in one process behind one front door, sharing one verifier
+    # and one ReactorLoop. 0 leaves it to the flag's default, 2.
+    # TM_CUDA_SHARDS wins.
+    shards: int = 0
 
 
 # grpc_laddr, when set, serves the gRPC BroadcastAPI

@@ -4,7 +4,9 @@
 // its host Merkle plane needs: SHA-256 with the SHA-NI compress and its
 // CPUID probe, the zero-padding chain and root_from_digests, and the C
 // entries tm_sha256_batch, tm_merkle_root, tm_merkle_root_from_digests,
-// tm_merkle_proof, tm_merkle_tree_proofs and tm_partset_build. The
+// tm_merkle_proof, tm_merkle_tree_proofs and tm_partset_build; and, for
+// the async RPC front door, tm_sendmany (one tick's socket writes in one
+// call). The
 // Ed25519 prep lives in prep.cpp / ed25519_host.h and the AEAD in
 // aead.cpp. kvcore.cpp includes this file for its SHA-256 and bucket
 // root.
@@ -19,9 +21,12 @@
 // with ctypes). -DTM_SHA256_PORTABLE compiles the SHA-NI route out, so
 // that the portable compress can be tested on a CPU that has SHA-NI.
 
+#include <cerrno>
 #include <cstdint>
 #include <cstring>
 #include <vector>
+
+#include <sys/socket.h>
 
 #if defined(__x86_64__) && !defined(TM_SHA256_PORTABLE)
 #define TM_SHANI 1
@@ -846,6 +851,32 @@ int tm_sha256_shani() {
 #else
   return 0;
 #endif
+}
+
+// Non-blocking writes of bufs[i][0, lens[i]) to socket fds[i], i < n, in
+// one call (rpc/aserver.py: a loop tick's writes, the interpreter lock
+// released once for all of them). sent[i] = the bytes written, which
+// stop short where the socket's buffer is full, or -errno on an error
+// other than EAGAIN / EINTR.
+void tm_sendmany(int n, const int *fds, const char *const *bufs,
+                 const uint64_t *lens, int64_t *sent) {
+  for (int i = 0; i < n; i++) {
+    uint64_t off = 0;
+    int64_t err = 0;
+    while (off < lens[i]) {
+      ssize_t k = send(fds[i], bufs[i] + off, lens[i] - off,
+                       MSG_DONTWAIT | MSG_NOSIGNAL);
+      if (k > 0) {
+        off += (uint64_t)k;
+      } else if (k < 0 && errno == EINTR) {
+        continue;
+      } else {
+        if (k < 0 && errno != EAGAIN && errno != EWOULDBLOCK) err = -errno;
+        break;
+      }
+    }
+    sent[i] = err ? err : (int64_t)off;
+  }
 }
 
 }  // extern "C"

@@ -345,7 +345,8 @@ _HOSTOPS_SIGNATURES = [
     ("tm_merkle_proof", [ctypes.c_char_p, _P, _U64, _U64, _P, _P], _U64),
     ("tm_merkle_tree_proofs", [ctypes.c_char_p, _P, _U64, _P, _P], _U64),
     ("tm_partset_build", [ctypes.c_char_p, _U64, _U64, _P, _P], _U64),
-    ("tm_sha256_shani", [], ctypes.c_int)]
+    ("tm_sha256_shani", [], ctypes.c_int),
+    ("tm_sendmany", [ctypes.c_int, _P, _P, _P, _P], None)]
 
 
 def hostops_build(portable: bool = False):

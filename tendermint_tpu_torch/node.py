@@ -12,9 +12,11 @@ Every signature check of the node (handshake replay, consensus votes,
 fast-sync windows, evidence) goes through one BatchVerifier built from
 `config.base.verifier_backend` and `verifier_coalesce*` on `device`:
 with every one of them at its default and no device, the process-wide
-default verifier, as the JAX node shares its own. Without a device and
-without a card, any backend but "python" raises (utils/device.resolve):
-the node never moves to the CPU quietly.
+default verifier, as the JAX node shares its own. `verifier=` hands the
+node a verifier its caller owns (a ShardSet's one verifier for all its
+shards): the node uses it for every path and never closes it. Without a
+device and without a card, any backend but "python" raises
+(utils/device.resolve): the node never moves to the CPU quietly.
 
 Socket plane: with `config.base.reactor` "auto" or "loop" (the default,
 as in the JAX node) the node runs ONE ReactorLoop thread,
@@ -126,7 +128,8 @@ class Node:
                  priv_validator=None, app=None, client_creator=None,
                  mempool=None, evidence_pool=None, in_memory=False,
                  with_p2p=False, fast_sync=False, with_rpc=False,
-                 wal_readonly=False, device=None, loop=None):
+                 wal_readonly=False, device=None, loop=None,
+                 verifier=None):
         # logging is configured once at the CLI entry point; the chain id
         # rides as a logger field
         self.logger = tm_logger("node", chain=gen_doc.chain_id)
@@ -211,9 +214,14 @@ class Node:
         self.app_conns = AppConns(client_creator)
 
         # verification plane, built before the first verification path
-        # (handshake replay) so every path of the node uses it
-        self.verifier, self._owns_verifier = build_verifier(
-            config.base, device)
+        # (handshake replay) so every path of the node uses it; ownership
+        # is recorded now, so that a stop in any order never closes a
+        # verifier the node was handed
+        if verifier is not None:
+            self.verifier, self._owns_verifier = verifier, False
+        else:
+            self.verifier, self._owns_verifier = build_verifier(
+                config.base, device)
 
         # a state-sync restore a crash tore mid-apply is repaired here,
         # before the handshake reads the stores (the apply is

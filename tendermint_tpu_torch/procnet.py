@@ -75,6 +75,16 @@ def free_block(n_ports: int) -> int:
     raise RuntimeError("no free block of ports")
 
 
+def child_env(extra: Optional[dict] = None) -> dict:
+    """A child process's environment: this process's, with the
+    package's directory first on PYTHONPATH and `extra` over it."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (SRC_ROOT, env.get("PYTHONPATH", "")) if p)
+    env.update(extra or {})
+    return env
+
+
 def bench_settings(verifier_backend: str = "auto", reactor: str = "auto",
                    verifier_coalesce: str = "auto",
                    pipeline: str = "auto") -> Dict[str, dict]:
@@ -126,11 +136,7 @@ class ProcNet:
         return self.base_port + 2 * i + 1
 
     def _env(self, extra: Optional[dict] = None) -> dict:
-        env = dict(os.environ)
-        env["PYTHONPATH"] = os.pathsep.join(
-            p for p in (SRC_ROOT, env.get("PYTHONPATH", "")) if p)
-        env.update(extra or {})
-        return env
+        return child_env(extra)
 
     def write_tree(self, chain_id: str, cli: str = PORT_CLI) -> None:
         """`cli testnet` of `cli`'s package into the root."""

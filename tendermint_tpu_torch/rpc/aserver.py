@@ -16,10 +16,20 @@ connection on the SAME event loop that owns the p2p sockets:
   bounded write buffer by a loop callback armed from ``Subscription.
   on_put``; no thread a subscriber, and backpressure ends in the
   counted drop-oldest eviction, never in unbounded memory;
+- the writes of one loop tick leave together: a connection with bytes
+  to send joins the tick's set, and one call of the native
+  ``tm_sendmany`` (csrc/hostops.cpp) writes them all, the interpreter
+  lock released once. A socket call per write gave the lock up at each
+  one; with threads that compute beside the loop (a shard set's
+  chains) the loop waited for it each time, and one event to 300
+  subscribers took 300 such waits. The JAX server writes each at once;
+  the bytes on the wire are the same;
 - admission control: a connection cap (an immediate 503 over it), an
   in-flight call cap (a structured overload error, -32000) and a
   per-client-IP token bucket (-32005). `max_conns` and `rate_per_ip`
-  are constructor arguments (0: DEFAULT_MAX_CONNS, and no rate limit).
+  are constructor arguments; at 0 the TM_CUDA_RPC_MAX_CONNS and
+  TM_CUDA_RPC_RATE knobs decide (0: DEFAULT_MAX_CONNS, and no rate
+  limit), as the JAX server reads its TM_TPU_* pair.
 
 The route table, parameter coercion and error envelope are the threaded
 server's (RPCFunc/_coerce/_rpc_response), so both transports serve
@@ -27,13 +37,16 @@ byte-identical JSON-RPC. The JAX server's `rpc_*` families are fed at
 the same points as `stats` (connections, requests, refusals and events),
 the loop fan-out stamps the SLO plane's `deliver` stage, and GET
 /metrics and /debug/timeline are served from `metrics_provider` and
-`timeline_provider` beside `raw_routes`. Not ported: the shard front
-door's chain labels (the `chain` label is always "").
+`timeline_provider` beside `raw_routes`. `rpc_call_seconds`'s `chain`
+label is resolved by the server: a shard front door installs its
+mapping-backed `chain_resolver` (shard/router.py); without one the
+label is "".
 """
 
 from __future__ import annotations
 
 import base64
+import ctypes
 import hashlib
 import json
 import socket
@@ -45,7 +58,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, Optional
 from urllib.parse import parse_qsl, urlparse
 
-from tendermint_tpu_torch import telemetry
+from tendermint_tpu_torch import native, telemetry
 from tendermint_tpu_torch.rpc.server import (
     MAX_BODY_BYTES,
     _WS_MAGIC,
@@ -54,6 +67,7 @@ from tendermint_tpu_torch.rpc.server import (
     _rpc_response,
 )
 from tendermint_tpu_torch.telemetry import slo as _slo
+from tendermint_tpu_torch.utils import knobs
 
 _m_conns = telemetry.gauge(
     "rpc_conns", "Open RPC connections on the async front door, by kind",
@@ -126,8 +140,10 @@ class AsyncRPCServer:
         self.metrics_provider: Optional[Callable[[], str]] = None
         self.timeline_provider: Optional[Callable[[], dict]] = None
         self.raw_routes: Dict[str, tuple] = {}
-        self.max_conns = int(max_conns) or DEFAULT_MAX_CONNS
-        self.rate_per_ip = float(rate_per_ip)
+        self.max_conns = int(max_conns) or knobs.knob_int(
+            "TM_CUDA_RPC_MAX_CONNS", default=0) or DEFAULT_MAX_CONNS
+        self.rate_per_ip = float(rate_per_ip) or knobs.knob_float(
+            "TM_CUDA_RPC_RATE", default=0.0)
         # written on the loop thread (subscribers: also by a handler's
         # close callbacks, which run there too); readers take a copy
         self.stats = dict.fromkeys(self.STATS, 0)
@@ -139,12 +155,20 @@ class AsyncRPCServer:
         self._inflight = 0                       # loop-thread only
         self._stopped = False
         self._tx_batcher = None   # set by make_server; closed on stop
+        # bounded chain-label provider for rpc_call_seconds: a shard
+        # front door (shard/router.py) installs its mapping-backed
+        # resolver here; None (single-chain) labels chain=""
+        self.chain_resolver: Optional[Callable] = None
         # event-render cache: one EventBus.publish fans the SAME
         # (tags, data) objects out to every matching subscriber — at
         # thousands of subscribers, re-encoding the payload per
         # subscriber would saturate the loop. Keyed by object identity
         # + query; entries hold strong refs so ids stay valid.
         self._enc_cache: Dict[tuple, tuple] = {}  # loop-thread only
+        # connections with bytes to write this tick (an ordered set) and
+        # whether _flush is scheduled; loop-thread only
+        self._dirty: Dict["_Conn", None] = {}
+        self._flush_armed = False
 
     def render_event(self, item, render: Callable[[Any], dict]) -> bytes:
         key = (id(item.tags), id(item.data), item.query)
@@ -303,6 +327,12 @@ class AsyncRPCServer:
         tele = telemetry.enabled()
         route = method if isinstance(method, str) and \
             method in self.funcs else "unknown"
+        chain = ""
+        if tele and self.chain_resolver is not None:
+            try:
+                chain = self.chain_resolver(method, params) or ""
+            except Exception:
+                chain = ""   # label resolution must never fail a call
 
         def work():
             t0 = time.perf_counter() if tele else 0.0
@@ -312,7 +342,7 @@ class AsyncRPCServer:
             except RPCError as e:
                 resp = _rpc_response(id_, error=e)
             if tele:
-                _m_call_seconds.labels(route, "").observe(
+                _m_call_seconds.labels(route, chain).observe(
                     time.perf_counter() - t0)
             self.loop.call_soon(lambda: self._complete(send, resp),
                                 owner="rpc")
@@ -321,6 +351,40 @@ class AsyncRPCServer:
             self._pool.submit(work)
         except RuntimeError:   # pool shut down under us
             self._inflight -= 1
+
+    def _want_flush(self, conn: "_Conn") -> None:
+        """Loop-thread: `conn` has bytes to write; they leave with the
+        rest of the tick's in _flush."""
+        self._dirty[conn] = None
+        if not self._flush_armed:
+            self._flush_armed = True
+            self.loop.call_soon(self._flush, owner="rpc")
+
+    def _flush(self) -> None:
+        """Loop-thread: write every dirty connection's buffer in one
+        native call, then let each wait for its socket or drain."""
+        self._flush_armed = False
+        conns = [c for c in self._dirty if not c.closed]
+        self._dirty.clear()
+        full = [c for c in conns if c.outbuf]
+        if full:
+            n = len(full)
+            views = [(ctypes.c_char * len(c.outbuf)).from_buffer(c.outbuf)
+                     for c in full]
+            fds = (ctypes.c_int * n)(*[c.sock.fileno() for c in full])
+            bufs = (ctypes.c_void_p * n)(*map(ctypes.addressof, views))
+            lens = (ctypes.c_uint64 * n)(*map(len, views))
+            sent = (ctypes.c_int64 * n)()
+            native.hostops_lib().tm_sendmany(n, fds, bufs, lens, sent)
+            del views   # release the buffers before they are cut
+            for c, k in zip(full, sent):
+                if k < 0:
+                    c.close()
+                else:
+                    del c.outbuf[:k]
+        for c in conns:
+            if not c.closed:
+                c._after_write()
 
     def _complete(self, send: Callable[[dict], None], resp: dict) -> None:
         self._inflight -= 1
@@ -470,20 +534,12 @@ class _Conn:
         if len(self.outbuf) > OUT_HARD_LIMIT:
             self.close()   # reader irreparably slow
             return
-        self._write_some()
+        self.server._want_flush(self)
 
-    def _write_some(self) -> None:
-        while self.outbuf:
-            try:
-                n = self.sock.send(self.outbuf)
-            except (BlockingIOError, InterruptedError):
-                break
-            except OSError:
-                self.close()
-                return
-            if n <= 0:
-                break
-            del self.outbuf[:n]
+    def _after_write(self) -> None:
+        """After a write: wait for the socket when bytes are left, else
+        run the drain callback (and close a finished non-keep-alive
+        HTTP connection)."""
         if self.outbuf:
             if not self._write_armed:
                 self._write_armed = True
@@ -504,11 +560,16 @@ class _Conn:
                 self.close()
 
     def _on_writable(self) -> None:
-        self._write_some()
+        self.server._want_flush(self)
 
     def close(self) -> None:
         if self.closed:
             return
+        if self.outbuf:
+            try:   # what this tick queued (an error reply), best effort
+                self.sock.send(self.outbuf)
+            except OSError:
+                pass
         self.closed = True
         if self.ws is not None:
             self.ws.close()

@@ -11,11 +11,14 @@ config > default. FALSY is the single vocabulary for "off".
 Import-light by design (stdlib `os` only): telemetry reads knobs at
 import time, so this module imports nothing of the package back.
 
-The catalog holds the knobs of the observability planes, the
-kvstore's commit backend (TM_CUDA_STATE_TREE), the chaos plane's link
-faults (TM_CUDA_CHAOS) and the lock-order watchdog (TM_CUDA_LOCKCHECK). The planes ported before
-them (reactor, pipeline, coalescer, compact relay, p2p, recovery) take
-their settings from config fields only.
+The catalog holds the knobs of the observability planes, the async
+front door's admission envelope (TM_CUDA_RPC_MAX_CONNS, TM_CUDA_RPC_RATE),
+the kvstore's commit backend (TM_CUDA_STATE_TREE), the shard plane's
+default count (TM_CUDA_SHARDS), the edge replicas' staleness threshold
+(TM_CUDA_EDGE_MAX_LAG), the chaos plane's link faults (TM_CUDA_CHAOS)
+and the lock-order watchdog (TM_CUDA_LOCKCHECK). The other planes
+(reactor, pipeline, coalescer, compact relay, p2p, recovery) take their
+settings from config fields only.
 """
 
 from __future__ import annotations
@@ -92,6 +95,16 @@ CATALOG: tuple[Knob, ...] = (
          "Path: `cli node` samples every thread's frame with SIGPROF at "
          "~97 Hz of CPU time and writes the top frames there on exit.",
          "cli.py"),
+    # -- async reactor core ----------------------------------------------
+    Knob("TM_CUDA_RPC_MAX_CONNS", "int", "0 (= 4096 loop mode)", "",
+         "Admission cap on concurrent RPC/WebSocket connections in "
+         "loop mode; over-cap connects get an immediate 503.",
+         "rpc/aserver.py"),
+    Knob("TM_CUDA_RPC_RATE", "float", "0 (off)", "",
+         "Per-client-IP JSON-RPC request rate limit (requests/sec, "
+         "2x burst) in loop mode; over-limit calls get a structured "
+         "rate-limit error and count tm_rpc_rate_limited_total.",
+         "rpc/aserver.py"),
     # -- app -------------------------------------------------------------
     Knob("TM_CUDA_STATE_TREE", "bool", "off", "",
          "KVStore commit backend: on = authenticated state tree "
@@ -101,6 +114,22 @@ CATALOG: tuple[Knob, ...] = (
          "Chain-level: every validator must agree, the two backends "
          "hash differently by design.",
          "abci/apps/kvstore.py"),
+    # -- shard plane -----------------------------------------------------
+    Knob("TM_CUDA_SHARDS", "int", "0 (off)", "base.shards",
+         "Default chain count a ShardSet assembles (ShardSet("
+         "n_shards=None), and `cli shardset` without --shards): N "
+         "independent chains in one process behind one front door, "
+         "sharing one verifier and one ReactorLoop; 0 = single-chain "
+         "shape (`cli shardset`: 2).",
+         "shard/__init__.py"),
+    # -- edge serving plane ----------------------------------------------
+    Knob("TM_CUDA_EDGE_MAX_LAG", "int", "50", "",
+         "Staleness threshold (heights) for an edge read replica: when "
+         "certified-height lag exceeds it — or continuous certification "
+         "has failed — the replica's /healthz flips not-ok so load "
+         "balancers drain it. Every response still carries the honest "
+         "lag either way.",
+         "serving/edge.py"),
     # -- chaos -------------------------------------------------------------
     Knob("TM_CUDA_CHAOS", "spec", "off", "base.chaos",
          "Link fault spec, e.g. drop=0.05,delay=0.1,delay_ms=30,seed=7.",

@@ -17,7 +17,9 @@ tolerance 0 (response bytes, results, error codes and messages).
 - Admission: the connection cap's 503, the in-flight cap's overload
   error and the per-IP token bucket's -32005 are the same bytes.
 - Event fan-out: subscribers of each server see every published event
-  with no thread a subscriber.
+  with no thread a subscriber; the port's front door writes a loop
+  tick's frames in one native call (csrc/hostops.cpp tm_sendmany), whose
+  partial writes and errors are checked on socket pairs.
 - TxBatcher: the same txs (a duplicate and a full mempool included),
   merged into one check_tx_batch, give the same results and leave the
   same mempool as the JAX batcher; RPCCore's broadcast routes over the
@@ -411,6 +413,128 @@ def test_event_fanout_needs_no_thread_a_subscriber(name):
     finally:
         for c in clients:
             c.close()
+        sv.stop()
+
+
+def test_sendmany_writes_each_socket_and_reports_what_it_could_not():
+    """csrc/hostops.cpp tm_sendmany: every buffer to its socket in one
+    call; a full socket takes what fits, a closed peer gives -errno."""
+    import ctypes
+
+    from tendermint_tpu_torch import native
+    pairs = [socket.socketpair() for _ in range(4)]
+    try:
+        for a, _ in pairs:
+            a.setblocking(False)
+        pairs[2][0].setsockopt(socket.SOL_SOCKET, socket.SO_SNDBUF, 4096)
+        pairs[3][1].close()
+        bufs = [b"one", b"two" * 100, b"x" * (4 << 20), b"gone"]
+        views = [ctypes.create_string_buffer(b, len(b)) for b in bufs]
+        n = len(bufs)
+        sent = (ctypes.c_int64 * n)()
+        native.hostops_lib().tm_sendmany(
+            n, (ctypes.c_int * n)(*[a.fileno() for a, _ in pairs]),
+            (ctypes.c_void_p * n)(*map(ctypes.addressof, views)),
+            (ctypes.c_uint64 * n)(*map(len, bufs)), sent)
+        assert sent[0] == 3 and pairs[0][1].recv(16) == b"one"
+        assert sent[1] == 300 and pairs[1][1].recv(400) == b"two" * 100
+        assert 0 < sent[2] < len(bufs[2])
+        assert sent[3] < 0
+    finally:
+        for a, b in pairs:
+            a.close()
+            b.close()
+
+
+def test_event_fanout_writes_a_tick_in_one_native_call(monkeypatch):
+    """An event published to 20 subscribers leaves the port's front door
+    in one tm_sendmany call (one release of the interpreter lock), not a
+    socket call a subscriber; every subscriber reads it."""
+    lib = taserver.native.hostops_lib()
+    widths = []
+
+    class Counting:
+        def tm_sendmany(self, n, *args):
+            widths.append(n)
+            return lib.tm_sendmany(n, *args)
+    monkeypatch.setattr(taserver.native, "hostops_lib", lambda: Counting())
+    bus = TEventBus()
+    core = tcore.RPCCore(tcore.RPCEnv(event_bus=bus))
+    sv = Served("port")
+    sv.srv.register("subscribe", core.subscribe, ws_only=True)
+    clients = []
+    try:
+        port = sv.serve()
+        clients = [tclient.WSClient("127.0.0.1", port) for _ in range(20)]
+        for c in clients:
+            c.subscribe("tm.event = 'Ping'")
+        held, release = threading.Event(), threading.Event()
+
+        def hold():
+            held.set()
+            release.wait(WAIT_S)
+        sv.loop.call_soon(hold)    # the loop waits while the bus fans out
+        assert held.wait(WAIT_S)
+        widths.clear()
+        bus.publish("Ping", {"i": 7})
+        release.set()
+        for c in clients:
+            assert c.events.get(timeout=WAIT_S)["data"]["i"] == 7
+        assert widths == [20]
+    finally:
+        for c in clients:
+            c.close()
+        sv.stop()
+
+
+def _read_frame(ws: "RawWS") -> bytes:
+    ws._need(2)
+    ln, pos = ws.buf[1] & 0x7F, 2
+    if ln == 126:
+        ws._need(4)
+        ln, pos = struct.unpack(">H", ws.buf[2:4])[0], 4
+    elif ln == 127:
+        ws._need(10)
+        ln, pos = struct.unpack(">Q", ws.buf[2:10])[0], 10
+    ws._need(pos + ln)
+    frame, ws.buf = ws.buf[pos:pos + ln], ws.buf[pos + ln:]
+    return frame
+
+
+def _event_i(frame: bytes) -> int:
+    return json.loads(frame)["result"]["data"]["i"]
+
+
+def test_event_fanout_waits_for_a_full_socket_and_resumes():
+    """A subscriber that stops reading fills its socket: the port's
+    front door keeps the rest, waits for the socket (its writer armed)
+    and, once the client reads, sends every event in order."""
+    bus = TEventBus()
+    core = tcore.RPCCore(tcore.RPCEnv(event_bus=bus))
+    sv = Served("port")
+    sv.srv.register("subscribe", core.subscribe, ws_only=True)
+    ws = None
+    try:
+        ws = RawWS(sv.serve())
+        ws.call("subscribe", {"query": "tm.event = 'Big'"})
+        (conn,) = [c for c in list(sv.srv._conns) if c.is_ws]
+        pad = "x" * 65536
+        for i in range(200):     # 13 MB, far past the socket buffers
+            bus.publish("Big", {"i": i, "pad": pad})
+        deadline = time.monotonic() + WAIT_S
+        while not conn._write_armed and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert conn._write_armed
+        got = [_event_i(_read_frame(ws))
+               for _ in range(200)]
+        assert got == list(range(200))
+        while (conn._write_armed or conn.outbuf) and \
+                time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert not conn._write_armed and not conn.outbuf
+    finally:
+        if ws is not None:
+            ws.close()
         sv.stop()
 
 

@@ -8,8 +8,8 @@
   the pipeline, the fail points, snapshots, state sync, the telemetry
   planes, the knob catalog, the divergence plane, the state tree, the
   gRPC surfaces with their proto module, the lite proxy, the chaos
-  plane with its link fuzzer and the lock-order watchdog included), and
-  chip_smoke.py
+  plane with its link fuzzer and the lock-order watchdog, the shard
+  plane and the edge serving plane included), and chip_smoke.py
   as a module, in a fresh interpreter loads neither jax nor any
   tendermint_tpu module.
 - No source of the port (nor chip_smoke.py) imports them (AST check).
@@ -19,8 +19,8 @@
   coalescer and verifier, the async front door and RPC core, UPnP, the
   node, the pipeline, the snapshot store and manager, state sync, the
   telemetry planes, the state tree, the gRPC surfaces, the lite proxy,
-  the chaos plane, the link fuzzer, the lock-order watchdog)
-  read no environment variable themselves: their
+  the chaos plane, the link fuzzer, the lock-order watchdog, the shard
+  plane, the serving plane) read no environment variable themselves: their
   settings are config fields and constructor arguments, and the
   observability planes' TM_CUDA_* knobs are read through the catalog
   (utils/knobs.py).
@@ -29,7 +29,8 @@
   tendermint_tpu_torch.cli node` without a card and without `--device
   cpu` exits non-zero with the device's message; so do a StateTree and a
   tree-backed kvstore given no device, and `cli lite` without `--device`;
-  and run_chaos without a device.
+  and run_chaos without a device; and a ShardSet, `cli shardset` and
+  `cli replica` without one.
 """
 
 import ast
@@ -56,7 +57,8 @@ def test_walk_covers_every_subpackage():
                 "state", "abci", "abci.apps", "blockchain", "p2p",
                 "p2p.conn", "consensus", "mempool", "evidence", "rpc",
                 "p2p.pex", "node", "cli", "statesync", "telemetry",
-                "analysis", "statetree", "rpc.proto", "chaos"):
+                "analysis", "statetree", "rpc.proto", "chaos", "shard",
+                "serving"):
         assert f"tendermint_tpu_torch.{pkg}" in mods, pkg
     assert "tendermint_tpu_torch.lite.certifier" in mods
     assert "tendermint_tpu_torch.native" in mods
@@ -92,7 +94,10 @@ def test_walk_covers_every_subpackage():
                 "abci.grpc_app", "lite.proxy", "lite.provider",
                 "chaos.schedule", "chaos.ticker", "chaos.byzantine",
                 "chaos.monitor", "chaos.runner", "chaos.wire",
-                "chaos.hostile", "p2p.fuzz", "analysis.lockwatch"):
+                "chaos.hostile", "p2p.fuzz", "analysis.lockwatch",
+                "shard.router", "shard.reads", "shard.set",
+                "serving.topology", "serving.edge", "serving.loadgen",
+                "serving.deploy"):
         assert f"tendermint_tpu_torch.{mod}" in mods, mod
 
 
@@ -170,7 +175,10 @@ PLANE_SOURCES = [PORT / m for m in (
     "lite/proxy.py", "chaos/__init__.py", "chaos/schedule.py",
     "chaos/ticker.py", "chaos/byzantine.py", "chaos/monitor.py",
     "chaos/runner.py", "chaos/wire.py", "chaos/hostile.py", "p2p/fuzz.py",
-    "analysis/lockwatch.py")]
+    "analysis/lockwatch.py", "shard/__init__.py", "shard/router.py",
+    "shard/reads.py", "shard/set.py", "serving/__init__.py",
+    "serving/topology.py", "serving/edge.py", "serving/loadgen.py",
+    "serving/deploy.py")]
 
 
 @pytest.mark.parametrize("path", PLANE_SOURCES,
@@ -338,3 +346,36 @@ def test_cli_node_without_a_card_exits_with_the_device_error(tmp_path):
     assert proc.returncode != 0
     assert "no CUDA device is available" in proc.stderr, proc.stderr
     assert "committed height" not in proc.stdout
+
+
+def test_shard_and_serving_entry_points_without_device_raise(
+        no_cuda, tmp_path, capsys):
+    from tendermint_tpu_torch import cli
+    from tendermint_tpu_torch.models import verifier
+    from tendermint_tpu_torch.shard import ShardSet
+
+    saved = verifier._default
+    verifier.set_default_verifier(None)
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ShardSet(2)
+        code = cli.main(["--home", str(tmp_path / "ss"), "shardset",
+                         "--laddr", "tcp://127.0.0.1:0",
+                         "--max-seconds", "1"])
+        err = capsys.readouterr().err
+        assert code == 1 and "no CUDA device is available" in err, err
+    finally:
+        verifier.set_default_verifier(saved)
+    # `cli replica` configures the process's logging: a process of its own
+    home = str(tmp_path / "rep")
+    env = dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="")
+    run = [sys.executable, "-m", "tendermint_tpu_torch.cli", "--home", home]
+    subprocess.run(run + ["init"], check=True, env=env, cwd=tmp_path,
+                   capture_output=True, timeout=120)
+    os.unlink(os.path.join(home, "config", "priv_validator.json"))
+    proc = subprocess.run(run + ["replica", "--rpc-laddr",
+                                 "tcp://127.0.0.1:0", "--max-seconds", "1"],
+                          env=env, cwd=tmp_path, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 1, proc.stdout + proc.stderr
+    assert "no CUDA device is available" in proc.stderr, proc.stderr

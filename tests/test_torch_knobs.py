@@ -6,8 +6,11 @@ the JAX package's (tendermint_tpu/utils/knobs.py), on the CPU.
   package's TM_TPU_* one), for every reader and kind.
 - A TM_TPU_* variable changes nothing in the port: each plane the port
   gates on a knob (telemetry, trace, trace cap, profiler and its rate,
-  queue observatory, SLO and its rate, divergence) reads only its
-  TM_CUDA_* name, and that name wins over the plane's config.
+  queue observatory, SLO and its rate, divergence, the shard count, the
+  edge replicas' lag threshold, the front door's connection cap and
+  rate) reads only its TM_CUDA_* name, and that name wins over the
+  plane's config. The front door's pair and the shard count resolve as
+  the JAX package's do (an explicit argument, then env, then default).
 - The catalog holds every knob the port reads, each a TM_CUDA_* name
   with a JAX counterpart of the same kind, default and config field
   (TM_CUDA_NODE_PROFILE's counterpart is the JAX CLI's TM_NODE_PROFILE,
@@ -29,7 +32,9 @@ SLICE_KNOBS = ("TM_CUDA_TELEMETRY", "TM_CUDA_TRACE", "TM_CUDA_TRACE_CAP",
                "TM_CUDA_TRACE_STALL_S", "TM_CUDA_PROF", "TM_CUDA_PROF_HZ",
                "TM_CUDA_QUEUE_WATCH", "TM_CUDA_SLO", "TM_CUDA_SLO_SAMPLE",
                "TM_CUDA_DIVERGENCE", "TM_CUDA_NODE_PROFILE",
-               "TM_CUDA_STATE_TREE", "TM_CUDA_CHAOS", "TM_CUDA_LOCKCHECK")
+               "TM_CUDA_STATE_TREE", "TM_CUDA_CHAOS", "TM_CUDA_LOCKCHECK",
+               "TM_CUDA_SHARDS", "TM_CUDA_EDGE_MAX_LAG",
+               "TM_CUDA_RPC_MAX_CONNS", "TM_CUDA_RPC_RATE")
 
 
 def _jax_name(name: str) -> str:
@@ -51,6 +56,8 @@ def test_catalog_holds_the_slice_knobs_with_jax_counterparts():
             continue
         j = jknobs.get(_jax_name(k.name))
         assert (k.kind, k.config) == (j.kind, j.config), k.name
+        if k.name in SLICE_KNOBS[-4:]:
+            assert (k.default, k.where) == (j.default, j.where), k.name
     assert "TM_CUDA_TELEMETRY" in tknobs.knobs_md()
 
 
@@ -88,6 +95,14 @@ _CASES = [
     ("knob_float", "TM_CUDA_PROF_HZ", None, 29.0, 13.0),
     ("knob_float", "TM_CUDA_PROF_HZ", "3.5", 29.0, 13.0),
     ("knob_float", "TM_CUDA_SLO_SAMPLE", "0.25", None, 1.0),
+    ("knob_int", "TM_CUDA_SHARDS", None, None, 0),
+    ("knob_int", "TM_CUDA_SHARDS", None, 8, 0),
+    ("knob_int", "TM_CUDA_SHARDS", "32", 8, 0),
+    ("knob_int", "TM_CUDA_EDGE_MAX_LAG", None, None, 50),
+    ("knob_int", "TM_CUDA_EDGE_MAX_LAG", None, 5, 50),
+    ("knob_int", "TM_CUDA_EDGE_MAX_LAG", "2", 5, 50),
+    ("knob_int", "TM_CUDA_RPC_MAX_CONNS", "20", None, 0),
+    ("knob_float", "TM_CUDA_RPC_RATE", "40", None, 0.0),
 ]
 
 
@@ -124,6 +139,8 @@ def _planes():
     """(knob, reader of the port plane's effective value, config setter,
     value with the knob set to `on_value`) for each gated plane."""
     from tendermint_tpu_torch.analysis import divergence
+    from tendermint_tpu_torch.serving.edge import CertifierFollower
+    from tendermint_tpu_torch.shard import resolve_shards
     from tendermint_tpu_torch.telemetry import causal, profile, queues, slo
 
     def slo_read():
@@ -155,7 +172,25 @@ def _planes():
          lambda: slo.configure("on", None), 1.0, 0.5),
         ("TM_CUDA_DIVERGENCE", "on", divergence.enabled, lambda: None,
          False, True),
+        ("TM_CUDA_SHARDS", "8", lambda: resolve_shards(config=2),
+         lambda: None, 2, 8),
+        ("TM_CUDA_EDGE_MAX_LAG", "3",
+         lambda: CertifierFollower(None).max_lag, lambda: None, 50, 3),
+        ("TM_CUDA_RPC_MAX_CONNS", "20", lambda: _server_field("max_conns"),
+         lambda: None, 4096, 20),
+        ("TM_CUDA_RPC_RATE", "40", lambda: _server_field("rate_per_ip"),
+         lambda: None, 0.0, 40.0),
     ]
+
+
+def _server_field(name: str):
+    """A field of a fresh async front door (no loop, no thread started)."""
+    from tendermint_tpu_torch.rpc.aserver import AsyncRPCServer
+    srv = AsyncRPCServer(None)
+    try:
+        return getattr(srv, name)
+    finally:
+        srv._pool.shutdown()
 
 
 @pytest.fixture
@@ -170,7 +205,7 @@ def planes_restored():
     slo.reset()
 
 
-@pytest.mark.parametrize("i", range(8))
+@pytest.mark.parametrize("i", range(12))
 def test_tm_tpu_names_change_nothing_in_the_port(monkeypatch, i,
                                                  planes_restored):
     name, on_value, read, set_config, base, forced = _planes()[i]
@@ -201,3 +236,53 @@ def test_telemetry_env_pin_wins_over_config(monkeypatch):
     finally:
         registry._state = saved
     assert registry._TelemetryState().namespace == "tmcuda"
+
+
+@pytest.mark.parametrize("env,arg", [(None, 0), ("20", 0), ("20", 7),
+                                     (None, 7)])
+def test_rpc_admission_pair_resolves_as_jax(monkeypatch, env, arg):
+    """An explicit constructor argument wins, else the knob, else the
+    default: the port's front door resolves its pair as the JAX one."""
+    from tendermint_tpu.rpc.aserver import AsyncRPCServer as JServer
+    from tendermint_tpu_torch.rpc.aserver import AsyncRPCServer as TServer
+    if env is not None:
+        monkeypatch.setenv("TM_CUDA_RPC_MAX_CONNS", env)
+        monkeypatch.setenv("TM_TPU_RPC_MAX_CONNS", env)
+        monkeypatch.setenv("TM_CUDA_RPC_RATE", env)
+        monkeypatch.setenv("TM_TPU_RPC_RATE", env)
+    got = []
+    for cls in (TServer, JServer):
+        srv = cls(None, max_conns=arg, rate_per_ip=float(arg))
+        got.append((srv.max_conns, srv.rate_per_ip))
+        srv._pool.shutdown()
+    assert got[0] == got[1]
+
+
+@pytest.mark.parametrize("env,config", [(None, 0), (None, 4), ("16", 4),
+                                        ("0", 4)])
+def test_resolve_shards_as_jax(monkeypatch, env, config):
+    from tendermint_tpu.shard import resolve_shards as jresolve
+    from tendermint_tpu_torch.shard import resolve_shards as tresolve
+    if env is not None:
+        monkeypatch.setenv("TM_CUDA_SHARDS", env)
+        monkeypatch.setenv("TM_TPU_SHARDS", env)
+    assert tresolve(config) == jresolve(config)
+
+
+@pytest.mark.parametrize("flag,env,config,want", [
+    (3, "8", 4, 3), (0, "8", 4, 8), (0, None, 4, 4), (0, None, 0, 2),
+    (0, "0", 0, 2)])
+def test_shardset_count_reads_the_knob_and_the_home_config(
+        monkeypatch, tmp_path, flag, env, config, want):
+    """`cli shardset`'s chain count: --shards > TM_CUDA_SHARDS >
+    base.shards of the home's config.json > 2."""
+    import json
+
+    from tendermint_tpu_torch.serving.deploy import shard_count
+    monkeypatch.delenv("TM_CUDA_SHARDS", raising=False)
+    if env is not None:
+        monkeypatch.setenv("TM_CUDA_SHARDS", env)
+    (tmp_path / "config").mkdir()
+    (tmp_path / "config" / "config.json").write_text(
+        json.dumps({"base": {"shards": config}}))
+    assert shard_count(flag, str(tmp_path)) == want

@@ -49,7 +49,8 @@ PAIRED_MODULES = (
     "analysis.divergence", "telemetry.causal", "telemetry.profile",
     "telemetry.queues", "telemetry.slo", "telemetry.merge",
     "state.execution", "node", "statetree.store", "statetree.codec",
-    "chaos", "chaos.wire",
+    "chaos", "chaos.wire", "shard.router", "serving.edge",
+    "serving.loadgen", "serving.deploy",
 )
 #: families of JAX modules the port does not have (parallel/mesh.py)
 UNPORTED = {"mesh_dispatch_total", "mesh_shard_occupancy"}
@@ -226,7 +227,27 @@ def _keys(x, depth=2):
     return {k: _keys(v, depth - 1) for k, v in x.items()}
 
 
-def test_observability_routes_answer_with_the_jax_keys(chains, tmp_path):
+@pytest.fixture
+def profilers_unset():
+    """Neither package's process profiler exists for the test, restored
+    after: a JAX test that ran earlier on the worker (tests/test_profile.py)
+    leaves its stopped sampler behind, and debug_profile then answers with
+    the sampler's table."""
+    from tendermint_tpu.telemetry import profile as jprof
+    from tendermint_tpu_torch.telemetry import profile as tprof
+    saved = []
+    for m in (jprof, tprof):
+        with m._prof_lock:
+            saved.append(m._prof)
+            m._prof = None
+    yield
+    for m, p in zip((jprof, tprof), saved):
+        with m._prof_lock:
+            m._prof = p
+
+
+def test_observability_routes_answer_with_the_jax_keys(chains, tmp_path,
+                                                       profilers_unset):
     from tendermint_tpu_torch.rpc import core as tcore
     assert tcore.LEFT_OUT == ()
     calls = [("metrics", {}), ("dump_height_timeline", {}),
