@@ -123,7 +123,7 @@ Phases, each printing its own lines:
    evidence pool and event bus each, MockTicker) over a full-mesh relay
    (consensus/testnet.Testnet), node 3 on SQLite stores and a file WAL,
    on the serial commit path (pipeline "off", as phase 10).
-   Run A on BatchVerifier("cuda"): 100 heights, 1000 fresh txs fed to
+   Run A on BatchVerifier("cuda"): 80 heights, 1000 fresh txs fed to
    every mempool before each (check_tx_batch) on a clock stepped one
    second a height; a standby key joins by a val: tx at 20 and leaves at
    40; validator 1's key signs a second prevote at 50 (sent to nodes 0, 2
@@ -131,7 +131,7 @@ Phases, each printing its own lines:
    flipped signature byte reaches node 0 at 60 and must not count; node 3
    crashes after 70 and is rebuilt from its files (the handshake replays
    70 blocks into a fresh app, whose hash must equal the others', then
-   the WAL's tail), and follows to 100; then the net drains the
+   the WAL's tail), and follows to 80; then the net drains the
    mempools. Every node must agree on block, app hash and State bytes at
    every height, and every fed tx be committed once. Each height's host
    stages are read inside the calls (reap, make_block, part set, signing,
@@ -404,8 +404,9 @@ Phases, each printing its own lines:
    steps: a 4 s partition of node 3, a 2 s stall of the 0<->1 link, two
    resets, frame drops, corruption and delays), PEX off, a handshake
    deadline of 5 s and bans of 6 s; a feeder casts batches to node 0
-   (prefilled to 2,500 txs) and the proxy arms for a 30 s window, while
-   bench.py's four hostile scripts run against node 0's own listener.
+   (prefilled to 2,500 txs) and the proxy arms for a 22 s window
+   (bench.py: 30 s; its last episode ends at 17 s), while bench.py's
+   four hostile scripts run against node 0's own listener.
    The SocketInvariantMonitor must find no violation, every planned
    episode recover within 30 s, the plan digest equal the JAX one,
    handshake_stall and slow_handshake be closed by node 0,
@@ -419,7 +420,7 @@ Phases, each printing its own lines:
    BatchVerifier("cuda") (coalescing "auto") as the process default that
    every shard shares, so that each merged dispatch is a B1 launch; two
    feeders cast 64-tx broadcast_tx_batch calls through the front door
-   every 0.1 s, and a 10 s window (bench.py: 20 s) is read: blocks/s in
+   every 0.1 s, and a 6 s window (bench.py: 20 s) is read: blocks/s in
    all and a shard, coalescer submissions and merged dispatches (the
    coalesce factor), the mean verify batch, B1 and B2 launches by lanes
    and B1's summed event time (csrc/launch_timer.cpp) and share of the
@@ -434,8 +435,8 @@ Phases, each printing its own lines:
    on each replica), 400 primed keys, both replicas certifying the
    frontier; 250 certified reads/s (replica_read, its since_height
    following the chain where bench.py pins it at the arm's start, and
-   proven abci_query) offered to one replica, then split across two, 8 s
-   an arm: verified reads from each replica's tmcuda_edge_reads_total,
+   proven abci_query) offered to one replica, then split across two, 5 s
+   an arm (bench.py: 8 s): verified reads from each replica's tmcuda_edge_reads_total,
    p50/p95/p99, sheds, the seconds to serve an arm's backlog, and each
    process's B1 launches from its kernel line. Checks: a sample of replica-served reads verifies
    client-side from the genesis valset, a tampered value is refused, and
@@ -443,12 +444,37 @@ Phases, each printing its own lines:
    frontier again (its seconds printed). 18c: bench.py's knee sweep
    against a `cli shardset` process (2 chains, tree on): 1,500
    connections and 300 NewBlock subscribers of the open-loop fleet,
-   offered 150 to 4,800 ops/s at 4 s a rate (bench.py: 8 s); the knee by
+   offered 150 to 600 ops/s at 4 s a rate (bench.py: 150 to 4,800 at
+   8 s; the rates past 600 cut for the script's time); the knee by
    find_knee(p99_slo_ms=1500), goodput and p99 a rate.
    Check: 150 ops/s is within find_knee's service level (goodput at
    least 0.85, p99 at most 1,500 ms), and every rate pushes events. The
    phase fails if it ends past its wall limit.
-19. the kernel table as one JSON line, the card again, then the last line
+19. the device mesh (`mesh_commit`, `mesh_merkle`, `mesh_window`) over
+   logical devices laid on the one card (TM_CUDA_MESH_FORCE_DEVICES=8).
+   19a: phase 3's 10,000-validator commit with three signatures
+   corrupted in R (BENCH_mesh.json's lanes 137, 4242, 9001) through
+   BatchVerifier("cuda", mesh=m) for m = off, auto (unsharded on one
+   card) and 2, 4, 8, each from a cold predecompression cache: a warm
+   verify (B1), a counted one (B2 after the fill) and MESH_REPS timed
+   ones (hits, median ms printed). Checks: verdicts equal to mesh off
+   and to the host oracle (OpenSSL where `cryptography` loads), B1 + B2
+   launches of the counted verify = shards x chunks, one
+   mesh_dispatch_total{kind="verify"} a sharded chunk, the
+   verifier_mesh_devices gauge, and mesh_shard_occupancy observed once
+   a sharded chunk. 19b: root_host of the commit's 10,000 sign bytes
+   through the mesh at 2, 4 and 8 (TM_CUDA_MESH=N), equal to root_plain
+   and the native root, counted under merkle_roots_total{impl="mesh"},
+   each beside the same call under "auto", which must take the native
+   root (its ms printed); then parallel.mesh.verify_step at 2 on the same batch (2 shard
+   launches, the tampered lanes rejected, its root equal). 19c: the
+   first MESH_SYNC_BLOCKS blocks of phase 8's chain drained by a fresh
+   node through a verifier node.build_verifier builds from
+   base.verifier_mesh = "4", and by an unsharded one: equal store
+   heights, app hashes and state bytes, the app hash the chain's own,
+   mesh_devices 4, B1 or B2 launched, and a window dispatch of at
+   least two BATCH_CHUNK chunks through the mesh, one of them padded.
+20. the kernel table as one JSON line, the card again, then the last line
    {"ok": true, "device": {...}}.
 
 Any mismatch or exception ends the run with a non-zero code before the
@@ -2272,11 +2298,13 @@ def _forgery_step(gen, wire, state_forge, verifier, card):
             "the node did not reach the honest state after the forgery")
 
 
-def phase_sync(card: str, device) -> dict:
+def phase_sync(card: str, device) -> tuple:
     """Fast sync of BASELINE.json config 4's chain (64 validators, 5,000-tx
     blocks, 256-block windows), SYNC_BLOCKS deep: build and sign it on the
     card, sync a fresh node through the window engine, then a forged
-    commit signature that must cut a window."""
+    commit signature that must cut a window. Returns the launches and
+    (genesis, the first MESH_SYNC_BLOCKS + 1 blocks' bytes) for phase
+    19's drain."""
     timer: list = []
     inner = _time_launches(timer)
     _zero_launches()
@@ -2290,7 +2318,7 @@ def phase_sync(card: str, device) -> dict:
     emit({"phase": "sync_summary", "launches": launches,
           "kernel_ms": _kernel_ms(timer), "card": card})
     _require_launched(launches, KERNELS, "fast sync")
-    return launches
+    return launches, (b.gen, wire[:MESH_SYNC_BLOCKS + 1])
 
 
 def phase_sync_registry_ab(card: str, device) -> dict:
@@ -2327,11 +2355,11 @@ def phase_sync_registry_ab(card: str, device) -> dict:
 # ---------------------------------------------------------------------------
 
 CONS_TXS = MAX_BLOCK_TXS  # config 1's block width: max_block_size_txs
-# run A: 100 heights (config 1 has no depth: a live net); the standby
-# key joins at 20 and leaves at 40, validator 1 equivocates at 50, a
-# forged prevote reaches node 0 at 60, node 3 (SQLite stores, file WAL)
-# crashes after 70
-CONS_SCHEDULE = Schedule(heights=100, txs=CONS_TXS, join_at=20, leave_at=40,
+# run A: 80 heights (config 1 has no depth: a live net; 100 until the
+# mesh phase needed the script's time); the standby key joins at 20 and
+# leaves at 40, validator 1 equivocates at 50, a forged prevote reaches
+# node 0 at 60, node 3 (SQLite stores, file WAL) crashes after 70
+CONS_SCHEDULE = Schedule(heights=80, txs=CONS_TXS, join_at=20, leave_at=40,
                          equivocate_at=50, forge_at=60, restart_after=70)
 CONS_B_HEIGHTS = 30       # run B, the same schedule on "auto"
 N_RECHECK_CALLS = 64      # node 0's last verify dispatches held to the plain
@@ -2404,11 +2432,11 @@ def _node0_recorder(verifier, log: deque) -> list:
     inner_direct = verifier._verify_async_direct
     current: dict = {}   # thread id -> launches of its dispatch in progress
 
-    def verify_direct(items):
+    def verify_direct(items, *path):
         me = threading.get_ident()
         current[me] = []
         try:
-            return inner_direct(items)
+            return inner_direct(items, *path)
         finally:
             log.append(current.pop(me))
 
@@ -3268,7 +3296,8 @@ class _WSFeeder:
 
     def stop(self) -> None:
         self._stop.set()
-        self._thread.join(40)
+        if self._thread.ident is not None:   # a boot that failed never
+            self._thread.join(40)            # started the feeders
 
 
 class _GpuSampler:
@@ -3670,7 +3699,7 @@ class _SyncFeeder:
             try:
                 n = self.net.rpc(self.tid, 5.0).call(
                     "num_unconfirmed_txs")["n_txs"]
-            except Exception:
+            except Exception:  # tmlint: allow(exception-hygiene): a feeder's backlog poll: a node down mid-restart answers nothing, and the next tick polls again
                 continue
             (self._full.set if n > PROC_BACKLOG else self._full.clear)()
             if self._full.is_set():
@@ -3712,7 +3741,8 @@ class _SyncFeeder:
     def stop(self) -> None:
         self._stop.set()
         for t in self._threads:
-            t.join(40)
+            if t.ident is not None:     # started (not after a failed boot)
+                t.join(40)
 
 
 class _Subscribers:
@@ -3885,12 +3915,12 @@ def _coalescer_check(device) -> dict:
     sizes, recorded = [], []
     inner = v._verify_async_direct
 
-    def held(batch):
+    def held(batch, *path):
         sizes.append(len(batch))
         if len(sizes) == 1:
             entered.set()
             require(gate.wait(60), "loop: the held dispatch was not released")
-        return inner(batch)
+        return inner(batch, *path)
 
     def rec(name, fn):
         def call(*args):
@@ -4142,7 +4172,11 @@ def _check_loop_run(tag: str, run: dict, load, on_card: bool) -> None:
             stopped = not (i == 3 and j == 0)   # the killed one
             require(c["submissions"] > 0
                     and v["coalesced_calls"] == c["submissions"]
-                    and v["calls"] == v["direct_calls"] + c["dispatches"]
+                    and v["calls"] == v["direct_calls"]
+                    + v["coalesced_dispatches"]
+                    # the verifier's stats are read before the
+                    # coalescer's, which counts a dispatch before it runs
+                    and 0 < v["coalesced_dispatches"] <= c["dispatches"]
                     + c["isolated_calls"]
                     and (c["merged_calls"] == c["submissions"] if stopped
                          else c["merged_calls"] <= c["submissions"]),
@@ -4251,7 +4285,7 @@ def _sweep_inject(node, txs) -> None:
     for tx in txs:
         try:
             node.mempool.check_tx(tx)
-        except Exception:
+        except Exception:  # tmlint: allow(exception-hygiene): duplicate-tolerant inject: after a restart the mempool WAL replays its pending txs, and kvstore sets are idempotent
             pass
 
 
@@ -4343,7 +4377,7 @@ def phase_crash_sweep(card: str, device: str = "cuda") -> dict:
             node.consensus._stopped = True
             try:
                 node.stop()
-            except Exception:
+            except Exception:  # tmlint: allow(exception-hygiene): the stop of a node the sweep crashed on purpose: its torn state may fail to close; the restarted node is what is checked
                 pass
             t0 = time.perf_counter()
             node2 = _sweep_node(home, gen, key, device)
@@ -5051,6 +5085,14 @@ def phase_procnet_statesync(card: str, device: str = "cuda") -> dict:
         stop_at = max(PROC_HEIGHTS, rejoin["signed_at"] + PROC_SS_AFTER)
         net.wait_for(lambda: net.height(0) >= stop_at,
                      left("the last fed height"), "node 0 at the last height")
+        # node 0's blocks stop_at - 4 .. stop_at, read now: it prunes
+        # behind retain_heights while the waits below run
+        c0, fed = net.rpc(0, 30.0), []
+        for h in range(stop_at - 4, stop_at + 1):
+            fed += [bytes.fromhex(t) for t in
+                    c0.call("block", height=h)["block"]["data"]["txs"]]
+        require(fed, f"{tag}: no tx in node 0's blocks "
+                     f"{stop_at - 4}-{stop_at}")
         for f in feeders:
             f.stop()
         load.stop()
@@ -5065,12 +5107,6 @@ def phase_procnet_statesync(card: str, device: str = "cuda") -> dict:
         watch.stop()
         watch.read()
         top = min(net.heights())
-        c0, fed = net.rpc(0, 30.0), []
-        for h in range(stop_at - 4, stop_at + 1):
-            fed += [bytes.fromhex(t) for t in
-                    c0.call("block", height=h)["block"]["data"]["txs"]]
-        require(fed, f"{tag}: no tx in node 0's blocks "
-                     f"{stop_at - 4}-{stop_at}")
         keys = random.Random(SEED).sample(fed, min(PROC_SAMPLE_KEYS,
                                                    len(fed)))
         # the sync feeder's acknowledged txs: node 0 prunes its blocks, so
@@ -6332,7 +6368,7 @@ def _statetree_crash_points(device: str) -> list:
             node.consensus._stopped = True
             try:
                 node.stop()
-            except Exception:
+            except Exception:  # tmlint: allow(exception-hygiene): the stop of a node the sweep crashed on purpose: its torn state may fail to close; the restarted node is what is checked
                 pass
             node2 = _sweep_node(home, gen, key, device, app=app_of())
             node2.start()
@@ -6615,7 +6651,8 @@ WIRECHAOS_HOSTILE = ("garbage_after_auth", "handshake_stall",
 #: the plan digest of WIRECHAOS_SPEC at CHAOS_SEED on four nodes
 WIRECHAOS_PLAN_SHA256 = ("7187574ea7b6e0563c6c65af9d514d34b542b835fa0f726e"
                          "e64075dd5e0489b9")
-WIRE_WINDOW_S = 30.0      # the armed window (bench.py's TM_BENCH_WIRECHAOS_S)
+WIRE_WINDOW_S = 22.0      # the armed window (bench.py's TM_BENCH_WIRECHAOS_S
+#                           is 30 s; cut: time. The last episode ends at 17 s)
 WIRE_PREFILL = 2500       # node 0's backlog before the window
 WIRE_LIVENESS_S = 30.0    # an episode's recovery bound
 #: bench.py's shortened defenses (child_env and p2p_cfg), as p2p fields
@@ -6987,7 +7024,7 @@ def phase_chaos(card: str, device: str = "cuda") -> dict:
 
 # ------------------------------------------------------------- phase 18
 SHARD_ARMS = (1, 8, 32)   # BENCH_shard.json's arms
-SHARD_WINDOW_S = 10.0     # an arm's measured window (bench.py: 20 s)
+SHARD_WINDOW_S = 6.0      # an arm's measured window (bench.py: 20 s)
 SHARD_WARM_S = 1.0        # bench.py's lead before the window
 SHARD_BOOT_S = 60.0       # every shard at height 2 within
 SHARD_FEEDERS = 2         # bench.py's spammers: 64-tx broadcast_tx_batch
@@ -6996,11 +7033,11 @@ SHARD_PAUSE_S = 0.1
 EDGE_KEYS = 400           # bench.py's load keyspace (lk0..lk399)
 EDGE_RATE = 100.0         # TM_CUDA_RPC_RATE of each replica (bench.py)
 EDGE_OFFERED = 250.0      # certified reads/s offered (bench.py)
-EDGE_ARM_S = 8.0          # bench.py's duration an arm
+EDGE_ARM_S = 5.0          # an arm's duration (bench.py: 8 s; cut: time)
 EDGE_CONNS = 50           # the fleet's connections to a replica
 EDGE_SAMPLE = 8           # replica reads verified client-side, a replica
 EDGE_DRAIN_S = 10.0       # an arm's backlog: the wait for it, at most
-KNEE_RATES = (150, 300, 600, 1200, 2400, 4800)
+KNEE_RATES = (150, 300, 600)   # bench.py: up to 4,800 (cut: time)
 KNEE_RATE_S = 4.0         # a rate's window (bench.py: 8 s)
 KNEE_CONNS = 1500
 KNEE_SUBS = 300
@@ -7608,6 +7645,310 @@ def phase_serving(card: str, device: str = "cuda") -> dict:
             "load_knee": knee}
 
 
+MESH_ARMS = ("off", "auto", "2", "4", "8")  # 19a's BatchVerifier(mesh=) arms
+MESH_FORCE = 8            # logical devices laid over cuda:0 for the N arms
+MESH_TAMPER = (137, 4242, 9001)  # BENCH_mesh.json's tampered lanes
+MESH_REPS = 5             # timed verifies an arm, after a warm one
+MESH_ROOT_WIDTHS = (2, 4, 8)
+MESH_STEP = 2             # verify_step's shards (its root's levels cost
+#                           launches a shard: 2 keeps it to ~2 s)
+MESH_SYNC_BLOCKS = 200    # 19c's drain: phase 8's first blocks, one
+#                           window of 12,800 signatures, two chunks
+MESH_WINDOW_MESH = "4"    # 19c's base.verifier_mesh
+
+
+@contextlib.contextmanager
+def _mesh_env(**env):
+    """The TM_CUDA_MESH* knobs set for the block, restored after; the
+    Merkle plane's cached mesh is dropped on both sides so that it
+    resolves under the knobs in force."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update({k: str(v) for k, v in env.items()})
+    merkle._mesh_state = None
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        merkle._mesh_state = None
+
+
+def _mesh_items(commit_path):
+    """The 10,000-validator commit's (pubkey, sign bytes, signature)
+    items with MESH_TAMPER's signatures corrupted in R (s stays < L)."""
+    vs, bid, commit = commit_path
+    items, _ = vs.commit_verification_items(CHAIN, bid, HEIGHT, commit)
+    return [(p, m, bytes([s[0] ^ 1]) + s[1:]) if i in MESH_TAMPER
+            else (p, m, s) for i, (p, m, s) in enumerate(items)]
+
+
+def _mesh_arm(spec: str, items, want, device, card: str, timer: list):
+    """One BatchVerifier(mesh=spec) arm of 19a from a cold
+    predecompression cache: a warm verify (each shard full, B1), a
+    counted one (fill, B2; launches = shards x chunks, one mesh dispatch
+    a chunk), then MESH_REPS timed ones (hit, B2)."""
+    from tendermint_tpu_torch import telemetry
+    _cold_cache()
+    v = tverifier.BatchVerifier("cuda", device=device, mesh=spec,
+                                coalesce="off")
+    try:
+        got = v.verify(items)
+        shards = max(1, v.mesh_devices)
+        chunks = -(-len(items) // tverifier.BATCH_CHUNK)
+        d0 = telemetry.value("mesh_dispatch_total", {"kind": "verify"}) or 0
+        before, mark = dict(ladder.launches), len(timer)
+        got2 = v.verify(items)
+        torch.cuda.synchronize()
+        delta = {k: ladder.launches[k] - before[k] for k in before}
+        dispatches = (telemetry.value("mesh_dispatch_total",
+                                      {"kind": "verify"}) or 0) - d0
+        kernel_ms = sum(_kernel_ms(timer[mark:]).values())
+        walls = []
+        for _ in range(MESH_REPS):
+            t0 = time.perf_counter()
+            v.verify(items)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        gauge = telemetry.value("verifier_mesh_devices")
+    finally:
+        v.close()
+    row = {"phase": "mesh_commit", "mesh": spec,
+           "mesh_devices": v.mesh_devices, "min_bucket": v._min_bucket,
+           "sigs": len(items), "chunks": chunks, "shards": shards,
+           "launches": delta, "mesh_dispatches": dispatches,
+           "kernel_ms": kernel_ms, "median_ms": float(np.median(walls)),
+           "walls_ms": walls, "sigs_per_s": len(items) /
+           (float(np.median(walls)) / 1e3), "card": card}
+    emit(row)
+    require(np.array_equal(got, want) and np.array_equal(got2, want),
+            f"mesh_commit {spec}: verdicts differ from mesh off and the "
+            f"oracle")
+    require(delta["verify"] + delta["verify_pre"] == shards * chunks
+            and delta["sign_rb"] == 0,
+            f"mesh_commit {spec}: launches {delta}, want {shards} x "
+            f"{chunks}")
+    if spec == "auto":
+        from tendermint_tpu_torch.parallel import mesh as pmesh
+        n = pmesh.resolve_mesh_size(
+            "auto", len(pmesh.logical_devices(device.type)))
+        want_n = n if n >= 2 else 0
+    else:
+        want_n = int(spec) if spec.isdigit() else 0
+    require(v.mesh_devices == want_n and gauge == v.mesh_devices,
+            f"mesh_commit {spec}: mesh_devices {v.mesh_devices} (gauge "
+            f"{gauge}), want {want_n}")
+    require(dispatches == (chunks if v.mesh_devices >= 2 else 0),
+            f"mesh_commit {spec}: {dispatches} mesh dispatches, want "
+            f"{chunks if v.mesh_devices >= 2 else 0}")
+    return row
+
+
+def _mesh_commit(commit_path, device, card: str) -> dict:
+    """19a: the commit through every BatchVerifier(mesh=) arm."""
+    from tendermint_tpu_torch import telemetry
+    items = _mesh_items(commit_path)
+    t0 = time.perf_counter()
+    oracle = np.array(tkeys.verify_many(items), np.bool_)
+    oracle_ms = (time.perf_counter() - t0) * 1e3
+    require(sorted(np.flatnonzero(~oracle).tolist()) == list(MESH_TAMPER),
+            "mesh_commit: the oracle rejects other lanes than the "
+            "tampered ones")
+    occ0 = telemetry.value("mesh_shard_occupancy") or {"count": 0,
+                                                       "sum": 0.0}
+    timer: list = []
+    inner = _time_launches(timer)
+    _zero_launches()
+    try:
+        rows = []
+        for spec in MESH_ARMS:
+            if spec.isdigit():
+                with _mesh_env(TM_CUDA_MESH_FORCE_DEVICES=MESH_FORCE):
+                    rows.append(_mesh_arm(spec, items, oracle, device,
+                                          card, timer))
+            else:
+                rows.append(_mesh_arm(spec, items, oracle, device, card,
+                                      timer))
+    finally:
+        ladder._launch = inner
+    launches = dict(ladder.launches)
+    occ = telemetry.value("mesh_shard_occupancy")
+    count = occ["count"] - occ0["count"]
+    emit({"phase": "mesh_commit_summary", "launches": launches,
+          "oracle_route": "openssl" if tkeys._ossl is not None else "table",
+          "oracle_ms": oracle_ms, "occupancy_observations": count,
+          "occupancy_mean": (occ["sum"] - occ0["sum"]) / max(1, count),
+          "median_ms": {r["mesh"]: r["median_ms"] for r in rows},
+          "card": card})
+    sharded = sum((1 + MESH_REPS + 1) * r["chunks"] for r in rows
+                  if r["mesh_devices"] >= 2)
+    require(count == sharded, f"mesh_commit: {count} occupancy "
+                              f"observations, want {sharded}")
+    _require_launched(launches, VERIFY_KERNELS, "mesh commit")
+    return launches
+
+
+def _mesh_merkle(commit_path, device, card: str) -> dict:
+    """19b: root_host of the commit's 10,000 sign bytes through the mesh
+    at each width, held to root_plain and the native root; then
+    verify_step (the sharded verify and root) on the same batch."""
+    from tendermint_tpu_torch import telemetry
+    from tendermint_tpu_torch.parallel import mesh as pmesh
+    items = _mesh_items(commit_path)
+    leaves = [m for _, m, _ in items]
+    want = merkle.root_plain(leaves)
+    native_root = native.merkle_root(leaves)
+    require(native_root == want, "mesh_merkle: native root != root_plain")
+    _zero_launches()
+    roots = {}
+    r0 = telemetry.value("merkle_roots_total", {"impl": "mesh"}) or 0
+    d0 = telemetry.value("mesh_dispatch_total", {"kind": "merkle"}) or 0
+    for k in MESH_ROOT_WIDTHS:
+        with _mesh_env(TM_CUDA_MESH=k, TM_CUDA_MESH_FORCE_DEVICES=MESH_FORCE):
+            t0 = time.perf_counter()
+            got = merkle.root_host(leaves)
+            ms = (time.perf_counter() - t0) * 1e3
+            ndev = merkle._mesh_state[1]
+        # the same call under "auto", with CUDA initialized and the
+        # logical devices present: the native root
+        with _mesh_env(TM_CUDA_MESH_FORCE_DEVICES=MESH_FORCE):
+            n0 = telemetry.value("merkle_roots_total",
+                                 {"impl": "native"}) or 0
+            t0 = time.perf_counter()
+            got_auto = merkle.root_host(leaves)
+            native_ms = (time.perf_counter() - t0) * 1e3
+            auto_native = (telemetry.value("merkle_roots_total",
+                                           {"impl": "native"}) or 0) - n0
+        roots[k] = {"ms": ms, "native_ms": native_ms, "devices": ndev,
+                    "equal": got == want}
+        require(ndev == k and got == want,
+                f"mesh_merkle: the {k}-wide root differs or ran on "
+                f"{ndev} devices")
+        require(got_auto == want and auto_native == 1,
+                f"mesh_merkle: under auto the root was not the native "
+                f"one ({auto_native} native roots)")
+    n_mesh = (telemetry.value("merkle_roots_total", {"impl": "mesh"})
+              or 0) - r0
+    n_disp = (telemetry.value("mesh_dispatch_total", {"kind": "merkle"})
+              or 0) - d0
+    require(n_mesh == len(MESH_ROOT_WIDTHS) == n_disp,
+            f"mesh_merkle: merkle_roots_total{{impl=mesh}} +{n_mesh}, "
+            f"mesh dispatches +{n_disp}")
+    pk, rb, sb, hb, pre = ted.prepare_batch_bytes(*zip(*items))
+    digests = merkle.pad_digests(np.frombuffer(
+        b"".join(merkle.leaf_hash(m) for m in leaves),
+        np.uint8).reshape(len(leaves), 32))
+    with _mesh_env(TM_CUDA_MESH_FORCE_DEVICES=MESH_FORCE):
+        step = pmesh.verify_step(pmesh.make_mesh(MESH_STEP, device.type))
+        t0 = time.perf_counter()
+        ok, root = step(pk, rb, sb, hb, digests, len(leaves))
+        root = root.cpu().numpy().tobytes()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    verdicts = ok[:len(items)] & pre
+    launches = dict(ladder.launches)
+    emit({"phase": "mesh_merkle", "leaves": len(leaves), "roots": roots,
+          "mesh_roots": n_mesh, "verify_step_ms": step_ms,
+          "verify_step_rejected": np.flatnonzero(~verdicts).tolist(),
+          "launches": launches, "card": card})
+    require(root == want and sorted(np.flatnonzero(~verdicts).tolist())
+            == list(MESH_TAMPER),
+            "mesh_merkle: verify_step's verdicts or root differ")
+    require(launches["verify"] + launches["verify_pre"] == MESH_STEP,
+            f"mesh_merkle: verify_step launched {launches}, want "
+            f"{MESH_STEP} shards")
+    return launches
+
+
+def _mesh_drain(gen, recv, verifier) -> tuple:
+    """A fresh node drains `recv` (its sentinel last) through the window
+    engine; -> (store height, app hash, state bytes)."""
+    reactor, ss, bs, exe = _sync_node(gen, verifier)
+    _instant_peers(reactor, {"peer": recv})
+    try:
+        reactor.pool.make_next_requests()
+        for _ in range(4 * len(recv)):
+            if reactor.state.last_block_height >= len(recv) - 1:
+                break
+            if not reactor._sync_window():
+                reactor.pool.make_next_requests()
+    finally:
+        reactor.stop()
+    return (bs.height(), reactor.state.app_hash,
+            tenc.cdumps(reactor.state.to_obj()))
+
+
+def _mesh_window(chain, device, card: str) -> dict:
+    """19c: MESH_SYNC_BLOCKS of phase 8's chain drained by a verifier that
+    node.build_verifier builds from base.verifier_mesh, and by an
+    unsharded one; equal heights, app hashes and states."""
+    from tendermint_tpu_torch.config import BaseConfig
+    from tendermint_tpu_torch.node import build_verifier
+    gen, wire = chain
+    recv = [Block.from_bytes(raw) for raw in wire[:MESH_SYNC_BLOCKS + 1]]
+    plain = tverifier.BatchVerifier("auto", device=device)
+    t0 = time.perf_counter()
+    want = _mesh_drain(gen, recv, plain)
+    plain_s = time.perf_counter() - t0
+    plain.close()
+    _zero_launches()
+    with _mesh_env(TM_CUDA_MESH_FORCE_DEVICES=MESH_FORCE):
+        v, owned = build_verifier(
+            BaseConfig(verifier_mesh=MESH_WINDOW_MESH), device=device)
+        chunked = []    # (real, padded) of each dispatch's chunks
+        inner_chunks = v._chunks
+
+        def chunks(n, *args):
+            out = inner_chunks(n, *args)
+            chunked.append([(hi - lo, ted._bucket(hi - lo,
+                                                  min_size=v._min_bucket))
+                            for lo, hi, _ in out])
+            return out
+        v._chunks = chunks
+        try:
+            t0 = time.perf_counter()
+            got = _mesh_drain(gen, recv, v)
+            mesh_s = time.perf_counter() - t0
+        finally:
+            v.close()
+    launches = dict(ladder.launches)
+    emit({"phase": "mesh_window", "blocks": MESH_SYNC_BLOCKS,
+          "mesh": MESH_WINDOW_MESH, "mesh_devices": v.mesh_devices,
+          "owned": owned, "height": got[0], "app_hash": got[1].hex(),
+          "unsharded_s": plain_s, "sharded_s": mesh_s,
+          "chunks_max": max(map(len, chunked), default=0),
+          "launches": launches, "card": card})
+    require(owned and v.mesh_devices == int(MESH_WINDOW_MESH),
+            f"mesh_window: the verifier ran on {v.mesh_devices} devices")
+    require(got == want and got[0] == MESH_SYNC_BLOCKS
+            and got[1] == recv[MESH_SYNC_BLOCKS].header.app_hash,
+            "mesh_window: the sharded drain differs from the unsharded")
+    require(launches["verify"] + launches["verify_pre"] > 0,
+            f"mesh_window: no verify kernel launched: {launches}")
+    require(any(len(c) >= 2 and any(r < p for r, p in c) for c in chunked),
+            f"mesh_window: no window dispatch of two or more chunks with "
+            f"a padded one: {chunked}")
+    return launches
+
+
+def phase_mesh(card: str, commit_path, chain, device) -> dict:
+    """Phase 19 (see the module docstring): the device mesh over logical
+    devices laid on the one card."""
+    from tendermint_tpu_torch import telemetry
+    was = telemetry.enabled()
+    telemetry.set_enabled(True)
+    t0 = time.perf_counter()
+    try:
+        out = {"mesh_commit": _mesh_commit(commit_path, device, card),
+               "mesh_merkle": _mesh_merkle(commit_path, device, card),
+               "mesh_window": _mesh_window(chain, device, card)}
+    finally:
+        telemetry.set_enabled(was)
+    emit({"phase": "mesh_summary", "wall_s": time.perf_counter() - t0,
+          "card": card})
+    return out
+
+
 @contextlib.contextmanager
 def _serial_commit_path():
     """Phases 9 and 10 on the serial commit path (pipeline "off"), the
@@ -7628,30 +7969,60 @@ def main() -> int:
     device = torch.device("cuda", 0)
     card = card_line()
     print(card, flush=True)
+    walls: dict = {}
+    t_lap = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """The seconds since the previous lap, as the phase `name`'s."""
+        now = time.perf_counter()
+        walls[name] = now - t_lap[0]
+        t_lap[0] = now
     rate, ptxas = phase_build()
+    lap("build")
     kernels = phase_kernels(device, rate)
+    lap("kernels")
     commit_launches, keys, commit_path = phase_main(card)
+    lap("commit")
     mixed_launches = phase_mixed(card, keys)
+    lap("mixed")
     kernels.update(phase_sign_kernel(device, rate))
+    lap("sign_kernel")
     lite_launches = phase_lite(card)
+    lap("lite")
     block_launches = phase_block(card, keys, commit_path, device)
-    sync_launches = phase_sync(card, device)
+    lap("block")
+    sync_launches, sync_chain = phase_sync(card, device)
+    lap("sync")
     with _serial_commit_path():
         consensus_launches = phase_consensus(card, device)
+        lap("consensus")
         p2p_launches = phase_p2p(card, device)
+        lap("p2p")
     procnet = phase_procnet(card)
+    lap("procnet")
     procnet_loop = phase_procnet_loop(card, procnet=procnet)
+    lap("procnet_loop")
     procnet_pipeline = phase_procnet_pipeline(card, loop=procnet_loop)
     sweep_launches = phase_crash_sweep(card)
+    lap("pipeline")
     ss_chain_launches = phase_statesync_chain(card, device)
     ss_wide_launches = phase_statesync_wide(card, commit_path, device)
     procnet_ss = phase_procnet_statesync(card)
     recovery_launches = phase_recovery_sweep(card)
+    lap("recovery")
     procnet_tel = phase_procnet_telemetry(card,
                                           pipeline_run=procnet_pipeline)
+    lap("telemetry")
     procnet_st = phase_procnet_statetree(card)
+    lap("statetree")
     chaos = phase_chaos(card)
+    lap("chaos")
     serving = phase_serving(card)
+    lap("serving")
+    mesh = phase_mesh(card, commit_path, sync_chain, device)
+    lap("mesh")
+    emit({"phase": "script_walls", "seconds": walls,
+          "total_s": sum(walls.values()), "card": card})
     table = []
     for name, info in KERNELS.items():
         table.append({
@@ -7696,7 +8067,10 @@ def main() -> int:
                                      serving["shard_curve"][name],
                                  "edge_replicas":
                                      serving["edge_replicas"][name],
-                                 "load_knee": serving["load_knee"][name]},
+                                 "load_knee": serving["load_knee"][name],
+                                 "mesh_commit": mesh["mesh_commit"][name],
+                                 "mesh_merkle": mesh["mesh_merkle"][name],
+                                 "mesh_window": mesh["mesh_window"][name]},
             "max_abs_err": kernels[name]["max_abs_err"],
             "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"],
             "bound_ms": kernels[name]["bound_ms"],

@@ -31,22 +31,20 @@ does it before building nodes).
 ChaosNet doubles as the race harness: run_chaos() installs the watch
 when the knob is on and embeds `report()` into its result.
 
-`parse_guard_annotations` is the port's own copy of the JAX package's
-reader of those annotations (`tendermint_tpu/analysis/engine.py`); the
-rest of that static engine is not ported.
+The `#: guarded_by` annotations are read with the static engine's
+`parse_guard_annotations` (analysis/engine.py), the one reader the
+lock-discipline checker uses too.
 """
 
 from __future__ import annotations
 
 import _thread
-import ast
 import os
-import re
 import sys
 import threading
-from dataclasses import dataclass
 from typing import Dict, List, Optional
 
+from tendermint_tpu_torch.analysis.engine import parse_guard_annotations
 from tendermint_tpu_torch.utils import knobs
 
 
@@ -344,53 +342,6 @@ def report() -> dict:
         n_locks = _state.n_locks
     return {"locks_watched": n_locks, "edges": edges,
             "cycles": cycles(), "attr_violations": violations}
-
-
-# ------------------------------------------------------ annotations
-
-
-GUARDED_RE = re.compile(r"#:\s*guarded_by\s+([A-Za-z_]\w*)")
-
-
-@dataclass
-class GuardAnnotation:
-    cls: str
-    attr: str
-    lock: str
-    line: int
-
-
-def parse_guard_annotations(source: str) -> List[GuardAnnotation]:
-    """`self.<attr> = ...  #: guarded_by <lock>` lines, with the class
-    each belongs to."""
-    out: List[GuardAnnotation] = []
-    try:
-        tree = ast.parse(source)
-    except SyntaxError:
-        return out
-    lines = source.splitlines()
-    annotated = {}
-    for i, text in enumerate(lines, start=1):
-        m = GUARDED_RE.search(text)
-        if m:
-            am = re.search(r"self\.(\w+)\s*[:=]", text)
-            if am:
-                annotated[i] = (am.group(1), m.group(1))
-
-    def walk(node, cls):
-        for child in ast.iter_child_nodes(node):
-            if isinstance(child, ast.ClassDef):
-                walk(child, child.name)
-            else:
-                if cls and isinstance(child, (ast.Assign, ast.AnnAssign)) \
-                        and child.lineno in annotated:
-                    attr, lock = annotated.pop(child.lineno)
-                    out.append(GuardAnnotation(cls, attr, lock,
-                                               child.lineno))
-                walk(child, cls)
-
-    walk(tree, None)
-    return out
 
 
 # ------------------------------------------------------- guarded attrs

@@ -21,7 +21,9 @@ those sets when the config is loaded. The observability planes' keys
 (`base.telemetry`, `telemetry_namespace`, `trace`, `prof`, `prof_hz`,
 `queue_watch`, `slo`, `slo_sample`) carry the JAX package's names and
 defaults, except the namespace (`tmcuda`); their `TM_CUDA_*` knobs
-(utils/knobs.py) win over them, as the JAX package's knobs do.
+(utils/knobs.py) win over them, as the JAX package's knobs do. So does
+`TM_CUDA_MESH` over the verifier's device mesh (`base.verifier_mesh`:
+auto|off|N, the JAX key).
 
 `config/config.json` is one file for both packages. default_config()
 reads a JAX-written file: the JAX package keeps the bursts and the
@@ -55,6 +57,10 @@ class BaseConfig:
     log_level: str = "info"
     # the node's BatchVerifier (models/verifier.py): auto|cuda|python
     verifier_backend: str = "auto"
+    # the verifier's device mesh (parallel/mesh.py): auto|off|N, N a
+    # power of two; "auto" shards every batch over the largest power of
+    # two of the devices present (one card: unsharded). TM_CUDA_MESH wins
+    verifier_mesh: str = "auto"
     # cross-call dispatch coalescing (models/coalescer.py): auto|on|off
     # merge concurrent calls of at most the verifier's auto threshold
     # into one launch; wait_ms caps a merge's linger, max_batch its
@@ -332,11 +338,14 @@ def resolve_reactor(mode) -> str:
 
 
 def validate(cfg: Config) -> None:
-    """Refuse a socket plane or coalescing setting outside its set, as the
-    JAX package does when a node builds its verifier and its loop."""
+    """Refuse a socket plane, coalescing or mesh setting outside its set,
+    as the JAX package does when a node builds its verifier and its
+    loop."""
     b = cfg.base
     resolve_reactor(b.reactor)
     parse_coalesce(b.verifier_coalesce)
+    from tendermint_tpu_torch.parallel.mesh import parse_mesh_spec
+    parse_mesh_spec(b.verifier_mesh)
     if float(b.verifier_coalesce_wait_ms) < 0:
         raise ValueError(f"verifier_coalesce_wait_ms must be >= 0, got "
                          f"{b.verifier_coalesce_wait_ms!r}")

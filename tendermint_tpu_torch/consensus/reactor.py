@@ -522,6 +522,7 @@ class ConsensusReactor(Reactor):
     # ---------------------------------------------- internal event broadcast
 
     def _wake_all_gossip(self) -> None:
+        # tmlint: allow(taint): wake-signal fan-out is idempotent and carries no data; visit order cannot reach wire bytes
         for ps in list(self.peer_states.values()):
             ps.wake.set()
 

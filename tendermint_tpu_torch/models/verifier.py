@@ -32,8 +32,22 @@ coalesces, as the JAX verifier's does): concurrent small calls merge into
 one dispatch on the coalescer's thread, each caller getting back its own
 verdicts. That thread launches on the verifier's own device and stream.
 A merged dispatch that fails is re-run call by call on the same path; a
-VerifierError of the device reaches every caller of the merge. The
-multi-device mesh comes in a later slice (`mesh_devices` is always 0).
+VerifierError of the device reaches every caller of the merge.
+
+Multi-device: `mesh` ("off" by default; `default_verifier()` takes
+TM_CUDA_MESH, default "auto", and a node `base.verifier_mesh`) shards
+each chunk over a device mesh (parallel/mesh.py), resolved lazily on the
+first batch dispatch: "auto" takes the largest power of two of the
+devices present, so one card (or the CPU) stays unsharded; N asks for
+N and raises RuntimeError there when fewer are present. Sharded, the
+bucket floor is max(8, N), so that every padded chunk, a merged
+coalescer dispatch included, divides by the mesh; each shard launches B1
+or B2 on its device's own stream (one stream a mesh device, the
+coalescer's thread using the same), and its verdicts land in one pinned
+host buffer. A failed launch or wait on any device raises VerifierError,
+with no fallback to the plain version or to fewer devices.
+`mesh_devices` is N once sharded, else 0, and the
+`verifier_mesh_devices` gauge follows it.
 
 Telemetry: the JAX verifier's families under the same names, with the
 port's backend labels (`cuda` for the batch path, `python` for the host
@@ -47,6 +61,14 @@ are fed at the same points as the families.
                    merged dispatches and fallback re-dispatches
   direct_calls     verify_async calls that bypassed the coalescer
   coalesced_calls  verify_async calls submitted to the coalescer
+  coalesced_dispatches
+                   the coalescer's dispatches of this verifier (its
+                   merges and their per-call fallbacks). It and
+                   direct_calls are counted with `calls`, so
+                   calls == direct_calls + coalesced_dispatches holds in
+                   any snapshot; the coalescer's own `dispatches +
+                   isolated_calls` count the same dispatches under its
+                   own lock, each before its dispatch runs
   sigs, cuda_sigs  items dispatched, and of those on the batch path
   empty_calls      direct dispatches of no item (in `calls`; the
                    families count none of them, as in the JAX package)
@@ -80,10 +102,12 @@ from tendermint_tpu_torch.config import parse_coalesce
 from tendermint_tpu_torch.models.coalescer import DispatchCoalescer
 from tendermint_tpu_torch.ops import _build
 from tendermint_tpu_torch.ops import ed25519
+from tendermint_tpu_torch.parallel import mesh as _pmesh
 from tendermint_tpu_torch.types import keys
 from tendermint_tpu_torch.telemetry import causal
 from tendermint_tpu_torch.utils import clock
 from tendermint_tpu_torch.utils import device as _device
+from tendermint_tpu_torch.utils import knobs
 
 # The JAX verifier's families: batch sizes arriving at the boundary, the
 # backend the routing picked, how full the padded chunks run, and the
@@ -164,14 +188,20 @@ class BatchVerifier:
     def __init__(self, backend: str = "auto", device=None,
                  auto_threshold: int = 128, coalesce: str = "auto",
                  coalesce_wait_ms: float = 2.0,
-                 coalesce_max_batch: int = 0):
+                 coalesce_max_batch: int = 0, mesh: str = "off"):
         if backend not in ("auto", "cuda", "python"):
             raise ValueError(
                 f"verifier backend must be auto|cuda|python, got {backend!r}")
         self.backend = backend
         self.auto_threshold = auto_threshold
         self.device = None if backend == "python" else _device.resolve(device)
-        self.mesh_devices = 0
+        # eager: a config or env typo fails here, at startup
+        self.mesh = _pmesh.parse_mesh_spec(mesh)
+        self.mesh_devices = 0   # N >= 2 once a mesh is resolved
+        self._mesh_resolved = self.mesh == "off" or self.device is None
+        self._mesh_kernel = None  # sharded_verify_kernel of the mesh
+        self._streams = None      # one stream a mesh device, on a card
+        self._min_bucket = 8
         if telemetry.enabled():
             _m_mesh_devices.set(self.mesh_devices)
         self._stream = (torch.cuda.Stream(self.device)
@@ -190,9 +220,34 @@ class BatchVerifier:
         self._stats_lock = threading.Lock()
         #: guarded_by _stats_lock (see the module docstring)
         self.stats = {"calls": 0, "direct_calls": 0, "coalesced_calls": 0,
+                      "coalesced_dispatches": 0,
                       "sigs": 0, "cuda_sigs": 0, "empty_calls": 0,
                       "dispatch_s": 0.0,
                       "wait_s": 0.0, "loop_waits": 0, "loop_wait_s": 0.0}
+
+    def _resolve_mesh(self) -> None:
+        """Build the mesh on the first batch dispatch. Thread-safe:
+        concurrent verify calls (reactor windows, evidence, RPC, the
+        coalescer) never dispatch with a half-set kernel and bucket
+        floor. An explicit N above the devices present raises
+        RuntimeError before the mesh counts as resolved."""
+        with self._resolve_lock:
+            if self._mesh_resolved:
+                return
+            kind = self.device.type
+            n = _pmesh.resolve_mesh_size(
+                self.mesh, len(_pmesh.logical_devices(kind)))
+            if n >= 2:
+                mesh = _pmesh.make_mesh(n, kind)
+                self._mesh_kernel = _pmesh.sharded_verify_kernel(mesh)
+                if kind == "cuda":
+                    self._streams = [torch.cuda.Stream(d)
+                                     for d in mesh.devices]
+                self._min_bucket = max(8, n)
+                self.mesh_devices = n
+            if telemetry.enabled():
+                _m_mesh_devices.set(self.mesh_devices)
+            self._mesh_resolved = True
 
     def verify(self, items: Sequence[tuple]) -> np.ndarray:
         """items: (pubkey32, message, signature64) triples -> bool[N]."""
@@ -226,7 +281,8 @@ class BatchVerifier:
                 self._coalescer = DispatchCoalescer(
                     # looked up at each dispatch, so that a wrapper of
                     # the instance's direct path sees merged dispatches
-                    lambda items: self._verify_async_direct(items),
+                    lambda items: self._verify_async_direct(
+                        items, "coalesced_dispatches"),
                     max_batch=self._coalesce_max_batch,
                     max_wait_s=self._coalesce_wait_s)
             return self._coalescer
@@ -237,13 +293,12 @@ class BatchVerifier:
         coalescer unless coalesce is "off"."""
         n = len(items)
         coalesced = self.coalesce != "off" and 0 < n <= self.auto_threshold
-        with self._stats_lock:
-            self.stats["coalesced_calls" if coalesced
-                       else "direct_calls"] += 1
         if coalesced:
+            with self._stats_lock:
+                self.stats["coalesced_calls"] += 1
             inner = self._coalescer_get().submit(items)
         else:
-            inner = self._verify_async_direct(items)
+            inner = self._verify_async_direct(items, "direct_calls")
         timed = []
 
         def resolve() -> np.ndarray:
@@ -263,20 +318,27 @@ class BatchVerifier:
 
         return resolve
 
-    def _verify_async_direct(self, items: Sequence[tuple]):
+    def _verify_async_direct(self, items: Sequence[tuple],
+                             path: str = ""):
         """The non-coalescing dispatch (also the coalescer's merge
-        target: it never re-enters verify_async)."""
+        target: it never re-enters verify_async). `path` names the stat
+        that counts this dispatch by its path ("direct_calls" or
+        "coalesced_dispatches"), bumped with `calls` under one lock."""
         t0 = time.perf_counter()
-        inner = self._verify_async(items)
+        inner = self._verify_async(items, path)
         with self._stats_lock:
             self.stats["dispatch_s"] += time.perf_counter() - t0
         return inner
 
-    def _verify_async(self, items: Sequence[tuple]):
+    def _verify_async(self, items: Sequence[tuple], path: str = "",
+                      count: bool = True):
         n = len(items)
         with self._stats_lock:
-            self.stats["calls"] += 1
-            self.stats["sigs"] += n
+            if count:
+                self.stats["calls"] += 1
+                self.stats["sigs"] += n
+            if path:
+                self.stats[path] += 1
         if n == 0:
             with self._stats_lock:
                 self.stats["empty_calls"] += 1
@@ -315,11 +377,8 @@ class BatchVerifier:
         ed_idx = [i for i in range(n) if i not in secp_ok]
         if not ed_idx:
             return lambda: out
-        inner = self._verify_async([items[i] for i in ed_idx])
-        with self._stats_lock:
-            # this call is already counted
-            self.stats["calls"] -= 1
-            self.stats["sigs"] -= len(ed_idx)
+        # this call is already counted
+        inner = self._verify_async([items[i] for i in ed_idx], count=False)
 
         def resolve_mixed() -> np.ndarray:
             out[ed_idx] = inner()
@@ -328,6 +387,8 @@ class BatchVerifier:
         return resolve_mixed
 
     def _dispatch(self, n, pk, rb, sb, hb, pre):
+        if not self._mesh_resolved:
+            self._resolve_mesh()
         with self._stats_lock:
             self.stats["cuda_sigs"] += n
         if telemetry.enabled():
@@ -351,24 +412,48 @@ class BatchVerifier:
         return resolve
 
     def _chunks(self, n, pk, rb, sb, hb):
+        """(lo, hi, verdicts) a BATCH_CHUNK chunk: a bool tensor on the
+        device, or with a mesh the chunk's ShardedVerdicts."""
         out = []
         for lo in range(0, n, BATCH_CHUNK):
             hi = min(lo + BATCH_CHUNK, n)
+            b = ed25519._bucket(hi - lo, min_size=self._min_bucket)
             if telemetry.enabled():
-                _m_occupancy.observe((hi - lo) / ed25519._bucket(hi - lo))
-            out.append((lo, hi, ed25519.verify_prepared_async(
-                pk[lo:hi], rb[lo:hi], sb[lo:hi], hb[lo:hi],
-                device=self.device)))
+                _m_occupancy.observe((hi - lo) / b)
+            args = (pk[lo:hi], rb[lo:hi], sb[lo:hi], hb[lo:hi])
+            if self.mesh_devices >= 2:
+                _pmesh.record_dispatch("verify", hi - lo, b)
+                res = self._mesh_kernel(*args, streams=self._streams)
+            else:
+                res = ed25519.verify_prepared_async(*args,
+                                                    device=self.device)
+            out.append((lo, hi, res))
         return out
 
     def _dispatch_cpu(self, n, pk, rb, sb, hb, pre):
         out = np.zeros(n, np.bool_)
         for lo, hi, res in self._chunks(n, pk, rb, sb, hb):
-            out[lo:hi] = res.numpy()[:hi - lo]
+            got = res.result() if self.mesh_devices >= 2 else res.numpy()
+            out[lo:hi] = got[:hi - lo]
         out &= pre
         return lambda: out
 
+    def _dispatch_mesh_cuda(self, n, pk, rb, sb, hb, pre):
+        # each shard runs on its device's stream, which waits for that
+        # device's current stream (parallel/mesh.sharded_verify_kernel)
+        pending = self._chunks(n, pk, rb, sb, hb)
+
+        def resolve() -> np.ndarray:
+            out = np.zeros(n, np.bool_)
+            for lo, hi, res in pending:
+                out[lo:hi] = res.result()[:hi - lo]
+            return out & pre
+
+        return resolve
+
     def _dispatch_cuda(self, n, pk, rb, sb, hb, pre):
+        if self.mesh_devices >= 2:
+            return self._dispatch_mesh_cuda(n, pk, rb, sb, hb, pre)
         stream = self._stream
         # the current device and stream are per thread, and a merged
         # dispatch runs on the coalescer's: both are named explicitly.
@@ -401,6 +486,8 @@ class BatchVerifier:
         items dispatches."""
         if n_sigs <= 0 or self.backend == "python":
             return
+        if not self._mesh_resolved:
+            self._resolve_mesh()
         native.module()
         if self.device.type == "cuda":
             _build.ladder_lib()
@@ -432,11 +519,14 @@ _default_lock = threading.Lock()
 
 def default_verifier() -> BatchVerifier:
     """Process-wide verifier: backend "auto" on the current CUDA device,
-    coalescing "auto" (raises when there is none)."""
+    coalescing "auto" (raises when there is none), the mesh from
+    TM_CUDA_MESH (auto|off|N, default auto: sharded over every card of a
+    multi-card host, unsharded on one)."""
     global _default
     with _default_lock:
         if _default is None:
-            _default = BatchVerifier("auto")
+            _default = BatchVerifier(
+                "auto", mesh=knobs.knob_str("TM_CUDA_MESH", default="auto"))
         return _default
 
 

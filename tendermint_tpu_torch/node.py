@@ -10,7 +10,8 @@ validator (the in-process test/tooling mode).
 
 Every signature check of the node (handshake replay, consensus votes,
 fast-sync windows, evidence) goes through one BatchVerifier built from
-`config.base.verifier_backend` and `verifier_coalesce*` on `device`:
+`config.base.verifier_backend`, `verifier_mesh` (TM_CUDA_MESH wins) and
+`verifier_coalesce*` on `device`:
 with every one of them at its default and no device, the process-wide
 default verifier, as the JAX node shares its own. `verifier=` hands the
 node a verifier its caller owns (a ShardSet's one verifier for all its
@@ -81,6 +82,7 @@ from tendermint_tpu_torch.storage import (WAL, BlockStore, SnapshotManager,
 from tendermint_tpu_torch.types.events import EventBus
 from tendermint_tpu_torch.types.genesis import GenesisDoc
 from tendermint_tpu_torch.types.priv_validator import PrivValidatorFile
+from tendermint_tpu_torch.utils import knobs
 from tendermint_tpu_torch.utils.log import tm_logger
 
 
@@ -93,19 +95,22 @@ def _parse_laddr(laddr: str) -> tuple:
 
 def build_verifier(base, device=None):
     """-> (verifier, owned) for a BaseConfig: the process-wide default
-    verifier when the backend and the coalescing settings are at their
-    defaults and there is no device, else a BatchVerifier of its own.
-    Builds the kernels and the host prep now on a card, so that no
-    verify call of the node pays a build."""
+    verifier when the backend, the mesh (TM_CUDA_MESH wins over
+    `verifier_mesh`) and the coalescing settings are at their defaults
+    and there is no device, else a BatchVerifier of its own. Builds the
+    kernels and the host prep now on a card, so that no verify call of
+    the node pays a build."""
     from tendermint_tpu_torch.models import verifier as _verifier
-    settings = (base.verifier_backend, str(base.verifier_coalesce),
+    mesh = knobs.knob_str("TM_CUDA_MESH", config=base.verifier_mesh,
+                          default="auto")
+    settings = (base.verifier_backend, mesh, str(base.verifier_coalesce),
                 float(base.verifier_coalesce_wait_ms),
                 int(base.verifier_coalesce_max_batch))
-    if settings == ("auto", "auto", 2.0, 0) and device is None:
+    if settings == ("auto", "auto", "auto", 2.0, 0) and device is None:
         v, owned = _verifier.default_verifier(), False
     else:
         v, owned = _verifier.BatchVerifier(
-            base.verifier_backend, device=device,
+            base.verifier_backend, device=device, mesh=mesh,
             coalesce=base.verifier_coalesce,
             coalesce_wait_ms=float(base.verifier_coalesce_wait_ms),
             coalesce_max_batch=int(base.verifier_coalesce_max_batch)), True
@@ -146,6 +151,10 @@ class Node:
                          seed=config.base.chaos_seed)
         # the pipelined hot path ("off": the serial path)
         pipeline.configure(mode=config.base.pipeline)
+        # Merkle roots shard only at an explicit verifier_mesh N
+        # (TM_CUDA_MESH wins inside ops/merkle.py)
+        from tendermint_tpu_torch.ops import merkle as _merkle
+        _merkle.configure_mesh(config.base.verifier_mesh)
         self._owns_loop = loop is None
 
         # telemetry wiring BEFORE any instrumented subsystem runs (the
@@ -495,8 +504,7 @@ class Node:
         from tendermint_tpu_torch.telemetry import causal as _causal
         from tendermint_tpu_torch.telemetry import profile as _profile
         from tendermint_tpu_torch.telemetry import queues as _queues
-        from tendermint_tpu_torch.utils import knobs as _knobs
-        stall_s = _knobs.knob_float("TM_CUDA_TRACE_STALL_S", default=0.0)
+        stall_s = knobs.knob_float("TM_CUDA_TRACE_STALL_S", default=0.0)
         if _causal.enabled() and stall_s > 0:
             self._stall_detector = _causal.StallDetector(
                 lambda: self.height, self._on_stall, stall_s)

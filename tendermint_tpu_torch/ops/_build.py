@@ -63,9 +63,9 @@ def _digest(sources, flags) -> str:
 
 
 def find_nvcc() -> str:
-    cands = []
-    if os.environ.get("CUDA_HOME"):
-        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    # tmlint: allow(taint): CUDA_HOME only picks the compiler that builds the kernel library, whose kernels are held to their plain versions on the card; no protocol byte depends on it
+    home = os.environ.get("CUDA_HOME")
+    cands = [os.path.join(home, "bin", "nvcc")] if home else []
     cands += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
     for c in cands:
         if c and os.path.exists(c):

@@ -19,12 +19,27 @@ for a wave of >= 512 payloads of one length, else the native batch, else
 (`native_lib=False`) hashlib. The device half runs each tree level as one
 batched `ops/sha256.hash_fixed` over [m, 65] rows; `root` hashes the
 leaves on the host and the tree on the card.
+
+Mesh route (the JAX `_mesh_root_kernel`): at an explicit mesh width N
+(TM_CUDA_MESH=N, else a node's `base.verifier_mesh` through
+`configure_mesh`), `root_host` and `root_from_digests_host` send trees
+of >= _MESH_MIN_LEAVES leaves to the sharded device root
+(`parallel/mesh.sharded_merkle_root`), counted under
+`merkle_roots_total{impl="mesh"}`; trees whose padded size is below the
+mesh width stay native, and N above the devices present raises
+RuntimeError. Under "auto" (the default, where the verifier shards over
+every card) and "off", roots stay native, unlike the JAX package's: the
+sharded root hashes each level with the plain-PyTorch SHA-256
+(ops/sha256.py), a launch a step, and on an H100 takes seconds for a
+10,000-leaf tree that the native root hashes in milliseconds
+(chip_smoke.py's phase 19b times both).
 """
 
 from __future__ import annotations
 
 import hashlib
 import struct
+import threading
 
 import numpy as np
 import torch
@@ -32,6 +47,7 @@ import torch
 from tendermint_tpu_torch import native, telemetry
 from tendermint_tpu_torch.ops import sha256
 from tendermint_tpu_torch.utils import device as _device
+from tendermint_tpu_torch.utils import knobs
 
 EMPTY_DIGEST = b"\x00" * 32
 
@@ -46,6 +62,75 @@ _m_proofs = telemetry.counter(
     "merkle_proofs_total", "Merkle proofs computed on host")
 _m_sha_batches = telemetry.counter(
     "merkle_sha_batches_total", "Batched SHA-256 dispatches", ("impl",))
+
+
+# ---------------------------------------------------------------------------
+# Mesh dispatch: big roots shard over the device mesh
+# ---------------------------------------------------------------------------
+
+# leaves below this stay on the host (interactive sizes skip a dispatch)
+_MESH_MIN_LEAVES = 64
+_mesh_lock = threading.Lock()
+# the node's base.verifier_mesh (configure_mesh); TM_CUDA_MESH wins
+_mesh_config = "auto"
+# None = unresolved; (kernel, n_devices) once resolved ((None, 1) = no
+# mesh). Tests and chip_smoke reset it to re-resolve under another knob.
+_mesh_state: "tuple | None" = None
+
+
+def configure_mesh(spec: str = "auto") -> None:
+    """Node-level wiring (config.base.verifier_mesh): the mesh the roots
+    take unless TM_CUDA_MESH is set. Drops a resolved mesh."""
+    global _mesh_config, _mesh_state
+    from tendermint_tpu_torch.parallel import mesh as pmesh
+    spec = str(pmesh.parse_mesh_spec(spec))
+    with _mesh_lock:
+        _mesh_config, _mesh_state = spec, None
+
+
+def _mesh_root_kernel() -> tuple:
+    """(sharded root kernel | None, n_devices), resolved once with the
+    verifier's spec grammar from TM_CUDA_MESH, else the configured
+    spec. Only an explicit N shards, and raises RuntimeError when N
+    exceeds the devices present; "auto" and "off" give (None, 1)."""
+    global _mesh_state
+    st = _mesh_state
+    if st is not None:
+        return st
+    with _mesh_lock:
+        if _mesh_state is not None:
+            return _mesh_state
+        from tendermint_tpu_torch.parallel import mesh as pmesh
+        spec = pmesh.parse_mesh_spec(knobs.knob_str(
+            "TM_CUDA_MESH", config=_mesh_config, default="auto"))
+        n = 1
+        if spec not in ("auto", "off"):
+            kind = "cuda" if torch.cuda.is_available() else "cpu"
+            n = pmesh.resolve_mesh_size(spec,
+                                        len(pmesh.logical_devices(kind)))
+        if n < 2:
+            _mesh_state = (None, 1)
+        else:
+            _mesh_state = (pmesh.sharded_merkle_root(
+                pmesh.make_mesh(n, kind)), n)
+        return _mesh_state
+
+
+def _mesh_root_from_digest_rows(rows: np.ndarray, n: int) -> "bytes | None":
+    """Sharded device root of uint8[n, 32] leaf digests, or None when no
+    mesh is active or the tree is too small for its width."""
+    if n < _MESH_MIN_LEAVES:
+        return None
+    kernel, ndev = _mesh_root_kernel()
+    if kernel is None or _padded_size(n) < ndev:
+        return None
+    from tendermint_tpu_torch.parallel import mesh as pmesh
+    padded = pad_digests(rows)
+    pmesh.record_dispatch("merkle", n, padded.shape[0])
+    if telemetry.enabled():
+        _m_roots.labels("mesh").inc()
+        _m_leaves.observe(n)
+    return kernel(padded, n).cpu().numpy().tobytes()
 
 
 def leaf_hash(item: bytes) -> bytes:
@@ -72,7 +157,15 @@ def _padded_size(n: int) -> int:
 # ---------------------------------------------------------------------------
 
 def root_host(items: list) -> bytes:
-    """Merkle root of raw items, in one C call."""
+    """Merkle root of raw items, in one C call; a tree of at least
+    _MESH_MIN_LEAVES items through the active device mesh."""
+    n = len(items)
+    if n >= _MESH_MIN_LEAVES and _mesh_root_kernel()[0] is not None:
+        rows = np.frombuffer(b"".join(leaf_hash(it) for it in items),
+                             np.uint8).reshape(n, 32)
+        out = _mesh_root_from_digest_rows(rows, n)
+        if out is not None:
+            return out
     out = native.merkle_root(items)
     if telemetry.enabled():
         _m_roots.labels("native").inc()
@@ -82,9 +175,16 @@ def root_host(items: list) -> bytes:
 
 def root_from_digests_host(digests) -> bytes:
     """Root over leaf digests (a list of 32-byte hashes or one flat
-    bytes-like blob, length a multiple of 32), in one C call."""
-    n = (len(digests) // 32 if isinstance(
-        digests, (bytes, bytearray, memoryview)) else len(digests))
+    bytes-like blob, length a multiple of 32), in one C call; a tree of
+    at least _MESH_MIN_LEAVES leaves through the active device mesh."""
+    flat = isinstance(digests, (bytes, bytearray, memoryview))
+    n = len(digests) // 32 if flat else len(digests)
+    if n >= _MESH_MIN_LEAVES and _mesh_root_kernel()[0] is not None:
+        rows = np.frombuffer(bytes(digests) if flat else b"".join(digests),
+                             np.uint8).reshape(n, 32)
+        out = _mesh_root_from_digest_rows(rows, n)
+        if out is not None:
+            return out
     if n and telemetry.enabled():
         _m_leaves.observe(n)
         _m_roots.labels("native").inc()

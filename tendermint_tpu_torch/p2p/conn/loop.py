@@ -54,6 +54,9 @@ from tendermint_tpu_torch.p2p.conn.mconn import (
 from tendermint_tpu_torch.telemetry import queues as queue_obs
 from tendermint_tpu_torch.utils.log import get_logger
 
+# tmlint: loop-module (async-blocking checker applies to this file)
+TMLINT_LOOP_MODULE = True
+
 _m_tick = telemetry.histogram(
     "loop_tick_seconds",
     "Busy time per reactor-loop tick (select wake to idle)",
@@ -371,11 +374,11 @@ class ReactorLoop:
         while not self._stopped:
             timeout = self._next_timeout()
             try:
-                events = self._sel.select(timeout)
+                events = self._sel.select(timeout)  # tmlint: allow(async-blocking): the loop's ONE park point — select with a timer-derived timeout
             except OSError:
                 if self._stopped:
                     return
-                time.sleep(0.01)  # EBADF while an fd is torn down mid-select
+                time.sleep(0.01)  # tmlint: allow(async-blocking): EBADF backoff while an fd is torn down mid-select
                 continue
             t0 = time.perf_counter()
             for key, mask in events:
@@ -422,7 +425,7 @@ class ReactorLoop:
         with self._lock:
             self._woken = False
         try:
-            while self._wake_r.recv(4096):
+            while self._wake_r.recv(4096):  # tmlint: allow(async-blocking): non-blocking socketpair drain (O_NONBLOCK, exits via BlockingIOError)
                 pass
         except (BlockingIOError, OSError):
             pass
@@ -584,7 +587,7 @@ class LoopMConnection:
             else:
                 self._teardown()
         if join and not self.loop.in_loop():
-            self._detached.wait(timeout)
+            self._detached.wait(timeout)  # tmlint: allow(async-blocking): only reachable from non-loop threads (in_loop() guarded one line up)
 
     def _teardown(self) -> None:
         for t in self._timers:
@@ -637,7 +640,7 @@ class LoopMConnection:
                 remaining = deadline - time.monotonic()
                 if remaining <= 0 or self._stopped:
                     return False
-                self._cond.wait(timeout=remaining)
+                self._cond.wait(timeout=remaining)  # tmlint: allow(async-blocking): only reachable from non-loop threads (in_loop() returns False above)
             if self._stopped:
                 return False
             ch.queue.append(bytes(msg))
@@ -805,7 +808,7 @@ class LoopMConnection:
             if self._stopped:
                 return
         try:
-            data = self.sock.recv(65536)
+            data = self.sock.recv(65536)  # tmlint: allow(async-blocking): O_NONBLOCK socket — returns or raises BlockingIOError, never parks
         except (BlockingIOError, InterruptedError):
             return
         except OSError as e:

@@ -229,6 +229,7 @@ class EventBus:
         tags[TagEvent] = event_type
         with self._lock:
             subs = list(self._subs.values())
+        # tmlint: allow(taint): fan-out order is per-subscriber-queue local; every subscriber receives the same already-built EventItem
         for sub in subs:
             if sub.query.matches(tags):
                 if sub.put(EventItem(sub.query.source, tags, data)):

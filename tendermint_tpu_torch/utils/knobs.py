@@ -11,9 +11,10 @@ config > default. FALSY is the single vocabulary for "off".
 Import-light by design (stdlib `os` only): telemetry reads knobs at
 import time, so this module imports nothing of the package back.
 
-The catalog holds the knobs of the observability planes, the async
-front door's admission envelope (TM_CUDA_RPC_MAX_CONNS, TM_CUDA_RPC_RATE),
-the kvstore's commit backend (TM_CUDA_STATE_TREE), the shard plane's
+The catalog holds the device mesh's spec and its forced device count
+(TM_CUDA_MESH, TM_CUDA_MESH_FORCE_DEVICES), the knobs of the
+observability planes, the async front door's admission envelope
+(TM_CUDA_RPC_MAX_CONNS, TM_CUDA_RPC_RATE), the kvstore's commit backend (TM_CUDA_STATE_TREE), the shard plane's
 default count (TM_CUDA_SHARDS), the edge replicas' staleness threshold
 (TM_CUDA_EDGE_MAX_LAG), the chaos plane's link faults (TM_CUDA_CHAOS)
 and the lock-order watchdog (TM_CUDA_LOCKCHECK). The other planes
@@ -44,6 +45,16 @@ class Knob:
 
 # The catalog, in docs order.
 CATALOG: tuple[Knob, ...] = (
+    # -- verification plane ------------------------------------------------
+    Knob("TM_CUDA_MESH", "str", "auto", "base.verifier_mesh",
+         "Device mesh for sharded verify: auto|off|N (power of two); "
+         "Merkle roots of >= 64 leaves shard only at an explicit N.",
+         "models/verifier.py, ops/merkle.py"),
+    Knob("TM_CUDA_MESH_FORCE_DEVICES", "int", "0 (off)", "",
+         "Lay N logical devices round-robin over the cards present (or "
+         "the CPU), each with its own stream: 2-, 4- and 8-wide meshes "
+         "on one card.",
+         "parallel/mesh.py"),
     # -- telemetry ---------------------------------------------------------
     Knob("TM_CUDA_TELEMETRY", "bool", "unset (config decides, on)",
          "base.telemetry",

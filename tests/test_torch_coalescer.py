@@ -244,6 +244,8 @@ def test_threaded_single_vote_callers_get_their_own_verdicts(backend):
         assert cs["merged_calls"] == n
         assert st["calls"] == (st["direct_calls"] + cs["dispatches"]
                                + cs["isolated_calls"])
+        assert st["coalesced_dispatches"] == (cs["dispatches"]
+                                              + cs["isolated_calls"])
         assert st["sigs"] == n == j.stats["sigs"]
         assert 1 <= cs["dispatches"] <= n and cs["calls_max"] >= 1
         assert st["wait_s"] > 0 and st["loop_waits"] == 0

@@ -9,7 +9,8 @@
   planes, the knob catalog, the divergence plane, the state tree, the
   gRPC surfaces with their proto module, the lite proxy, the chaos
   plane with its link fuzzer and the lock-order watchdog, the shard
-  plane and the edge serving plane included), and chip_smoke.py
+  plane, the edge serving plane, the device mesh and the static-analysis
+  checkers included), and chip_smoke.py
   as a module, in a fresh interpreter loads neither jax nor any
   tendermint_tpu module.
 - No source of the port (nor chip_smoke.py) imports them (AST check).
@@ -20,7 +21,9 @@
   node, the pipeline, the snapshot store and manager, state sync, the
   telemetry planes, the state tree, the gRPC surfaces, the lite proxy,
   the chaos plane, the link fuzzer, the lock-order watchdog, the shard
-  plane, the serving plane) read no environment variable themselves: their
+  plane, the serving plane, the device mesh and the Merkle plane's mesh
+  route, the static-analysis engine, its checkers and its runner) read
+  no environment variable themselves: their
   settings are config fields and constructor arguments, and the
   observability planes' TM_CUDA_* knobs are read through the catalog
   (utils/knobs.py).
@@ -58,7 +61,7 @@ def test_walk_covers_every_subpackage():
                 "p2p.conn", "consensus", "mempool", "evidence", "rpc",
                 "p2p.pex", "node", "cli", "statesync", "telemetry",
                 "analysis", "statetree", "rpc.proto", "chaos", "shard",
-                "serving"):
+                "serving", "parallel", "analysis.checkers"):
         assert f"tendermint_tpu_torch.{pkg}" in mods, pkg
     assert "tendermint_tpu_torch.lite.certifier" in mods
     assert "tendermint_tpu_torch.native" in mods
@@ -97,7 +100,13 @@ def test_walk_covers_every_subpackage():
                 "chaos.hostile", "p2p.fuzz", "analysis.lockwatch",
                 "shard.router", "shard.reads", "shard.set",
                 "serving.topology", "serving.edge", "serving.loadgen",
-                "serving.deploy"):
+                "serving.deploy", "parallel.mesh", "analysis.engine",
+                "analysis.flowgraph", "analysis.lint",
+                "analysis.checkers.ambient", "analysis.checkers.asyncblock",
+                "analysis.checkers.determinism",
+                "analysis.checkers.exceptions", "analysis.checkers.knobs",
+                "analysis.checkers.locks", "analysis.checkers.metrics",
+                "analysis.checkers.taint"):
         assert f"tendermint_tpu_torch.{mod}" in mods, mod
 
 
@@ -178,7 +187,14 @@ PLANE_SOURCES = [PORT / m for m in (
     "analysis/lockwatch.py", "shard/__init__.py", "shard/router.py",
     "shard/reads.py", "shard/set.py", "serving/__init__.py",
     "serving/topology.py", "serving/edge.py", "serving/loadgen.py",
-    "serving/deploy.py")]
+    "serving/deploy.py", "parallel/__init__.py", "parallel/mesh.py",
+    "ops/merkle.py", "analysis/__init__.py", "analysis/engine.py",
+    "analysis/flowgraph.py", "analysis/lint.py",
+    "analysis/checkers/__init__.py", "analysis/checkers/ambient.py",
+    "analysis/checkers/asyncblock.py", "analysis/checkers/determinism.py",
+    "analysis/checkers/exceptions.py", "analysis/checkers/knobs.py",
+    "analysis/checkers/locks.py", "analysis/checkers/metrics.py",
+    "analysis/checkers/taint.py")]
 
 
 @pytest.mark.parametrize("path", PLANE_SOURCES,

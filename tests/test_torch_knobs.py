@@ -8,13 +8,14 @@ the JAX package's (tendermint_tpu/utils/knobs.py), on the CPU.
   gates on a knob (telemetry, trace, trace cap, profiler and its rate,
   queue observatory, SLO and its rate, divergence, the shard count, the
   edge replicas' lag threshold, the front door's connection cap and
-  rate) reads only its TM_CUDA_* name, and that name wins over the
-  plane's config. The front door's pair and the shard count resolve as
+  rate, the device mesh and its forced device count) reads only its
+  TM_CUDA_* name, and that name wins over the plane's config. The front door's pair and the shard count resolve as
   the JAX package's do (an explicit argument, then env, then default).
 - The catalog holds every knob the port reads, each a TM_CUDA_* name
   with a JAX counterpart of the same kind, default and config field
   (TM_CUDA_NODE_PROFILE's counterpart is the JAX CLI's TM_NODE_PROFILE,
-  which the JAX catalog does not list); every TM_CUDA_* name in the
+  which the JAX catalog does not list, and TM_CUDA_MESH_FORCE_DEVICES's
+  is TM_TPU_MESH_FORCE_HOST_DEVICES); every TM_CUDA_* name in the
   port's sources is in the catalog, and reading an unknown one raises.
 """
 
@@ -28,7 +29,8 @@ from tendermint_tpu_torch.utils import knobs as tknobs
 
 PORT = Path(__file__).resolve().parent.parent / "tendermint_tpu_torch"
 
-SLICE_KNOBS = ("TM_CUDA_TELEMETRY", "TM_CUDA_TRACE", "TM_CUDA_TRACE_CAP",
+SLICE_KNOBS = ("TM_CUDA_MESH", "TM_CUDA_MESH_FORCE_DEVICES",
+               "TM_CUDA_TELEMETRY", "TM_CUDA_TRACE", "TM_CUDA_TRACE_CAP",
                "TM_CUDA_TRACE_STALL_S", "TM_CUDA_PROF", "TM_CUDA_PROF_HZ",
                "TM_CUDA_QUEUE_WATCH", "TM_CUDA_SLO", "TM_CUDA_SLO_SAMPLE",
                "TM_CUDA_DIVERGENCE", "TM_CUDA_NODE_PROFILE",
@@ -38,6 +40,9 @@ SLICE_KNOBS = ("TM_CUDA_TELEMETRY", "TM_CUDA_TRACE", "TM_CUDA_TRACE_CAP",
 
 
 def _jax_name(name: str) -> str:
+    # the forced device count's counterpart fakes host (CPU) devices
+    if name == "TM_CUDA_MESH_FORCE_DEVICES":
+        return "TM_TPU_MESH_FORCE_HOST_DEVICES"
     return name.replace("TM_CUDA_", "TM_TPU_")
 
 
@@ -103,6 +108,11 @@ _CASES = [
     ("knob_int", "TM_CUDA_EDGE_MAX_LAG", "2", 5, 50),
     ("knob_int", "TM_CUDA_RPC_MAX_CONNS", "20", None, 0),
     ("knob_float", "TM_CUDA_RPC_RATE", "40", None, 0.0),
+    ("knob_str", "TM_CUDA_MESH", None, None, "auto"),
+    ("knob_str", "TM_CUDA_MESH", None, "4", "auto"),
+    ("knob_str", "TM_CUDA_MESH", "Off", "4", "auto"),
+    ("knob_int", "TM_CUDA_MESH_FORCE_DEVICES", None, None, 0),
+    ("knob_int", "TM_CUDA_MESH_FORCE_DEVICES", "8", None, 0),
 ]
 
 
@@ -286,3 +296,37 @@ def test_shardset_count_reads_the_knob_and_the_home_config(
     (tmp_path / "config" / "config.json").write_text(
         json.dumps({"base": {"shards": config}}))
     assert shard_count(flag, str(tmp_path)) == want
+
+
+def test_mesh_knobs_are_the_ports_own(monkeypatch):
+    """TM_TPU_MESH and TM_TPU_MESH_FORCE_HOST_DEVICES change nothing in
+    the port; TM_CUDA_MESH wins over base.verifier_mesh, which wins over
+    the default, in the node's verifier; the forced count lays logical
+    devices over the CPU."""
+    import torch
+    from tendermint_tpu_torch.config import BaseConfig
+    from tendermint_tpu_torch.node import build_verifier
+    from tendermint_tpu_torch.ops import merkle
+    from tendermint_tpu_torch.parallel import mesh as pmesh
+    monkeypatch.setattr(merkle, "_mesh_state", None)
+    monkeypatch.setattr(merkle, "_mesh_config", "auto")
+    monkeypatch.setenv("TM_TPU_MESH", "8")
+    monkeypatch.setenv("TM_TPU_MESH_FORCE_HOST_DEVICES", "8")
+    assert pmesh.logical_devices("cpu") == (torch.device("cpu"),)
+    assert merkle._mesh_root_kernel() == (None, 1)
+    assert merkle._mesh_state == (None, 1)
+    vs = []
+    for env, cfg, want in ((None, "auto", "auto"), (None, "4", 4),
+                           ("2", "4", 2), ("off", "4", "off")):
+        if env is None:
+            monkeypatch.delenv("TM_CUDA_MESH", raising=False)
+        else:
+            monkeypatch.setenv("TM_CUDA_MESH", env)
+        v, owned = build_verifier(BaseConfig(verifier_mesh=cfg),
+                                  device="cpu")
+        vs.append(v)
+        assert owned and v.mesh == want, (env, cfg)
+    monkeypatch.setenv("TM_CUDA_MESH_FORCE_DEVICES", "4")
+    assert pmesh.logical_devices("cpu") == (torch.device("cpu"),) * 4
+    for v in vs:
+        v.close()

@@ -8,8 +8,8 @@ telemetry/) against the JAX package's, on the CPU, tolerance 0.
 - Family catalog parity: after importing the modules both packages
   have, every JAX family has a port family of the same name, type,
   help, label names and buckets (summary quantiles and cap), and the
-  port has no other. The exceptions are the families of JAX modules the
-  port does not have (parallel/mesh.py: mesh_*).
+  port has no other. There is no exception: the mesh_* families of
+  parallel/mesh.py have theirs too (UNPORTED is empty).
 - QuantileSketch: equal quantiles, counts, sums and items on the same
   seeded streams, through compactions.
 - RPC: the six observability routes and the five raw GET paths of a
@@ -50,10 +50,11 @@ PAIRED_MODULES = (
     "telemetry.queues", "telemetry.slo", "telemetry.merge",
     "state.execution", "node", "statetree.store", "statetree.codec",
     "chaos", "chaos.wire", "shard.router", "serving.edge",
-    "serving.loadgen", "serving.deploy",
+    "serving.loadgen", "serving.deploy", "parallel.mesh",
 )
-#: families of JAX modules the port does not have (parallel/mesh.py)
-UNPORTED = {"mesh_dispatch_total", "mesh_shard_occupancy"}
+#: families of JAX modules the port does not have: none, every JAX
+#: family has its counterpart
+UNPORTED = set()
 
 
 @pytest.fixture
