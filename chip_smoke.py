@@ -14,7 +14,10 @@ Phases, each printing its own lines:
    build nvcc compiles a standalone probe of one and of two chained field
    products; the difference of their SASS is printed as a diagnostic of
    the compiler's overhead: the IMAD issue slots it spends on a product,
-   against the SLOTS_PER_MUL the product needs.
+   against the SLOTS_PER_MUL the product needs. Beside them one
+   interpreter imports what the node processes import, into a bytecode
+   cache under the build directory that every process the script starts
+   reads (`_share_bytecode`).
 2. kernels: a seeded batch of 1024 signatures with edge lanes (valid,
    tampered R / s / message, a pubkey off the curve, x = 0 with the sign
    bit set, y >= p, zero padding) and 256 small-order probe lanes
@@ -90,9 +93,9 @@ Phases, each printing its own lines:
    end.
 8. fast sync: BASELINE.json config 4's chain (64 validators of power 10,
    5,000 txs a block over 512 keys, ConsensusParams' 65536-byte parts,
-   256-block windows), 800 blocks deep instead of 50,000 (the one cut).
+   256-block windows), 544 blocks deep instead of 50,000 (the one cut).
    The port's ChainBuilder builds, signs (one sign_batch_async of 64
-   a block, B3) and applies 801 blocks; every block is serialized and
+   a block, B3) and applies 545 blocks; every block is serialized and
    parsed back by Block.from_bytes for the syncing node. A fresh node
    (MemDB stores, the kvstore app, BatchVerifier("auto")) syncs them from
    an instant in-process peer through BlockchainReactor._sync_window from
@@ -123,15 +126,15 @@ Phases, each printing its own lines:
    evidence pool and event bus each, MockTicker) over a full-mesh relay
    (consensus/testnet.Testnet), node 3 on SQLite stores and a file WAL,
    on the serial commit path (pipeline "off", as phase 10).
-   Run A on BatchVerifier("cuda"): 80 heights, 1000 fresh txs fed to
+   Run A on BatchVerifier("cuda"): 40 heights, 1000 fresh txs fed to
    every mempool before each (check_tx_batch) on a clock stepped one
-   second a height; a standby key joins by a val: tx at 20 and leaves at
-   40; validator 1's key signs a second prevote at 50 (sent to nodes 0, 2
+   second a height; a standby key joins by a val: tx at 10 and leaves at
+   20; validator 1's key signs a second prevote at 25 (sent to nodes 0, 2
    and 3), whose evidence must be committed once; a prevote with a
-   flipped signature byte reaches node 0 at 60 and must not count; node 3
-   crashes after 70 and is rebuilt from its files (the handshake replays
-   70 blocks into a fresh app, whose hash must equal the others', then
-   the WAL's tail), and follows to 80; then the net drains the
+   flipped signature byte reaches node 0 at 30 and must not count; node 3
+   crashes after 35 and is rebuilt from its files (the handshake replays
+   35 blocks into a fresh app, whose hash must equal the others', then
+   the WAL's tail), and follows to 40; then the net drains the
    mempools. Every node must agree on block, app hash and State bytes at
    every height, and every fed tx be committed once. Each height's host
    stages are read inside the calls (reap, make_block, part set, signing,
@@ -142,8 +145,8 @@ Phases, each printing its own lines:
    0's last 64 dispatches (calls of its verifier's direct path: since
    the verifier coalesces by default, a merged dispatch on the
    coalescer's thread is one) are held to the plain versions on the
-   same card tensors. Run B: the same schedule to 30 on BatchVerifier("auto")
-   (the host loop at 1-4 signatures) must give run A's 30 block hashes.
+   same card tensors. Run B: the same schedule to 15 on BatchVerifier("auto")
+   (the host loop at 1-4 signatures) must give run A's 15 block hashes.
    The schedule is consensus.testnet.run_schedule, the one the CPU tests
    drive. Every check runs on B1 (a batch of 1-4 pads to 8 lanes, below
    the predecompression cache's 64); B2 and B3 must not launch. Launch
@@ -161,7 +164,7 @@ Phases, each printing its own lines:
    its host loop for every call of this path (1-4 signatures, and the
    joiner's 64), and B1 and B2 would not run. A feeder keeps node 0's
    mempool at >= 2000 fresh txs; mempool gossip alone carries them. When
-   node 0 commits 15, node 3's links are stopped and its handshakes
+   node 0 commits 8, node 3's links are stopped and its handshakes
    refused; the other three commit 3 more heights alone (30 of 40 power),
    then node 3's handshakes are allowed again, and the persistent redial
    of its peers must bring it back and gossip catch it up. At 34 a fifth
@@ -207,17 +210,17 @@ Phases, each printing its own lines:
    CUDA context; the ladder library is phase 1's, same digest). Two
    feeder threads cast broadcast_tx_batch of 128 txs over the port's
    WSClient to nodes 0 and 1, backing off while num_unconfirmed_txs
-   exceeds 3000, until node 0 commits 40. When node 0 commits 15, node 3
+   exceeds 3000, until node 0 commits 24. When node 0 commits 8, node 3
    is SIGKILLed by its pid and restarted from its home with fast sync:
    its handshake replays the stored blocks into a fresh app, it syncs
    the heights it missed, switches to consensus and must sign a later
    commit. Then every node must agree on block hash and app hash at
-   every height (RPC block metas), no tx be committed twice, 32 seeded
+   every height (RPC block metas), no tx be committed twice, 16 seeded
    committed keys answer abci_query on every node, no node but the
    killed one exit early, every node process report B1 launches (node
    3's killed process in the line it printed at the last height it
    committed, every other process in its stop line), and the phase stay
-   within 180 s. Prints `procnet` (blocks/s and txs/s over heights 5-40 from the
+   within 180 s. Prints `procnet` (blocks/s and txs/s over heights 4-20 from the
    block metas, boot seconds, bans from net_info), `procnet_restart`
    (node 3's handshake seconds and blocks from its start line, restart
    to RPC, sync and rejoin seconds, its sync routes), `procnet_kernels`
@@ -235,10 +238,12 @@ Phases, each printing its own lines:
    direct launch; then a merge whose launch fails must reach all its
    callers as VerifierError. Then phase 11's net and checks on reactor
    "auto" (one event loop a process) and verifier_coalesce "auto", still
-   on the serial commit path (pipeline "off") (procnet_loop): 200 WebSocket subscribers of NewBlock on node 1
+   on the serial commit path (pipeline "off") (procnet_loop), with
+   node 3 running through (phase 13 restarts it on this plane and
+   load): 200 WebSocket subscribers of NewBlock on node 1
    (above the thread server's 100-connection cap), subscribed before
    the boot and read by one selector thread here, must each see every
-   height 5-40 in order; a third feeder of 32 WebSocket connections to
+   height 4-20 in order; a third feeder of 32 WebSocket connections to
    node 2 casts single broadcast_tx_sync calls (the front door's
    TxBatcher merges them), and every tx answered with code 0 must be
    committed exactly once (the mempools drain before the checks); every
@@ -248,7 +253,7 @@ Phases, each printing its own lines:
    counts account for every call (calls = direct calls + merged
    dispatches + fallback re-runs; the calls of the merges sum to the
    submissions). Prints `procnet_loop_coalescer_check`, `procnet_loop`,
-   `procnet_loop_restart`, `procnet_loop_kernels` (as procnet_kernels,
+   `procnet_loop_kernels` (as procnet_kernels,
    with merged dispatches, calls a merge (mean, maximum) and the loop
    thread's waits for verdicts), `procnet_loop_rpc` (the sync feeder's
    acknowledged and committed txs, node 2's batcher flushes and txs a
@@ -256,12 +261,14 @@ Phases, each printing its own lines:
    (census and the loop's ticks, callbacks, busy share and longest
    tick), `procnet_loop_device`, and `plane_ab` (phases 11 and 12 side
    by side, and a third run of the same net and load on the loop with
-   coalescing off, `procnet_loop_off`, which must pass phase 11's checks
-   and launch B1 in every process: blocks/s,
+   coalescing off, `procnet_loop_off`, node 3 running through as well,
+   which must pass phase 11's checks and launch B1 in every process:
+   blocks/s,
    B1 launches a node, calls and host ms a call, the loop's busy share;
    a record, not a check).
 13. the JAX node's default commit path (procnet_pipeline): phase 12's
-   net, load and checks with pipeline "auto", the node's default (the
+   net, load and checks, with phase 11's SIGKILL and restart of node 3
+   and its checks, and pipeline "auto", the node's default (the
    pipelined finalize with group commit, streaming part sets from
    tm_partset_build, the precomputed next proposal; the native codec and
    kv core). Every process must also show one group flush a height it
@@ -304,17 +311,17 @@ Phases, each printing its own lines:
    NewBlock subscribers on node 1, 32 broadcast_tx_sync connections to
    node 2) and defaults, with snapshots every 10 heights, 2 kept and 20
    heights retained on nodes 0-2 (evidence max_age 10 in the genesis);
-   node 3 SIGKILLed at 15, wiped with `cli unsafe_reset_all` and
-   restarted with --state-sync once nodes 0-2 pass 21; the feeders stop 5
+   node 3 SIGKILLed at 8, wiped with `cli unsafe_reset_all` and
+   restarted with --state-sync once nodes 0-2 pass 11; the feeders stop 5
    heights after node 3 signs again. Node 3 must restore a multiple of 10,
    sync the tail, sign again and agree with every node at every height
    above its restore (block metas read every second while the pruning
    nodes hold them); nodes 0-2 must end with both stores pruned above 1,
    never above their latest snapshot, at most 2 snapshots; every
-   subscriber must see heights 5-40 in order, sampled fed and
+   subscriber must see heights 4-20 in order, sampled fed and
    sync-acknowledged keys be answered by every node (node 0's pruned
    blocks can no longer be counted), one loop thread a process; node 3's
-   restarted process must launch B1. Blocks/s over heights 5-40 from the
+   restarted process must launch B1. Blocks/s over heights 4-20 from the
    watched metas. Prints the rejoin's stages (restart -> RPC -> restored -> synced ->
    signed) and every process's plane counts. `recovery_sweep`:
    tests/test_snapshot.py's crash sweep (snapshot.after_chunk,
@@ -327,13 +334,13 @@ Phases, each printing its own lines:
    the JAX node's defaults with every plane on (base.trace, slo, prof
    and queue_watch on, TM_CUDA_DIVERGENCE=on, TM_CUDA_TRACE_STALL_S=3),
    with a WebSocket subscriber of Tx events on each fed node. At node 0's
-   height 20 nodes 2 and 3 are SIGSTOPped for 6 s: /healthz on nodes 0
+   height 14 nodes 2 and 3 are SIGSTOPped for 6 s: /healthz on nodes 0
    and 1 must say stalled during the stop and ok after it, each must
    write one flight-recorder file of the episode, and the chain must
    resume. Before the nodes stop: GET /metrics on each node parses as
    Prometheus text, with the consensus height gauge at the node's
    height; the four causal timelines (dump_height_timeline) merge
-   (clock offsets, the stage attribution of heights 5-40 with its
+   (clock offsets, the stage attribution of heights 4-20 with its
    coverage, verify.dispatch spans a height) and their transition
    digests agree at every height; /slo on each fed node has no
    out-of-order stamp and every sampled tx completed or counted dropped;
@@ -353,7 +360,7 @@ Phases, each printing its own lines:
    dirty waves hashed through merkle.sha256_many_host on the node's card)
    and rpc.grpc_laddr on node 2. A burst of 1,200 txs over JSON-RPC to
    node 0 makes a block of 1,000 new keys (the largest wave, on the device
-   route); then 8 BroadcastAPIClients send 12 unique txs each to node 2,
+   route); then 8 BroadcastAPIClients send 6 unique txs each to node 2,
    every response committed with CheckTx and DeliverTx codes 0, a height
    and sha256(tx) as its hash. A `cli lite` process on the card reads
    node 0, trusting height 1 from a fresh home: commit, validators and
@@ -404,7 +411,7 @@ Phases, each printing its own lines:
    steps: a 4 s partition of node 3, a 2 s stall of the 0<->1 link, two
    resets, frame drops, corruption and delays), PEX off, a handshake
    deadline of 5 s and bans of 6 s; a feeder casts batches to node 0
-   (prefilled to 2,500 txs) and the proxy arms for a 22 s window
+   (prefilled to 2,500 txs) and the proxy arms for a 19 s window
    (bench.py: 30 s; its last episode ends at 17 s), while bench.py's
    four hostile scripts run against node 0's own listener.
    The SocketInvariantMonitor must find no violation, every planned
@@ -420,7 +427,7 @@ Phases, each printing its own lines:
    BatchVerifier("cuda") (coalescing "auto") as the process default that
    every shard shares, so that each merged dispatch is a B1 launch; two
    feeders cast 64-tx broadcast_tx_batch calls through the front door
-   every 0.1 s, and a 6 s window (bench.py: 20 s) is read: blocks/s in
+   every 0.1 s, and a 3 s window (bench.py: 20 s) is read: blocks/s in
    all and a shard, coalescer submissions and merged dispatches (the
    coalesce factor), the mean verify batch, B1 and B2 launches by lanes
    and B1's summed event time (csrc/launch_timer.cpp) and share of the
@@ -435,7 +442,7 @@ Phases, each printing its own lines:
    on each replica), 400 primed keys, both replicas certifying the
    frontier; 250 certified reads/s (replica_read, its since_height
    following the chain where bench.py pins it at the arm's start, and
-   proven abci_query) offered to one replica, then split across two, 5 s
+   proven abci_query) offered to one replica, then split across two, 3 s
    an arm (bench.py: 8 s): verified reads from each replica's tmcuda_edge_reads_total,
    p50/p95/p99, sheds, the seconds to serve an arm's backlog, and each
    process's B1 launches from its kernel line. Checks: a sample of replica-served reads verifies
@@ -444,7 +451,7 @@ Phases, each printing its own lines:
    frontier again (its seconds printed). 18c: bench.py's knee sweep
    against a `cli shardset` process (2 chains, tree on): 1,500
    connections and 300 NewBlock subscribers of the open-loop fleet,
-   offered 150 to 600 ops/s at 4 s a rate (bench.py: 150 to 4,800 at
+   offered 150 to 600 ops/s at 3 s a rate (bench.py: 150 to 4,800 at
    8 s; the rates past 600 cut for the script's time); the knee by
    find_knee(p99_slo_ms=1500), goodput and p99 a rate.
    Check: 150 ops/s is within find_knee's service level (goodput at
@@ -474,7 +481,26 @@ Phases, each printing its own lines:
    heights, app hashes and state bytes, the app hash the chain's own,
    mesh_devices 4, B1 or B2 launched, and a window dispatch of at
    least two BATCH_CHUNK chunks through the mesh, one of them padded.
-20. the kernel table as one JSON line, the card again, then the last line
+20. the operator's env surface (`knobs_route`, `knobs_tools`). 20a: a
+   KNOB_SIGS-validator commit of phase 3's keys with two tampered lanes
+   (KNOB_TAMPER), its items verified through node.build_verifier of a
+   default BaseConfig under each env in turn, from a cold
+   predecompression cache: the defaults (100 <= 128: the host loop),
+   TM_CUDA_AUTO_THRESHOLD=64 with TM_CUDA_COALESCE=off (two calls: the
+   batch path, B1 then B2), TM_TPU_AUTO_THRESHOLD=64 alone (no effect in
+   the port) and TM_CUDA_VERIFIER=python. Checks: every arm's verdicts
+   equal the plain version's (the two tampered lanes refused); B1/B2
+   launches (the ladder's counts and the launch timer's events, equal)
+   in the threshold arm and in no other; no B3. Each arm's launches,
+   walls and event ms are printed. 20b: phase 15's four timeline dumps,
+   /slo snapshots (with sketches) and profiler dumps, written to files,
+   through `python -m tendermint_tpu_torch.scripts.trace_merge`,
+   `slo_report` and `profile_merge`: the Perfetto trace and the
+   collapsed stacks byte-equal to the in-process merges of the same
+   dumps, the SLO report's merged table equal to merge_snapshots'.
+   `script_walls` then prints each phase's seconds and their total.
+21. the kernel table as one JSON line (a `knobs` column of phase 20's
+   launches), the card again, then the last line
    {"ok": true, "device": {...}}.
 
 Any mismatch or exception ends the run with a non-zero code before the
@@ -579,7 +605,9 @@ SHA_ROWS = 65536          # hash_fixed batch of 64-byte rows
 SYNC_VALIDATORS = 64      # BASELINE.json config 4 (bench_fastsync.run_large)
 SYNC_TXS = 5000
 SYNC_KEY_SPACE = 512
-SYNC_BLOCKS = 800         # config 4 syncs 50,000 blocks: the one cut
+SYNC_BLOCKS = 544         # config 4 syncs 50,000 blocks: the cut (two
+#                           full 256-block windows and a tail: every
+#                           cache route)
 FORGE_BLOCKS = 300        # the forgery node's sync
 FORGE_AT = 201            # its last commit carries a flipped signature byte
 SYNC_WINDOW = VERIFY_WINDOW  # 256 blocks a window, as the reactor's default
@@ -705,21 +733,62 @@ def _imad_slots(ops: dict) -> int:
                for op, c in ops.items() if op.startswith("IMAD"))
 
 
+def _timed_build(fn) -> tuple:
+    """(fn's result, its seconds)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+#: the modules a node, lite or replica process imports, compiled once
+WARM_IMPORTS = ("torch", "tendermint_tpu_torch.cli",
+                "tendermint_tpu_torch.node", "tendermint_tpu_torch.lite.proxy",
+                "tendermint_tpu_torch.serving.edge",
+                "tendermint_tpu_torch.serving.deploy")
+
+
+def _share_bytecode() -> subprocess.Popen:
+    """Let every process this script starts keep the bytecode it compiles
+    under the build directory (PYTHONPYCACHEPREFIX, dropping
+    PYTHONDONTWRITEBYTECODE for the children), and start one interpreter
+    that imports WARM_IMPORTS to fill it. Without it every node process
+    compiles torch's sources again: on the H100 host an import of torch
+    took 8.5 s, and 4.6-5.2 s from the cache. Returns the warming
+    process."""
+    from tendermint_tpu_torch.procnet import child_env
+    cache = _build.BUILD_DIR / "pycache"
+    cache.mkdir(parents=True, exist_ok=True)
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = str(cache)
+    return subprocess.Popen(
+        [sys.executable, "-c", "import " + ", ".join(WARM_IMPORTS)],
+        env=child_env(), stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True)
+
+
 def phase_build() -> tuple:
-    """Build the kernels (and the probe beside them); returns (the
-    integer rate the bounds are taken at, each kernel's ptxas report and
-    blocks per SM)."""
-    t0 = time.perf_counter()
-    prep_lib = native.build()
-    prep = {"compiler": shutil.which("g++"), "flags": native.prep_flags(),
-            "include": native.python_include(), "library": prep_lib.name,
-            "seconds": time.perf_counter() - t0,
-            "sha512_impl": native.sha512_impl()}
-    t0 = time.perf_counter()
+    """Build the kernels (and the probe beside them) and every host
+    library the script and its node processes load, all at once: one
+    nvcc for the kernels, one for the probe, one g++ for each host
+    library, started together (each library under its own build lock).
+    Returns (the integer rate the bounds are taken at, each kernel's
+    ptxas report and blocks per SM)."""
     nvcc = _build.find_nvcc()
     probe, cubin = _start_probe(nvcc)
-    lib = _build.ladder_lib()
-    build_s = time.perf_counter() - t0
+    builds = {"ladder": lambda: _build.ladder_lib(), "prep": native.build,
+              "aead": native.aead_build, "hostops": native.hostops_build,
+              "codec": native.codec_build, "kv": native.kv_build,
+              "launch_timer": lambda: _build.launch_timer_lib()}
+    with ThreadPoolExecutor(len(builds)) as pool:
+        futs = {k: pool.submit(_timed_build, fn) for k, fn in builds.items()}
+        done = {k: f.result() for k, f in futs.items()}
+    lib, build_s = done["ladder"]
+    prep = {"compiler": shutil.which("g++"), "flags": native.prep_flags(),
+            "include": native.python_include(),
+            "library": done["prep"][0].name, "seconds": done["prep"][1],
+            "sha512_impl": native.sha512_impl(),
+            "host_builds_s": {k: round(v[1], 3) for k, v in done.items()
+                              if k != "ladder"}}
     probe_log = probe.communicate()[0]
     require(probe.returncode == 0, f"the field-product probe failed to "
                                    f"build:\n{probe_log}")
@@ -781,6 +850,18 @@ def _time_ms(fn, reps: int) -> tuple:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def _time_once_ms(fn) -> tuple:
+    """(ms of one call, its output), by CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
 
 
 def _compare(name, got, want, expect, n, lanes) -> int:
@@ -863,7 +944,9 @@ def phase_kernels(device, rate: dict) -> dict:
             ms, got = _time_ms(kernel, TIME_REPS)
             want = None
             if n in PLAIN_CHECK:
-                p_ms, want = _time_ms(plain, 1)
+                # one timed call: the edge and probe checks above have
+                # run the plain version already
+                p_ms, want = _time_once_ms(plain)
                 if n == N_TIME:
                     plain_ms = p_ms
             err = max(err, _compare(name, got, want, expect, n, lanes))
@@ -1092,12 +1175,36 @@ def _hit_breakdown(vs, bid, commit, timer: list, card: str) -> None:
           "sha512_impl": native.sha512_impl(), "card": card})
 
 
-def phase_main(card: str, n_validators: int = N_VALIDATORS) -> tuple:
+def _mixed_commit(keys) -> tuple:
+    """(places, the commit of `keys` with N_SECP seeded validators on
+    secp256k1 keys, its seconds, the seeded generator that drew them,
+    for the tampered lanes)."""
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED + 5)
+    places = sorted(int(i) for i in rng.choice(len(keys), N_SECP,
+                                                replace=False))
+    secp = {i: Secp256k1PrivKey.generate(rng.bytes(32)) for i in places}
+    return places, build_commit(keys, secp), time.perf_counter() - t0, rng
+
+
+def prepare_commits(n_validators: int = N_VALIDATORS) -> dict:
+    """Phases 3 and 4's inputs: the keys, the commit and the mixed commit,
+    with their seconds (main() makes them while the kernels build)."""
     t0 = time.perf_counter()
     keys = _keys(n_validators, SEED)
-    vs, bid, commit = build_commit(keys)
+    commit_path = build_commit(keys)
+    seconds = time.perf_counter() - t0
+    return {"keys": keys, "commit_path": commit_path, "seconds": seconds,
+            "mixed": _mixed_commit(keys)}
+
+
+def phase_main(card: str, n_validators: int = N_VALIDATORS,
+               prepared: dict = None) -> tuple:
+    prepared = prepared or prepare_commits(n_validators)
+    keys = prepared["keys"]
+    vs, bid, commit = prepared["commit_path"]
     emit({"phase": "generate", "validators": n_validators,
-          "seconds": round(time.perf_counter() - t0, 3)})
+          "seconds": round(prepared["seconds"], 3)})
 
     timer: list = []
     inner = _time_launches(timer)
@@ -1171,22 +1278,16 @@ def _secp_route(route: str):
             sys.modules[name] = saved
 
 
-def phase_mixed(card: str, keys) -> dict:
+def phase_mixed(card: str, keys, mixed: tuple = None) -> dict:
     """The 10,000-validator commit with N_SECP validators (seeded places)
     on secp256k1 keys: through verify_commit from a cold cache (full ->
     fill -> hit: B1, then B2), the secp256k1 items verified on the host;
     verdicts on a batch with tampered items of both kinds held to the
     oracles; a flipped byte and a non-minimal DER re-encoding in one
     secp256k1 precommit must each raise."""
-    rng = np.random.RandomState(SEED + 5)
-    places = sorted(int(i) for i in rng.choice(len(keys), N_SECP,
-                                                replace=False))
-    secp = {i: Secp256k1PrivKey.generate(rng.bytes(32)) for i in places}
-    t0 = time.perf_counter()
-    vs, bid, commit = build_commit(keys, secp)
+    places, (vs, bid, commit), seconds, rng = mixed or _mixed_commit(keys)
     emit({"phase": "mixed_generate", "validators": len(vs),
-          "secp256k1": N_SECP, "places": places,
-          "seconds": time.perf_counter() - t0})
+          "secp256k1": N_SECP, "places": places, "seconds": seconds})
     n_ed = len(vs) - N_SECP
     with ted._predecomp_lock:       # a cold cache: the path walks all routes
         ted._predecomp.clear()
@@ -1301,8 +1402,8 @@ def phase_sign_kernel(device, rate: dict) -> dict:
             ms, got = _time_ms(lambda: ladder.sign_rb(r, n_windows),
                                TIME_REPS)
             if n == n_chunk:
-                p_ms, want = _time_ms(
-                    lambda: ladder.sign_rb_plain(digits, n_windows), 1)
+                p_ms, want = _time_once_ms(
+                    lambda: ladder.sign_rb_plain(digits, n_windows))
                 by_windows[n_windows] = ms
                 if n_windows == full:
                     plain_ms = p_ms
@@ -1808,11 +1909,12 @@ def _step_evidence(evidence, timer, card) -> None:
 
 def _profiled_device_ms(fn):
     """Device time of the kernels `fn` launches, summed from
-    torch.profiler's CUDA activity; None when it records none."""
+    torch.profiler's CUDA activity; None when it records none. The CPU
+    activity is not recorded: its ~5,000 host events a call only
+    lengthen the profiler's post-processing."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     total = 0.0
@@ -1843,8 +1945,9 @@ def _step_merkle(block, device, card) -> None:
     t4 = _ms()
     padded = torch.from_numpy(merkle.pad_digests(np.frombuffer(
         digests, np.uint8).reshape(n, 32).copy())).to(device)
-    tree_ms, tree_root = _time_ms(
-        lambda: merkle.root_from_digests(padded, n), 3)
+    # one call, warm from the two roots above (~1.4 s a tree on the H100)
+    tree_ms, tree_root = _time_once_ms(
+        lambda: merkle.root_from_digests(padded, n))
     # the profiler's post-processing grows with the kernels it records
     # (~5,000 a level): it reads one level, the widest, not the tree
     level_ms, _ = _time_ms(lambda: merkle._level_up(padded), 3)
@@ -2355,13 +2458,13 @@ def phase_sync_registry_ab(card: str, device) -> dict:
 # ---------------------------------------------------------------------------
 
 CONS_TXS = MAX_BLOCK_TXS  # config 1's block width: max_block_size_txs
-# run A: 80 heights (config 1 has no depth: a live net; 100 until the
-# mesh phase needed the script's time); the standby key joins at 20 and
-# leaves at 40, validator 1 equivocates at 50, a forged prevote reaches
-# node 0 at 60, node 3 (SQLite stores, file WAL) crashes after 70
-CONS_SCHEDULE = Schedule(heights=80, txs=CONS_TXS, join_at=20, leave_at=40,
-                         equivocate_at=50, forge_at=60, restart_after=70)
-CONS_B_HEIGHTS = 30       # run B, the same schedule on "auto"
+# run A: 40 heights (config 1 has no depth: a live net; cut for the
+# script's time); the standby key joins at 10 and leaves at 20,
+# validator 1 equivocates at 25, a forged prevote reaches node 0 at 30,
+# node 3 (SQLite stores, file WAL) crashes after 35
+CONS_SCHEDULE = Schedule(heights=40, txs=CONS_TXS, join_at=10, leave_at=20,
+                         equivocate_at=25, forge_at=30, restart_after=35)
+CONS_B_HEIGHTS = 15       # run B, the same schedule on "auto"
 N_RECHECK_CALLS = 64      # node 0's last verify dispatches held to the plain
 
 # the host stages of a height, read inside the calls: (owner, attribute)
@@ -2706,7 +2809,7 @@ def phase_consensus(card: str, device) -> dict:
 # ---------------------------------------------------------------------------
 
 P2P_MEASURE = (5, 40)     # blocks/s, txs/s and stages over these heights
-P2P_DROP_AT = 15          # node 3's links stopped when node 0 commits 15
+P2P_DROP_AT = 8           # node 3's links stopped when node 0 commits 8
 P2P_DROPPED_HEIGHTS = 3   # the other three commit this many more alone
 P2P_JOIN_AT = 34          # the fast-syncing joiner added at 34
 P2P_HEIGHTS = 40          # the feeder stops here, then the mempools drain
@@ -3094,7 +3197,8 @@ def _run_p2p(verifier_of, card: str, node0_log=None, last=None,
         frame_stats.reset()
         feeder = _Feeder(n0)
         feeder.start()
-        net.wait_height(P2P_DROP_AT, left("height 15"), nodes=[n0])
+        net.wait_height(P2P_DROP_AT, left(f"height {P2P_DROP_AT}"),
+                        nodes=[n0])
         rejoin = _drop_and_rejoin(net, left, card)
         net.wait_height(P2P_JOIN_AT, left("the joiner's height"),
                         nodes=[n0])
@@ -3243,14 +3347,15 @@ def phase_p2p(card: str, device, verifier=None) -> dict:
 
 # ------------------------------------------- phase 11: config 1 as OS processes
 
-PROC_HEIGHTS = 40         # the feeders stop when node 0 commits this
-PROC_CRASH_AT = 15        # node 3 is SIGKILLed when node 0 commits this
-PROC_MEASURE = (5, 40)    # blocks/s and txs/s over these heights (metas)
+PROC_HEIGHTS = 20         # the feeders stop when node 0 commits this (it
+#                           passes it while node 3 is down)
+PROC_CRASH_AT = 8         # node 3 is SIGKILLed when node 0 commits this
+PROC_MEASURE = (4, 20)    # blocks/s and txs/s over these heights (metas)
 PROC_BOOT_S = 90.0        # every node's status at height >= 2 within
 PROC_WALL_S = 180.0       # the phase's wall limit from the nodes' start
 PROC_FEED_BATCH = 128     # txs a broadcast_tx_batch cast
 PROC_BACKLOG = 3000       # a feeder backs off while the mempool holds more
-PROC_SAMPLE_KEYS = 32     # committed keys abci_query'd on every node
+PROC_SAMPLE_KEYS = 16     # committed keys abci_query'd on every node
 PROC_GPU_POLL_S = 0.25    # nvidia-smi utilization.gpu sampling period
 
 
@@ -3444,7 +3549,8 @@ def _agreed_txs(net, tag: str, top: int) -> tuple:
     return counts, txs
 
 
-def _procnet_net(tag: str, settings: dict, device: str, extra=None) -> dict:
+def _procnet_net(tag: str, settings: dict, device: str, extra=None,
+                 restart: bool = True) -> dict:
     """BASELINE config 1 as four OS processes (procnet.ProcNet), the run
     phases 11 and 12 share: `cli testnet` with `settings`, four `cli node
     --p2p --no-fast-sync --device <device>` processes, two WebSocket
@@ -3456,7 +3562,8 @@ def _procnet_net(tag: str, settings: dict, device: str, extra=None) -> dict:
     subscribes as soon as the nodes answer RPC (`subscribe(net, left)`),
     starts more load after the boot (`start(net)`), stops it with the
     feeders (`stop()`), may drain the mempools (`drain`), and ends it
-    once every node is at the last height (`finish(left)`). Returns the
+    once every node is at the last height (`finish(left)`). Without
+    `restart` node 3 runs through (one kernel line a node). Returns the
     run's readings."""
     from tendermint_tpu_torch.procnet import ProcNet, free_block
     _node_libs()
@@ -3486,7 +3593,7 @@ def _procnet_net(tag: str, settings: dict, device: str, extra=None) -> dict:
         for f in feeders:
             f.start()
         t_feed = time.perf_counter()
-        restart = _restart_node3(net, left, device)
+        rejoin = _restart_node3(net, left, device) if restart else None
         net.wait_for(lambda: net.height(0) >= PROC_HEIGHTS,
                      left("the last fed height"), "node 0 at the last height")
         t_fed = time.perf_counter()
@@ -3509,12 +3616,15 @@ def _procnet_net(tag: str, settings: dict, device: str, extra=None) -> dict:
         counts, txs = _agreed_txs(net, tag, top)
         keys = random.Random(SEED).sample(txs, min(PROC_SAMPLE_KEYS,
                                                    len(txs)))
-        for tx in keys:
-            k, v = tx.split(b"=", 1)
-            for i in range(net.n):
+
+        def answers(i: int) -> None:
+            for tx in keys:
+                k, v = tx.split(b"=", 1)
                 got = net.rpc(i).call("abci_query", data=k.hex())
                 require(bytes.fromhex(got["response"]["value"]) == v,
                         f"{tag}: node {i} answers {k!r} wrong")
+        with ThreadPoolExecutor(net.n) as pool:   # the nodes side by side
+            list(pool.map(answers, range(net.n)))
         rate = _proc_rate(net, top)
         bans = {i: net.rpc(i).call("net_info").get("banned", {})
                 for i in range(net.n)}
@@ -3527,7 +3637,9 @@ def _procnet_net(tag: str, settings: dict, device: str, extra=None) -> dict:
             f.stop()
         if extra is not None:
             extra.stop()
+        t_stop = time.perf_counter()
         codes = net.stop_all()
+        stop_s = time.perf_counter() - t_stop
         sampler.stop()
         if not ok:
             for i in range(net.n):
@@ -3535,19 +3647,22 @@ def _procnet_net(tag: str, settings: dict, device: str, extra=None) -> dict:
                     if os.path.exists(net.log_path(i)) else []
                 print(f"{tag} node {i} log tail:", *tail, sep="\n",
                       file=sys.stderr)
+    emit({"phase": f"{tag}_teardown", "stop_all_s": stop_s,
+          "after_wall_s": time.perf_counter() - t_start - wall_s})
     # one line a process: its stop line, and for node 3's killed first
     # process the line of the last height it committed before the kill
     lines = {i: net.kernel_lines(i) for i in range(net.n)}
     require(all(codes[i] == 0 for i in range(net.n)),
             f"{tag}: node exit codes {codes}")
-    require([len(lines[i]) for i in range(net.n)] == [1, 1, 1, 2],
+    require([len(lines[i]) for i in range(net.n)]
+            == [1, 1, 1, 2 if restart else 1],
             f"{tag}: kernel lines a process {lines}")
     launches = {k: sum(line["launches"][k]
                        for i in lines for line in lines[i])
                 for k in ladder.launches}
     shutil.rmtree(root, ignore_errors=True)
     return {"lines": lines, "launches": launches, "rate": rate,
-            "restart": restart, "busy": busy, "n_samples": n_samples,
+            "restart": rejoin, "busy": busy, "n_samples": n_samples,
             "boot_s": boot_s, "wall_s": wall_s, "top": top, "txs": txs,
             "counts": counts, "bans": bans,
             "sent": sum(f.sent for f in feeders),
@@ -3660,7 +3775,7 @@ def phase_procnet(card: str, device: str = "cuda") -> dict:
 
 LOOP_SYNC_CONNS = 32      # the third feeder's WebSocket connections to node 2
 LOOP_SUBSCRIBERS = 200    # WebSocket NewBlock subscribers on node 1
-LOOP_EVENTS = (5, 40)     # every subscriber sees each of these heights
+LOOP_EVENTS = (4, 20)     # every subscriber sees each of these heights
 N_COALESCE_CALLS = 64     # single-signature calls of the coalescer check
 N_COALESCE_THREADS = 8
 
@@ -4028,14 +4143,17 @@ def phase_procnet_loop(card: str, device: str = "cuda",
         check = _coalescer_check(torch.device(device))
         emit({"phase": "procnet_loop_coalescer_check", **check,
               "card": card})
+    # node 3 runs through in both arms, so that plane_ab compares like
+    # with like; phase 13 restarts it on this plane, load and coalescer
     load = _LoopLoad()
     try:
         run = _procnet_net("procnet_loop", bench_settings(
             "cuda" if on_card else "auto", reactor="auto",
-            verifier_coalesce="auto", pipeline="off"), device, extra=load)
+            verifier_coalesce="auto", pipeline="off"), device, extra=load,
+            restart=False)
     finally:
         load.subs.stop()
-    lines, rate, restart = run["lines"], run["rate"], run["restart"]
+    lines, rate = run["lines"], run["rate"]
     per_node = {i: lines[i][-1] for i in range(4)}
     acked = Counter(load.sync.acked)
     committed = {tx: run["counts"][tx] for tx in acked}
@@ -4053,12 +4171,8 @@ def phase_procnet_loop(card: str, device: str = "cuda",
           "wall_s": run["wall_s"], "banned_by": {
               i: sorted(p[:8] for p in b) for i, b in run["bans"].items()},
           "card": card})
-    emit({"phase": "procnet_loop_restart", **restart,
-          "sync_routes": per_node[3]["routes"],
-          "sync_launches": per_node[3]["launches"], "card": card})
     emit({"phase": "procnet_loop_kernels",
           "by_node": {i: _verifier_reading(per_node[i]) for i in per_node},
-          "node3_killed_process": _verifier_reading(lines[3][0]),
           "launches": run["launches"], "card": card})
     batcher = per_node[2]["tx_batcher"] or {}
     emit({"phase": "procnet_loop_rpc", "sync_conns": LOOP_SYNC_CONNS,
@@ -4093,7 +4207,7 @@ def phase_procnet_loop(card: str, device: str = "cuda",
         off = _procnet_net("procnet_loop_off", bench_settings(
             "cuda" if on_card else "auto", reactor="auto",
             verifier_coalesce="off", pipeline="off"), device,
-            extra=off_load)
+            extra=off_load, restart=False)
     finally:
         off_load.subs.stop()
     emit({"phase": "procnet_loop_off", "plane": {
@@ -4141,7 +4255,8 @@ def phase_procnet_loop(card: str, device: str = "cuda",
 def _check_loop_run(tag: str, run: dict, load, on_card: bool) -> None:
     """Phase 12's checks of a run on the loop plane with the front door's
     load: B1 in every process and no B3, node 3 signing after its
-    rejoin, every sync-acknowledged tx committed once, every subscriber
+    rejoin (in a run with the restart), every sync-acknowledged tx
+    committed once, every subscriber
     seeing every height in order, one loop thread and no per-peer thread
     in every process, and every coalescer accounting for its calls."""
     lines, restart = run["lines"], run["restart"]
@@ -4154,7 +4269,7 @@ def _check_loop_run(tag: str, run: dict, load, on_card: bool) -> None:
     _require_b1_everywhere(tag, lines, on_card)
     require(run["launches"]["sign_rb"] == 0,
             f"{tag} launched the sign kernel: {run['launches']}")
-    require(restart["signed_at"] > restart["synced_to"],
+    require(restart is None or restart["signed_at"] > restart["synced_to"],
             f"{tag}: node 3 did not sign after its rejoin: {restart}")
     require(acked and all(c == 1 for c in committed.values()),
             f"{tag}: {sum(1 for c in committed.values() if c != 1)} "
@@ -4169,7 +4284,8 @@ def _check_loop_run(tag: str, run: dict, load, on_card: bool) -> None:
                     and th["mconn-"] == th["gossip-"]
                     == th["mempool-bcast-"] == 0,
                     f"{tag}: node {i}'s threads {th}")
-            stopped = not (i == 3 and j == 0)   # the killed one
+            # node 3's first process is the killed one in a restart run
+            stopped = restart is None or not (i == 3 and j == 0)
             require(c["submissions"] > 0
                     and v["coalesced_calls"] == c["submissions"]
                     and v["calls"] == v["direct_calls"]
@@ -4497,7 +4613,8 @@ PROC_SS_RECOVERY = {"snapshot_interval": 10, "snapshot_keep": 2,
 PROC_SS_MAX_AGE = 10      # the genesis' evidence horizon: the state store
 #                           prunes behind h - 9 (the default 100000 would
 #                           keep every state row)
-PROC_SS_RESTART_ABOVE = 21  # node 3 restarts when nodes 0-2 pass this
+PROC_SS_RESTART_ABOVE = 11  # node 3 restarts when nodes 0-2 pass this
+#                             (the first snapshot, at 10, is published)
 PROC_SS_AFTER = 5         # heights node 0 commits after node 3 signs again
 PROC_SS_WALL_S = 300.0
 PROC_SS_WATCH_S = 1.0     # the meta watcher's period
@@ -5042,10 +5159,10 @@ def phase_procnet_statesync(card: str, device: str = "cuda") -> dict:
     _LoopLoad) with snapshots every 10 heights, 2 kept and 20 heights
     retained on nodes 0-2 (and the evidence horizon at PROC_SS_MAX_AGE in
     the genesis, so that the state store prunes too). Node 3 is SIGKILLed
-    at 15, wiped, and restarted with --state-sync after the net passes
-    21: it must restore a snapshot height that is a multiple of 10,
-    fast-sync the tail, sign again, and agree with every node at every
-    height above its restore; nodes 0-2 must end pruned above 1, never
+    at PROC_CRASH_AT, wiped, and restarted with --state-sync after the
+    net passes 11: it must restore a snapshot height that is a multiple
+    of 10, fast-sync the tail, sign again, and agree with every node at
+    every height above its restore; nodes 0-2 must end pruned above 1, never
     above their latest snapshot, with at most 2 snapshots. A CPU
     rehearsal passes device="cpu" (no launch required)."""
     from tendermint_tpu_torch.procnet import (ProcNet, bench_settings,
@@ -5423,7 +5540,7 @@ def phase_recovery_sweep(card: str, device: str = "cuda") -> dict:
 
 # ------------------------------- phase 15: the observability plane
 
-TEL_STALL_AT = 20         # node 0's height when nodes 2 and 3 are stopped
+TEL_STALL_AT = 14         # node 0's height when nodes 2 and 3 are stopped
 TEL_STALL_S = 3           # TM_CUDA_TRACE_STALL_S of the planes-on run
 TEL_STOP_S = 6.0          # the SIGSTOP: twice the stall window, far below
 #                           the links' 35 s idle timeout (the ban hazard)
@@ -5592,6 +5709,8 @@ def _tel_readings(net, left, heights, fed_committed: dict) -> dict:
             "event_dropped": fam.get((ns + "event_dropped_total", ()), 0.0)}
     dumps = [net.rpc(i, 60.0).call("dump_height_timeline")
              for i in range(net.n)]
+    # phase 20b's inputs: the dumps of the three report tools
+    out["tool_inputs"] = {"timeline": dumps}
     offsets = tmerge.estimate_offsets(dumps)
     window = [dict(d, spans=[e for e in d["spans"]
                              if e["n"] in ("p2p.recv", "mempool.recv")
@@ -5674,6 +5793,9 @@ def _tel_readings(net, left, heights, fed_committed: dict) -> dict:
         p = net.rpc(i, 30.0).call("debug_profile", action="dump")
         require(p["collapsed"].strip() and p["samples"] > 0,
                 f"telemetry: node {i}'s profiler has no stacks")
+        out["tool_inputs"].setdefault("profile", []).append(p)
+        out["tool_inputs"].setdefault("slo", []).append(
+            net.rpc(i, 30.0).call("slo", sketches=True))
         out["profile"][i] = {"samples": p["samples"],
                              "wait_samples": p["wait_samples"],
                              "stacks": p["stacks"], "shares": p["shares"]}
@@ -5954,7 +6076,8 @@ def phase_procnet_telemetry(card: str, device: str = "cuda",
             _require_b1_everywhere(tag, {i: [ln] for i, ln in
                                          r["lines"].items()}, on_card)
     return {"launches": run["launches"], "off_launches": off["launches"],
-            "rate": run["rate"], "off_rate": off["rate"]}
+            "rate": run["rate"], "off_rate": off["rate"],
+            "tool_inputs": rd["tool_inputs"]}
 
 
 #: phase_telemetry_planes' arms: each plane alone on the node's defaults
@@ -6008,9 +6131,10 @@ ST_BURST = 1200           # one broadcast_tx_batch to node 0 at the start: a
 #                           block of max_block_size_txs (1000) new keys, the
 #                           phase's largest wave (device route on the card)
 ST_GRPC_CLIENTS = 8       # BroadcastAPIClients on node 2 (its 8 workers)
-ST_GRPC_TXS = 12          # txs each client sends, one BroadcastTx at a time
+ST_GRPC_TXS = 6           # txs each client sends, one BroadcastTx at a time
 ST_LITE_TXS = 8           # fed txs read through the lite proxy's `tx`
 ST_PROOF_KEYS = 16        # fed keys proven by node 1 (and one absent key)
+LITE_READERS = 4          # heights read through the lite proxy at once
 ST_WALL_S = 150.0         # the net's wall limit from the nodes' start
 ST_ABCI_HEIGHTS = 4       # the gRPC ABCI node's heights
 ST_WAVE_REPS = 5          # timed runs of the largest wave on each route
@@ -6156,17 +6280,21 @@ def _wave_timing(block_txs: list, device) -> dict:
 def _lite_reads(proxy, top: int, fed: list) -> tuple:
     """commit, validators and block of every height 1..top through the
     lite proxy, each certified; `tx` for a sample of fed txs. Returns
-    the certified app hash of each height and the reads' seconds."""
-    certified = {}
-    t0 = time.perf_counter()
-    for h in range(1, top + 1):
+    the certified app hash of each height and the reads' seconds. The
+    heights are read LITE_READERS at a time (the proxy serves each
+    request on its own thread), a height's three reads in order."""
+    def read(h: int) -> bytes:
         cm = proxy.call("commit", height=h)
         vals = proxy.call("validators", height=h)
         blk = proxy.call("block", height=h)
         require(cm["certified"] and vals["certified"]
                 and blk["block"]["header"]["height"] == h,
                 f"statetree: lite read of height {h}")
-        certified[h] = bytes.fromhex(cm["header"]["app_hash"])
+        return bytes.fromhex(cm["header"]["app_hash"])
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(LITE_READERS) as pool:
+        certified = dict(zip(range(1, top + 1),
+                             pool.map(read, range(1, top + 1))))
     t_heights = time.perf_counter() - t0
     sample = random.Random(SEED + 16).sample(fed, min(ST_LITE_TXS, len(fed)))
     for tx, _ in sample:
@@ -6174,6 +6302,7 @@ def _lite_reads(proxy, top: int, fed: list) -> tuple:
         require(bytes.fromhex(res["tx"]) == tx,
                 f"statetree: lite tx read of {tx!r}")
     return certified, {"heights": top, "reads": 3 * top,
+                       "readers": LITE_READERS,
                        "heights_s": t_heights, "txs": len(sample),
                        "txs_s": time.perf_counter() - t0 - t_heights}
 
@@ -6420,8 +6549,8 @@ def phase_procnet_statetree(card: str, device: str = "cuda") -> dict:
     a node over gRPC ABCI commits the local client's app hashes, and a
     crash at each statetree.* point recovers. A CPU rehearsal passes
     device="cpu" (no launch required)."""
-    from tendermint_tpu_torch.procnet import ProcNet, bench_settings, \
-        free_block
+    from tendermint_tpu_torch.procnet import (ProcNet, bench_settings,
+                                              free_block, print_log_tail)
     from tendermint_tpu_torch.rpc.client import JSONRPCClient
     on_card = device.startswith("cuda")
     dev = torch.device("cuda", 0) if on_card else torch.device("cpu")
@@ -6544,6 +6673,9 @@ def phase_procnet_statetree(card: str, device: str = "cuda") -> dict:
                     if os.path.exists(path) else []
                 print(f"{tag} {name} tail:", *tail, sep="\n",
                       file=sys.stderr)
+    if lite_code:
+        print_log_tail(f"{tag} cli lite exited {lite_code}",
+                       os.path.join(root, "lite.log"))
     lines = {i: net.kernel_lines(i) for i in range(net.n)}
     lite_line = _lite_line(root)
     shutil.rmtree(root, ignore_errors=True)
@@ -6651,7 +6783,7 @@ WIRECHAOS_HOSTILE = ("garbage_after_auth", "handshake_stall",
 #: the plan digest of WIRECHAOS_SPEC at CHAOS_SEED on four nodes
 WIRECHAOS_PLAN_SHA256 = ("7187574ea7b6e0563c6c65af9d514d34b542b835fa0f726e"
                          "e64075dd5e0489b9")
-WIRE_WINDOW_S = 22.0      # the armed window (bench.py's TM_BENCH_WIRECHAOS_S
+WIRE_WINDOW_S = 19.0      # the armed window (bench.py's TM_BENCH_WIRECHAOS_S
 #                           is 30 s; cut: time. The last episode ends at 17 s)
 WIRE_PREFILL = 2500       # node 0's backlog before the window
 WIRE_LIVENESS_S = 30.0    # an episode's recovery bound
@@ -7024,7 +7156,7 @@ def phase_chaos(card: str, device: str = "cuda") -> dict:
 
 # ------------------------------------------------------------- phase 18
 SHARD_ARMS = (1, 8, 32)   # BENCH_shard.json's arms
-SHARD_WINDOW_S = 6.0      # an arm's measured window (bench.py: 20 s)
+SHARD_WINDOW_S = 3.0      # an arm's measured window (bench.py: 20 s)
 SHARD_WARM_S = 1.0        # bench.py's lead before the window
 SHARD_BOOT_S = 60.0       # every shard at height 2 within
 SHARD_FEEDERS = 2         # bench.py's spammers: 64-tx broadcast_tx_batch
@@ -7033,12 +7165,14 @@ SHARD_PAUSE_S = 0.1
 EDGE_KEYS = 400           # bench.py's load keyspace (lk0..lk399)
 EDGE_RATE = 100.0         # TM_CUDA_RPC_RATE of each replica (bench.py)
 EDGE_OFFERED = 250.0      # certified reads/s offered (bench.py)
-EDGE_ARM_S = 5.0          # an arm's duration (bench.py: 8 s; cut: time)
+EDGE_ARM_S = 3.0          # an arm's duration (bench.py: 8 s; cut: time)
 EDGE_CONNS = 50           # the fleet's connections to a replica
-EDGE_SAMPLE = 8           # replica reads verified client-side, a replica
-EDGE_DRAIN_S = 10.0       # an arm's backlog: the wait for it, at most
-KNEE_RATES = (150, 300, 600)   # bench.py: up to 4,800 (cut: time)
-KNEE_RATE_S = 4.0         # a rate's window (bench.py: 8 s)
+EDGE_SAMPLE = 4           # replica reads verified client-side, a replica
+EDGE_DRAIN_S = 4.0        # an arm's backlog: the wait for it, at most
+EDGE_ARM_DRAIN_S = 2.0    # the fleet's wait for an arm's last answers
+#                           (bench.py: 5 s; cut: time)
+KNEE_RATES = (150, 300)   # bench.py: up to 4,800 (cut: time)
+KNEE_RATE_S = 3.0         # a rate's window (bench.py: 8 s)
 KNEE_CONNS = 1500
 KNEE_SUBS = 300
 KNEE_SLO_MS = 1500.0
@@ -7358,7 +7492,7 @@ def _edge_arm(spec, val, rate: float, seed: int) -> dict:
                     "key": f"lk{rng.randrange(EDGE_KEYS)}".encode().hex(),
                     "since_height": since[0]})),
                ("query_prove", 0.5, op_query_prove(EDGE_KEYS))]
-        return fleet.run(EDGE_ARM_S, rate, mix, drain_s=5.0)
+        return fleet.run(EDGE_ARM_S, rate, mix, drain_s=EDGE_ARM_DRAIN_S)
     finally:
         done.set()
         follower.join(10)
@@ -7648,7 +7782,7 @@ def phase_serving(card: str, device: str = "cuda") -> dict:
 MESH_ARMS = ("off", "auto", "2", "4", "8")  # 19a's BatchVerifier(mesh=) arms
 MESH_FORCE = 8            # logical devices laid over cuda:0 for the N arms
 MESH_TAMPER = (137, 4242, 9001)  # BENCH_mesh.json's tampered lanes
-MESH_REPS = 5             # timed verifies an arm, after a warm one
+MESH_REPS = 3             # timed verifies an arm, after a warm one
 MESH_ROOT_WIDTHS = (2, 4, 8)
 MESH_STEP = 2             # verify_step's shards (its root's levels cost
 #                           launches a shard: 2 keeps it to ~2 s)
@@ -7949,6 +8083,205 @@ def phase_mesh(card: str, commit_path, chain, device) -> dict:
     return out
 
 
+# ------------------------------------- phase 20: the operator's env surface
+
+KNOB_SIGS = 100           # 20a's commit: phase 3's first 100 keys
+KNOB_TAMPER = (17, 73)    # 20a's lanes with a flipped signature byte
+#: the verifier knobs 20a sets, every one cleared outside its arm
+KNOB_NAMES = ("TM_CUDA_VERIFIER", "TM_CUDA_AUTO_THRESHOLD",
+              "TM_CUDA_COALESCE", "TM_CUDA_COALESCE_WAIT_MS",
+              "TM_CUDA_COALESCE_MAX_BATCH", "TM_TPU_VERIFIER",
+              "TM_TPU_AUTO_THRESHOLD", "TM_TPU_COALESCE")
+#: 20a's arms: (name, env, verify calls, B1/B2 launches wanted)
+KNOB_ARMS = (
+    ("defaults", {}, 1, False),
+    ("cuda_threshold_64", {"TM_CUDA_AUTO_THRESHOLD": "64",
+                           "TM_CUDA_COALESCE": "off"}, 2, True),
+    ("tpu_threshold_64", {"TM_TPU_AUTO_THRESHOLD": "64"}, 1, False),
+    ("cuda_verifier_python", {"TM_CUDA_VERIFIER": "python"}, 1, False),
+)
+#: 20b: each tool, its input kind, its output arguments
+KNOB_TOOLS = (("trace_merge", "timeline", ["--out", "merged.json"]),
+              ("slo_report", "slo", ["--report", "report.json"]),
+              ("profile_merge", "profile", ["--out", "merged.collapsed"]))
+
+
+@contextlib.contextmanager
+def _knob_env(values: dict):
+    """KNOB_NAMES cleared and `values` set for the block, restored
+    after."""
+    saved = {k: os.environ.get(k) for k in KNOB_NAMES}
+    for k in KNOB_NAMES:
+        os.environ.pop(k, None)
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _knob_items(keys) -> list:
+    """(pubkey, sign bytes, signature) of a KNOB_SIGS-validator commit of
+    `keys`, with a flipped signature byte in each KNOB_TAMPER lane."""
+    vs, _, commit = build_commit(keys[:KNOB_SIGS])
+    items = []
+    for idx, vote in enumerate(commit.precommits):
+        sig = _flip(vote.signature, 7) if idx in KNOB_TAMPER \
+            else vote.signature
+        items.append((vs.validators[idx].pubkey, vote.sign_bytes(CHAIN),
+                      sig))
+    return items
+
+
+def _knob_arm(name: str, env: dict, calls: int, want: bool, items,
+              plain, on_card: bool, card: str) -> dict:
+    """One arm of 20a: node.build_verifier of a default BaseConfig under
+    `env`, then `calls` verifies of `items` from a cold predecompression
+    cache; verdicts held to the plain version's; B1/B2 launches counted
+    (the ladder's counts and the launch timer's events) and wanted or
+    not."""
+    from tendermint_tpu_torch.config import BaseConfig
+    from tendermint_tpu_torch.node import build_verifier
+    timed, saved, ref = [], [], None
+    with _knob_env(env):
+        # a CPU rehearsal builds each arm's verifier on the CPU
+        v, owned = build_verifier(BaseConfig(),
+                                  device=None if on_card else "cpu")
+        try:
+            _cold_cache()
+            if on_card:
+                saved = _patched(_in_run_timer_patches(timed))
+                ref = torch.cuda.Event(enable_timing=True)
+                ref.record()
+            _zero_launches()
+            walls = []
+            try:
+                for _ in range(calls):
+                    t0 = time.perf_counter()
+                    got = v.verify(items)
+                    walls.append(time.perf_counter() - t0)
+                    require(np.array_equal(got, plain),
+                            f"knobs {name}: verdicts differ from the plain "
+                            f"version's at lanes "
+                            f"{np.flatnonzero(got != plain)[:8].tolist()}")
+            finally:
+                _restore(saved)
+            launches = dict(ladder.launches)
+            settings = {"backend": v.backend,
+                        "auto_threshold": v.auto_threshold,
+                        "coalesce": v.coalesce, "owned": owned}
+        finally:
+            if owned:
+                v.close()
+    b12 = launches["verify"] + launches["verify_pre"]
+    dev_t = (_in_run_device_time(timed, ref, sum(walls))["by_kernel"]
+             if on_card else {})
+    require(launches["sign_rb"] == 0, f"knobs {name}: B3 launched")
+    if on_card:
+        require(len(timed) == b12, f"knobs {name}: {len(timed)} timed "
+                f"launches against the counts {launches}")
+        require((b12 > 0) == want, f"knobs {name}: B1/B2 launches "
+                f"{launches}, wanted {'some' if want else 'none'}")
+    out = {"arm": name, "env": env, "settings": settings,
+           "launches": launches, "walls_ms": [w * 1e3 for w in walls],
+           "event_ms": {k: r["event_ms"] for k, r in dev_t.items()},
+           "refused_lanes": np.flatnonzero(~got).tolist()}
+    emit({"phase": "knobs_route", **out, "card": card})
+    return out
+
+
+def _knob_tools(inputs: dict, card: str) -> dict:
+    """20b: phase 15's four dumps of each kind, written to files, through
+    `python -m tendermint_tpu_torch.scripts.<tool> --files ...`; each
+    output equals the in-process merge of the same dumps."""
+    from tendermint_tpu_torch.procnet import child_env
+    from tendermint_tpu_torch.scripts import profile_merge, slo_report, \
+        trace_merge
+    from tendermint_tpu_torch.telemetry import merge as tmerge
+    from tendermint_tpu_torch.telemetry import profile as tprofile
+    from tendermint_tpu_torch.telemetry import slo as tslo
+    select = {"trace_merge": trace_merge.select,
+              "slo_report": slo_report.select,
+              "profile_merge": profile_merge.select}
+    root = tempfile.mkdtemp(prefix="knob-tools-")
+    out = {}
+    try:
+        for tool, kind, args in KNOB_TOOLS:
+            docs = inputs[kind]
+            names = []
+            for i, doc in enumerate(docs):
+                names.append(f"{kind}{i}.json")
+                with open(os.path.join(root, names[-1]), "w") as f:
+                    json.dump(doc, f)
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", f"tendermint_tpu_torch.scripts.{tool}",
+                 "--files", *names, *args], cwd=root, env=child_env(),
+                capture_output=True, text=True, timeout=300)
+            wall = time.perf_counter() - t0
+            require(proc.returncode == 0, f"knobs {tool} exited "
+                    f"{proc.returncode}: {proc.stderr[-2000:]}")
+            with open(os.path.join(root, args[1]), "rb") as f:
+                got = f.read()
+            # the in-process merge of the dumps the tool's own selection
+            # keeps (a node without data is skipped)
+            live, _ = select[tool](docs)
+            if tool == "trace_merge":
+                want = json.dumps(tmerge.merge_report(live)["perfetto"])
+                same = got == want.encode()
+            elif tool == "slo_report":
+                merged = tslo.merge_snapshots(live)
+                # the report's merge, and its printed table byte for byte
+                same = json.loads(got)["merged"] == json.loads(
+                    json.dumps(merged)) and proc.stdout == (
+                    slo_report.render(live, merged)
+                    + f"[slo_report] full report -> {args[1]}\n")
+            else:
+                want = tprofile.merge_dumps(live)["collapsed"] + "\n"
+                same = got == want.encode()
+            require(live, f"knobs {tool}: no node's dump has data")
+            require(same, f"knobs {tool}: its output differs from the "
+                    f"in-process merge of the same {len(docs)} dumps")
+            out[tool] = {"files": len(docs), "merged": len(live),
+                         "output_bytes": len(got),
+                         "wall_s": wall,
+                         "stdout_head": proc.stdout.splitlines()[:2]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "knobs_tools", **out, "card": card})
+    return out
+
+
+def phase_knobs(card: str, keys, tool_inputs: dict,
+                device: str = "cuda") -> dict:
+    """Phase 20 (see the module docstring): the verifier's knobs deciding
+    the route on a KNOB_SIGS-signature commit of phase 3's keys, and the
+    three report tools on phase 15's dumps. Returns the launches of the
+    arms."""
+    on_card = device.startswith("cuda")
+    t0 = time.perf_counter()
+    items = _knob_items(keys)
+    plain = ted.verify_batch([it[0] for it in items],
+                             [it[1] for it in items],
+                             [it[2] for it in items], device="cpu")
+    require(np.flatnonzero(~plain).tolist() == list(KNOB_TAMPER),
+            f"knobs: the plain version refuses {np.flatnonzero(~plain)}")
+    arms = [_knob_arm(name, env, calls, want, items, plain, on_card, card)
+            for name, env, calls, want in KNOB_ARMS]
+    tools = _knob_tools(tool_inputs, card)
+    launches = {k: sum(a["launches"][k] for a in arms)
+                for k in ladder.launches}
+    emit({"phase": "knobs_summary", "launches": launches,
+          "arms": {a["arm"]: a["launches"] for a in arms},
+          "tools": sorted(tools), "wall_s": time.perf_counter() - t0,
+          "card": card})
+    return launches
+
+
 @contextlib.contextmanager
 def _serial_commit_path():
     """Phases 9 and 10 on the serial commit path (pipeline "off"), the
@@ -7977,13 +8310,21 @@ def main() -> int:
         now = time.perf_counter()
         walls[name] = now - t_lap[0]
         t_lap[0] = now
-    rate, ptxas = phase_build()
+    # the kernels and host libraries build, and the children's bytecode
+    # is compiled, while phases 3 and 4's keys and commits are made
+    warm = _share_bytecode()
+    with ThreadPoolExecutor(1) as pool:
+        built = pool.submit(phase_build)
+        prepared = prepare_commits()
+        rate, ptxas = built.result()
+    warm_err = warm.communicate(timeout=300)[1]
+    require(warm.returncode == 0, f"the bytecode warm-up failed:\n{warm_err}")
     lap("build")
     kernels = phase_kernels(device, rate)
     lap("kernels")
-    commit_launches, keys, commit_path = phase_main(card)
+    commit_launches, keys, commit_path = phase_main(card, prepared=prepared)
     lap("commit")
-    mixed_launches = phase_mixed(card, keys)
+    mixed_launches = phase_mixed(card, keys, prepared["mixed"])
     lap("mixed")
     kernels.update(phase_sign_kernel(device, rate))
     lap("sign_kernel")
@@ -8021,6 +8362,8 @@ def main() -> int:
     lap("serving")
     mesh = phase_mesh(card, commit_path, sync_chain, device)
     lap("mesh")
+    knob_launches = phase_knobs(card, keys, procnet_tel["tool_inputs"])
+    lap("knobs")
     emit({"phase": "script_walls", "seconds": walls,
           "total_s": sum(walls.values()), "card": card})
     table = []
@@ -8070,7 +8413,8 @@ def main() -> int:
                                  "load_knee": serving["load_knee"][name],
                                  "mesh_commit": mesh["mesh_commit"][name],
                                  "mesh_merkle": mesh["mesh_merkle"][name],
-                                 "mesh_window": mesh["mesh_window"][name]},
+                                 "mesh_window": mesh["mesh_window"][name],
+                                 "knobs": knob_launches[name]},
             "max_abs_err": kernels[name]["max_abs_err"],
             "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"],
             "bound_ms": kernels[name]["bound_ms"],

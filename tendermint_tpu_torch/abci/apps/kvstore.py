@@ -177,8 +177,10 @@ class KVStoreApp(BaseApplication):
             self._tree = StateTree(device=device)
             use_native = False
         # the C++ core holds the store, the accumulators and the commit;
-        # the Python fields below serve the pure route
-        self._kvmod = native.kv() if use_native else None
+        # the Python fields below serve the pure route (use_native=False
+        # or TM_CUDA_NO_NATIVE)
+        self._kvmod = native.kv() if use_native and not native.disabled() \
+            else None
         if self._kvmod is not None:
             self._core = self._kvmod.kv_new()
             self.store = _NativeStoreView(self._kvmod, self._core)

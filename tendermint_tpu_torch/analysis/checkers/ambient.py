@@ -71,6 +71,8 @@ BLESSED = frozenset((
     "tendermint_tpu_torch/native.py:_mod",
     "tendermint_tpu_torch/native.py:_aead_checked",
     "tendermint_tpu_torch/native.py:_ext_mods",
+    # TM_CUDA_NO_NATIVE, read once a process (the JAX loaders' _tried)
+    "tendermint_tpu_torch/native.py:_no_native",
     "tendermint_tpu_torch/types/encoding.py:_stats",
     "tendermint_tpu_torch/types/part_set.py:_builds",
     "tendermint_tpu_torch/pipeline.py:_stats",

@@ -158,6 +158,40 @@ BLESSED: Tuple[Seam, ...] = (
          "tests/test_torch_mesh.py::"
          "test_root_host_mesh_dispatch_bit_equality",
          "mesh dispatch is byte-equal to the host path"),
+    Seam("knob", "TM_CUDA_PIPELINE",
+         "tests/test_torch_pipeline.py::"
+         "test_net_on_equals_off_equals_jax_on",
+         "serial and pipelined commit give the same blocks, byte for "
+         "byte, as the JAX package's pipelined net"),
+    Seam("knob", "TM_CUDA_NO_NATIVE",
+         "tests/test_torch_no_native.py::"
+         "test_merkle_and_part_sets_take_hashlib",
+         "the pure host routes give the native routes' bytes (codec, "
+         "kv core, prep, sign phases, roots, proofs, part sets)"),
+    Seam("knob", "TM_CUDA_VERIFIER",
+         "tests/test_torch_verifier.py::"
+         "test_verdicts_match_jax_on_tampered_items",
+         "the backend picks between implementations whose verdicts "
+         "equal the JAX package's and the oracle's"),
+    Seam("knob", "TM_CUDA_AUTO_THRESHOLD",
+         "tests/test_torch_verifier.py::test_small_auto_batch_stays_on_host",
+         "the scalar/batch crossover only picks between oracle-equal "
+         "routes"),
+    Seam("knob", "TM_CUDA_COALESCE",
+         "tests/test_torch_coalescer.py::"
+         "test_threaded_single_vote_callers_get_their_own_verdicts",
+         "a coalesced dispatch gives each caller the verdicts of a "
+         "call of its own"),
+    Seam("knob", "TM_CUDA_COALESCE_WAIT_MS",
+         "tests/test_torch_coalescer.py::"
+         "test_threaded_single_vote_callers_get_their_own_verdicts",
+         "the merge window changes latency and batch size, never "
+         "verdicts"),
+    Seam("knob", "TM_CUDA_COALESCE_MAX_BATCH",
+         "tests/test_torch_coalescer.py::"
+         "test_threaded_single_vote_callers_get_their_own_verdicts",
+         "the early-flush size changes the dispatch shape, never "
+         "verdicts"),
     Seam("knob", "TM_CUDA_MESH_FORCE_DEVICES",
          "tests/test_torch_mesh.py::"
          "test_batch_verifier_mesh_verdicts_equal_jax",

@@ -229,27 +229,37 @@ def replay_digests(seed: int, extra_heights: int = 0,
 def run_dual_seed_replay(seed: int = 7, hash_seeds: Tuple[int, int] = (1, 2),
                          timeout_s: float = 300.0, device=None) -> dict:
     """Spawn the scripted replay in two subprocesses under different
-    PYTHONHASHSEED values and compare digest streams bit-for-bit. The
-    children run on `device` (the card unless "cpu")."""
+    PYTHONHASHSEED values, side by side, and compare digest streams
+    bit-for-bit. The children run on `device` (the card unless "cpu")."""
     import os
     import subprocess
     import sys
 
-    streams = []
-    for hs in hash_seeds:
-        env = dict(os.environ)
-        env["PYTHONHASHSEED"] = str(hs)
-        env["TM_CUDA_DIVERGENCE"] = "on"
-        proc = subprocess.run(
-            [sys.executable, "-m", "tendermint_tpu_torch.analysis.divergence",
-             "--replay", "--seed", str(seed)]
-            + (["--device", str(device)] if device is not None else []),
-            capture_output=True, timeout=timeout_s, env=env)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"replay child (PYTHONHASHSEED={hs}) failed:\n"
-                f"{proc.stderr.decode(errors='replace')[-2000:]}")
-        streams.append(proc.stdout.decode())
+    procs = []
+    try:
+        for hs in hash_seeds:
+            env = dict(os.environ)
+            env["PYTHONHASHSEED"] = str(hs)
+            env["TM_CUDA_DIVERGENCE"] = "on"
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m",
+                 "tendermint_tpu_torch.analysis.divergence",
+                 "--replay", "--seed", str(seed)]
+                + (["--device", str(device)] if device is not None else []),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env))
+        streams = []
+        for hs, proc in zip(hash_seeds, procs):
+            out, err = proc.communicate(timeout=timeout_s)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"replay child (PYTHONHASHSEED={hs}) failed:\n"
+                    f"{err.decode(errors='replace')[-2000:]}")
+            streams.append(out.decode())
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     return {
         "seed": seed,
         "hash_seeds": list(hash_seeds),

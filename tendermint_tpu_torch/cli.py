@@ -314,11 +314,19 @@ def cmd_gen_validator(args) -> int:
 
 def cmd_unsafe_reset_all(args) -> int:
     """Wipe data dir, keep genesis + reset priv validator height state."""
-    data = os.path.join(args.home, "data")
+    for line in reset_all(args.home):
+        print(line)
+    return 0
+
+
+def reset_all(home: str) -> list:
+    """`unsafe_reset_all` on `home`; returns the lines the CLI prints."""
+    data = os.path.join(home, "data")
+    out = []
     if os.path.isdir(data):
         shutil.rmtree(data)
-        print(f"removed {data}")
-    return cmd_unsafe_reset_priv_validator(args)
+        out.append(f"removed {data}")
+    return out + reset_priv_validator(home)
 
 
 def cmd_unsafe_reset_priv_validator(args) -> int:
@@ -326,17 +334,24 @@ def cmd_unsafe_reset_priv_validator(args) -> int:
     unsafe_reset_priv_validator, cmd reset_priv_validator.go) — for a
     validator that must re-join after losing its state, accepting the
     double-sign risk."""
-    pv_path = os.path.join(args.home, "config", "priv_validator.json")
-    if os.path.exists(pv_path):
-        from tendermint_tpu_torch.types.priv_validator import (
-            PrivValidatorFile)
-        pv = PrivValidatorFile.load(pv_path)
-        pv.last_height = pv.last_round = pv.last_step = 0
-        pv.last_sign_bytes = None
-        pv.last_signature = None
-        pv._persist()
-        print(f"reset priv validator sign state at {pv_path}")
+    for line in reset_priv_validator(args.home):
+        print(line)
     return 0
+
+
+def reset_priv_validator(home: str) -> list:
+    """`unsafe_reset_priv_validator` on `home`; returns the lines the CLI
+    prints."""
+    pv_path = os.path.join(home, "config", "priv_validator.json")
+    if not os.path.exists(pv_path):
+        return []
+    from tendermint_tpu_torch.types.priv_validator import PrivValidatorFile
+    pv = PrivValidatorFile.load(pv_path)
+    pv.last_height = pv.last_round = pv.last_step = 0
+    pv.last_sign_bytes = None
+    pv.last_signature = None
+    pv._persist()
+    return [f"reset priv validator sign state at {pv_path}"]
 
 
 def cmd_lite(args) -> int:
@@ -454,18 +469,25 @@ def cmd_show_node_id(args) -> int:
 
 
 def cmd_testnet(args) -> int:
-    """Emit an N-validator testnet file tree (cmd testnet.go:97): a shared
-    genesis listing every validator, per-node priv_validator + node_key +
-    config.json with persistent_peers wired to all other nodes."""
+    """Emit an N-validator testnet file tree (cmd testnet.go:97)."""
+    out = args.output or args.home
+    chain_id = args.chain_id or f"testnet-{int(time.time())}"
+    write_testnet(out, args.n, chain_id, args.base_port)
+    print(f"wrote {args.n}-node testnet (chain {chain_id}) under {out}")
+    return 0
+
+
+def write_testnet(out: str, n: int, chain_id: str, base_port: int) -> None:
+    """`cli testnet`'s tree under `out`: a shared genesis listing every
+    validator, per-node priv_validator + node_key + config.json with
+    persistent_peers wired to all other nodes (process k on ports
+    base_port + 2k and + 2k + 1)."""
     from tendermint_tpu_torch.config import default_config, save_config
     from tendermint_tpu_torch.p2p import NodeKey
     from tendermint_tpu_torch.types.genesis import (GenesisDoc,
                                                     GenesisValidator)
     from tendermint_tpu_torch.types.priv_validator import PrivValidatorFile
 
-    n = args.n
-    out = args.output or args.home
-    chain_id = args.chain_id or f"testnet-{int(time.time())}"
     pvs, node_keys = [], []
     for i in range(n):
         home = os.path.join(out, f"node{i}")
@@ -478,7 +500,6 @@ def cmd_testnet(args) -> int:
     gen = GenesisDoc(
         chain_id=chain_id, genesis_time_ns=time.time_ns(),
         validators=[GenesisValidator(pv.pubkey.ed25519, 10) for pv in pvs])
-    base_port = args.base_port
     for i in range(n):
         home = os.path.join(out, f"node{i}")
         gen.save(os.path.join(home, "config", "genesis.json"))
@@ -490,8 +511,6 @@ def cmd_testnet(args) -> int:
             f"{node_keys[j].id()}@127.0.0.1:{base_port + 2 * j}"
             for j in range(n) if j != i)
         save_config(cfg)
-    print(f"wrote {n}-node testnet (chain {chain_id}) under {out}")
-    return 0
 
 
 def cmd_replay(args, console: bool = False) -> int:

@@ -16,8 +16,10 @@ verifier's dispatch coalescing (`base.verifier_coalesce`: auto|on|off,
 pipelined block hot path (`base.pipeline`: auto|on|off, auto being on;
 pipeline.py) and the recovery plane (`base.snapshot_interval`,
 `snapshot_keep`, `snapshot_chunk_kb`, `retain_heights`, `state_sync`).
-The port reads no environment knob for them. `validate()` refuses a value outside
-those sets when the config is loaded. The observability planes' keys
+Each has its `TM_CUDA_*` knob (utils/knobs.py), which wins over the
+field at the field's resolver, as the JAX package's `TM_TPU_*` knob does.
+`validate()` refuses a value outside those sets when the config is
+loaded. The observability planes' keys
 (`base.telemetry`, `telemetry_namespace`, `trace`, `prof`, `prof_hz`,
 `queue_watch`, `slo`, `slo_sample`) carry the JAX package's names and
 defaults, except the namespace (`tmcuda`); their `TM_CUDA_*` knobs
@@ -46,6 +48,8 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import asdict, dataclass, field, replace
+
+from tendermint_tpu_torch.utils import knobs
 
 
 @dataclass
@@ -324,10 +328,13 @@ def parse_coalesce(spec) -> str:
 
 
 def resolve_reactor(mode) -> str:
-    """-> 'loop' | 'threads' for a `base.reactor` value, with the
-    spellings of the JAX package's `loop.resolve`: auto is the event
-    loop, an off value the thread plane; anything else raises."""
-    m = str(mode if mode is not None else "auto").strip().lower()
+    """-> 'loop' | 'threads': TM_CUDA_REACTOR over the `base.reactor`
+    value `mode`, with the spellings of the JAX package's
+    `loop.resolve`: auto is the event loop, an off value the thread
+    plane; anything else raises."""
+    m = knobs.knob_str("TM_CUDA_REACTOR",
+                       config=None if mode is None else str(mode),
+                       default="auto")
     if m in ("threads", "thread"):
         return "threads"
     if m in ("loop", "auto", "on", ""):

@@ -2,8 +2,9 @@
 port's copy of `tendermint_tpu/consensus/compact.py`.
 
 Two settings of ConsensusConfig, both on by default as the JAX package's
-`auto` resolves (the JAX package reads them from `TM_TPU_COMPACT` and
-`TM_TPU_VOTE_AGG`):
+`auto` resolves; `compact_on` / `voteagg_on` give TM_CUDA_COMPACT /
+TM_CUDA_VOTE_AGG over the config field (the JAX package's TM_TPU_COMPACT
+and TM_TPU_VOTE_AGG over `base.compact` / `vote_agg`):
 
 - `compact`: the data gossip pass sends a compact proposal — header +
   ordered salted short tx ids — instead of streaming parts; receivers
@@ -38,6 +39,7 @@ from collections import Counter
 from typing import Dict, List
 
 from tendermint_tpu_torch import telemetry
+from tendermint_tpu_torch.utils import knobs
 
 #: capability strings advertised in NodeInfo.other — version-suffixed
 #: so an incompatible future wire shape can bump without ambiguity
@@ -105,6 +107,20 @@ _m_agg_batch = telemetry.histogram(
     "voteagg_batch_votes",
     "Votes per aggregate applied through the bulk VoteSet path",
     buckets=telemetry.POW2_BUCKETS)
+
+
+def compact_on(config) -> bool:
+    """env TM_CUDA_COMPACT > ConsensusConfig.compact > auto (= on)."""
+    return knobs.knob_str("TM_CUDA_COMPACT",
+                          config="on" if config.compact else "off",
+                          default="auto") not in knobs.FALSY
+
+
+def voteagg_on(config) -> bool:
+    """env TM_CUDA_VOTE_AGG > ConsensusConfig.vote_agg > auto (= on)."""
+    return knobs.knob_str("TM_CUDA_VOTE_AGG",
+                          config="on" if config.vote_agg else "off",
+                          default="auto") not in knobs.FALSY
 
 
 def wire_capabilities(compact: bool = True,

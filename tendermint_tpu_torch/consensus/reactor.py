@@ -17,7 +17,8 @@ pure I/O around it: peer messages feed cs.submit(), and the gossip
 threads read RoundState snapshots under the state machine's lock.
 
 Compact block relay and vote aggregation follow the ConsensusState's
-config (`compact`, `vote_agg`). With the causal plane on, outgoing
+config (`compact`, `vote_agg`) under TM_CUDA_COMPACT / TM_CUDA_VOTE_AGG
+(`compact.compact_on` / `voteagg_on`). With the causal plane on, outgoing
 state, data and vote envelopes carry the trace stamp (`causal.stamp`)
 and `receive` takes it off first (`causal.take`), as in the JAX reactor;
 off, the envelopes are untouched.
@@ -185,8 +186,8 @@ class ConsensusReactor(Reactor):
         # compact consensus gossip (consensus/compact.py): read once at
         # construction — a reactor never switches wire shapes mid-height.
         # Both off = legacy wire byte-for-byte.
-        self._compact = bool(consensus_state.config.compact)
-        self._voteagg = bool(consensus_state.config.vote_agg)
+        self._compact = compact.compact_on(consensus_state.config)
+        self._voteagg = compact.voteagg_on(consensus_state.config)
         self.compact_stats = compact.CompactStats()
         # peers that failed the compact plane (nack/timeout/bogus data):
         # exponential backoff, during which both directions fall back to

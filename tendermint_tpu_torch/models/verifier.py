@@ -9,8 +9,9 @@ Backends:
             the verify kernels on `device` (their plain versions when the
             device is the CPU, as in the tests).
   "python"  the scalar host loop (types/keys.verify_many).
-  "auto"    scalar at or below auto_threshold (default 128), batch above:
-            small interactive commits stay off the dispatch round trip.
+  "auto"    scalar at or below auto_threshold (TM_CUDA_AUTO_THRESHOLD,
+            default 128), batch above: small interactive commits stay
+            off the dispatch round trip.
 
 A batch call prepares its items in one native call (`ops/ed25519.
 prep_items`). A batch holding secp256k1 keys (33-byte SEC1) is split:
@@ -28,7 +29,9 @@ the fast-sync loop halt on it.
 
 Calls of 1..auto_threshold items route through a DispatchCoalescer
 (models/coalescer.py) unless `coalesce` is "off" (the default "auto"
-coalesces, as the JAX verifier's does): concurrent small calls merge into
+coalesces, as the JAX verifier's does; TM_CUDA_COALESCE wins over the
+argument, and TM_CUDA_COALESCE_WAIT_MS / _MAX_BATCH fill a window or an
+early-flush size left None): concurrent small calls merge into
 one dispatch on the coalescer's thread, each caller getting back its own
 verdicts. That thread launches on the verifier's own device and stream.
 A merged dispatch that fails is re-run call by call on the same path; a
@@ -186,13 +189,18 @@ def _merge_counts(a: dict, b: dict) -> dict:
 
 class BatchVerifier:
     def __init__(self, backend: str = "auto", device=None,
-                 auto_threshold: int = 128, coalesce: str = "auto",
-                 coalesce_wait_ms: float = 2.0,
-                 coalesce_max_batch: int = 0, mesh: str = "off"):
+                 auto_threshold: int | None = None,
+                 coalesce: str | None = None,
+                 coalesce_wait_ms: float | None = None,
+                 coalesce_max_batch: int | None = None, mesh: str = "off"):
         if backend not in ("auto", "cuda", "python"):
             raise ValueError(
                 f"verifier backend must be auto|cuda|python, got {backend!r}")
         self.backend = backend
+        # None reads the knob (default 128); an explicit value wins
+        if auto_threshold is None:
+            auto_threshold = knobs.knob_int("TM_CUDA_AUTO_THRESHOLD",
+                                            default=128)
         self.auto_threshold = auto_threshold
         self.device = None if backend == "python" else _device.resolve(device)
         # eager: a config or env typo fails here, at startup
@@ -207,7 +215,17 @@ class BatchVerifier:
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device is not None
                         and self.device.type == "cuda" else None)
-        self.coalesce = parse_coalesce(coalesce)
+        # the coalescing mode: TM_CUDA_COALESCE wins over the argument
+        # (an operator's "off" silences any config); the window and the
+        # early-flush size: an explicit argument wins, None reads the knob
+        self.coalesce = parse_coalesce(knobs.knob_str(
+            "TM_CUDA_COALESCE", config=coalesce, default="auto"))
+        if coalesce_wait_ms is None:
+            coalesce_wait_ms = knobs.knob_float("TM_CUDA_COALESCE_WAIT_MS",
+                                                default=2.0)
+        if coalesce_max_batch is None:
+            coalesce_max_batch = knobs.knob_int(
+                "TM_CUDA_COALESCE_MAX_BATCH", default=0)
         if coalesce_wait_ms < 0:
             raise ValueError(f"coalesce wait must be >= 0 ms, got "
                              f"{coalesce_wait_ms}")
@@ -488,7 +506,8 @@ class BatchVerifier:
             return
         if not self._mesh_resolved:
             self._resolve_mesh()
-        native.module()
+        if not native.disabled():
+            native.module()
         if self.device.type == "cuda":
             _build.ladder_lib()
         shapes = {min(BATCH_CHUNK, n_sigs)}
@@ -518,15 +537,18 @@ _default_lock = threading.Lock()
 
 
 def default_verifier() -> BatchVerifier:
-    """Process-wide verifier: backend "auto" on the current CUDA device,
-    coalescing "auto" (raises when there is none), the mesh from
-    TM_CUDA_MESH (auto|off|N, default auto: sharded over every card of a
-    multi-card host, unsharded on one)."""
+    """Process-wide verifier: the backend from TM_CUDA_VERIFIER
+    (auto|cuda|python, default auto) on the current CUDA device (raises
+    when there is none, but for "python"), the threshold and coalescing
+    from their knobs, the mesh from TM_CUDA_MESH (auto|off|N, default
+    auto: sharded over every card of a multi-card host, unsharded on
+    one)."""
     global _default
     with _default_lock:
         if _default is None:
             _default = BatchVerifier(
-                "auto", mesh=knobs.knob_str("TM_CUDA_MESH", default="auto"))
+                knobs.knob_str("TM_CUDA_VERIFIER", default="auto"),
+                mesh=knobs.knob_str("TM_CUDA_MESH", default="auto"))
         return _default
 
 

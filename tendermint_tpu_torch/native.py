@@ -31,6 +31,16 @@ port's copy of the JAX package's `native/` source of that name. A failed
 build or load raises with the compiler's output; the plain Python
 versions are called by name (`ops/merkle.*_plain`,
 `types/encoding._pure_cdumps`, `KVStoreApp(use_native=False)`).
+
+TM_CUDA_NO_NATIVE (any non-empty value; `disabled()`, read once a
+process) is the operator's choice of the pure host routes, as
+TM_TPU_NO_NATIVE is the JAX package's, read in its loaders: the callers
+with one take it (the codec, the kv core, verify prep and the sign
+phases, SHA-256 and the Merkle roots and proofs, the part-set build, the
+front door's writes, the frame AEAD's per-frame path). Under the knob
+each loader (`module`, `lib`, `aead_lib`, `hostops_lib`, `codec`, `kv`)
+raises NativeDisabled, naming itself: a caller without a pure route
+fails at its first use. The knob never disables a CUDA kernel.
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ from typing import List
 import numpy as np
 
 from tendermint_tpu_torch.ops import _build
+from tendermint_tpu_torch.utils import knobs
 
 MODULE = "_tmtorch_prep"
 PREP_SRC = _build.CSRC / "prep.cpp"
@@ -53,6 +64,30 @@ PREP_HEADERS = (_build.CSRC / "ed25519_host.h",)
 
 _lock = threading.Lock()
 _mod = None
+
+
+class NativeDisabled(RuntimeError):
+    """A native function was called with TM_CUDA_NO_NATIVE set."""
+
+
+_no_native = None   # TM_CUDA_NO_NATIVE, read at the first disabled()
+
+
+def disabled() -> bool:
+    """True when TM_CUDA_NO_NATIVE is set (any non-empty value), read once
+    a process."""
+    global _no_native
+    if _no_native is None:
+        _no_native = knobs.knob_set("TM_CUDA_NO_NATIVE")
+    return _no_native
+
+
+def _refuse_if_disabled(loader: str) -> None:
+    """The loaders' one check of TM_CUDA_NO_NATIVE."""
+    if disabled():
+        raise NativeDisabled(
+            f"native.{loader}: TM_CUDA_NO_NATIVE is set and this caller "
+            f"has no pure host route")
 
 
 def python_include() -> str:
@@ -80,6 +115,7 @@ def build():
 def module():
     """The `_tmtorch_prep` extension module, built at first use."""
     global _mod
+    _refuse_if_disabled("module")
     with _lock:
         if _mod is None:
             spec = importlib.util.spec_from_file_location(MODULE,
@@ -95,6 +131,7 @@ _P = ctypes.c_void_p
 
 def lib() -> ctypes.CDLL:
     """The same library through ctypes, for tm_ed25519_prepare."""
+    _refuse_if_disabled("lib")
     return _build._load(
         "tmtorch_prep", build,
         [("tm_ed25519_prepare", [ctypes.c_char_p, ctypes.c_char_p,
@@ -183,6 +220,7 @@ def aead_build():
 def aead_lib() -> ctypes.CDLL:
     """The AEAD library, built at first use and self-checked once."""
     global _aead_checked
+    _refuse_if_disabled("aead_lib")
     u64, u32 = ctypes.c_uint64, ctypes.c_uint32
     lib = _build._load(
         "tmtorch_aead", aead_build,
@@ -362,6 +400,7 @@ def hostops_build(portable: bool = False):
 def hostops_lib(portable: bool = False) -> ctypes.CDLL:
     """The host-ops library (`portable`: without SHA-NI), built at first
     use."""
+    _refuse_if_disabled("hostops_lib")
     return _build._load("hostops_portable" if portable else "hostops",
                         lambda: hostops_build(portable), _HOSTOPS_SIGNATURES)
 
@@ -506,10 +545,12 @@ def _extension(modname: str, build):
 def codec():
     """The `_tmtorch_codec` extension: canonical_dumps(obj) -> bytes, and
     the Fallback exception it raises for a shape it does not encode."""
+    _refuse_if_disabled("codec")
     return _extension("_tmtorch_codec", codec_build)
 
 
 def kv():
     """The `_tmtorch_kv` extension: kv_new, deliver_batch, set_one,
     commit, get, size, items."""
+    _refuse_if_disabled("kv")
     return _extension("_tmtorch_kv", kv_build)

@@ -33,7 +33,8 @@ by default, as in the JAX node): the node configures `pipeline` before
 it builds its ConsensusState.
 
 The recovery plane follows `base.snapshot_interval`, `snapshot_keep`,
-`snapshot_chunk_kb`, `retain_heights` and `state_sync` (all off by
+`snapshot_chunk_kb`, `retain_heights` and `state_sync`, each under its
+knob (TM_CUDA_SNAPSHOT_INTERVAL etc., env over config; all off by
 default; an in-memory node has no home for snapshot files and keeps it
 off): a SnapshotStore under `<db_dir>/snapshots`, a torn state-sync
 restore under `<db_dir>/statesync` resumed before the handshake, the
@@ -95,25 +96,36 @@ def _parse_laddr(laddr: str) -> tuple:
 
 def build_verifier(base, device=None):
     """-> (verifier, owned) for a BaseConfig: the process-wide default
-    verifier when the backend, the mesh (TM_CUDA_MESH wins over
-    `verifier_mesh`) and the coalescing settings are at their defaults
-    and there is no device, else a BatchVerifier of its own. Builds the
+    verifier when the resolved settings (each knob over its config
+    field: TM_CUDA_VERIFIER, TM_CUDA_MESH, TM_CUDA_COALESCE,
+    TM_CUDA_COALESCE_WAIT_MS, TM_CUDA_COALESCE_MAX_BATCH, and
+    TM_CUDA_AUTO_THRESHOLD, which has none) are at their defaults and
+    there is no device, else a BatchVerifier of its own. Builds the
     kernels and the host prep now on a card, so that no verify call of
     the node pays a build."""
     from tendermint_tpu_torch.models import verifier as _verifier
+    backend = knobs.knob_str("TM_CUDA_VERIFIER",
+                             config=base.verifier_backend, default="auto")
     mesh = knobs.knob_str("TM_CUDA_MESH", config=base.verifier_mesh,
                           default="auto")
-    settings = (base.verifier_backend, mesh, str(base.verifier_coalesce),
-                float(base.verifier_coalesce_wait_ms),
-                int(base.verifier_coalesce_max_batch))
-    if settings == ("auto", "auto", "auto", 2.0, 0) and device is None:
+    coalesce = knobs.knob_str("TM_CUDA_COALESCE",
+                              config=str(base.verifier_coalesce),
+                              default="auto")
+    wait_ms = knobs.knob_float("TM_CUDA_COALESCE_WAIT_MS",
+                               config=base.verifier_coalesce_wait_ms,
+                               default=2.0)
+    max_batch = knobs.knob_int("TM_CUDA_COALESCE_MAX_BATCH",
+                               config=base.verifier_coalesce_max_batch,
+                               default=0)
+    threshold = knobs.knob_int("TM_CUDA_AUTO_THRESHOLD", default=128)
+    settings = (backend, mesh, coalesce, wait_ms, max_batch, threshold)
+    if settings == ("auto", "auto", "auto", 2.0, 0, 128) and device is None:
         v, owned = _verifier.default_verifier(), False
     else:
         v, owned = _verifier.BatchVerifier(
-            base.verifier_backend, device=device, mesh=mesh,
-            coalesce=base.verifier_coalesce,
-            coalesce_wait_ms=float(base.verifier_coalesce_wait_ms),
-            coalesce_max_batch=int(base.verifier_coalesce_max_batch)), True
+            backend, device=device, mesh=mesh, auto_threshold=threshold,
+            coalesce=coalesce, coalesce_wait_ms=wait_ms,
+            coalesce_max_batch=max_batch), True
     prebuild(v)
     return v, owned
 
@@ -124,7 +136,8 @@ def prebuild(verifier) -> None:
     if verifier.device is not None and verifier.device.type == "cuda":
         from tendermint_tpu_torch import native
         from tendermint_tpu_torch.ops import _build
-        native.module()
+        if not native.disabled():
+            native.module()
         _build.ladder_lib()
 
 
@@ -194,14 +207,21 @@ class Node:
         self.block_store = BlockStore(open_db(db_path("blockstore")))
         self.state_store = StateStore(open_db(db_path("state")))
 
-        # the recovery plane's settings; in-memory nodes have no home to
-        # keep snapshot files in, so the plane stays off there
+        # the recovery plane's settings (each knob over its config field);
+        # in-memory nodes have no home to keep snapshot files in, so the
+        # plane stays off there
         base = config.base
-        self._snap_interval = int(base.snapshot_interval)
-        self._snap_keep = int(base.snapshot_keep)
-        self._snap_chunk_kb = int(base.snapshot_chunk_kb)
-        self._retain_heights = int(base.retain_heights)
-        self._state_sync = _mode_on(base.state_sync)
+        self._snap_interval = knobs.knob_int(
+            "TM_CUDA_SNAPSHOT_INTERVAL", config=base.snapshot_interval)
+        self._snap_keep = knobs.knob_int(
+            "TM_CUDA_SNAPSHOT_KEEP", config=base.snapshot_keep, default=2)
+        self._snap_chunk_kb = knobs.knob_int(
+            "TM_CUDA_SNAPSHOT_CHUNK_KB", config=base.snapshot_chunk_kb,
+            default=256)
+        self._retain_heights = knobs.knob_int(
+            "TM_CUDA_RETAIN_HEIGHTS", config=base.retain_heights)
+        self._state_sync = knobs.knob_bool(
+            "TM_CUDA_STATE_SYNC", config=_mode_on(base.state_sync))
         self.snapshot_store = None
         self._statesync_dir = ""
         if not in_memory:
@@ -384,7 +404,8 @@ class Node:
             pubkey=node_key.pubkey,
             moniker=self.config.base.moniker,
             network=self.gen_doc.chain_id,
-            other=compact.wire_capabilities(cc.compact, cc.vote_agg))
+            other=compact.wire_capabilities(compact.compact_on(cc),
+                                            compact.voteagg_on(cc)))
         self.switch = Switch(self.config.p2p, node_key, node_info,
                              loop=self._ensure_loop())
         # causal plane: the node id stamped into envelopes and dumps is

@@ -44,9 +44,12 @@ _libs: dict = {}
 
 
 @contextlib.contextmanager
-def _build_lock():
+def _build_lock(out: Path):
+    """The build lock of the library `out`, across threads and processes
+    (a flock on its own open file): one library builds once, while
+    different libraries build side by side."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with _lock, open(BUILD_DIR / ".lock", "w") as fh:
+    with open(out.with_suffix(".lock"), "w") as fh:
         fcntl.flock(fh, fcntl.LOCK_EX)
         try:
             yield
@@ -83,7 +86,7 @@ def _build(name, compiler, flags, main_src, headers=None) -> Path:
         headers = sorted(CSRC.glob("*.cuh"))
     sources = [main_src, *headers]
     out = BUILD_DIR / f"lib{name}_{_digest(sources, flags)}.so"
-    with _build_lock():
+    with _build_lock(out):
         if out.exists():
             return out
         tmp = out.with_suffix(".so.tmp")

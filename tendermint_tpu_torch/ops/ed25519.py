@@ -52,8 +52,9 @@ L_ORDER = (1 << 252) + 27742317777372353535851937790883648493
 # ---------------------------------------------------------------------------
 
 # items prepared per route: verify prep in C++ ("native") or hashlib
-# ("plain"), signing phases in C++ ("sign_native")
-_prep_stats = {"native": 0, "plain": 0, "sign_native": 0}
+# ("plain"), signing phases in C++ ("sign_native") or hashlib
+# ("sign_plain", under TM_CUDA_NO_NATIVE)
+_prep_stats = {"native": 0, "plain": 0, "sign_native": 0, "sign_plain": 0}
 _prep_stats_lock = threading.Lock()
 
 
@@ -72,7 +73,9 @@ def prep_items(items):
     """The verifier's one-call prep (`native.prep_items`): (pk, R, s, h
     u8[N,32], precheck bool[N]), or None when the batch needs the
     general path (a secp256k1 key, a member that is not `bytes`, an item
-    that is not a triple)."""
+    that is not a triple, or TM_CUDA_NO_NATIVE)."""
+    if native.disabled():
+        return None
     out = native.prep_items(items)
     if out is not None:
         _count_prep("native", len(items))
@@ -86,11 +89,13 @@ def prepare_batch_bytes(pubkeys, msgs, sigs):
 
     When every pubkey is 32 bytes and every signature 64, the whole
     batch is prepared in one C call (`native.ed25519_prepare`); the
-    hashlib loop is the malformed-length path."""
+    hashlib loop is the malformed-length path, and every batch's under
+    TM_CUDA_NO_NATIVE."""
     n = len(pubkeys)
     pk_list = [bytes(p) for p in pubkeys]
     sg_list = [bytes(s) for s in sigs]
-    if n > 0 and all(len(p) == 32 for p in pk_list) and \
+    if n > 0 and not native.disabled() and \
+            all(len(p) == 32 for p in pk_list) and \
             all(len(s) == 64 for s in sg_list):
         pk_cat = b"".join(pk_list)
         sg_cat = b"".join(sg_list)
@@ -362,9 +367,21 @@ def _check_msgs(msgs) -> None:
             raise TypeError("msgs must be bytes")
 
 
-# the host phases of signing, in C++ (see native.sign_phase1/2)
-sign_phase1 = native.sign_phase1
-sign_phase2 = native.sign_phase2
+def sign_phase1(prefixes: bytes, msgs) -> bytes:
+    """The nonces r (32 bytes each) of signing, in C++
+    (`native.sign_phase1`); sign_phase1_plain under TM_CUDA_NO_NATIVE."""
+    if native.disabled():
+        return sign_phase1_plain(prefixes, msgs)
+    return native.sign_phase1(prefixes, msgs)
+
+
+def sign_phase2(renc: bytes, pks: bytes, msgs, rs: bytes,
+                as_: bytes) -> bytes:
+    """The signatures from enc(r*B), in C++ (`native.sign_phase2`);
+    sign_phase2_plain under TM_CUDA_NO_NATIVE."""
+    if native.disabled():
+        return sign_phase2_plain(renc, pks, msgs, rs, as_)
+    return native.sign_phase2(renc, pks, msgs, rs, as_)
 
 
 def sign_phase1_plain(prefixes: bytes, msgs) -> bytes:
@@ -413,7 +430,7 @@ def sign_batch_async(seeds, msgs, device=None):
     a_cat = b"".join(p[0] for p in params)
     pk_cat = b"".join(p[2] for p in params)
     r_cat = sign_phase1(b"".join(p[1] for p in params), msgs)
-    _count_prep("sign_native", n)
+    _count_prep("sign_plain" if native.disabled() else "sign_native", n)
     r_dev = _upload(np.frombuffer(r_cat, np.uint8).reshape(n, 32).copy(),
                     device)
     host = torch.empty((n, 32), dtype=torch.uint8,

@@ -11,7 +11,8 @@ Counterpart of `tendermint_tpu/ops/merkle.py`, byte for byte:
 The host half takes the native C++ tree builder (`csrc/hostops.cpp`
 through `native.py`), as the JAX package's does: `root_host`,
 `root_from_digests_host`, `proof_host` and `tree_proofs_host` are one C
-call a tree. Their hashlib versions stay, as `*_plain`, for the tests.
+call a tree. Their hashlib versions stay, as `*_plain`, for the tests
+and for TM_CUDA_NO_NATIVE, under which the host half takes them.
 Headers, commits, validator sets, block data, results and part sets hash
 with it. `sha256_many_host` is the state tree's batched rehash, routed
 as the JAX function routes it: a device batch of `ops/sha256.hash_fixed`
@@ -166,6 +167,8 @@ def root_host(items: list) -> bytes:
         out = _mesh_root_from_digest_rows(rows, n)
         if out is not None:
             return out
+    if native.disabled():
+        return root_from_digests_host([leaf_hash(it) for it in items])
     out = native.merkle_root(items)
     if telemetry.enabled():
         _m_roots.labels("native").inc()
@@ -185,6 +188,11 @@ def root_from_digests_host(digests) -> bytes:
         out = _mesh_root_from_digest_rows(rows, n)
         if out is not None:
             return out
+    if native.disabled():
+        if n and telemetry.enabled():
+            _m_leaves.observe(n)
+            _m_roots.labels("host").inc()
+        return root_from_digests_plain(digests)
     if n and telemetry.enabled():
         _m_leaves.observe(n)
         _m_roots.labels("native").inc()
@@ -195,11 +203,15 @@ def proof_host(items: list, index: int):
     """(root, aunts): the aunts leaf-up, 32 bytes each."""
     assert 0 <= index < len(items)
     _m_proofs.inc()
+    if native.disabled():
+        return proof_plain(items, index)
     return native.merkle_proof(items, index)
 
 
 def tree_proofs_host(items: list):
     """(root, [aunts of each item]): every proof from one tree build."""
+    if native.disabled():
+        return tree_proofs_plain(items)
     return native.merkle_tree_proofs(items)
 
 
@@ -319,7 +331,7 @@ def sha256_many_host(payloads: list, device=None, native_lib: bool = True
             if telemetry.enabled():
                 _m_sha_batches.labels("device").inc()
             return out
-    if native_lib:
+    if native_lib and not native.disabled():
         out = native.sha256_batch([bytes(p) for p in payloads])
         if telemetry.enabled():
             _m_sha_batches.labels("native").inc()

@@ -1,6 +1,6 @@
 """Frame bursts of the p2p link: the port's form of
-`tendermint_tpu/p2p/conn/burst.py`, a setting in place of the JAX
-package's `TM_TPU_P2P_BURST` knob.
+`tendermint_tpu/p2p/conn/burst.py`: a setting of the P2PConfig, under
+the knob TM_CUDA_P2P_BURST (the JAX package's `TM_TPU_P2P_BURST`).
 
 With bursts on, SecretConnection seals every frame of a write, and opens
 every frame already buffered on receive, in one native AEAD call
@@ -19,6 +19,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Tuple
 
+from tendermint_tpu_torch.utils import knobs
+
 DEFAULT_MAX_PACKETS = 64  # ~64KB ceiling per sendall at 1KB frames
 
 
@@ -34,7 +36,16 @@ class Burst:
                    int(p2p_config.burst_max) or DEFAULT_MAX_PACKETS)
 
     def resolve(self) -> Tuple[bool, int]:
-        """-> (bursts on, packets a send burst at most)."""
-        if not self.on:
+        """-> (bursts on, packets a send burst at most): TM_CUDA_P2P_BURST
+        (off|on|auto|<max packets>) over this config; read on every call,
+        which connection setup makes once a connection."""
+        on, max_packets = self.on, self.max_packets
+        env = knobs.knob_str("TM_CUDA_P2P_BURST")
+        if env:
+            if env.isdigit():
+                on, max_packets = True, max(1, int(env))
+            else:
+                on = env not in knobs.FALSY
+        if not on:
             return False, 1
-        return True, max(1, self.max_packets)
+        return True, max(1, max_packets)

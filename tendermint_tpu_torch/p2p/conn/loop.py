@@ -52,6 +52,7 @@ from tendermint_tpu_torch.p2p.conn.mconn import (
     _Channel,
 )
 from tendermint_tpu_torch.telemetry import queues as queue_obs
+from tendermint_tpu_torch.utils import knobs
 from tendermint_tpu_torch.utils.log import get_logger
 
 # tmlint: loop-module (async-blocking checker applies to this file)
@@ -73,9 +74,10 @@ _m_tasks = telemetry.gauge(
 # Bounded wire buffer a connection: past this the loop stops sealing new
 # packets for the conn, channel queues fill, and senders stall.
 OUTBUF_HIGH_WATER = 256 * 1024
-#: the send flush's linger (the JAX package's TM_TPU_P2P_FLUSH_LINGER_MS
-#: default): a flush on an idle conn runs at once, the next one waits
-#: out this window so that sends under load ride one sealed burst
+#: the send flush's linger by default (TM_CUDA_P2P_FLUSH_LINGER_MS sets
+#: it; 0 flushes at every wakeup): a flush on an idle conn runs at once,
+#: the next one waits out this window so that sends under load ride one
+#: sealed burst
 FLUSH_LINGER_MS = 4.0
 
 
@@ -532,7 +534,8 @@ class LoopMConnection:
         # conn flushes at once, but once a flush has run the next one
         # waits out the window, so under load sends accumulate into full
         # bursts while sporadic sends pay nothing
-        self._flush_linger_s = FLUSH_LINGER_MS / 1e3
+        self._flush_linger_s = max(0.0, knobs.knob_float(
+            "TM_CUDA_P2P_FLUSH_LINGER_MS", default=FLUSH_LINGER_MS)) / 1e3
         self._last_flush = 0.0  # written on the loop; racy reads benign
         self.drain_listeners: List[Callable[[], None]] = []
         self._queue_probes = [

@@ -16,8 +16,8 @@ Handshake transcript:
 
 With bursts on (the default) every frame seals and opens in the native
 AEAD (`native.aead_*_burst`), a whole write or a whole receive buffer in
-one call; a failed build of it raises. With bursts off each frame takes
-the per-frame AEAD: `cryptography` (OpenSSL) when it imports, else
+one call; a failed build of it raises. With bursts off, or under
+TM_CUDA_NO_NATIVE, each frame takes the per-frame AEAD: `cryptography` (OpenSSL) when it imports, else
 `purecrypto`. X25519 and HKDF take the same two routes. `frame_stats`
 counts the frames of each route in the process; the JAX module's
 `p2p_seal_seconds` / `p2p_open_seconds` and frame counters are fed at
@@ -170,7 +170,8 @@ class SecretConnection:
         # nonces and poison the stream with spurious tag failures
         self._rlock = threading.Lock()
         self._rbuf = bytearray()  #: guarded_by _rlock (socket read-ahead)
-        self._burst = burst
+        # TM_CUDA_NO_NATIVE: every frame takes the per-frame AEAD
+        self._burst = burst and not native.disabled()
 
     # ------------------------------------------------------------- handshake
 

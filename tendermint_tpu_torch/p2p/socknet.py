@@ -204,8 +204,8 @@ class SockNet:
         info = NodeInfo(pubkey=nk.pubkey, moniker=f"node{i}",
                         network=self.gen.chain_id,
                         other=compact.wire_capabilities(
-                            self.config.consensus.compact,
-                            self.config.consensus.vote_agg))
+                            compact.compact_on(self.config.consensus),
+                            compact.voteagg_on(self.config.consensus)))
         node.switch = Switch(self.config.p2p, nk, info, encrypt=True)
         node.switch.trust_store = TrustMetricStore(MemDB())
         node.switch.id_filters.append(self._refuse_dropped(nk.id()))

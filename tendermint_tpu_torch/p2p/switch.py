@@ -15,7 +15,8 @@ Handed the node's ReactorLoop (`loop=`), every peer's socket runs on it
 per-peer routines as the loop's tasks; accepts, handshakes and dials keep
 their threads, as in the JAX package. The ban plane's settings and the
 frame bursts come from the P2PConfig (`ban_score`, `ban_base_s`,
-`fd_headroom`, `burst`, `burst_max`). A wildcard listener asks a UPnP
+`fd_headroom`, `burst`, `burst_max`) under their knobs
+(TM_CUDA_P2P_BAN_SCORE, _BAN_BASE_S, _FD_HEADROOM, TM_CUDA_P2P_BURST). A wildcard listener asks a UPnP
 gateway for its external address when `skip_upnp` is false. The JAX
 switch's `p2p_*` families are fed at the same points. With the chaos
 plane on (chaos.resolve()), each link is wrapped in a schedule-driven
@@ -48,7 +49,7 @@ from tendermint_tpu_torch.p2p.peer import (
     write_handshake_msg,
 )
 from tendermint_tpu_torch.types import encoding
-from tendermint_tpu_torch.utils import clock
+from tendermint_tpu_torch.utils import clock, knobs
 from tendermint_tpu_torch.utils.log import get_logger
 
 _m_peers = telemetry.gauge(
@@ -219,9 +220,14 @@ class Switch:
         # (repeat offenders' bans double, strikes decay with clean time)
         self.trust_store = None
         self.banned: Dict[str, dict] = {}   #: guarded_by _lock
-        self._ban_score = config.ban_score
-        self._ban_base_s = config.ban_base_s
-        self._fd_headroom = config.fd_headroom
+        self._ban_score = knobs.knob_int(
+            "TM_CUDA_P2P_BAN_SCORE", config=config.ban_score, default=30)
+        self._ban_base_s = knobs.knob_float(
+            "TM_CUDA_P2P_BAN_BASE_S", config=config.ban_base_s,
+            default=60.0)
+        self._fd_headroom = knobs.knob_int(
+            "TM_CUDA_P2P_FD_HEADROOM", config=config.fd_headroom,
+            default=64)
 
     # ------------------------------------------------------------ ban plane
 
@@ -486,7 +492,7 @@ class Switch:
             dsock = _DeadlineSock(sock, hs_deadline)
             if self.encrypt:
                 link = SecretConnection.make(dsock, self.node_key,
-                                             burst=self.burst.on)
+                                             burst=self.burst.resolve()[0])
                 remote_id = pubkey_to_id(link.remote_pubkey)
                 # ban enforcement at the earliest moment identity is
                 # AUTHENTICATED — before we spend NodeInfo parsing (or

@@ -10,8 +10,8 @@ as it streams, precomputes the next proposal on a worker, and commits a
 height's store writes as one group. "off" keeps every call site on the
 serial code byte for byte.
 
-- `configure()` / `resolve()`: the mode, from config.base.pipeline only
-  (node.py configures it; the port reads no environment variable here).
+- `configure()` / `resolve()`: the mode, TM_CUDA_PIPELINE over
+  config.base.pipeline (node.py configures it) over "auto".
 - stage accounting: `stage_timer` / `observe_stage` sum the seconds of
   each per-height stage (serialize | partset | gossip | apply | persist
   | precompute), `note_precompute` counts the precompute outcomes (used
@@ -39,6 +39,7 @@ from typing import Callable, List
 
 from tendermint_tpu_torch import telemetry
 from tendermint_tpu_torch.storage.db import KVStore, StagedDB
+from tendermint_tpu_torch.utils import knobs
 
 _m_stage = telemetry.histogram(
     "pipeline_stage_seconds",
@@ -55,7 +56,6 @@ _m_precompute = telemetry.counter(
 STAGES = ("serialize", "partset", "gossip", "apply", "persist",
           "precompute")
 PRECOMPUTE_OUTCOMES = ("used", "discarded", "failed")
-_OFF = ("off", "0", "false", "no", "none", "disabled")
 
 # config.base.pipeline, as node.py configured it
 _configured = "auto"
@@ -73,9 +73,11 @@ def configure(mode: str = "auto") -> None:
 
 
 def resolve() -> bool:
-    """True when the pipelined hot path is on: config.base.pipeline
-    "auto" (the default), "on" or any spelling that is not off."""
-    return _configured not in _OFF
+    """True when the pipelined hot path is on: TM_CUDA_PIPELINE >
+    config.base.pipeline > "auto" (on); any spelling that is not off
+    enables."""
+    return knobs.knob_str("TM_CUDA_PIPELINE", config=_configured,
+                          default="auto") not in knobs.FALSY
 
 
 def observe_stage(stage: str, seconds: float) -> None:

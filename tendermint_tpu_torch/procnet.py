@@ -28,6 +28,12 @@ stop_all().
 
 Reads go over each node's JSON-RPC: heights from `status`, block hashes
 and app hashes from `blockchain` metas, txs from `block`.
+
+A node process that exits non-zero unasked (a signal such as SIGABRT's
+-6 included; not one `kill()` ended) has the last TAIL_LINES lines of
+its log printed to stdout, under a header naming it, when `wait_for`
+finds it dead or `stop_all` reaps it: the caller's output keeps the
+child's last words before the caller raises.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import socket
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional
 
 from tendermint_tpu_torch.rpc.client import JSONRPCClient, WSClient
@@ -48,8 +55,23 @@ from tendermint_tpu_torch.rpc.client import JSONRPCClient, WSClient
 PORT_CLI = "tendermint_tpu_torch.cli"
 N_NODES = 4      # config 1's validators, one process each
 STOP_S = 30.0    # stop_all's wait for the SIGINTed nodes
+TAIL_LINES = 40  # log lines printed for a process that exits non-zero
 #: the directory that holds the package, put on the nodes' PYTHONPATH
 SRC_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def print_log_tail(what: str, path: str, start: int = 0,
+                   n: int = TAIL_LINES) -> None:
+    """Print the last `n` lines of the log at `path` (from byte `start`)
+    to stdout under a header naming `what`."""
+    try:
+        with open(path, "rb") as f:
+            f.seek(start)
+            lines = f.read().decode(errors="replace").splitlines()[-n:]
+    except OSError as e:
+        lines = [f"(no log: {e})"]
+    print(f"{what}: the last {len(lines)} lines of {path}:", *lines,
+          sep="\n", flush=True)
 
 
 def free_block(n_ports: int) -> int:
@@ -120,6 +142,7 @@ class ProcNet:
         self.env_of = env_of
         self.procs: Dict[int, subprocess.Popen] = {}
         self._killed: set = set()   # pids killed on purpose
+        self._reported: set = set()  # pids whose log tail was printed
         self._logs: Dict[int, object] = {}
         # node -> the log's length at each of its processes' starts
         self._starts: Dict[int, List[int]] = {}
@@ -139,7 +162,13 @@ class ProcNet:
         return child_env(extra)
 
     def write_tree(self, chain_id: str, cli: str = PORT_CLI) -> None:
-        """`cli testnet` of `cli`'s package into the root."""
+        """`cli testnet` of `cli`'s package into the root: the port's in
+        this process (its `write_testnet`), another package's as a
+        process of its CLI."""
+        if cli == PORT_CLI:
+            from tendermint_tpu_torch.cli import write_testnet
+            write_testnet(self.root, self.n, chain_id, self.base_port)
+            return
         subprocess.run(
             [sys.executable, "-m", cli, "testnet", "--n", str(self.n),
              "--output", self.root, "--base-port", str(self.base_port),
@@ -185,6 +214,10 @@ class ProcNet:
         and the priv validator's sign state is reset)."""
         if i in self.procs and self.procs[i].poll() is None:
             raise RuntimeError(f"node {i} is running")
+        if self.cli_of(i) == PORT_CLI:   # the port's, in this process
+            from tendermint_tpu_torch.cli import reset_all
+            reset_all(self.home(i))
+            return
         subprocess.run(
             [sys.executable, "-m", self.cli_of(i), "--home", self.home(i),
              "unsafe_reset_all"],
@@ -207,6 +240,18 @@ class ProcNet:
         return {i: p.returncode for i, p in self.procs.items()
                 if p.pid not in self._killed and p.poll() is not None}
 
+    def _print_failed(self, codes: Dict[int, int]) -> None:
+        """The log tail of each node whose last process exited non-zero
+        unasked, once a process."""
+        for i, code in sorted(codes.items()):
+            p = self.procs[i]
+            if code and p.pid not in self._killed and \
+                    p.pid not in self._reported:
+                self._reported.add(p.pid)
+                print_log_tail(f"procnet node {i} (pid {p.pid}) exited "
+                               f"{code}", self.log_path(i),
+                               self._starts[i][-1])
+
     def stop_all(self) -> Dict[int, int]:
         """SIGINT every running node, wait, SIGKILL what is left; returns
         node -> exit code of the last process of each node."""
@@ -223,6 +268,7 @@ class ProcNet:
                 codes[i] = p.wait(10)
         for log in self._logs.values():
             log.close()
+        self._print_failed(codes)
         return codes
 
     def log(self, i: int) -> str:
@@ -270,6 +316,7 @@ class ProcNet:
         while not cond():
             dead = self.early_exits()
             if dead:
+                self._print_failed(dead)
                 raise RuntimeError(f"{what}: node processes exited {dead}")
             if time.monotonic() - t0 > timeout_s:
                 raise TimeoutError(f"{what}: not within {timeout_s} s; "
@@ -313,7 +360,9 @@ class ProcNet:
         """Heights 1..top at which two nodes hold different block hashes
         or app hashes."""
         nodes = range(self.n)
-        per = {i: self.metas(i, top) for i in nodes}
+        with ThreadPoolExecutor(self.n) as pool:
+            per = dict(zip(nodes, pool.map(lambda i: self.metas(i, top),
+                                           nodes)))
         bad = []
         for h in range(top):
             ids = {per[i][h]["block_id"]["hash"] for i in nodes}
@@ -324,8 +373,12 @@ class ProcNet:
         return bad
 
     def block_txs(self, i: int, top: int) -> List[List[bytes]]:
-        """The txs of node i's blocks 1..top."""
+        """The txs of node i's blocks 1..top (read four heights at a
+        time)."""
         c = self.rpc(i, 30.0)
-        return [[bytes.fromhex(t) for t in
-                 c.call("block", height=h)["block"]["data"]["txs"]]
-                for h in range(1, top + 1)]
+
+        def txs(h: int) -> List[bytes]:
+            return [bytes.fromhex(t) for t in
+                    c.call("block", height=h)["block"]["data"]["txs"]]
+        with ThreadPoolExecutor(4) as pool:
+            return list(pool.map(txs, range(1, top + 1)))

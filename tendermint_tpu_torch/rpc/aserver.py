@@ -22,8 +22,9 @@ connection on the SAME event loop that owns the p2p sockets:
   lock released once. A socket call per write gave the lock up at each
   one; with threads that compute beside the loop (a shard set's
   chains) the loop waited for it each time, and one event to 300
-  subscribers took 300 such waits. The JAX server writes each at once;
-  the bytes on the wire are the same;
+  subscribers took 300 such waits. The JAX server writes each at once,
+  and so does this one under TM_CUDA_NO_NATIVE; the bytes on the wire
+  are the same;
 - admission control: a connection cap (an immediate 503 over it), an
   in-flight call cap (a structured overload error, -32000) and a
   per-client-IP token bucket (-32005). `max_conns` and `rate_per_ip`
@@ -370,7 +371,10 @@ class AsyncRPCServer:
         conns = [c for c in self._dirty if not c.closed]
         self._dirty.clear()
         full = [c for c in conns if c.outbuf]
-        if full:
+        if full and native.disabled():
+            for c in full:
+                c._send_pure()
+        elif full:
             n = len(full)
             views = [(ctypes.c_char * len(c.outbuf)).from_buffer(c.outbuf)
                      for c in full]
@@ -561,6 +565,22 @@ class _Conn:
             if not self.keep_alive and not self.in_flight and \
                     not self.is_ws:
                 self.close()
+
+    def _send_pure(self) -> None:
+        """The flush's write of this connection in Python, one socket
+        call at a time (TM_CUDA_NO_NATIVE): the JAX front door's
+        `_write_some`, up to the socket's wait."""
+        while self.outbuf:
+            try:
+                k = self.sock.send(self.outbuf)
+            except (BlockingIOError, InterruptedError):
+                return
+            except OSError:
+                self.close()
+                return
+            if k <= 0:
+                return
+            del self.outbuf[:k]
 
     def _on_writable(self) -> None:
         self.server._want_flush(self)

@@ -35,6 +35,7 @@ from typing import Dict, List, Optional
 from tendermint_tpu_torch import telemetry
 from tendermint_tpu_torch.procnet import child_env as node_child_env
 from tendermint_tpu_torch.procnet import free_block as free_port_block
+from tendermint_tpu_torch.procnet import print_log_tail
 from tendermint_tpu_torch.serving.topology import (ProcSpec, Topology,
                                                    materialize)
 
@@ -53,7 +54,10 @@ class Deployment:
 
     Lifecycle: ``start()`` -> (run / crash-restart under supervision)
     -> ``stop()``. ``clients()`` hands back one JSONRPCClient per
-    process; ``wait(pred, ...)`` is the standard boot/progress gate.
+    process; ``wait(pred, ...)`` is the standard boot/progress gate. A
+    process that exits non-zero unasked (a signal included; not one
+    ``kill()`` ended) has the last lines of its log printed to stdout
+    before it is respawned or its directory removed.
     """
 
     def __init__(self, topo: Topology, out_dir: str,
@@ -75,6 +79,7 @@ class Deployment:
         self.dead: Dict[str, int] = {}       # name -> exit code, gave up
         self._procs: Dict[str, subprocess.Popen] = {}
         self._logs: Dict[str, object] = {}
+        self._killed: set = set()   # pids killed on purpose
         self._proxy = None
         self._stopping = False
         self._supervisor: Optional[threading.Thread] = None
@@ -146,6 +151,7 @@ class Deployment:
                     continue
                 if name in self.dead:
                     continue
+                self._print_failed(name, proc)
                 n = self.restarts.get(name, 0)
                 if n >= self.max_restarts:
                     self.dead[name] = rc
@@ -171,6 +177,8 @@ class Deployment:
             except subprocess.TimeoutExpired:
                 proc.kill()
                 proc.wait(timeout=10)
+        for name, proc in self._procs.items():
+            self._print_failed(name, proc)
         if self._proxy is not None:
             self._proxy.stop()
             self._proxy = None
@@ -195,7 +203,18 @@ class Deployment:
 
     def kill(self, name: str) -> None:
         """Hard-kill one process (the supervisor will restart it)."""
+        self._killed.add(self._procs[name].pid)
         self._procs[name].kill()
+
+    def _print_failed(self, name: str, proc) -> None:
+        """The log tail of a process that exited non-zero unasked (a
+        signal included), before the supervisor respawns it into the
+        same log or stop() removes the directory."""
+        if proc.returncode and proc.pid not in self._killed:
+            self._killed.add(proc.pid)   # printed once
+            print_log_tail(f"deploy {name} (pid {proc.pid}) exited "
+                           f"{proc.returncode}",
+                           os.path.join(self.spec(name).home, "node.log"))
 
     def clients(self, kind: Optional[str] = None) -> list:
         from tendermint_tpu_torch.rpc.client import JSONRPCClient

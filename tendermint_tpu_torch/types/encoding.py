@@ -7,8 +7,10 @@ package does; `_pure_cdumps` is the specification, which the codec
 equals byte for byte. The codec raises its `Fallback` for shapes it does
 not encode (a non-str dict key, a lone surrogate, an object type it does
 not know), and only then does `cdumps` take the specification path, the
-reference's own rule. `stats()` counts the calls and those fallbacks. A
-codec that fails to build raises; nothing drops quietly to Python.
+reference's own rule. Under TM_CUDA_NO_NATIVE (`native.disabled()`)
+every call takes the specification path, counted as `pure`. `stats()`
+counts the calls by route. A codec that fails to build raises; nothing
+drops quietly to Python.
 """
 
 from __future__ import annotations
@@ -45,13 +47,18 @@ def _pure_cdumps(obj: Any) -> bytes:
 # (canonical_dumps, Fallback) of the codec, resolved at the first cdumps
 _codec = None
 _stats_lock = threading.Lock()
-_stats = {"native": 0, "fallback": 0}
+_stats = {"native": 0, "fallback": 0, "pure": 0}
 
 
 def cdumps(obj: Any) -> bytes:
     """Canonical JSON bytes of a plain obj tree (dicts, lists, ints, str,
-    bytes, None), through the native codec."""
+    bytes, None), through the native codec (the specification path under
+    TM_CUDA_NO_NATIVE)."""
     global _codec
+    if native.disabled():
+        with _stats_lock:
+            _stats["pure"] += 1
+        return _pure_cdumps(obj)
     if _codec is None:
         mod = native.codec()
         _codec = (mod.canonical_dumps, mod.Fallback)
@@ -68,8 +75,9 @@ def cdumps(obj: Any) -> bytes:
 
 
 def stats() -> dict:
-    """Calls the codec encoded (`native`) and those it handed to the
-    specification path (`fallback`), since the process started."""
+    """Calls the codec encoded (`native`), those it handed to the
+    specification path (`fallback`) and those TM_CUDA_NO_NATIVE sent
+    there (`pure`), since the process started."""
     with _stats_lock:
         return dict(_stats)
 

@@ -23,12 +23,13 @@ from dataclasses import dataclass
 
 from tendermint_tpu_torch.utils import ed25519_fast
 from tendermint_tpu_torch.utils import ed25519_ref as _ref
-from tendermint_tpu_torch.utils import secp256k1_ref
+from tendermint_tpu_torch.utils import knobs, secp256k1_ref
 
 _P255 = (1 << 255) - 19
 # minimum ed25519 members before a host batch without OpenSSL uses the
-# per-key table oracle (a one-off verify must not fill its cache)
-_HOST_TABLE_MIN = 4
+# per-key table oracle (a one-off verify must not fill its cache); read
+# once, at import
+_HOST_TABLE_MIN = knobs.knob_int("TM_CUDA_HOST_TABLE_MIN", default=4)
 
 
 def address_of(pubkey: bytes) -> bytes:

@@ -3,9 +3,9 @@
 Counterpart of `tendermint_tpu/types/part_set.py`: the same split, root,
 proofs and refusals. With the pipeline on (config.base.pipeline, the
 default) the skeleton (root and every proof) is one native call,
-`tm_partset_build` (split, leaf hashing, tree and proofs); off, the
-Python split feeds one host tree build (`merkle.tree_proofs_host`), as
-in the JAX package. Both give the same bytes. `build_stats()` counts the
+`tm_partset_build` (split, leaf hashing, tree and proofs); off, or
+under TM_CUDA_NO_NATIVE, the Python split feeds one host tree build
+(`merkle.tree_proofs_host`), as in the JAX package. Both give the same bytes. `build_stats()` counts the
 builds of each route; the `partset_build_seconds` family times them.
 `from_data_streaming` yields the parts one at a
 time, so that a proposer gossips early parts while later ones are made.
@@ -64,7 +64,7 @@ def _build_skeleton(data: bytes, part_size: int):
     from tendermint_tpu_torch import pipeline
     t0 = time.perf_counter()
     n = max(1, -(-len(data) // part_size))
-    if pipeline.resolve():
+    if pipeline.resolve() and not native.disabled():
         root, proofs = native.partset_build(data, part_size)
         impl = "native"
     else:

@@ -45,6 +45,7 @@ import threading
 from collections import OrderedDict
 
 from tendermint_tpu_torch.utils import ed25519_ref as ref
+from tendermint_tpu_torch.utils import knobs
 
 _P = ref.P
 _L = ref.L
@@ -98,7 +99,7 @@ def _mul_base(s: int):
 # ~60KB of Python ints each, and only live validator keys stay hot.
 
 _INVALID = object()
-_TABLE_MAX = 256
+_TABLE_MAX = knobs.knob_int("TM_CUDA_HOST_TABLE_CACHE", default=256)
 _tables: "OrderedDict[bytes, object]" = OrderedDict()
 _tables_lock = threading.Lock()
 

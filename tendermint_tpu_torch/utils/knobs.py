@@ -11,15 +11,17 @@ config > default. FALSY is the single vocabulary for "off".
 Import-light by design (stdlib `os` only): telemetry reads knobs at
 import time, so this module imports nothing of the package back.
 
-The catalog holds the device mesh's spec and its forced device count
-(TM_CUDA_MESH, TM_CUDA_MESH_FORCE_DEVICES), the knobs of the
-observability planes, the async front door's admission envelope
-(TM_CUDA_RPC_MAX_CONNS, TM_CUDA_RPC_RATE), the kvstore's commit backend (TM_CUDA_STATE_TREE), the shard plane's
-default count (TM_CUDA_SHARDS), the edge replicas' staleness threshold
-(TM_CUDA_EDGE_MAX_LAG), the chaos plane's link faults (TM_CUDA_CHAOS)
-and the lock-order watchdog (TM_CUDA_LOCKCHECK). The other planes
-(reactor, pipeline, coalescer, compact relay, p2p, recovery) take their
-settings from config fields only.
+The catalog holds a counterpart of every JAX knob that has a meaning in
+the port: the verifier's backend, host threshold and coalescing, the host
+oracle's table gate and cache, the native host plane's off switch, the
+p2p frame plane, ban plane and socket plane, the pipelined commit path
+and compact gossip, the recovery plane, the device mesh, the
+observability planes, the async front door, the kvstore's commit
+backend, the shard and edge planes, chaos and the lock watch. Three JAX
+knobs have none: TM_TPU_NO_PALLAS (the CUDA kernel is the only device
+route), TM_TPU_FETCH_WORKERS (no fetch pool: the port waits on CUDA
+events) and TM_TPU_MESH_FORCE_HOST_DEVICES (its counterpart is
+TM_CUDA_MESH_FORCE_DEVICES).
 """
 
 from __future__ import annotations
@@ -46,6 +48,9 @@ class Knob:
 # The catalog, in docs order.
 CATALOG: tuple[Knob, ...] = (
     # -- verification plane ------------------------------------------------
+    Knob("TM_CUDA_VERIFIER", "str", "auto", "base.verifier_backend",
+         "Default-verifier backend: auto|cuda|python.",
+         "models/verifier.py"),
     Knob("TM_CUDA_MESH", "str", "auto", "base.verifier_mesh",
          "Device mesh for sharded verify: auto|off|N (power of two); "
          "Merkle roots of >= 64 leaves shard only at an explicit N.",
@@ -55,6 +60,107 @@ CATALOG: tuple[Knob, ...] = (
          "the CPU), each with its own stream: 2-, 4- and 8-wide meshes "
          "on one card.",
          "parallel/mesh.py"),
+    Knob("TM_CUDA_AUTO_THRESHOLD", "int", "128", "",
+         "Batches at or below this size verify scalar on host.",
+         "models/verifier.py"),
+    Knob("TM_CUDA_COALESCE", "str", "auto", "base.verifier_coalesce",
+         "Cross-call dispatch coalescing: auto|on|off.",
+         "models/verifier.py"),
+    Knob("TM_CUDA_COALESCE_WAIT_MS", "float", "2.0",
+         "base.verifier_coalesce_wait_ms",
+         "Max linger per merged dispatch window, milliseconds.",
+         "models/verifier.py"),
+    Knob("TM_CUDA_COALESCE_MAX_BATCH", "int", "0 (= BATCH_CHUNK)",
+         "base.verifier_coalesce_max_batch",
+         "Items that force a merged dispatch out early.",
+         "models/verifier.py"),
+    Knob("TM_CUDA_HOST_TABLE_MIN", "int", "4", "",
+         "Min host batch size routed to the precomputed-table oracle "
+         "(read once, at import).",
+         "types/keys.py"),
+    Knob("TM_CUDA_HOST_TABLE_CACHE", "int", "256", "",
+         "Per-pubkey double-table LRU capacity (host oracle; read once, "
+         "at import).",
+         "utils/ed25519_fast.py"),
+    # -- native host plane -------------------------------------------------
+    Knob("TM_CUDA_NO_NATIVE", "bool", "unset (native on)", "",
+         "Any non-empty value takes the pure host routes (codec, kv "
+         "core, verify prep, hostops SHA-256 and Merkle) where the port "
+         "has one; a native function without one raises at first use, "
+         "from its loader, naming it. Read once a process. Never "
+         "disables a CUDA kernel; a failed native build still raises.",
+         "native.py"),
+    # -- p2p frame plane ---------------------------------------------------
+    Knob("TM_CUDA_P2P_BURST", "spec", "auto", "base.p2p_burst",
+         "Burst frame plane: off|on|auto|<max packets per burst>.",
+         "p2p/conn/burst.py"),
+    Knob("TM_CUDA_P2P_FLUSH_LINGER_MS", "float", "4.0", "",
+         "Loop-mode send-burst rate limiter: an idle conn's send "
+         "flushes immediately, but after a flush the next waits out "
+         "this window so sustained gossip seals full bursts; 0 "
+         "restores flush-per-wakeup.",
+         "p2p/conn/loop.py"),
+    # -- hostile-peer hardening --------------------------------------------
+    Knob("TM_CUDA_P2P_BAN_SCORE", "int", "30", "p2p.ban_score",
+         "Trust-score ban threshold: a peer scoring below this after a "
+         "bad event is banned until the ban decays; 0 disables "
+         "enforcement (scores still recorded).",
+         "p2p/switch.py"),
+    Knob("TM_CUDA_P2P_BAN_BASE_S", "float", "60.0", "p2p.ban_base_s",
+         "First-offense ban duration, seconds; repeat offenses double "
+         "it (capped at 64x) and strikes decay with clean time.",
+         "p2p/switch.py"),
+    Knob("TM_CUDA_P2P_FD_HEADROOM", "int", "64", "p2p.fd_headroom",
+         "Accept-path admission shedding: inbound conns are refused "
+         "while fewer than this many fds remain under the process "
+         "RLIMIT_NOFILE.",
+         "p2p/switch.py"),
+    # -- socket plane, commit path -----------------------------------------
+    Knob("TM_CUDA_REACTOR", "str", "auto (= loop)", "base.reactor",
+         "Socket plane: loop runs every peer socket, gossip routine and "
+         "RPC connection on ONE selector event loop per node; threads "
+         "restores the per-connection thread plane.",
+         "config.py"),
+    Knob("TM_CUDA_PIPELINE", "str", "auto", "base.pipeline",
+         "Pipelined per-height hot path (native part-set build, "
+         "streaming proposal gossip, overlapped finalize, group-commit "
+         "persistence): auto|on|off. off = serial path byte-for-byte.",
+         "pipeline.py"),
+    Knob("TM_CUDA_COMPACT", "str", "auto (on)", "base.compact",
+         "Compact block relay: gossip header + salted short tx ids, "
+         "receivers rebuild the block from their mempool and fetch "
+         "only missing txs, falling back to full part gossip on miss "
+         "or timeout. auto|on|off; off = legacy wire byte-for-byte.",
+         "consensus/compact.py, consensus/reactor.py"),
+    Knob("TM_CUDA_VOTE_AGG", "str", "auto (on)", "base.vote_agg",
+         "Aggregated vote gossip: batch every vote a peer lacks for "
+         "one (height, round, type) into a single message, verified "
+         "as ONE coalesced dispatch via VoteSet.add_votes_batch. "
+         "auto|on|off; off = one scalar vote message per pass.",
+         "consensus/compact.py, consensus/reactor.py"),
+    # -- recovery plane ----------------------------------------------------
+    Knob("TM_CUDA_SNAPSHOT_INTERVAL", "int", "0 (off)",
+         "base.snapshot_interval",
+         "Publish a chunked state snapshot every N heights; 0 disables "
+         "the whole snapshot/prune plane.",
+         "node.py"),
+    Knob("TM_CUDA_SNAPSHOT_KEEP", "int", "2", "base.snapshot_keep",
+         "How many newest snapshots to retain on disk.",
+         "node.py"),
+    Knob("TM_CUDA_SNAPSHOT_CHUNK_KB", "int", "256",
+         "base.snapshot_chunk_kb",
+         "Snapshot chunk size in KiB (content-addressed transfer unit).",
+         "node.py"),
+    Knob("TM_CUDA_RETAIN_HEIGHTS", "int", "0 (keep all)",
+         "base.retain_heights",
+         "Prune block/state stores to the newest N heights — floored "
+         "at the latest snapshot, the evidence horizon, and any peer's "
+         "catch-up frontier.",
+         "node.py"),
+    Knob("TM_CUDA_STATE_SYNC", "bool", "off", "base.state_sync",
+         "A fresh node joins via p2p snapshot restore (statesync/) and "
+         "fast-syncs only the tail; off = full block replay.",
+         "node.py"),
     # -- telemetry ---------------------------------------------------------
     Knob("TM_CUDA_TELEMETRY", "bool", "unset (config decides, on)",
          "base.telemetry",
@@ -156,6 +262,17 @@ CATALOG: tuple[Knob, ...] = (
          "cross-node and dual-hash-seed divergence detection "
          "(analysis/divergence.py).",
          "analysis/divergence.py"),
+)
+
+#: the JAX package's knobs that have no TM_CUDA_* counterpart, and why
+NO_COUNTERPART = (
+    ("TM_TPU_NO_PALLAS", "the CUDA kernel is the only device route; its "
+     "plain PyTorch version serves CPU tensors only"),
+    ("TM_TPU_FETCH_WORKERS", "there is no fetch pool: a verify waits on "
+     "one CUDA event after the verdicts' copy"),
+    ("TM_TPU_MESH_FORCE_HOST_DEVICES", "its counterpart is "
+     "TM_CUDA_MESH_FORCE_DEVICES (logical devices over the cards or the "
+     "CPU)"),
 )
 
 NAMES = frozenset(k.name for k in CATALOG)
@@ -282,5 +399,8 @@ def knobs_md() -> str:
         cfg = f"`{k.config}`" if k.config else "—"
         lines.append(f"| `{k.name}` | {k.kind} | {k.default} | {cfg} "
                      f"| `{k.where}` | {k.description} |")
+    lines += ["", "## JAX knobs without a counterpart", ""]
+    for name, why in NO_COUNTERPART:
+        lines.append(f"- `{name}`: {why}.")
     lines.append("")
     return "\n".join(lines)

@@ -194,7 +194,13 @@ PLANE_SOURCES = [PORT / m for m in (
     "analysis/checkers/asyncblock.py", "analysis/checkers/determinism.py",
     "analysis/checkers/exceptions.py", "analysis/checkers/knobs.py",
     "analysis/checkers/locks.py", "analysis/checkers/metrics.py",
-    "analysis/checkers/taint.py")]
+    "analysis/checkers/taint.py", "native.py", "consensus/compact.py",
+    "consensus/reactor.py", "p2p/conn/burst.py", "p2p/conn/secret.py",
+    "p2p/socknet.py", "types/keys.py", "types/encoding.py",
+    "types/part_set.py", "utils/ed25519_fast.py", "abci/apps/kvstore.py",
+    "ops/ed25519.py", "scripts/__init__.py", "scripts/trace_merge.py",
+    "scripts/slo_report.py", "scripts/profile_merge.py",
+    "scripts/check_metrics.py")]
 
 
 @pytest.mark.parametrize("path", PLANE_SOURCES,

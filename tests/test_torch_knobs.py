@@ -5,18 +5,22 @@ the JAX package's (tendermint_tpu/utils/knobs.py), on the CPU.
   same values for the same inputs (the port's TM_CUDA_* name, the JAX
   package's TM_TPU_* one), for every reader and kind.
 - A TM_TPU_* variable changes nothing in the port: each plane the port
-  gates on a knob (telemetry, trace, trace cap, profiler and its rate,
-  queue observatory, SLO and its rate, divergence, the shard count, the
-  edge replicas' lag threshold, the front door's connection cap and
-  rate, the device mesh and its forced device count) reads only its
-  TM_CUDA_* name, and that name wins over the plane's config. The front door's pair and the shard count resolve as
-  the JAX package's do (an explicit argument, then env, then default).
-- The catalog holds every knob the port reads, each a TM_CUDA_* name
-  with a JAX counterpart of the same kind, default and config field
-  (TM_CUDA_NODE_PROFILE's counterpart is the JAX CLI's TM_NODE_PROFILE,
-  which the JAX catalog does not list, and TM_CUDA_MESH_FORCE_DEVICES's
-  is TM_TPU_MESH_FORCE_HOST_DEVICES); every TM_CUDA_* name in the
-  port's sources is in the catalog, and reading an unknown one raises.
+  gates on a knob reads only its TM_CUDA_* name, and that name wins over
+  the plane's config. The front door's pair and the shard count resolve
+  as the JAX package's do (an explicit argument, then env, then default).
+- Every JAX catalog name has a TM_CUDA_* counterpart of the same kind,
+  default and config field, but three: TM_TPU_NO_PALLAS (the CUDA kernel
+  is the only device route), TM_TPU_FETCH_WORKERS (no fetch pool) and
+  TM_TPU_MESH_FORCE_HOST_DEVICES (its counterpart is
+  TM_CUDA_MESH_FORCE_DEVICES); TM_CUDA_NODE_PROFILE's counterpart is the
+  JAX CLI's TM_NODE_PROFILE, which the JAX catalog does not list. Every
+  TM_CUDA_* name in the port's sources is in the catalog, and reading an
+  unknown one raises.
+- The operator's env surface (the verifier, the host oracle, the native
+  plane, p2p, the commit path, recovery): each knob at its resolver,
+  env > config > default, equals the JAX resolver at its call site on
+  the same values; the host oracle's two import-time knobs in a fresh
+  interpreter.
 """
 
 import re
@@ -29,14 +33,25 @@ from tendermint_tpu_torch.utils import knobs as tknobs
 
 PORT = Path(__file__).resolve().parent.parent / "tendermint_tpu_torch"
 
-SLICE_KNOBS = ("TM_CUDA_MESH", "TM_CUDA_MESH_FORCE_DEVICES",
-               "TM_CUDA_TELEMETRY", "TM_CUDA_TRACE", "TM_CUDA_TRACE_CAP",
-               "TM_CUDA_TRACE_STALL_S", "TM_CUDA_PROF", "TM_CUDA_PROF_HZ",
-               "TM_CUDA_QUEUE_WATCH", "TM_CUDA_SLO", "TM_CUDA_SLO_SAMPLE",
-               "TM_CUDA_DIVERGENCE", "TM_CUDA_NODE_PROFILE",
-               "TM_CUDA_STATE_TREE", "TM_CUDA_CHAOS", "TM_CUDA_LOCKCHECK",
-               "TM_CUDA_SHARDS", "TM_CUDA_EDGE_MAX_LAG",
-               "TM_CUDA_RPC_MAX_CONNS", "TM_CUDA_RPC_RATE")
+#: JAX knobs with no TM_CUDA_* counterpart
+NO_COUNTERPART = ("TM_TPU_NO_PALLAS", "TM_TPU_FETCH_WORKERS",
+                  "TM_TPU_MESH_FORCE_HOST_DEVICES")
+#: port knobs whose counterpart is not the same name under TM_TPU_
+PORT_ONLY = ("TM_CUDA_NODE_PROFILE", "TM_CUDA_MESH_FORCE_DEVICES")
+#: knobs the port resolves in another module than the JAX package (the
+#: JAX `where` -> the port's); every other knob's `where` is the JAX one
+MOVED = {
+    # native.py is the counterpart of native/__init__.py
+    "TM_CUDA_NO_NATIVE": ("native/__init__.py", "native.py"),
+    # resolve_reactor is the port's config helper, not the loop module's
+    "TM_CUDA_REACTOR": ("p2p/conn/loop.py", "config.py"),
+    # the port's Node resolves the recovery settings it hands the planes
+    "TM_CUDA_SNAPSHOT_INTERVAL": ("storage/snapshot.py", "node.py"),
+    "TM_CUDA_SNAPSHOT_KEEP": ("storage/snapshot.py", "node.py"),
+    "TM_CUDA_SNAPSHOT_CHUNK_KB": ("storage/snapshot.py", "node.py"),
+    "TM_CUDA_RETAIN_HEIGHTS": ("storage/snapshot.py", "node.py"),
+    "TM_CUDA_STATE_SYNC": ("statesync/reactor.py", "node.py"),
+}
 
 
 def _jax_name(name: str) -> str:
@@ -54,16 +69,24 @@ def _clean_env(monkeypatch):
 
 
 def test_catalog_holds_the_slice_knobs_with_jax_counterparts():
-    assert set(SLICE_KNOBS) == tknobs.NAMES
-    for k in tknobs.CATALOG:
-        assert k.name.startswith("TM_CUDA_")
-        if k.name == "TM_CUDA_NODE_PROFILE":
+    want = set(PORT_ONLY)
+    for j in jknobs.CATALOG:
+        if j.name in NO_COUNTERPART:
             continue
-        j = jknobs.get(_jax_name(k.name))
-        assert (k.kind, k.config) == (j.kind, j.config), k.name
-        if k.name in SLICE_KNOBS[-4:]:
-            assert (k.default, k.where) == (j.default, j.where), k.name
-    assert "TM_CUDA_TELEMETRY" in tknobs.knobs_md()
+        name = j.name.replace("TM_TPU_", "TM_CUDA_")
+        want.add(name)
+        k = tknobs.get(name)
+        assert (k.kind, k.default, k.config) == \
+            (j.kind, j.default, j.config), name
+        assert (j.where, k.where) == MOVED.get(name, (j.where, j.where)), \
+            name
+    assert want == tknobs.NAMES
+    assert all(k.name.startswith("TM_CUDA_") for k in tknobs.CATALOG)
+    md = tknobs.knobs_md()
+    assert "TM_CUDA_TELEMETRY" in md
+    # the three without a counterpart are named, each with its reason
+    for name in NO_COUNTERPART:
+        assert name in md, name
 
 
 def test_every_port_source_knob_is_cataloged():
@@ -330,3 +353,323 @@ def test_mesh_knobs_are_the_ports_own(monkeypatch):
     assert pmesh.logical_devices("cpu") == (torch.device("cpu"),) * 4
     for v in vs:
         v.close()
+
+
+# ------------------------------------------------- the operator's env surface
+
+def _verifier_field(pkg, field, **kw):
+    """A field of a fresh BatchVerifier ("python": no device, no thread)."""
+    if pkg == "port":
+        from tendermint_tpu_torch.models.verifier import BatchVerifier
+    else:
+        from tendermint_tpu.models.verifier import BatchVerifier
+    v = BatchVerifier("python", **kw)
+    try:
+        return getattr(v, field)
+    finally:
+        v.close()
+
+
+def _default_backend(pkg, monkeypatch):
+    """The backend the process-default verifier takes (port: through
+    node.build_verifier of a default BaseConfig on the CPU; JAX: its
+    default_verifier, "jax" reading as the port's "cuda")."""
+    if pkg == "port":
+        from tendermint_tpu_torch.config import BaseConfig
+        from tendermint_tpu_torch.node import build_verifier
+        v, _ = build_verifier(BaseConfig(), device="cpu")
+        v.close()
+        return v.backend
+    from tendermint_tpu.models import verifier as jverifier
+    monkeypatch.setattr(jverifier, "_default", None)
+    v = jverifier.default_verifier()
+    v.close()
+    return {"jax": "cuda"}.get(v.backend, v.backend)
+
+
+def _burst(pkg, mode, monkeypatch):
+    if pkg == "port":
+        from tendermint_tpu_torch.config import P2PConfig, _mode_on
+        from tendermint_tpu_torch.p2p.conn.burst import Burst
+        m = str(mode)
+        cfg = P2PConfig(burst=_mode_on(m),
+                        burst_max=int(m) if m.isdigit() else 0)
+        return Burst.from_config(cfg).resolve()
+    from tendermint_tpu.p2p.conn import burst as jburst
+    monkeypatch.setattr(jburst, "_cfg_mode", jburst._cfg_mode)
+    monkeypatch.setattr(jburst, "_cfg_max", jburst._cfg_max)
+    m = str(mode)
+    jburst.configure(m, int(m) if m.isdigit() else 0)
+    return jburst.resolve()
+
+
+def _linger(pkg):
+    import socket
+    if pkg == "port":
+        from tendermint_tpu_torch.p2p.conn import loop, mconn
+    else:
+        from tendermint_tpu.p2p.conn import loop, mconn
+    a, b = socket.socketpair()
+    try:
+        c = loop.LoopMConnection(None, mconn.PlainFramedConn(a),
+                                 [mconn.ChannelDescriptor(0x20)],
+                                 on_receive=lambda ch, msg: None)
+        return c._flush_linger_s
+    finally:
+        a.close()
+        b.close()
+
+
+def _switch_field(pkg, field, **cfg):
+    from tendermint_tpu_torch.types.keys import PrivKey
+    pub = PrivKey.generate(b"\x01" * 32).pubkey.ed25519
+    if pkg == "port":
+        from tendermint_tpu_torch import p2p
+        from tendermint_tpu_torch.config import P2PConfig
+        from tendermint_tpu_torch.p2p.switch import Switch
+        sw = Switch(P2PConfig(**cfg), p2p.NodeKey(PrivKey.generate(
+            b"\x01" * 32)), p2p.NodeInfo(pubkey=pub))
+    else:
+        from tendermint_tpu import p2p
+        from tendermint_tpu.config import P2PConfig
+        from tendermint_tpu.p2p.switch import Switch
+        from tendermint_tpu.types.keys import PrivKey as JPrivKey
+        c = P2PConfig()
+        for k, v in cfg.items():
+            setattr(c, k, v)
+        sw = Switch(c, p2p.NodeKey(JPrivKey.generate(b"\x01" * 32)),
+                    p2p.NodeInfo(pubkey=pub))
+    return getattr(sw, field)
+
+
+def _reactor(pkg, mode, monkeypatch):
+    if pkg == "port":
+        from tendermint_tpu_torch.config import resolve_reactor
+        return resolve_reactor(mode)
+    from tendermint_tpu.p2p.conn import loop as jloop
+    monkeypatch.setattr(jloop, "_cfg_mode", jloop._cfg_mode)
+    jloop.configure(mode)
+    return jloop.resolve()
+
+
+def _pipeline(pkg, mode, monkeypatch):
+    if pkg == "port":
+        from tendermint_tpu_torch import pipeline
+    else:
+        from tendermint_tpu import pipeline
+    monkeypatch.setattr(pipeline, "_configured", pipeline._configured)
+    pipeline.configure(mode)
+    return pipeline.resolve()
+
+
+def _compact(pkg, field, mode, monkeypatch):
+    if pkg == "port":
+        from tendermint_tpu_torch.config import ConsensusConfig, _mode_on
+        from tendermint_tpu_torch.consensus import compact
+        cc = ConsensusConfig(**{field: _mode_on(mode)})
+        return (compact.compact_on if field == "compact"
+                else compact.voteagg_on)(cc)
+    from tendermint_tpu.consensus import compact as jcompact
+    monkeypatch.setattr(jcompact, "_configured_compact",
+                        jcompact._configured_compact)
+    monkeypatch.setattr(jcompact, "_configured_voteagg",
+                        jcompact._configured_voteagg)
+    if field == "compact":
+        jcompact.configure(compact_mode=mode)
+        return jcompact.compact_on()
+    jcompact.configure(voteagg_mode=mode)
+    return jcompact.voteagg_on()
+
+
+_RECOVERY_ATTRS = {"snapshot_interval": "_snap_interval",
+                   "snapshot_keep": "_snap_keep",
+                   "snapshot_chunk_kb": "_snap_chunk_kb",
+                   "retain_heights": "_retain_heights",
+                   "state_sync": "_state_sync"}
+
+
+def _node_field(pkg, field, value, tmp_path):
+    """A recovery setting of a fresh (unstarted) node on disk with
+    base.<field> = value (None: the config's default)."""
+    import os
+
+    from tests.test_torch_snapshot import JAX, PORT, _gen
+    P = PORT if pkg == "port" else JAX
+    home = str(tmp_path / pkg)
+    os.makedirs(home, exist_ok=True)
+    gen, key = _gen(P, "knobs")
+    pv = P.pv.PrivValidatorFile(os.path.join(home, "priv_validator.json"),
+                                key)
+    cfg = P.config.test_config(home)
+    if P is PORT:
+        cfg.base.verifier_backend = "python"
+    if value is not None:
+        setattr(cfg.base, field, value)
+    node = P.node.Node(cfg, gen, priv_validator=pv, app=P.app())
+    try:
+        return getattr(node, _RECOVERY_ATTRS[field])
+    finally:
+        node.stop()
+
+
+def _fresh(tmp_path):
+    """A new directory under tmp_path for each call."""
+    n = len(list(tmp_path.iterdir()))
+    d = tmp_path / f"h{n}"
+    d.mkdir()
+    return d
+
+
+def _native_off(pkg, mp):
+    """The knob as a process started now reads it (the port reads it once
+    a process, at its first `disabled()`)."""
+    if pkg == "port":
+        from tendermint_tpu_torch import native
+        mp.setattr(native, "_no_native", None)
+        return native.disabled()
+    return jknobs.knob_set("TM_TPU_NO_NATIVE")
+
+
+#: knob -> reader(pkg, config, monkeypatch, tmp_path) of its resolved
+#: value at the plane's resolver, and its (env, config) cases
+_SURFACE = {
+    "TM_CUDA_VERIFIER": (
+        lambda pkg, c, mp, tp: c if c not in (None, "auto")
+        else _default_backend(pkg, mp),
+        [(None, None), (None, "python"), ("python", None)]),
+    "TM_CUDA_AUTO_THRESHOLD": (
+        lambda pkg, c, mp, tp: _verifier_field(pkg, "auto_threshold",
+                                               auto_threshold=c),
+        [(None, None), ("64", None), ("64", 32)]),
+    "TM_CUDA_COALESCE": (
+        lambda pkg, c, mp, tp: _verifier_field(pkg, "coalesce", coalesce=c),
+        [(None, None), (None, "off"), ("off", "on"), ("on", "off")]),
+    "TM_CUDA_COALESCE_WAIT_MS": (
+        lambda pkg, c, mp, tp: _verifier_field(pkg, "_coalesce_wait_s",
+                                               coalesce_wait_ms=c),
+        [(None, None), ("5", None), ("5", 1.0)]),
+    "TM_CUDA_COALESCE_MAX_BATCH": (
+        lambda pkg, c, mp, tp: _verifier_field(pkg, "_coalesce_max_batch",
+                                               coalesce_max_batch=c),
+        [(None, None), ("32", None), ("32", 16)]),
+    "TM_CUDA_NO_NATIVE": (
+        lambda pkg, c, mp, tp: _native_off(pkg, mp),
+        [(None, None), ("1", None), ("0", None)]),
+    "TM_CUDA_P2P_BURST": (
+        lambda pkg, c, mp, tp: _burst(pkg, c or "auto", mp),
+        [(None, None), (None, "off"), (None, "16"), ("off", "on"),
+         ("8", "on"), ("on", "off")]),
+    "TM_CUDA_P2P_FLUSH_LINGER_MS": (
+        lambda pkg, c, mp, tp: _linger(pkg),
+        [(None, None), ("0", None), ("10", None)]),
+    "TM_CUDA_P2P_BAN_SCORE": (
+        lambda pkg, c, mp, tp: _switch_field(
+            pkg, "_ban_score", **({} if c is None else {"ban_score": c})),
+        [(None, None), (None, 10), ("50", 10)]),
+    "TM_CUDA_P2P_BAN_BASE_S": (
+        lambda pkg, c, mp, tp: _switch_field(
+            pkg, "_ban_base_s", **({} if c is None else {"ban_base_s": c})),
+        [(None, None), (None, 5.0), ("7", 5.0)]),
+    "TM_CUDA_P2P_FD_HEADROOM": (
+        lambda pkg, c, mp, tp: _switch_field(
+            pkg, "_fd_headroom",
+            **({} if c is None else {"fd_headroom": c})),
+        [(None, None), (None, 8), ("16", 8)]),
+    "TM_CUDA_REACTOR": (
+        lambda pkg, c, mp, tp: _reactor(pkg, c or "auto", mp),
+        [(None, None), (None, "threads"), ("threads", "loop"),
+         ("loop", "threads")]),
+    "TM_CUDA_PIPELINE": (
+        lambda pkg, c, mp, tp: _pipeline(pkg, c or "auto", mp),
+        [(None, None), (None, "off"), ("off", "on"), ("on", "off")]),
+    "TM_CUDA_COMPACT": (
+        lambda pkg, c, mp, tp: _compact(pkg, "compact", c or "auto", mp),
+        [(None, None), (None, "off"), ("off", "on"), ("on", "off")]),
+    "TM_CUDA_VOTE_AGG": (
+        lambda pkg, c, mp, tp: _compact(pkg, "vote_agg", c or "auto", mp),
+        [(None, None), (None, "off"), ("off", "on"), ("on", "off")]),
+}
+for _field, _cases in (
+        ("snapshot_interval", [(None, None), (None, 5), ("7", 5)]),
+        ("snapshot_keep", [(None, None), (None, 3), ("4", 3)]),
+        ("snapshot_chunk_kb", [(None, None), (None, 64), ("32", 64)]),
+        ("retain_heights", [(None, None), (None, 10), ("20", 10)]),
+        ("state_sync", [(None, None), (None, True), ("off", True)])):
+    _SURFACE["TM_CUDA_" + _field.upper()] = (
+        lambda pkg, c, mp, tp, f=_field: _node_field(pkg, f, c,
+                                                      _fresh(tp)),
+        _cases)
+
+_SURFACE_CASES = [(k, env, cfg) for k, (_, cases) in _SURFACE.items()
+                  for env, cfg in cases]
+
+
+def test_the_surface_covers_every_knob_of_the_slice():
+    import_time = {"TM_CUDA_HOST_TABLE_MIN", "TM_CUDA_HOST_TABLE_CACHE"}
+    assert len(_SURFACE) + len(import_time) == 22
+    assert set(_SURFACE) | import_time <= tknobs.NAMES
+
+
+@pytest.mark.parametrize("name,env,config", _SURFACE_CASES)
+def test_surface_knob_resolves_as_jax(monkeypatch, tmp_path, name, env,
+                                      config):
+    """env > config > default at the knob's resolver, equal to the JAX
+    resolver at its call site on the same values."""
+    read = _SURFACE[name][0]
+    if env is not None:
+        monkeypatch.setenv(name, env)
+        monkeypatch.setenv(_jax_name(name), env)
+    assert read("port", config, monkeypatch, tmp_path) == \
+        read("jax", config, monkeypatch, tmp_path)
+
+
+@pytest.mark.parametrize("name", sorted(_SURFACE))
+def test_surface_tm_tpu_names_change_nothing_in_the_port(
+        monkeypatch, tmp_path, name):
+    read, cases = _SURFACE[name]
+    env, config = next((e, c) for e, c in cases if e is not None)
+    base = read("port", config, monkeypatch, tmp_path)
+    monkeypatch.setenv(_jax_name(name), env)
+    assert read("port", config, monkeypatch, tmp_path) == base, \
+        f"{_jax_name(name)} reached the port"
+    want = read("jax", config, monkeypatch, tmp_path)
+    monkeypatch.setenv(name, env)
+    assert read("port", config, monkeypatch, tmp_path) == want != base
+
+
+_IMPORT_PROBE = """
+import json
+from tendermint_tpu.types import keys as jkeys
+from tendermint_tpu.utils import ed25519_fast as jfast
+from tendermint_tpu_torch.types import keys as tkeys
+from tendermint_tpu_torch.utils import ed25519_fast as tfast
+print(json.dumps([tkeys._HOST_TABLE_MIN, jkeys._HOST_TABLE_MIN,
+                  tfast._TABLE_MAX, jfast._TABLE_MAX]))
+"""
+
+
+@pytest.mark.parametrize("env", [{}, {"TM_CUDA_HOST_TABLE_MIN": "9",
+                                      "TM_TPU_HOST_TABLE_MIN": "9",
+                                      "TM_CUDA_HOST_TABLE_CACHE": "17",
+                                      "TM_TPU_HOST_TABLE_CACHE": "17"},
+                                 {"TM_TPU_HOST_TABLE_MIN": "9",
+                                  "TM_TPU_HOST_TABLE_CACHE": "17"}])
+def test_host_table_knobs_read_at_import_as_jax(env):
+    """The host oracle's gate and cache, read once at import in a fresh
+    interpreter: the port's TM_CUDA_* names as the JAX package's TM_TPU_*
+    ones, and a TM_TPU_* name alone leaves the port at its default."""
+    import json
+    import os
+    import subprocess
+    import sys
+    full = {k: v for k, v in os.environ.items()
+            if not k.startswith(("TM_CUDA_HOST_TABLE", "TM_TPU_HOST_TABLE"))}
+    full.update(env, JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", _IMPORT_PROBE],
+                         cwd=str(PORT.parent), env=full, check=True,
+                         capture_output=True, text=True, timeout=120)
+    tmin, jmin, tcache, jcache = json.loads(out.stdout.splitlines()[-1])
+    assert (jmin, jcache) == (int(env.get("TM_TPU_HOST_TABLE_MIN", 4)),
+                              int(env.get("TM_TPU_HOST_TABLE_CACHE", 256)))
+    assert (tmin, tcache) == (int(env.get("TM_CUDA_HOST_TABLE_MIN", 4)),
+                              int(env.get("TM_CUDA_HOST_TABLE_CACHE", 256)))

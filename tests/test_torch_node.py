@@ -50,6 +50,7 @@ from tendermint_tpu.utils import clock as jclock
 from tendermint_tpu_torch import cli as tcli
 from tendermint_tpu_torch import config as tconfig
 from tendermint_tpu_torch import node as tnode
+from tendermint_tpu_torch import procnet
 from tendermint_tpu_torch.consensus.rstate import Step
 from tendermint_tpu_torch.types import encoding as tenc
 from tendermint_tpu_torch.types import genesis as tgen
@@ -326,7 +327,8 @@ def _view(cfg):
 @pytest.mark.parametrize("writer", ["jax", "port"])
 def test_testnet_tree_builds_the_other_packages_node(tmp_path, writer):
     W, R = (JAX, PORT) if writer == "jax" else (PORT, JAX)
-    _tree(W, tmp_path, 47400)
+    base = procnet.free_block(8)
+    _tree(W, tmp_path, base)
     home = str(tmp_path / "node1")
     assert _view(R.config.default_config(home)) == \
         _view(W.config.default_config(home))
@@ -339,7 +341,7 @@ def test_testnet_tree_builds_the_other_packages_node(tmp_path, writer):
         gen = R.gen.GenesisDoc.load(os.path.join(home, "config",
                                                  "genesis.json"))
         assert len(gen.validators) == 4 and gen.chain_id == "tree"
-        assert str(node.switch.listen_address).endswith(":47402")
+        assert str(node.switch.listen_address).endswith(f":{base + 2}")
         assert node.pex_reactor is not None and node.switch.addr_book
     finally:
         node.stop()
@@ -380,7 +382,7 @@ def test_edited_settings_of_a_port_written_tree_reach_the_node(tmp_path,
     """A port-written tree holds each of the four settings once, under
     its JAX `base` key; an edit of that key, or the port's own field
     written into its section, reaches the node's switch and reactor."""
-    _tree(PORT, tmp_path, 47600)
+    _tree(PORT, tmp_path, procnet.free_block(8))
     home = str(tmp_path / "node2")
     path = os.path.join(home, "config", "config.json")
     obj = json.load(open(path))

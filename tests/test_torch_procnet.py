@@ -158,3 +158,34 @@ def test_mixed_jax_and_port_processes_agree_on_every_block(tmp_path):
         _assert_loop_plane(net.kernel_lines(i)[0])
         _assert_commit_path(net.kernel_lines(i)[0])
     shutil.rmtree(tmp_path, ignore_errors=True)
+
+
+def test_a_node_that_aborts_leaves_its_log_tail(tmp_path, capsys):
+    """A node process that dies of SIGABRT unasked: the wait that finds
+    it dead prints the last 40 lines of its log, once, before raising;
+    stop_all does not print it again."""
+    import subprocess
+    import sys
+
+    import pytest
+    net = ProcNet(str(tmp_path), base_port=free_block(8))
+    log = open(net.log_path(0), "ab")
+    log.write(b"an earlier process's line\n")
+    log.flush()
+    net._logs[0] = log
+    net._starts[0] = [log.tell()]
+    net.procs[0] = subprocess.Popen(
+        [sys.executable, "-c", "import os\nfor i in range(60):\n"
+         "    print('line', i, flush=True)\nos.abort()"],
+        stdout=log, stderr=subprocess.STDOUT)
+    net.procs[0].wait(60)
+    with pytest.raises(RuntimeError, match="exited"):
+        net.wait_for(lambda: False, 30, "boot")
+    out = capsys.readouterr().out
+    pid = net.procs[0].pid
+    assert f"procnet node 0 (pid {pid}) exited -6" in out
+    lines = out.splitlines()
+    assert lines[-40:] == [f"line {i}" for i in range(20, 60)]
+    assert "earlier process" not in out
+    assert net.stop_all() == {0: -6}
+    assert capsys.readouterr().out == ""
