@@ -83,6 +83,7 @@ BLESSED = frozenset((
     "tendermint_tpu_torch/telemetry/causal.py:_node",
     "tendermint_tpu_torch/telemetry/causal.py:_rtt_provider",
     "tendermint_tpu_torch/telemetry/causal.py:_cap",
+    "tendermint_tpu_torch/telemetry/causal.py:_dropped",
     "tendermint_tpu_torch/telemetry/queues.py:_configured",
     "tendermint_tpu_torch/telemetry/queues.py:_watch_thread",
     "tendermint_tpu_torch/telemetry/queues.py:_probes",

@@ -32,6 +32,7 @@ from tendermint_tpu_torch.models.verifier import VerifierError, default_verifier
 from tendermint_tpu_torch.p2p.base_reactor import Reactor
 from tendermint_tpu_torch.p2p.conn import ChannelDescriptor
 from tendermint_tpu_torch.state.execution import ApplyBlockError
+from tendermint_tpu_torch.telemetry import causal
 from tendermint_tpu_torch.types import encoding
 from tendermint_tpu_torch.types.block import Block, BlockID
 
@@ -56,6 +57,14 @@ VERIFY_WINDOW = 256               # blocks batched per device dispatch
 #                                   only ever drains what the pool has,
 #                                   so the cap is free when fewer blocks
 #                                   are downloaded
+
+
+def _wait(per_block, fut):
+    """A dispatched window's verdicts, the time the sync loop blocks on
+    them under one `sync.wait` span."""
+    with causal.span("sync.wait", per_block[0][0].header.height,
+                     blocks=len(per_block)):
+        return fut.result()
 
 
 class BlockchainReactor(Reactor):
@@ -318,6 +327,13 @@ class BlockchainReactor(Reactor):
         blocks = self.pool.peek_window(self.verify_window, skip=skip)
         if len(blocks) < 2:
             return None
+        with causal.span("sync.collect", blocks[0].header.height,
+                         blocks=len(blocks) - 1) as sp:
+            out = self._collect(blocks)
+            sp.note(sigs=len(out[1]))
+        return out
+
+    def _collect(self, blocks) -> tuple:
         chain_id = self.state.chain_id
         batch_valset = self.state.validators
         part_size = \
@@ -384,7 +400,8 @@ class BlockchainReactor(Reactor):
             # seen-commit = the commit FOR this block (= next block's
             # LastCommit), matching the reference's SaveBlock(first,
             # firstParts, second.LastCommit)
-            self.block_store.save_block(block, parts, commit)
+            with causal.span("sync.save", block.header.height):
+                self.block_store.save_block(block, parts, commit)
             # trust_last_commit: this block's own LastCommit was already
             # batch-verified when its predecessor went through this loop.
             # (apply_block never mutates its input state — no copy.)
@@ -421,8 +438,8 @@ class BlockchainReactor(Reactor):
             self._pending_window = None
             if pending is not None:
                 per_block, fut, vs_hash, psz = pending
-                return self._apply_window(per_block, fut.result(), vs_hash,
-                                          psz) > 0
+                return self._apply_window(per_block, _wait(per_block, fut),
+                                          vs_hash, psz) > 0
             return False
 
         per_block, all_items, vs_hash, psz = collected
@@ -443,7 +460,8 @@ class BlockchainReactor(Reactor):
         progress = False
         if pending is not None:
             prev_blocks, prev_fut, prev_hash, prev_psz = pending
-            applied = self._apply_window(prev_blocks, prev_fut.result(),
+            applied = self._apply_window(prev_blocks,
+                                         _wait(prev_blocks, prev_fut),
                                          prev_hash, prev_psz)
             progress = applied > 0
             if applied < len(prev_blocks):

@@ -56,8 +56,11 @@ Telemetry: the JAX verifier's families under the same names, with the
 port's backend labels (`cuda` for the batch path, `python` for the host
 loop). `verifier_dispatch_seconds` and the causal `verify.dispatch` span
 run from the dispatch to the verdicts on the host (after the readback
-and the host mask), not to the launch's return. The plain `stats` below
-are fed at the same points as the families.
+and the host mask), not to the launch's return. Inside it, the batch
+path's causal spans split the time: `verify.prep`, and a chunk's
+`verify.rows`, `verify.upload` and `verify.launch` (ops/ed25519), then
+`verify.wait` in the resolver. The plain `stats` below are fed at the
+same points as the families.
 
 `stats` (under one lock):
   calls            direct dispatches: calls that bypassed the coalescer,
@@ -449,12 +452,18 @@ class BatchVerifier:
         return out
 
     def _dispatch_cpu(self, n, pk, rb, sb, hb, pre):
-        out = np.zeros(n, np.bool_)
-        for lo, hi, res in self._chunks(n, pk, rb, sb, hb):
-            got = res.result() if self.mesh_devices >= 2 else res.numpy()
-            out[lo:hi] = got[:hi - lo]
-        out &= pre
-        return lambda: out
+        pending = self._chunks(n, pk, rb, sb, hb)
+
+        def resolve() -> np.ndarray:
+            with causal.span("verify.wait", -1, n=n):
+                out = np.zeros(n, np.bool_)
+                for lo, hi, res in pending:
+                    got = res.result() if self.mesh_devices >= 2 \
+                        else res.numpy()
+                    out[lo:hi] = got[:hi - lo]
+                return out & pre
+
+        return resolve
 
     def _dispatch_mesh_cuda(self, n, pk, rb, sb, hb, pre):
         # each shard runs on its device's stream, which waits for that
@@ -462,10 +471,11 @@ class BatchVerifier:
         pending = self._chunks(n, pk, rb, sb, hb)
 
         def resolve() -> np.ndarray:
-            out = np.zeros(n, np.bool_)
-            for lo, hi, res in pending:
-                out[lo:hi] = res.result()[:hi - lo]
-            return out & pre
+            with causal.span("verify.wait", -1, n=n):
+                out = np.zeros(n, np.bool_)
+                for lo, hi, res in pending:
+                    out[lo:hi] = res.result()[:hi - lo]
+                return out & pre
 
         return resolve
 
@@ -490,11 +500,12 @@ class BatchVerifier:
                 done.record(stream)
 
         def resolve() -> np.ndarray:
-            done.synchronize()
-            out = np.zeros(n, np.bool_)
-            for lo, hi, h in host:
-                out[lo:hi] = h.numpy()[:hi - lo]
-            return out & pre
+            with causal.span("verify.wait", -1, n=n):
+                done.synchronize()
+                out = np.zeros(n, np.bool_)
+                for lo, hi, h in host:
+                    out[lo:hi] = h.numpy()[:hi - lo]
+                return out & pre
 
         return resolve
 

@@ -41,6 +41,7 @@ from tendermint_tpu_torch import native
 from tendermint_tpu_torch.ops import curve
 from tendermint_tpu_torch.ops import field as fe
 from tendermint_tpu_torch.ops import ladder
+from tendermint_tpu_torch.telemetry import causal
 from tendermint_tpu_torch.utils import device as _device
 from tendermint_tpu_torch.utils import ed25519_fast
 
@@ -76,7 +77,8 @@ def prep_items(items):
     that is not a triple, or TM_CUDA_NO_NATIVE)."""
     if native.disabled():
         return None
-    out = native.prep_items(items)
+    with causal.span("verify.prep", -1, n=len(items)):
+        out = native.prep_items(items)
     if out is not None:
         _count_prep("native", len(items))
     return out
@@ -240,6 +242,14 @@ def _predecomp_rows(pk_np, device):
     or decompressed once on `device` and stored (fill). None when the
     batch holds unseen keys (full): it then takes the fused kernel while
     its keys are marked seen, and the next batch over them fills rows."""
+    with causal.span("verify.rows", -1, n=pk_np.shape[0]) as sp:
+        rows, outcome = _rows_of(pk_np, device)
+        sp.note(outcome=outcome)
+    return rows
+
+
+def _rows_of(pk_np, device):
+    """_predecomp_rows' rows (or None) and the cache outcome."""
     n = pk_np.shape[0]
     raw = pk_np.tobytes()
     keys = [raw[i * 32:(i + 1) * 32] for i in range(n)]
@@ -258,11 +268,11 @@ def _predecomp_rows(pk_np, device):
                 _predecomp_seen.popitem(last=False)
             if fresh:
                 _predecomp_note("full")
-                return None
+                return None, "full"
             _predecomp_note("fill")
     if not miss:
         return (np.stack([r[0] for r in rows]), np.stack([r[1] for r in rows]),
-                np.array([r[2] for r in rows], np.bool_))
+                np.array([r[2] for r in rows], np.bool_)), "hit"
     # decompress the whole batch once, outside the lock; a concurrent
     # duplicate fill is harmless (same key, same bytes)
     xnb_d, yb_d, ok_d = _decompress_to_bytes(_upload(pk_np, device))
@@ -276,7 +286,15 @@ def _predecomp_rows(pk_np, device):
         while len(_predecomp) > _PREDECOMP_MAX_KEYS:
             _predecomp.popitem(last=False)
             _predecomp_note("evict")
-    return xnb_h, yb_h, ok_h
+    return (xnb_h, yb_h, ok_h), "fill"
+
+
+def _upload_all(arrays, device) -> list:
+    """A chunk's host arrays on `device`, under one `verify.upload`
+    span."""
+    with causal.span("verify.upload", -1, n=arrays[0].shape[0],
+                     bytes=sum(x.nbytes for x in arrays)):
+        return [_upload(x, device) for x in arrays]
 
 
 def _verify_cached_predecomp(pk_np, rb, s_bytes, h_bytes, device):
@@ -285,8 +303,10 @@ def _verify_cached_predecomp(pk_np, rb, s_bytes, h_bytes, device):
     rows = _predecomp_rows(pk_np, device)
     if rows is None:
         return None
-    return ladder.verify_pre(*(_upload(x, device) for x in
-                               (*rows, rb, s_bytes, h_bytes)))
+    args = _upload_all((*rows, rb, s_bytes, h_bytes), device)
+    with causal.span("verify.launch", -1, n=pk_np.shape[0],
+                     kernel="verify_pre"):
+        return ladder.verify_pre(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -307,8 +327,9 @@ def verify_prepared_async(pk, rb, s_bytes, h_bytes, device=None):
         res = _verify_cached_predecomp(pk_p, rb_p, sb_p, hb_p, device)
         if res is not None:
             return res
-    return ladder.verify(_upload(pk_p, device), _upload(rb_p, device),
-                         _upload(sb_p, device), _upload(hb_p, device))
+    args = _upload_all((pk_p, rb_p, sb_p, hb_p), device)
+    with causal.span("verify.launch", -1, n=m, kernel="verify"):
+        return ladder.verify(*args)
 
 
 def verify_batch_async(pubkeys, msgs, sigs, device=None):

@@ -11,7 +11,6 @@ Public surface:
                                 buckets=telemetry.POW2_BUCKETS)
     _size.observe(n)
 
-    with telemetry.span("verify", batch=n): ...
     text = telemetry.expose()          # Prometheus text format 0.0.4
 
 Conventions (the family catalog test holds the port to the JAX names):
@@ -49,7 +48,6 @@ from tendermint_tpu_torch.telemetry.trace import (  # noqa: F401
     Tracer,
     dump_trace,
     instant,
-    span,
 )
 
 

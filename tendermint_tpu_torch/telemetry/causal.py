@@ -75,6 +75,29 @@ from tendermint_tpu_torch.utils import clock, knobs
 #   transition.digest  the height's canonical transition digest
 #                    (analysis/divergence.py) stamped at commit — a
 #                    cross-node trace diff localizes a state fork
+#
+# The hot path's spans, one a call or a chunk, never one a signature or
+# a vote (h = -1 where no height applies; `n` = items covered):
+#
+#   verify.prep      ops/ed25519.prep_items: the native SHA-512 and
+#                    scalar prep of a verify call's items
+#   verify.rows      ops/ed25519._predecomp_rows: a chunk's key rows
+#                    looked up and stacked, decompressed on a fill
+#                    (`outcome` hit / fill / full)
+#   verify.upload    a chunk's host-to-device copies (`bytes`)
+#   verify.launch    a chunk's call into ops/ladder: the enqueue on the
+#                    card, the plain compute on the CPU (`kernel`)
+#   verify.wait      the verifier's resolver: stream wait, device-to-host
+#                    copy and the precheck mask
+#   sync.collect     BlockchainReactor._collect_window building a window
+#                    (h = its first height; `blocks`, `sigs`)
+#   sync.wait        the window engine blocked on a window's verdicts
+#   sync.save        BlockStore.save_block of one synced block
+#   block.decode     Block.from_bytes (`bytes`)
+#   votes.check      VoteSet: a vote batch's validation and sign bytes,
+#                    up to the verifier call (`type`)
+#   votes.count      VoteSet: the verified votes' bookkeeping after the
+#                    verdicts (`n` = votes counted)
 SPAN_CATALOG = frozenset((
     "height.begin", "propose", "proposal.recv", "part.first",
     "block.full", "quorum.prevote", "quorum.precommit",
@@ -82,6 +105,9 @@ SPAN_CATALOG = frozenset((
     "p2p.recv", "mempool.recv", "stall",
     "snapshot.restore", "sync.chunk", "queue.saturated", "slo.sample",
     "block.reconstruct", "votes.agg", "transition.digest",
+    "verify.prep", "verify.rows", "verify.upload", "verify.launch",
+    "verify.wait", "sync.collect", "sync.wait", "sync.save",
+    "block.decode", "votes.check", "votes.count",
 ))
 
 DEFAULT_CAPACITY = 65536
@@ -93,6 +119,7 @@ _configured = "off"
 _lock = threading.Lock()
 _ring: deque = deque()                      #: guarded_by _lock
 _cap: Optional[int] = None                  #: guarded_by _lock
+_dropped = 0                                #: guarded_by _lock
 _node = ""          # short node id stamped into wire envelopes + dumps
 _rtt_provider: Optional[Callable[[], Dict[str, float]]] = None
 
@@ -159,12 +186,23 @@ def record(name: str, height: int, round_: int = -1,
           "d": int(dur_ns)}
     if args:
         ev["a"] = args
+    global _dropped
     with _lock:
         cap = _capacity()
         while len(_ring) >= cap:
             _ring.popleft()
+            _dropped += 1
             note_dropped()
         _ring.append(ev)
+
+
+def dropped() -> int:
+    """Events the ring has displaced since the process started, counted
+    whether or not telemetry is on (the registry's
+    trace_events_dropped_total counts only while it is): a reader of a
+    window compares two readings to know whether the window is whole."""
+    with _lock:
+        return _dropped
 
 
 def point(name: str, height: int, round_: int = -1, **args) -> None:
@@ -177,6 +215,9 @@ class _NullSpan:
 
     def __exit__(self, *exc):
         return False
+
+    def note(self, **args) -> None:
+        pass
 
 
 _NULL_SPAN = _NullSpan()
@@ -200,10 +241,18 @@ class _Span:
                t0_ns=self._t0_ns, dur_ns=dur_ns, **self.args)
         return False
 
+    def note(self, height: Optional[int] = None, **args) -> None:
+        """Set the height or args that are known only inside the span
+        (a decoded block's height, a cache outcome)."""
+        if height is not None:
+            self.height = height
+        self.args.update(args)
+
 
 def span(name: str, height: int, round_: int = -1, **args):
     """Context manager recording one complete span (wall-clock anchor,
-    perf_counter duration)."""
+    perf_counter duration). The object it yields takes `note(height=,
+    **args)` for what is known only inside; off, both are no-ops."""
     if not enabled():
         return _NULL_SPAN
     return _Span(name, height, round_, args)

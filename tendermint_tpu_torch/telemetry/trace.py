@@ -2,10 +2,11 @@
 Chrome-trace JSON (chrome://tracing / Perfetto "traceEvents" format).
 
 The consensus state machine records its per-height/round timeline here
-(one complete event per step interval, one instant per committed block);
-the verifier records dispatch spans. Everything is gated on the same
-process-wide enabled flag as the metrics registry, so `TM_CUDA_TELEMETRY=
-off` makes a span a single flag check.
+(one complete event per step interval, one instant per committed block).
+Everything is gated on the same process-wide enabled flag as the metrics
+registry, so `TM_CUDA_TELEMETRY=off` makes a record a single flag check.
+Spans inside the hot path are the causal plane's (telemetry/causal.py),
+stamped on the wall clock that a device trace's events share.
 
 Timestamps are perf_counter-relative microseconds (Chrome trace's native
 unit); `pid` is the real process id so multi-node testnet dumps can be
@@ -19,7 +20,6 @@ import os
 import threading
 import time
 from collections import deque
-from contextlib import contextmanager
 
 from tendermint_tpu_torch.telemetry.registry import _state
 
@@ -40,17 +40,6 @@ _m_dropped = _REGISTRY.counter(
 
 def note_dropped(n: int = 1) -> None:
     _m_dropped.inc(n)
-
-
-class _NullSpan:
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        return False
-
-
-_NULL_SPAN = _NullSpan()
 
 
 class Tracer:
@@ -104,20 +93,6 @@ class Tracer:
         with self._lock:
             self._append_locked(ev)
 
-    @contextmanager
-    def _span_cm(self, name: str, args: dict):
-        t0 = time.perf_counter()
-        try:
-            yield self
-        finally:
-            self.complete(name, t0, time.perf_counter(), **args)
-
-    def span(self, name: str, **args):
-        """Context manager timing a block as one complete event."""
-        if not _state.enabled:
-            return _NULL_SPAN
-        return self._span_cm(name, args)
-
     # ------------------------------------------------------------- dump
 
     def events(self) -> list:
@@ -142,10 +117,6 @@ class Tracer:
 # Process-wide tracer (the consensus timeline all nodes in-process share;
 # events carry pid/tid so merged timelines stay distinguishable).
 TRACER = Tracer()
-
-
-def span(name: str, **args):
-    return TRACER.span(name, **args)
 
 
 def instant(name: str, **args) -> None:

@@ -14,6 +14,7 @@ from dataclasses import dataclass, field
 from typing import List, Optional
 
 from tendermint_tpu_torch.ops import merkle
+from tendermint_tpu_torch.telemetry import causal
 from tendermint_tpu_torch.types import encoding
 from tendermint_tpu_torch.types.vote import Vote, VoteType
 
@@ -344,9 +345,11 @@ class Block:
 
     @classmethod
     def from_bytes(cls, b: bytes) -> "Block":
-        blk = cls.from_obj(encoding.cloads(b))
-        blk.__dict__["_bytes"] = bytes(b)
-        blk.__dict__["_bytes_hh"] = blk.header.hash()
+        with causal.span("block.decode", -1, bytes=len(b)) as sp:
+            blk = cls.from_obj(encoding.cloads(b))
+            blk.__dict__["_bytes"] = bytes(b)
+            blk.__dict__["_bytes_hh"] = blk.header.hash()
+            sp.note(height=blk.header.height)
         return blk
 
     def make_part_set(self, part_size: int):

@@ -14,6 +14,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
+from tendermint_tpu_torch.telemetry import causal
 from tendermint_tpu_torch.types.block import BlockID, Commit
 from tendermint_tpu_torch.types.validator_set import ValidatorSet
 from tendermint_tpu_torch.types.vote import Vote, VoteType
@@ -111,8 +112,39 @@ class VoteSet:
                 raise exc
             errors.append((pos, exc))
 
-        to_verify = []   # (vote, val, pos)
+        with causal.span("votes.check", self.height, self.round,
+                         n=len(votes), type=self.type):
+            to_verify, items = self._check(votes, fail)
+        resolve_ok = verifier.verify_async(items)
         results = [False] * len(votes)
+
+        def finish() -> List[bool]:
+            ok = resolve_ok()
+            with causal.span("votes.count", self.height, self.round,
+                             n=len(to_verify)):
+                for valid, (vote, val, pos) in zip(ok, to_verify):
+                    if not valid:
+                        fail(pos, ValueError(f"invalid signature on {vote}"))
+                        continue
+                    try:
+                        results[pos] = self._add_verified(vote, val)
+                    except ConflictingVoteError as e:
+                        # e.added: the vote WAS counted (peer-claimed
+                        # maj23 block) — the result must say applied
+                        # even though the conflict is also reported, or
+                        # a batch caller skips the quorum transitions
+                        # the vote may have triggered
+                        results[pos] = e.added
+                        fail(pos, e)
+            return results
+
+        return finish
+
+    def _check(self, votes: List[Vote], fail) -> tuple:
+        """The votes that need a signature check, as (vote, val, pos),
+        and their verifier items; `fail(pos, exc)` takes each vote that
+        fails validation."""
+        to_verify = []   # (vote, val, pos)
         for pos, vote in enumerate(votes):
             try:
                 if vote is None:
@@ -147,30 +179,9 @@ class VoteSet:
                 continue  # already counted for this block (conflict path)
             # (on conflict: still verify the signature before accusing)
             to_verify.append((vote, val, pos))
-
-        resolve_ok = verifier.verify_async([
-            (val.pubkey, v.sign_bytes(self.chain_id), v.signature)
-            for v, val, _ in to_verify])
-
-        def finish() -> List[bool]:
-            ok = resolve_ok()
-            for valid, (vote, val, pos) in zip(ok, to_verify):
-                if not valid:
-                    fail(pos, ValueError(f"invalid signature on {vote}"))
-                    continue
-                try:
-                    results[pos] = self._add_verified(vote, val)
-                except ConflictingVoteError as e:
-                    # e.added: the vote WAS counted (peer-claimed maj23
-                    # block) — the result must say applied even though
-                    # the conflict is also reported, or a batch caller
-                    # skips the quorum transitions the vote may have
-                    # triggered
-                    results[pos] = e.added
-                    fail(pos, e)
-            return results
-
-        return finish
+        items = [(val.pubkey, v.sign_bytes(self.chain_id), v.signature)
+                 for v, val, _ in to_verify]
+        return to_verify, items
 
     def _add_verified(self, vote: Vote, val) -> bool:
         """types/vote_set.go:219-287 addVerifiedVote, exactly:

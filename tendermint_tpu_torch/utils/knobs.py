@@ -168,8 +168,12 @@ CATALOG: tuple[Knob, ...] = (
          "telemetry/registry.py"),
     Knob("TM_CUDA_TRACE", "str", "off", "base.trace",
          "Causal tracing plane: on stamps p2p envelopes with trace "
-         "context and records per-height consensus spans; off keeps "
-         "the wire format byte-for-byte untraced.",
+         "context and records per-height consensus spans and the hot "
+         "path's spans (verify.prep/rows/upload/launch/wait, "
+         "sync.collect/wait/save, block.decode, votes.check/count: one "
+         "a call or chunk, on the wall clock a device trace shares); "
+         "off keeps the wire format byte-for-byte untraced and costs "
+         "one knob check a site.",
          "telemetry/causal.py"),
     Knob("TM_CUDA_TRACE_CAP", "int", "65536", "",
          "Causal span ring capacity; overflow drops oldest and counts "
