@@ -9,6 +9,7 @@ The structural checks and the messages raised match the JAX package's.
 from __future__ import annotations
 
 import functools
+import threading
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
@@ -18,6 +19,19 @@ from tendermint_tpu_torch.types.keys import address_of
 from tendermint_tpu_torch.types.vote import VoteType, sign_bytes_template
 
 _address_memo = functools.lru_cache(maxsize=65536)(address_of)
+
+# sums  = a set added up its members' powers (once a set)
+# reads = total_voting_power() calls; the cache's hit share is
+#         1 - sums/reads
+_total_stats = {"sums": 0, "reads": 0}
+_total_stats_lock = threading.Lock()
+
+
+def total_stats() -> dict:
+    """Snapshot of the total-power counters since the process started:
+    the sets' sums of their powers and the reads of a total."""
+    with _total_stats_lock:
+        return dict(_total_stats)
 
 
 @dataclass
@@ -51,7 +65,13 @@ class Validator:
 
 
 class ValidatorSet:
-    """Validators sorted by address, with accum-based proposer rotation."""
+    """Validators sorted by address, with accum-based proposer rotation.
+
+    Membership and powers never change in place: a change of either
+    builds a new set (`update_with_changes`). The address index, the
+    hash and the total power rest on that, and are kept once a set;
+    only the accums and the proposer move.
+    """
 
     def __init__(self, validators: Sequence[Validator], _fresh: bool = True):
         self.validators: List[Validator] = sorted(
@@ -62,6 +82,7 @@ class ValidatorSet:
         self._index = {a: i for i, a in enumerate(addrs)}
         self._proposer: Optional[Validator] = None
         self._hash: Optional[bytes] = None
+        self._total: Optional[int] = None
         # a fresh set runs one accum increment, so the first proposer is
         # the highest-power validator
         if _fresh and self.validators:
@@ -78,10 +99,17 @@ class ValidatorSet:
         vs._index = self._index
         vs._proposer = self._proposer.copy() if self._proposer else None
         vs._hash = self._hash
+        vs._total = self._total
         return vs
 
     def total_voting_power(self) -> int:
-        return sum(v.voting_power for v in self.validators)
+        """Summed at the first read, then kept (the powers are fixed)."""
+        with _total_stats_lock:
+            _total_stats["reads"] += 1
+            if self._total is None:
+                _total_stats["sums"] += 1
+                self._total = sum(v.voting_power for v in self.validators)
+        return self._total
 
     def get_by_address(self, addr: bytes):
         i = self._index.get(addr, -1)
