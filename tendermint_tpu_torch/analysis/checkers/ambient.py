@@ -76,6 +76,7 @@ BLESSED = frozenset((
     "tendermint_tpu_torch/types/encoding.py:_stats",
     "tendermint_tpu_torch/types/part_set.py:_builds",
     "tendermint_tpu_torch/types/validator_set.py:_total_stats",
+    "tendermint_tpu_torch/lite/certifier.py:_sync_stats",
     "tendermint_tpu_torch/pipeline.py:_stats",
     "tendermint_tpu_torch/abci/apps/kvstore.py:_routes",
     # telemetry planes (process-wide by design; the registry IS the

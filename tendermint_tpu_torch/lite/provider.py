@@ -9,6 +9,7 @@ sets over a node's JSON-RPC) and CacheProvider.
 
 from __future__ import annotations
 
+import bisect
 import json
 import os
 import threading
@@ -21,24 +22,25 @@ class MemProvider:
     def __init__(self):
         self._lock = threading.Lock()
         self._by_height: dict = {}
+        self._heights: List[int] = []   # the keys of _by_height, sorted
 
     def store_commit(self, fc: FullCommit) -> None:
         with self._lock:
+            if fc.height not in self._by_height:
+                bisect.insort(self._heights, fc.height)
             self._by_height[fc.height] = fc
 
     def get_by_height(self, h: int) -> Optional[FullCommit]:
         """The commit at the largest stored height <= h."""
         with self._lock:
-            candidates = [hh for hh in self._by_height if hh <= h]
-            if not candidates:
-                return None
-            return self._by_height[max(candidates)]
+            i = bisect.bisect_right(self._heights, h)
+            return self._by_height[self._heights[i - 1]] if i else None
 
     def latest_commit(self) -> Optional[FullCommit]:
         with self._lock:
-            if not self._by_height:
+            if not self._heights:
                 return None
-            return self._by_height[max(self._by_height)]
+            return self._by_height[self._heights[-1]]
 
 
 class FileProvider:
@@ -128,6 +130,14 @@ class CacheProvider:
             p.store_commit(fc)
 
     def get_by_height(self, h: int) -> Optional[FullCommit]:
+        best = self.peek_by_height(h)
+        if best is not None:
+            self.store_commit(best)
+        return best
+
+    def peek_by_height(self, h: int) -> Optional[FullCommit]:
+        """get_by_height's answer, stored nowhere: the read of a client
+        that stores only what it has certified (certify_range)."""
         best = None
         for p in self.providers:
             fc = p.get_by_height(h)
@@ -135,8 +145,6 @@ class CacheProvider:
                 best = fc
                 if fc.height == h:
                     break
-        if best is not None:
-            self.store_commit(best)
         return best
 
     def latest_commit(self) -> Optional[FullCommit]:

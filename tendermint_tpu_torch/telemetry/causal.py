@@ -98,6 +98,13 @@ from tendermint_tpu_torch.utils import clock, knobs
 #                    up to the verifier call (`type`)
 #   votes.count      VoteSet: the verified votes' bookkeeping after the
 #                    verdicts (`n` = votes counted)
+#   lite.fetch       InquiringCertifier.certify_range: a window's
+#                    provider reads and decoding (h = its first height)
+#   lite.collect     the window's validate_basic, set hashes and
+#                    verify items
+#   lite.wait        the light client blocked on a window's verdicts
+#   lite.check       the window's power rules: the trusted set's and
+#                    the signing set's
 SPAN_CATALOG = frozenset((
     "height.begin", "propose", "proposal.recv", "part.first",
     "block.full", "quorum.prevote", "quorum.precommit",
@@ -108,6 +115,7 @@ SPAN_CATALOG = frozenset((
     "verify.prep", "verify.rows", "verify.upload", "verify.launch",
     "verify.wait", "sync.collect", "sync.wait", "sync.save",
     "block.decode", "votes.check", "votes.count",
+    "lite.fetch", "lite.collect", "lite.wait", "lite.check",
 ))
 
 DEFAULT_CAPACITY = 65536

@@ -259,8 +259,22 @@ class Commit:
 
     @classmethod
     def from_obj(cls, o):
-        return cls(BlockID.from_obj(o["block_id"]),
-                   [Vote.from_obj(v) if v else None for v in o["precommits"]])
+        # the precommits for one block id share one BlockID object (a
+        # BlockID is replaced, never changed in place): a decoded vote
+        # is then one object where it was four (its id, the id's parts
+        # and the id's attribute dict)
+        ids: dict = {}
+
+        def block_id(b):
+            k = (b["hash"], b["parts"]["total"], b["parts"]["hash"])
+            bid = ids.get(k)
+            if bid is None:
+                bid = ids[k] = BlockID.from_obj(b)
+            return bid
+
+        return cls(block_id(o["block_id"]),
+                   [Vote.from_obj(v, block_id(v["block_id"])) if v else None
+                    for v in o["precommits"]])
 
 
 @dataclass

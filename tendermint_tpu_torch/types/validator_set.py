@@ -249,25 +249,24 @@ class ValidatorSet:
         self.verify_commit_async(chain_id, block_id, height, commit,
                                  verifier=verifier)()
 
-    def verify_commit_any(self, new_set: "ValidatorSet", chain_id: str,
-                          block_id, height: int, commit,
-                          verifier=None) -> None:
-        """Lite-client valset transition (v0.16 VerifyCommitAny): only
-        votes for block_id count, each verified against this (trusted)
-        set's key by address; unknown validators are skipped, duplicates
-        count once, new-set power accrues where the new validator at that
-        index has the same key; accept iff both sets see > 2/3.
-        Raises ValueError on failure."""
-        from tendermint_tpu_torch.models.verifier import default_verifier
-        verifier = verifier or default_verifier()
+    def commit_any_items(self, new_set: "ValidatorSet", chain_id: str,
+                         block_id, height: int, commit):
+        """verify_commit_any's structural checks, then the (pubkey,
+        sign_bytes, sig) triples of the votes it counts, with each one's
+        (old power, new power): only votes for block_id count, each
+        against this (trusted) set's key by address; unknown validators
+        are skipped, duplicates count once, and new-set power accrues
+        where the new validator at that index has the same key. Raises
+        ValueError."""
         if len(new_set.validators) != commit.size():
             raise ValueError("commit size != new valset size")
         if height != commit.height():
             raise ValueError("commit height mismatch")
         items = []
-        meta = []  # (old_power, new_power_if_same_pubkey)
+        powers = []
         seen = set()
         round_ = commit.round()
+        tmpl = None              # every counted vote is for block_id
         for idx, pc in enumerate(commit.precommits):
             if pc is None:
                 continue
@@ -280,13 +279,23 @@ class ValidatorSet:
             if ov is None or oi in seen:
                 continue
             seen.add(oi)
+            if tmpl is None:
+                tmpl = sign_bytes_template(chain_id, block_id, height,
+                                           round_, VoteType.PRECOMMIT)
             nv = new_set.validators[idx]
-            items.append((ov.pubkey, pc.sign_bytes(chain_id), pc.signature))
-            meta.append((ov.voting_power,
-                         nv.voting_power if nv.pubkey == ov.pubkey else 0))
-        ok = verifier.verify(items)
+            items.append((ov.pubkey,
+                          (tmpl[0] + str(pc.timestamp_ns) + tmpl[1]).encode(),
+                          pc.signature))
+            powers.append((ov.voting_power,
+                           nv.voting_power if nv.pubkey == ov.pubkey else 0))
+        return items, powers
+
+    def check_commit_any_results(self, new_set: "ValidatorSet", ok,
+                                 powers) -> None:
+        """Every counted signature valid, and > 2/3 of this set's power
+        and > 2/3 of new_set's signed; raises ValueError otherwise."""
         old_power = new_power = 0
-        for valid, (opow, npow) in zip(ok, meta):
+        for valid, (opow, npow) in zip(ok, powers):
             if not valid:
                 raise ValueError("invalid signature in commit")
             old_power += opow
@@ -299,6 +308,19 @@ class ValidatorSet:
             raise ValueError(
                 f"insufficient new-set voting power: got {new_power}, "
                 f"need > {new_set.total_voting_power() * 2 / 3:g}")
+
+    def verify_commit_any(self, new_set: "ValidatorSet", chain_id: str,
+                          block_id, height: int, commit,
+                          verifier=None) -> None:
+        """Lite-client valset transition (v0.16 VerifyCommitAny): the
+        items of commit_any_items in one batch, then the two > 2/3 rules
+        of check_commit_any_results. Raises ValueError on failure."""
+        from tendermint_tpu_torch.models.verifier import default_verifier
+        verifier = verifier or default_verifier()
+        items, powers = self.commit_any_items(new_set, chain_id, block_id,
+                                              height, commit)
+        self.check_commit_any_results(new_set, verifier.verify(items),
+                                      powers)
 
     # -- updates -------------------------------------------------------------
 

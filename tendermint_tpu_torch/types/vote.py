@@ -97,14 +97,17 @@ class Vote:
         return o
 
     @classmethod
-    def from_obj(cls, o) -> "Vote":
-        from tendermint_tpu_torch.types.block import BlockID
+    def from_obj(cls, o, block_id=None) -> "Vote":
+        """`block_id`, if given, is `o["block_id"]` already decoded."""
+        if block_id is None:
+            from tendermint_tpu_torch.types.block import BlockID
+            block_id = BlockID.from_obj(o["block_id"])
         return cls(
             validator_address=bytes.fromhex(o["validator_address"]),
             validator_index=o["validator_index"],
             height=o["height"], round=o["round"],
             timestamp_ns=o["timestamp_ns"], type=o["type"],
-            block_id=BlockID.from_obj(o["block_id"]),
+            block_id=block_id,
             signature=bytes.fromhex(o["signature"]))
 
     def verify(self, chain_id: str, pubkey: bytes) -> bool:

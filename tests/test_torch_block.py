@@ -221,6 +221,27 @@ def test_header_change_misses_every_cache():
         block.validate_basic()
 
 
+def test_decoded_commit_shares_one_block_id_an_id():
+    """A commit decoded from its object holds one BlockID object for the
+    block and one for nil, shared by the precommits that name each; it
+    encodes and hashes as the JAX package's, and a vote's id replaced
+    moves that vote alone."""
+    jb, _, privs = build_block(JAX)
+    jc = jb.last_commit
+    jc.precommits[3] = _vote(JAX, privs[3], 3, 4, PC, jblock.BlockID(),
+                             10_003)
+    c = tblock.Commit.from_obj(jc.to_obj())
+    votes = [v for v in c.precommits if v is not None]
+    assert len({id(v.block_id) for v in votes}) == 2
+    assert all(v.block_id is c.block_id for v in votes if v is not votes[2])
+    assert votes[2].block_id.is_zero()
+    assert c.hash() == jc.hash() and c.to_bytes() == jc.to_bytes()
+    c.precommits[0].block_id = tblock.BlockID(
+        b"\x55" * 32, tblock.PartSetHeader(3, b"\x22" * 32))
+    assert c.precommits[2].block_id == c.block_id != c.precommits[0].block_id
+    assert c.block_id.to_obj() == jc.block_id.to_obj()
+
+
 def _evidence_cases(P):
     vs, privs = _valset(P, 4)
     p = privs[0]
